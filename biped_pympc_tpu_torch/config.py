@@ -1,0 +1,104 @@
+"""Configuration dataclasses (twin of `biped_pympc_tpu/config.py`).
+
+The port's own copy: importing the JAX package's config would run its
+`__init__`, which imports jax. Field names and defaults are the JAX
+package's, restricted to the knobs this port implements. The solver menu
+keeps every JAX name so a config written for the JAX package either runs
+the same algorithm here or fails loudly (`SOLVERS_PORTED`,
+`control/controller.py`).
+
+Note on Q: the reference's default Q carries 13 entries (a leftover of a
+13-state formulation); the QP consumes the first 12. 13 are accepted and
+truncated.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal, Tuple
+
+_DEFAULT_Q = (150.0, 150.0, 250.0, 100.0, 100.0, 250.0, 1.0, 1.0, 5.0, 10.0, 10.0, 1.0)
+_DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4)
+
+# Both names select the augmented foot-split Riccati PDIPM: the hand-written
+# CUDA kernel for CUDA tensors, its plain torch version for CPU tensors.
+SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug")
+
+
+@dataclass(frozen=True)
+class ControllerConf:
+    """Gait and swing settings (`biped_pympc_tpu/config.py:24`)."""
+
+    ssp_durations: int = 5
+    dsp_durations: int = 0
+    swing_height: float = 0.1
+    swing_reference_frame: Literal["world", "base"] = "base"
+    swing_curve: Literal["bezier", "cycloid"] = "bezier"
+
+
+def recommended_conf(robot: str = "HECTOR"):
+    """(ControllerConf, MPCConf kwargs) per robot
+    (`biped_pympc_tpu/config.py:35`). Apply as `MPCConf(**kw)`."""
+    if robot.startswith("T1"):
+        return (
+            ControllerConf(ssp_durations=9, dsp_durations=2,
+                           swing_height=0.12),
+            {"robot": robot, "f_max": 1450.0, "contact_frame": "yaw"},
+        )
+    return ControllerConf(), {"robot": robot, "contact_frame": "yaw"}
+
+
+@dataclass(frozen=True)
+class MPCConf:
+    """MPC and solver settings (`biped_pympc_tpu/config.py:65`).
+
+    solver: "ric_aug" and "pallas_ric_aug" are ported (see
+    `SOLVERS_PORTED`); the other JAX names raise NotImplementedError when a
+    controller is built. f_max: per-foot vertical-force cap [N].
+    euler_rate_mode: see `models/srbd.py`. contact_frame: "world" keeps the
+    contact rows in world axes (reference parity, valid near yaw 0);
+    "yaw" expresses u in yaw-aligned axes so turning works at any heading.
+    """
+
+    dt: float = 0.001
+    dt_mpc: float = 0.025
+    horizon_length: int = 10
+    decimation: int = 10
+    Q: Tuple[float, ...] = _DEFAULT_Q
+    R: Tuple[float, ...] = _DEFAULT_R
+    solver: Literal[
+        "tridiag_aug", "tridiag", "dense", "ric", "ric_aug",
+        "pallas", "pallas_aug", "pallas_ric", "pallas_ric2",
+        "pallas_ric_aug", "pallas_hybrid",
+    ] = "ric_aug"
+    robot: Literal["HECTOR", "T1", "T1-newton"] = "HECTOR"
+    newton_iterations: int = 20
+    solver_beta: float = 1e-8
+    solver_delta: float = 1e-8
+    f_max: float = 500.0
+    solver_refine_steps: int = 1
+    euler_rate_mode: Literal["rt_omega", "r_omega"] = "rt_omega"
+    contact_frame: Literal["world", "yaw"] = "world"
+    print_solve_time: bool = False
+    # Init-time config dump, as the reference prints at dataclass creation.
+    verbose: bool = True
+
+    def __post_init__(self):
+        if len(self.Q) == 13:
+            object.__setattr__(self, "Q", tuple(self.Q[:12]))
+        if len(self.Q) != 12:
+            raise ValueError(f"Q must have 12 weights, got {len(self.Q)}")
+        if len(self.R) != 12:
+            raise ValueError(f"R must have 12 weights, got {len(self.R)}")
+        if self.verbose:
+            print("[INFO] MPC Configuration:")
+            print("+--------------------------------+")
+            print(f"  dt: {self.dt}")
+            print(f"  dt_mpc: {self.dt_mpc}")
+            print(f"  horizon_length: {self.horizon_length}")
+            print(f"  decimation: {self.decimation}")
+            print(f"  Q: {self.Q}")
+            print(f"  R: {self.R}")
+            print(f"  solver: {self.solver}")
+            print(f"  robot: {self.robot}")
+            print("+--------------------------------+")

@@ -1,0 +1,214 @@
+"""The control stack over the env batch (twin of
+`biped_pympc_tpu/control/controller.py`).
+
+`ControllerState` holds every per-env buffer with a leading (B,) axis. The
+entry points of `BipedControllerCore` update it in place (they replace its
+fields, so no second copy of the state is built per tick):
+
+    ingest_state : (state, obs)                   (`update_state`, 1 kHz)
+    run_mpc      : state -> MpcOutput             (every `decimation` ticks)
+    run_lowlevel : state                          (1 kHz)
+    joint_torque : state -> (B, 2 * dof)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from biped_pympc_tpu_torch.config import SOLVERS_PORTED, ControllerConf, MPCConf
+from biped_pympc_tpu_torch.control import estimator, gait, legs, mpc, swing
+from biped_pympc_tpu_torch.models.robot import RobotSpec, get_robot
+from biped_pympc_tpu_torch.ops import pdipm_cuda
+from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
+
+# JAX solver names not ported yet, with the ROADMAP item that ports them.
+_K2 = "Queue 2, K2 (condensed ric route of the kernel)"
+_K5 = "Queue 2, K5 (the kernel's other routes)"
+_SOLVERS_LATER = {
+    "ric": _K2, "pallas_ric": _K2, "pallas_hybrid": "Queue 1, item 10 (hybrid mode)",
+    "tridiag": _K5, "tridiag_aug": _K5, "dense": _K5, "pallas": _K5, "pallas_aug": _K5,
+    "pallas_ric2": _K5,
+}
+
+
+def _check_solver(name: str) -> None:
+    if name in SOLVERS_PORTED:
+        return
+    where = _SOLVERS_LATER.get(name)
+    if where is None:
+        raise ValueError(f"unknown MPCConf.solver {name!r}")
+    raise NotImplementedError(
+        f"MPCConf.solver={name!r} is not ported to biped_pympc_tpu_torch; "
+        f"ported: {SOLVERS_PORTED}. See ROADMAP {where}.")
+
+
+@dataclass
+class ControllerState:
+    """All per-env controller state; every tensor has a leading (B,) axis."""
+
+    gait_phase: torch.Tensor  # (B,)
+    gait_params: gait.GaitParams
+    dt_mpc: torch.Tensor  # (B,) per-env MPC sampling time
+    est: estimator.EstimatorData
+    des: mpc.DesiredState
+    leg_data: legs.LegData
+    leg_cmd: legs.LegCommand
+    swing_state: swing.SwingState
+    mpc_mem: mpc.MpcMemory
+    foot_height: torch.Tensor  # (B,)
+    cp1: torch.Tensor  # (B,)
+    cp2: torch.Tensor  # (B,)
+    residual_lin_accel: torch.Tensor  # (B, 3)
+    residual_ang_accel: torch.Tensor  # (B, 3)
+    mu: torch.Tensor  # (B,) friction coefficient
+    f_max: torch.Tensor  # (B,) per-foot vertical-force cap [N]
+    lt: torch.Tensor  # (B,) toe line-contact lever arm [m]
+    lh: torch.Tensor  # (B,) heel line-contact lever arm [m]
+    x_ref: torch.Tensor  # (B, T, 12)
+    mpc_cost: torch.Tensor  # (B,)
+    contact_phase: torch.Tensor  # (B, 2)
+    swing_phase: torch.Tensor  # (B, 2)
+
+
+class BipedControllerCore:
+    """Static configuration and the batched step functions."""
+
+    def __init__(self, cfg: ControllerConf, mpc_cfg: MPCConf, gait_id: int = 1,
+                 dtype=torch.float32, device=None):
+        _check_solver(mpc_cfg.solver)
+        if gait_id not in (1, 2):
+            raise ValueError(f"Invalid gait_id: {gait_id} (1 or 2)")
+        self.cfg = cfg
+        self.mpc_cfg = mpc_cfg
+        self.gait_id = gait_id
+        self.dtype = dtype
+        self.device = torch.device(device if device is not None else "cpu")
+        self.robot: RobotSpec = get_robot(mpc_cfg.robot)
+        self.num_dof = self.robot.num_dof
+        self.opts = PdipmOptions(iterations=mpc_cfg.newton_iterations,
+                                 beta=mpc_cfg.solver_beta, delta=mpc_cfg.solver_delta,
+                                 refine_steps=mpc_cfg.solver_refine_steps)
+        t = lambda v: torch.tensor(v, dtype=dtype, device=self.device)
+        self._q_weights = t(mpc_cfg.Q)
+        self._r_weights = t(mpc_cfg.R)
+        self._hips = torch.stack([self.robot.hip_horizontal_location(leg, dtype, self.device)
+                                  for leg in (0, 1)])
+
+    def init_state(self, batch: int) -> ControllerState:
+        dt, dev = self.dtype, self.device
+        if self.gait_id == 1:
+            gp = gait.standing_gait(batch, dev)
+        else:
+            gp = gait.walking_gait(self.cfg.dsp_durations, self.cfg.ssp_durations, batch, dev)
+        full = lambda v, *s: torch.full((batch, *s), float(v), dtype=dt, device=dev)
+        state = ControllerState(
+            gait_phase=full(0.0), gait_params=gp, dt_mpc=full(self.mpc_cfg.dt_mpc),
+            est=estimator.init_data(batch, dt, dev), des=mpc.init_desired_state(batch, dt, dev),
+            leg_data=legs.init_data(batch, self.num_dof, dt, dev),
+            leg_cmd=legs.init_command(batch, self.num_dof, dt, dev),
+            swing_state=swing.init_state(batch, dt, dev), mpc_mem=mpc.init_memory(batch, dt, dev),
+            foot_height=full(self.cfg.swing_height), cp1=full(1.0 / 3.0), cp2=full(2.0 / 3.0),
+            residual_lin_accel=full(0.0, 3), residual_ang_accel=full(0.0, 3),
+            mu=full(self.robot.mu), f_max=full(self.mpc_cfg.f_max),
+            lt=full(self.robot.lt), lh=full(self.robot.lh),
+            x_ref=full(0.0, self.mpc_cfg.horizon_length, 12), mpc_cost=full(0.0),
+            contact_phase=full(0.0, 2), swing_phase=full(0.0, 2),
+        )
+        state.swing_state.swing_time_remaining = gait.swing_duration_sec(gp, state.dt_mpc)
+        return state
+
+    def reset(self, state: ControllerState, mask: torch.Tensor) -> None:
+        """Episodic reset of the envs in mask (B,) bool: gait phase to 0,
+        first-run / first-swing latches re-armed."""
+        state.gait_phase = torch.where(mask, torch.zeros_like(state.gait_phase),
+                                       state.gait_phase)
+        mpc.reset_memory(state.mpc_mem, mask)
+        swing.reset(state.swing_state, mask)
+
+    def set_command(self, state: ControllerState, twist: torch.Tensor,
+                    height: torch.Tensor) -> None:
+        """twist: (B, 3) = [vx, vy, wz] body frame; height: (B,)."""
+        des = state.des
+        des.velocity_b = torch.cat([twist[:, :2], des.velocity_b[:, 2:]], dim=1)
+        des.ang_velocity_b = torch.cat([des.ang_velocity_b[:, :2], twist[:, 2:3]], dim=1)
+        des.height = height
+
+    def ingest_state(self, state: ControllerState, obs: torch.Tensor) -> None:
+        """obs: (B, 13 + 6 dof) = [pos, quat wxyz, v_b, w_b, q, qd, tau]."""
+        dof2 = 2 * self.num_dof
+        contact_phase = gait.contact_sub_phase(state.gait_phase, state.gait_params)
+        swing_phase = gait.swing_sub_phase(state.gait_phase, state.gait_params)
+        state.leg_data = legs.update_data(
+            self.robot, obs[:, 13:13 + dof2], obs[:, 13 + dof2:13 + 2 * dof2],
+            obs[:, 13 + 2 * dof2:13 + 3 * dof2], contact_phase, swing_phase)
+        state.est = estimator.estimate(obs[:, 0:3], obs[:, 3:7], obs[:, 7:10], obs[:, 10:13],
+                                       state.leg_data.p)
+        state.contact_phase = contact_phase
+        state.swing_phase = swing_phase
+
+    def assemble_mpc(self, state: ControllerState):
+        """QP assembly phase of `run_mpc`: (new_mem, x_ref, qp), batched."""
+        c = self.mpc_cfg
+        table = gait.mpc_contact_table(state.gait_phase, state.gait_params, c.horizon_length)
+        return mpc.build_mpc_qp(
+            self.robot, state.mpc_mem, state.est, state.des, table, state.dt_mpc,
+            state.residual_lin_accel, state.residual_ang_accel, self._q_weights,
+            self._r_weights, c.horizon_length, c.decimation * c.dt,
+            euler_rate_mode=c.euler_rate_mode, f_max=state.f_max, mu=state.mu,
+            contact_frame=c.contact_frame, lt=state.lt, lh=state.lh)
+
+    def run_mpc(self, state: ControllerState) -> mpc.MpcOutput:
+        """Assemble every env's QP, solve them in one batched PDIPM (the CUDA
+        kernel on the card, the plain version on the CPU), postprocess; the
+        wrench becomes the legs' feed-forward term."""
+        new_mem, x_ref, qp = self.assemble_mpc(state)
+        sol = pdipm_cuda.solve(qp, self.opts)
+        out = mpc.postprocess_solution(qp, sol, state.est.rotation_body, x_ref,
+                                       self.mpc_cfg.horizon_length,
+                                       contact_frame=self.mpc_cfg.contact_frame)
+        state.leg_cmd.wrench_ff = out.wrench
+        state.mpc_mem = new_mem
+        state.x_ref = out.x_ref
+        state.mpc_cost = out.cost
+        return out
+
+    def run_lowlevel(self, state: ControllerState) -> None:
+        """Swing control, leg command and gait phase advance."""
+        contact_phase = gait.contact_sub_phase(state.gait_phase, state.gait_params)
+        swing_phase = gait.swing_sub_phase(state.gait_phase, state.gait_params)
+        swing_dur = gait.swing_duration_sec(state.gait_params, state.dt_mpc)
+        sw = state.swing_state
+        est = state.est
+        swing.update_swing_time(sw, contact_phase, swing_dur, self.mpc_cfg.dt)
+        swing.compute_foot_placement(sw, est.root_position, est.rotation_body,
+                                     est.root_velocity_w, state.des.velocity_b, self._hips)
+        if self.cfg.swing_reference_frame == "world":
+            p_des, v_des = swing.compute_foot_desired_position_world(
+                sw, swing_phase, contact_phase, swing_dur, est.foot_position_w,
+                est.root_position, est.root_velocity_w, est.rotation_body,
+                state.foot_height, state.cp1, state.cp2, curve=self.cfg.swing_curve)
+        else:
+            p_des, v_des = swing.compute_foot_desired_position(
+                sw, swing_phase, contact_phase, swing_dur, state.leg_data.p,
+                state.foot_height, state.cp1, state.cp2, curve=self.cfg.swing_curve)
+        state.leg_cmd.p_des = p_des
+        state.leg_cmd.v_des = v_des
+        state.leg_cmd = legs.update_command(self.robot, state.leg_data, state.leg_cmd)
+        state.gait_phase = gait.advance_phase(state.gait_phase, state.gait_params,
+                                              self.mpc_cfg.dt, state.dt_mpc)
+        state.contact_phase = contact_phase
+        state.swing_phase = swing_phase
+
+    def joint_torque(self, state: ControllerState) -> torch.Tensor:
+        """(B, 2 * dof) final PD + feed-forward torque, clamped."""
+        return legs.joint_torque(self.robot, state.leg_data, state.leg_cmd)
+
+    def control_step(self, state: ControllerState, obs, twist, height):
+        """One full tick including the MPC solve; returns (tau, MpcOutput)."""
+        self.set_command(state, twist, height)
+        self.ingest_state(state, obs)
+        out = self.run_mpc(state)
+        self.run_lowlevel(state)
+        return self.joint_torque(state), out

@@ -1,0 +1,60 @@
+"""State and data carried over from the JAX package, as numpy.
+
+The JAX package's `StageQP` and `ControllerState` are trees of arrays. A
+caller turns their leaves into numpy (`jax.tree.map(np.asarray, tree)`) and
+these functions build the port's dataclasses from them, matching fields by
+name. This module takes numpy only and never imports jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import numpy as np
+import torch
+
+from biped_pympc_tpu_torch.control.controller import ControllerState
+from biped_pympc_tpu_torch.models.srbd import AffineDynamics
+from biped_pympc_tpu_torch.ops.qp import StageQP
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, dtype=torch.bool, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _from_tree(cls, tree, dtype, device):
+    """Build dataclass `cls` from an object with same-named numpy fields."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        value = getattr(tree, f.name)
+        if dataclasses.is_dataclass(hints[f.name]):
+            kwargs[f.name] = _from_tree(hints[f.name], value, dtype, device)
+        else:
+            kwargs[f.name] = _tensor(value, dtype, device)
+    return cls(**kwargs)
+
+
+def stage_qp_from_numpy(qp, dtype=torch.float64, device="cpu") -> StageQP:
+    """A JAX `StageQP` with numpy leaves, batched (leading axis) or one env,
+    as the port's batched `StageQP`."""
+    batched = np.asarray(qp.d).ndim == 3
+    t = lambda a: _tensor(a if batched else np.asarray(a)[None], dtype, device)
+    return StageQP(q_diag=t(qp.q_diag), r_diag=t(qp.r_diag), f=t(qp.f),
+                   dyn=AffineDynamics(t(qp.dyn.A), t(qp.dyn.B), t(qp.dyn.c)),
+                   b0=t(qp.b0), g_u=t(qp.g_u), d=t(qp.d))
+
+
+def controller_state_from_numpy(state, dtype=torch.float32, device="cpu") -> ControllerState:
+    """A JAX `ControllerState` with numpy leaves as the port's
+    `ControllerState`. The learned residual matrices are not ported yet, so
+    a state that carries them is refused."""
+    if getattr(state, "residual_A", None) is not None or getattr(state, "residual_B", None) is not None:
+        raise NotImplementedError("residual_A / residual_B (set_srbd_residual) are not ported yet")
+    return _from_tree(ControllerState, state, dtype, device)

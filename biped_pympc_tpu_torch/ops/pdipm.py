@@ -1,0 +1,258 @@
+"""Fixed-iteration Mehrotra PDIPM, plain batched torch (twin of the
+`backend="ric_aug"`, `foot_split=True` route of `biped_pympc_tpu/ops/pdipm.py`).
+
+This is the plain version of the CUDA kernel in `ops/pdipm_cuda.py`: the CPU
+path runs it, and the kernel is held against it on the card.
+
+The slacks s and inequality duals z are eliminated analytically only as far
+as the augmented form allows: per stage the [u (12), z (16), nu (2)] block
+
+    K_t = [[R+beta, G_u^T, e^T], [G_u, -W_t, 0], [e, 0, -delta I]]
+
+keeps every extreme scale (W up to ~1e8, -delta) on its own diagonal, where
+pivoted elimination handles it. K_t splits exactly by foot into two 12-wide
+blocks [F (3), M_y (1), z_f (8)], two W-independent 2x2 [M_x, nu] pairs and
+two M_z scalars. Eliminating [u, z, nu] leaves a 12-wide dual-Riccati chain
+in y with coupling S = Q~^-1 Ad^T, swept forward and backward per solve.
+
+Every tensor is batch-first; the T stages are a Python loop only where the
+recursion is sequential (the y-chain and its sweeps).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from biped_pympc_tpu_torch.ops import qp as qps
+from biped_pympc_tpu_torch.ops.linalg import gauss_jordan_inverse
+from biped_pympc_tpu_torch.ops.qp import NU, NX, N_INEQ_PER_STAGE, N_MX_PER_STAGE, StageQP
+
+# Reference constants (`sparse_pdipm_solver.py:461,466-467,511-515`).
+FRAC_TO_BOUNDARY = 0.99
+ALPHA_MIN = 1e-12
+SZ_FLOOR = 1e-8
+
+N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
+# Foot-split index sets into the 30-wide stage block (u = [F_L, F_R, M_L,
+# M_R]): each foot's constraint rows touch only its own {F, M_y}.
+FOOT_BLOCKS = (
+    (0, 1, 2, 7) + tuple(range(12, 20)),   # foot L [F, M_y, z_L(8)]
+    (3, 4, 5, 10) + tuple(range(20, 28)),  # foot R [F, M_y, z_R(8)]
+)
+FOOT_U_COLS = ((0, 1, 2, 7), (3, 4, 5, 10))
+
+
+@dataclass(frozen=True)
+class PdipmOptions:
+    """Solver settings read by this route (`biped_pympc_tpu/ops/pdipm.py:62`)."""
+
+    iterations: int = 20
+    beta: float = 1e-8  # primal regularization
+    delta: float = 1e-8  # dual regularization
+    refine_steps: int = 1  # iterative-refinement passes per reduced solve
+
+
+@dataclass
+class PdipmState:
+    x: torch.Tensor  # (B, nz)
+    s: torch.Tensor  # (B, ni)
+    z: torch.Tensor  # (B, ni)
+    y: torch.Tensor  # (B, ne)
+
+
+@dataclass
+class PdipmResult:
+    x: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    residuals: torch.Tensor  # (B, 4): ||rx||, ||rs||, ||re|| of the last
+    # step's start, and mu = s.z / ni after it
+
+
+def init_state(qp: StageQP) -> PdipmState:
+    """Cold start x = 0, s = max(d, 1), z = 1, y = 1."""
+    d = qps.d_vec(qp)
+    nb = d.shape[0]
+    return PdipmState(
+        x=torch.zeros_like(qp.f),
+        s=torch.clamp(d, min=1.0),
+        z=torch.ones_like(d),
+        y=torch.ones(nb, qp.n_eq, dtype=d.dtype, device=d.device),
+    )
+
+
+def _frac_to_boundary(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
+    """(B,) largest step in (0, 1] keeping v + alpha dv > 0 (times 0.99)."""
+    neg = dv < 0
+    cand = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
+                       torch.ones_like(v))
+    alpha = torch.clamp(FRAC_TO_BOUNDARY * cand.min(dim=-1).values, max=1.0)
+    return torch.clamp(alpha, min=ALPHA_MIN)
+
+
+def _dot(a, b):
+    return (a * b).sum(dim=-1)
+
+
+@dataclass
+class _Factors:
+    k_inv: torch.Tensor  # (B, T, 30, 30) stage-block inverses
+    yhat_inv: torch.Tensor  # (B, T, 12, 12) y-chain inverses
+    q_inv: torch.Tensor  # (B, 12)
+    s_coup: torch.Tensor  # (B, 12, 12) S = Q~^-1 Ad^T
+
+
+def _factor(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> _Factors:
+    """w_diag: (B, T, 16) = Sigma^-1 + delta per inequality row."""
+    T = qp.horizon
+    nb = w_diag.shape[0]
+    dtype, dev = w_diag.dtype, w_diag.device
+    Ad, Bd = qp.dyn.A, qp.dyn.B
+    q_inv = 1.0 / (qp.q_diag + opts.beta)
+
+    # Foot blocks [[diag(r+beta), G_f^T], [G_f, -diag(W_f)]], all (B, 2, T).
+    blocks = torch.zeros(nb, 2, T, 12, 12, dtype=dtype, device=dev)
+    for foot, cols in enumerate(FOOT_U_COLS):
+        cols = list(cols)
+        g_f = qp.g_u[:, 8 * foot:8 * foot + 8][:, :, cols]  # (B, 8, 4)
+        blocks[:, foot, :, :4, :4] = torch.diag_embed(qp.r_diag[:, cols] + opts.beta)[:, None]
+        blocks[:, foot, :, :4, 4:] = g_f.transpose(-1, -2)[:, None]
+        blocks[:, foot, :, 4:, :4] = g_f[:, None]
+        blocks[:, foot, :, 4:, 4:] = torch.diag_embed(-w_diag[:, :, 8 * foot:8 * foot + 8])
+    blocks_inv = gauss_jordan_inverse(blocks)
+
+    # Dense (B, T, 30, 30) K^-1 from the exact foot split.
+    k_inv = torch.zeros(nb, T, N_KA, N_KA, dtype=dtype, device=dev)
+    for foot, idx in enumerate(FOOT_BLOCKS):
+        ix = torch.tensor(idx, device=dev)
+        k_inv[:, :, ix[:, None], ix[None, :]] = blocks_inv[:, foot]
+    for j, nu in ((6, 28), (9, 29)):
+        rj = qp.r_diag[:, j] + opts.beta
+        det = -rj * opts.delta - 1.0
+        k_inv[:, :, j, j] = (-opts.delta / det)[:, None]
+        k_inv[:, :, j, nu] = (-1.0 / det)[:, None]
+        k_inv[:, :, nu, j] = (-1.0 / det)[:, None]
+        k_inv[:, :, nu, nu] = (rj / det)[:, None]
+    for j in (8, 11):
+        k_inv[:, :, j, j] = (1.0 / (qp.r_diag[:, j] + opts.beta))[:, None]
+
+    eye = torch.eye(NX, dtype=dtype, device=dev)
+    y_blk = -opts.delta * eye - torch.diag_embed(q_inv)  # (B, 12, 12)
+    adqad = (Ad * q_inv[:, None, :]) @ Ad.transpose(-1, -2)
+    kuu = k_inv[:, :, :NU, :NU]
+    bkb = Bd[:, None] @ kuu @ Bd.transpose(-1, -2)[:, None]  # (B, T, 12, 12)
+    s_coup = q_inv[:, :, None] * Ad.transpose(-1, -2)
+
+    yhat_inv = []
+    m_prev = None
+    for t in range(T):
+        yhat = y_blk - bkb[:, t]
+        if t >= 1:
+            yhat = yhat - adqad - s_coup.transpose(-1, -2) @ m_prev @ s_coup
+        m_prev = gauss_jordan_inverse(yhat)
+        yhat_inv.append(m_prev)
+    return _Factors(k_inv, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
+
+
+def _solve_aug(qp: StageQP, fac: _Factors, r1, r_z, r4):
+    """One augmented reduced solve. Returns (dx (B, nz), dz (B, ni), dy (B, ne))."""
+    T = qp.horizon
+    nb = r1.shape[0]
+    Ad, Bd = qp.dyn.A, qp.dyn.B
+    q_inv, s_coup, yinv = fac.q_inv, fac.s_coup, fac.yhat_inv
+    mv = lambda m, v: (m @ v[..., None])[..., 0]
+
+    c = r1[:, :NX * T].reshape(nb, T, NX)
+    ru = r1[:, NX * T:].reshape(nb, T, NU)
+    g = r4[:, :NX * T].reshape(nb, T, NX)
+    rnu = r4[:, NX * T:].reshape(nb, T, N_MX_PER_STAGE)
+    rz = r_z.reshape(nb, T, N_INEQ_PER_STAGE)
+    ry = g - q_inv[:, None] * c
+    ry[:, 1:] += mv(Ad[:, None], q_inv[:, None] * c[:, :-1])
+
+    r_un = torch.cat([ru, rz, rnu], dim=2)  # (B, T, 30)
+    kr = mv(fac.k_inv, r_un)
+    r_y2 = ry + mv(Bd[:, None], kr[:, :, :NU])
+
+    s_t = s_coup.transpose(-1, -2)
+    gg = [r_y2[:, 0]]
+    for t in range(1, T):
+        gg.append(r_y2[:, t] - mv(s_t, mv(yinv[:, t - 1], gg[-1])))
+    wy = [None] * T
+    y_next = None
+    for t in range(T - 1, -1, -1):
+        rhs = gg[t] if y_next is None else gg[t] - mv(s_coup, y_next)
+        y_next = mv(yinv[:, t], rhs)
+        wy[t] = y_next
+    wy = torch.stack(wy, dim=1)  # (B, T, 12)
+
+    rhs_un = torch.cat([ru + wy @ Bd, r_un[:, :, NU:]], dim=2)
+    un = mv(fac.k_inv, rhs_un)
+
+    xs = q_inv[:, None] * (c - wy)
+    xs[:, :-1] += q_inv[:, None] * (wy[:, 1:] @ Ad)
+    dx = torch.cat([xs.reshape(nb, -1), un[:, :, :NU].reshape(nb, -1)], dim=1)
+    dz = un[:, :, NU:NU + N_INEQ_PER_STAGE].reshape(nb, -1)
+    dy = torch.cat([wy.reshape(nb, -1), un[:, :, NU + N_INEQ_PER_STAGE:].reshape(nb, -1)], dim=1)
+    return dx, dz, dy
+
+
+def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
+    """One Mehrotra predictor-corrector step (reference rule, delta form)."""
+    x, s, z, y = st.x, st.s, st.z, st.y
+    ni = qp.n_ineq
+    T = qp.horizon
+    rx = hd * x + qp.f + qps.gT_matvec(qp, z) + qps.aT_matvec(qp, y)
+    re = qps.a_matvec(qp, x) - b
+    rs = qps.g_matvec(qp, x) + s - d
+    mu = _dot(s, z) / ni
+
+    sigma_d = z / s + opts.delta
+    w_diag = 1.0 / sigma_d + opts.delta
+    fac = _factor(qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts)
+
+    def reduced_solve(r1, r2, r3, r4):
+        r_z = r3 - r2 / sigma_d
+        dx, dz, dy = _solve_aug(qp, fac, r1, r_z, r4)
+        for _ in range(opts.refine_steps):
+            m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
+            mz = qps.g_matvec(qp, dx) - w_diag * dz
+            m4 = qps.a_matvec(qp, dx) - opts.delta * dy
+            ex, ez, ey = _solve_aug(qp, fac, r1 - m1, r_z - mz, r4 - m4)
+            dx, dz, dy = dx + ex, dz + ez, dy + ey
+        ds = (r2 - dz) / sigma_d
+        return dx, ds, dz, dy
+
+    dx_a, ds_a, dz_a, dy_a = reduced_solve(-rx, -(s * z) / s, -rs, -re)
+    alpha_ap = _frac_to_boundary(s, ds_a)
+    alpha_ad = _frac_to_boundary(z, dz_a)
+    mu_aff = _dot(s + alpha_ap[:, None] * ds_a, z + alpha_ad[:, None] * dz_a) / ni
+    sigma = (mu_aff / mu) ** 3
+
+    rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
+    dx_c, ds_c, dz_c, dy_c = reduced_solve(
+        torch.zeros_like(rx), -rc / s, torch.zeros_like(s), torch.zeros_like(re))
+    dx, ds, dz, dy = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c, dy_a + dy_c
+    alpha_p = _frac_to_boundary(s, ds)[:, None]
+    alpha_d = _frac_to_boundary(z, dz)[:, None]
+
+    x = x + alpha_p * dx
+    s = torch.clamp(s + alpha_p * ds, min=SZ_FLOOR)
+    z = torch.clamp(z + alpha_d * dz, min=SZ_FLOOR)
+    y = y + alpha_d * dy
+    norm = lambda v: torch.linalg.vector_norm(v, dim=-1)
+    residuals = torch.stack([norm(rx), norm(rs), norm(re), _dot(s, z) / ni], dim=-1)
+    return PdipmState(x, s, z, y), residuals
+
+
+def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions()) -> PdipmResult:
+    """Run `opts.iterations` Newton steps from the cold start on every env."""
+    st = init_state(qp)
+    hd, d, b = qps.h_diag(qp), qps.d_vec(qp), qps.b_vec(qp)
+    residuals = torch.zeros(qp.f.shape[0], 4, dtype=qp.f.dtype, device=qp.f.device)
+    for _ in range(opts.iterations):
+        st, residuals = _iteration(qp, st, hd, d, b, opts)
+    return PdipmResult(st.x, st.s, st.z, st.y, residuals)

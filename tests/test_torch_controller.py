@@ -1,0 +1,190 @@
+"""The slice as a whole: the torch port's `MPCController` vs the JAX package's
+(`solver="pallas_ric_aug"`, its Pallas kernel run by the interpreter on the
+CPU), float64, plus the port's standing-pose checks and its refusals."""
+
+import copy
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import biped_pympc_tpu as jpkg
+import biped_pympc_tpu_torch as tpkg
+from biped_pympc_tpu_torch.convert import controller_state_from_numpy
+from biped_pympc_tpu_torch.models.srbd import GRAVITY
+
+torch.set_num_threads(1)
+B = 8
+TICKS = 30
+Q0 = np.array([0.0, 0.0, 0.45, -0.9, 0.45])
+
+
+def _obs(batch, rng=None):
+    """HECTOR standing pose (tests/test_controller.py:12-19), optionally
+    perturbed per env."""
+    obs = np.zeros((batch, 43))
+    obs[:, 2] = 0.55
+    obs[:, 3] = 1.0
+    obs[:, 13:18] = Q0
+    obs[:, 18:23] = Q0
+    if rng is not None:
+        obs[:, 0:3] += rng.uniform(-0.01, 0.01, (batch, 3))
+        obs[:, 4:7] = rng.uniform(-0.01, 0.01, (batch, 3))
+        obs[:, 7:13] = rng.uniform(-0.05, 0.05, (batch, 6))
+        obs[:, 13:23] += rng.uniform(-0.02, 0.02, (batch, 10))
+    return obs
+
+
+@functools.lru_cache(maxsize=None)
+def _drive_both(contact_frame):
+    rng = np.random.default_rng(0)
+    obs = _obs(B, rng)
+    twist = np.zeros((B, 3))
+    twist[:, 0] = rng.uniform(0.0, 0.4, B)
+    twist[:, 2] = rng.uniform(-0.2, 0.2, B)
+    height = np.full(B, 0.55)
+    mu = rng.uniform(0.6, 1.0, B)
+    jc = jpkg.MPCController(
+        jpkg.ControllerConf(),
+        jpkg.MPCConf(solver="pallas_ric_aug", contact_frame=contact_frame, verbose=False),
+        num_envs=B, gait_id=2, dtype=jnp.float64)
+    tc = tpkg.MPCController(
+        tpkg.ControllerConf(),
+        tpkg.MPCConf(solver="pallas_ric_aug", contact_frame=contact_frame, verbose=False),
+        num_envs=B, gait_id=2, dtype=torch.float64)
+    for c in (jc, tc):
+        c.set_command(twist, height)
+        c.set_contact_parameters(mu=mu)
+    trace = []
+    for step in range(TICKS):
+        for c in (jc, tc):
+            c.update_state(obs)
+            if step % 10 == 0:
+                c.run_mpc()
+            c.run_lowlevel()
+        trace.append([(np.asarray(c.get_action()), np.asarray(c.ground_reaction_wrench),
+                       np.asarray(c.state.gait_phase), np.asarray(c.contact_state))
+                      for c in (jc, tc)])
+    return jc, tc, trace
+
+
+@pytest.mark.parametrize("contact_frame", ["world", "yaw"])
+def test_port_controller_matches_jax(contact_frame):
+    jc, tc, trace = _drive_both(contact_frame)
+    for step, ((jt, jw, jp, js), (tt, tw, tp, ts)) in enumerate(trace):
+        np.testing.assert_allclose(tt, jt, rtol=0, atol=1e-6, err_msg=f"tau, tick {step}")
+        np.testing.assert_allclose(tw, jw, rtol=0, atol=1e-6, err_msg=f"wrench, tick {step}")
+        assert np.array_equal(tp, jp), step
+        assert np.array_equal(ts, js), step
+    # the walk is not trivial: the right foot swings and the left carries load
+    assert (np.abs(trace[0][1][1][:, 1, 2]) < 1.0).all()
+    assert (trace[0][1][1][:, 0, 2] < -50.0).all()
+    np.testing.assert_allclose(np.asarray(tc.solver_residuals), np.asarray(jc.solver_residuals),
+                               rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(tc.swing_foot_trajectory),
+                               np.asarray(jc.swing_foot_trajectory), rtol=0, atol=1e-10)
+
+
+def test_port_resumes_from_jax_state():
+    """A JAX controller state carried over as numpy gives the same next tick."""
+    jc = copy.copy(_drive_both("world")[0])  # ticks below replace the copy's state only
+    tc = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=B,
+                            gait_id=2, dtype=torch.float64)
+    tc.state = controller_state_from_numpy(jax.tree.map(np.asarray, jc.state), torch.float64)
+    obs = _obs(B, np.random.default_rng(1))
+    for c in (jc, tc):
+        c.update_state(obs)
+        c.run_mpc()
+        c.run_lowlevel()
+    np.testing.assert_allclose(np.asarray(tc.get_action()), np.asarray(jc.get_action()),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def standing_ctrl():
+    ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=2,
+                              gait_id=1)
+    ctrl.set_command(np.zeros((2, 3)), np.full(2, 0.55))
+    ctrl.update_state(_obs(2))
+    ctrl.run_mpc()
+    ctrl.run_lowlevel()
+    return ctrl
+
+
+def test_standing_grf_supports_weight(standing_ctrl):
+    fz = -standing_ctrl.ground_reaction_wrench[:, :, 2].numpy()
+    np.testing.assert_allclose(fz.sum(axis=1), 13.856 * GRAVITY, rtol=0.1)
+    np.testing.assert_allclose(fz[:, 0], fz[:, 1], rtol=0.05)
+
+
+def test_standing_no_mx_moment(standing_ctrl):
+    np.testing.assert_allclose(standing_ctrl.ground_reaction_wrench[:, :, 3].numpy(), 0.0,
+                               atol=1e-5)
+
+
+def test_standing_torques_within_limits(standing_ctrl):
+    tau = standing_ctrl.get_action().numpy()
+    assert tau.shape == (2, 10)
+    assert (np.abs(tau) <= np.array([33.5, 33.5, 33.5, 67.0, 33.5] * 2) + 1e-5).all()
+
+
+def test_wrapper_property_shapes(standing_ctrl):
+    c = standing_ctrl
+    shapes = dict(centroidal_accel=(2, 6), contact_state=(2, 2), contact_phase=(2, 2),
+                  swing_state=(2, 2), swing_phase=(2, 2), foot_placement=(2, 2, 3),
+                  foot_placement_b=(2, 2, 3), ref_foot_pos_b=(2, 2, 3),
+                  ref_foot_vel_b=(2, 2, 3), foot_pos_b=(2, 2, 3), foot_vel_b=(2, 2, 3),
+                  mpc_cost=(2,), position_trajectory=(2, 10, 3),
+                  velocity_trajectory=(2, 10, 3), swing_foot_trajectory=(2, 10, 3),
+                  grf_world=(2, 12), solver_residuals=(2, 4), ground_reaction_wrench=(2, 2, 6))
+    for name, shape in shapes.items():
+        assert tuple(getattr(c, name).shape) == shape, name
+
+
+def test_reset_masks_only_selected_envs():
+    ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=3,
+                              gait_id=2)
+    ctrl.set_command(np.zeros((3, 3)), np.full(3, 0.55))
+    for step in range(5):
+        ctrl.update_state(_obs(3))
+        if step == 0:
+            ctrl.run_mpc()  # clears the first-run latch
+        ctrl.run_lowlevel()
+    ctrl.reset(np.array([1]))
+    phase = ctrl.state.gait_phase.numpy()
+    assert phase[1] == 0.0 and (phase[[0, 2]] > 0).all()
+    assert ctrl.state.mpc_mem.first_run.tolist() == [False, True, False]
+    assert ctrl.state.swing_state.first_swing[1].all()
+
+
+@pytest.mark.parametrize("solver", ["ric", "pallas_ric", "pallas_hybrid", "tridiag_aug",
+                                    "dense", "pallas", "pallas_aug", "pallas_ric2"])
+def test_unported_solver_names_raise(solver):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
+                           num_envs=1)
+
+
+def test_unported_robot_names_raise():
+    cconf, kw = tpkg.recommended_conf("T1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpkg.MPCController(cconf, tpkg.MPCConf(verbose=False, **kw), num_envs=1)
+
+
+def test_control_step_equals_the_separate_calls():
+    obs, twist, height = _obs(2, np.random.default_rng(2)), np.tile([0.2, 0.0, 0.1], (2, 1)), \
+        np.full(2, 0.55)
+    ctrls = [tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=2,
+                                gait_id=2, dtype=torch.float64) for _ in range(2)]
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+    tau, out = ctrls[0].core.control_step(ctrls[0].state, t(obs), t(twist), t(height))
+    c = ctrls[1]
+    c.set_command(twist, height)
+    c.update_state(obs)
+    c.run_mpc()
+    c.run_lowlevel()
+    torch.testing.assert_close(tau, c.get_action(), rtol=0, atol=0)
+    torch.testing.assert_close(out.wrench, c.ground_reaction_wrench, rtol=0, atol=0)
