@@ -20,9 +20,11 @@ from typing import Literal, Tuple
 _DEFAULT_Q = (150.0, 150.0, 250.0, 100.0, 100.0, 250.0, 1.0, 1.0, 5.0, 10.0, 10.0, 1.0)
 _DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4)
 
-# Both names select the augmented foot-split Riccati PDIPM: the hand-written
-# CUDA kernel for CUDA tensors, its plain torch version for CPU tensors.
-SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug")
+# "ric_aug" / "pallas_ric_aug" select the augmented foot-split Riccati PDIPM,
+# "ric" / "pallas_ric" the condensed one, and "pallas_hybrid" the condensed
+# pass with a budgeted augmented re-solve: each the hand-written CUDA kernel
+# for CUDA tensors, its plain torch version for CPU tensors.
+SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_hybrid")
 
 
 @dataclass(frozen=True)
@@ -52,9 +54,20 @@ def recommended_conf(robot: str = "HECTOR"):
 class MPCConf:
     """MPC and solver settings (`biped_pympc_tpu/config.py:65`).
 
-    solver: "ric_aug" and "pallas_ric_aug" are ported (see
-    `SOLVERS_PORTED`); the other JAX names raise NotImplementedError when a
-    controller is built. f_max: per-foot vertical-force cap [N].
+    solver: the names in `SOLVERS_PORTED` are ported; the other JAX names
+    raise NotImplementedError when a controller is built. "pallas_ric" is
+    the bare condensed route: under domain randomization its f32 solve is
+    non-finite on 0.6-0.7% of envs and carries an error tail of tens of N
+    (the JAX package's TPU measurements, `biped_pympc_tpu/config.py:81-98`).
+    "pallas_hybrid" re-solves the worst envs with the augmented route, which
+    makes it finite while the budget covers the non-finite envs; it does not
+    remove the error tail.
+    hybrid_budget: envs the hybrid re-solves per call; <= 0 selects
+    max(64, batch // 32). hybrid_flag_tol: a re-solved env takes the
+    augmented result where its criterion exceeds this (non-finite envs
+    always do). hybrid_flag: the criterion, "resid" (the solver's final
+    residuals) or "kkt" (`pdipm.kkt_error` of the returned iterate).
+    f_max: per-foot vertical-force cap [N].
     euler_rate_mode: see `models/srbd.py`. contact_frame: "world" keeps the
     contact rows in world axes (reference parity, valid near yaw 0);
     "yaw" expresses u in yaw-aligned axes so turning works at any heading.
@@ -71,6 +84,9 @@ class MPCConf:
         "pallas", "pallas_aug", "pallas_ric", "pallas_ric2",
         "pallas_ric_aug", "pallas_hybrid",
     ] = "ric_aug"
+    hybrid_budget: int = 0
+    hybrid_flag_tol: float = 1.0
+    hybrid_flag: Literal["resid", "kkt"] = "resid"
     robot: Literal["HECTOR", "T1", "T1-newton"] = "HECTOR"
     newton_iterations: int = 20
     solver_beta: float = 1e-8

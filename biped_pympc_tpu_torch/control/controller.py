@@ -24,13 +24,12 @@ from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
 
 # JAX solver names not ported yet, with the ROADMAP item that ports them.
-_K2 = "Queue 2, K2 (condensed ric route of the kernel)"
 _K5 = "Queue 2, K5 (the kernel's other routes)"
-_SOLVERS_LATER = {
-    "ric": _K2, "pallas_ric": _K2, "pallas_hybrid": "Queue 1, item 10 (hybrid mode)",
-    "tridiag": _K5, "tridiag_aug": _K5, "dense": _K5, "pallas": _K5, "pallas_aug": _K5,
-    "pallas_ric2": _K5,
-}
+_SOLVERS_LATER = {name: _K5 for name in (
+    "tridiag", "tridiag_aug", "dense", "pallas", "pallas_aug", "pallas_ric2")}
+# Route of each ported solver name (`biped_pympc_tpu/control/controller.py:121`);
+# "pallas_hybrid" runs the condensed route first and re-solves with "ric_aug".
+_BACKEND = {"pallas_ric": "ric", "pallas_ric_aug": "ric_aug", "pallas_hybrid": "ric"}
 
 
 def _check_solver(name: str) -> None:
@@ -89,7 +88,8 @@ class BipedControllerCore:
         self.num_dof = self.robot.num_dof
         self.opts = PdipmOptions(iterations=mpc_cfg.newton_iterations,
                                  beta=mpc_cfg.solver_beta, delta=mpc_cfg.solver_delta,
-                                 refine_steps=mpc_cfg.solver_refine_steps)
+                                 refine_steps=mpc_cfg.solver_refine_steps,
+                                 backend=_BACKEND.get(mpc_cfg.solver, mpc_cfg.solver))
         t = lambda v: torch.tensor(v, dtype=dtype, device=self.device)
         self._q_weights = t(mpc_cfg.Q)
         self._r_weights = t(mpc_cfg.R)
@@ -161,13 +161,22 @@ class BipedControllerCore:
 
     def run_mpc(self, state: ControllerState) -> mpc.MpcOutput:
         """Assemble every env's QP, solve them in one batched PDIPM (the CUDA
-        kernel on the card, the plain version on the CPU), postprocess; the
+        kernels on the card, the plain version on the CPU), postprocess; the
         wrench becomes the legs' feed-forward term."""
+        c = self.mpc_cfg
         new_mem, x_ref, qp = self.assemble_mpc(state)
-        sol = pdipm_cuda.solve(qp, self.opts)
+        counts = None
+        if c.solver == "pallas_hybrid":
+            sol, stats = pdipm_cuda.solve_hybrid(qp, self.opts, budget=c.hybrid_budget,
+                                                 flag_tol=c.hybrid_flag_tol, flag=c.hybrid_flag,
+                                                 with_stats=True)
+            counts = torch.stack([stats.flagged, stats.nonfinite, stats.resolved,
+                                  stats.dropped_nonfinite])
+        else:
+            sol = pdipm_cuda.solve(qp, self.opts)
         out = mpc.postprocess_solution(qp, sol, state.est.rotation_body, x_ref,
-                                       self.mpc_cfg.horizon_length,
-                                       contact_frame=self.mpc_cfg.contact_frame)
+                                       c.horizon_length, contact_frame=c.contact_frame)
+        out.hybrid_counts = counts
         state.leg_cmd.wrench_ff = out.wrench
         state.mpc_mem = new_mem
         state.x_ref = out.x_ref

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -60,6 +61,9 @@ class MpcOutput:
     grf_world: torch.Tensor  # (B, 12) raw u_0 = [F_L, F_R, M_L, M_R], world frame
     solution: torch.Tensor  # (B, nz)
     residuals: torch.Tensor  # (B, 4)
+    # solver="pallas_hybrid" only: (4,) int32 [flagged, nonfinite, resolved,
+    # dropped_nonfinite] of the batch's solve (`pdipm_cuda.HybridStats`).
+    hybrid_counts: Optional[torch.Tensor] = None
 
 
 def reference_trajectory(mem: MpcMemory, est: EstimatorData, des: DesiredState,

@@ -1,19 +1,31 @@
 """Fixed-iteration Mehrotra PDIPM, plain batched torch (twin of the
-`backend="ric_aug"`, `foot_split=True` route of `biped_pympc_tpu/ops/pdipm.py`).
+`backend="ric_aug"` and `backend="ric"` routes, `foot_split=True`, of
+`biped_pympc_tpu/ops/pdipm.py`).
 
-This is the plain version of the CUDA kernel in `ops/pdipm_cuda.py`: the CPU
-path runs it, and the kernel is held against it on the card.
+This is the plain version of the CUDA kernels in `ops/pdipm_cuda.py`: the
+CPU path runs it, and the kernels are held against it on the card.
 
-The slacks s and inequality duals z are eliminated analytically only as far
-as the augmented form allows: per stage the [u (12), z (16), nu (2)] block
+Both routes eliminate the slacks s and eliminate or keep the inequality
+duals z per stage, then fold the stage blocks into a 12-wide dual-Riccati
+chain in y with coupling S = Q~^-1 Ad^T, swept forward and backward per
+solve.
 
-    K_t = [[R+beta, G_u^T, e^T], [G_u, -W_t, 0], [e, 0, -delta I]]
+- "ric_aug" (augmented): per stage the [u (12), z (16), nu (2)] block
 
-keeps every extreme scale (W up to ~1e8, -delta) on its own diagonal, where
-pivoted elimination handles it. K_t splits exactly by foot into two 12-wide
-blocks [F (3), M_y (1), z_f (8)], two W-independent 2x2 [M_x, nu] pairs and
-two M_z scalars. Eliminating [u, z, nu] leaves a 12-wide dual-Riccati chain
-in y with coupling S = Q~^-1 Ad^T, swept forward and backward per solve.
+      K_t = [[R+beta, G_u^T, e^T], [G_u, -W_t, 0], [e, 0, -delta I]]
+
+  keeps every extreme scale (W up to ~1e8, -delta) on its own diagonal,
+  where pivoted elimination handles it. K_t splits exactly by foot into two
+  12-wide blocks [F (3), M_y (1), z_f (8)], two W-independent 2x2
+  [M_x, nu] pairs and two M_z scalars.
+- "ric" (condensed): z is eliminated with W^-1 = Sigma / (1 + delta Sigma),
+  and the [u (12), nu (2)] block
+
+      K_t = [[R+beta + G_u^T W_t^-1 G_u, e^T], [e, -delta I]]
+
+  splits into two 4x4 SPD blocks on u columns {0,1,2,7} / {3,4,5,10}, the
+  same 2x2 pairs and the same scalars. Cheaper, but the 1e8 scale enters the
+  SPD blocks (the f32 tail the hybrid mode re-solves, `pdipm_cuda.py`).
 
 Every tensor is batch-first; the T stages are a Python loop only where the
 recursion is sequential (the y-chain and its sweeps).
@@ -34,24 +46,25 @@ FRAC_TO_BOUNDARY = 0.99
 ALPHA_MIN = 1e-12
 SZ_FLOOR = 1e-8
 
+BACKENDS = ("ric_aug", "ric")
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
-# Foot-split index sets into the 30-wide stage block (u = [F_L, F_R, M_L,
-# M_R]): each foot's constraint rows touch only its own {F, M_y}.
-FOOT_BLOCKS = (
-    (0, 1, 2, 7) + tuple(range(12, 20)),   # foot L [F, M_y, z_L(8)]
-    (3, 4, 5, 10) + tuple(range(20, 28)),  # foot R [F, M_y, z_R(8)]
-)
+N_KC = NU + N_MX_PER_STAGE  # 14: [u, nu] per stage
+# Foot-split index sets: each foot's constraint rows touch only its own
+# {F, M_y}. u = [F_L, F_R, M_L, M_R]; z rows follow u in the 30-wide block.
 FOOT_U_COLS = ((0, 1, 2, 7), (3, 4, 5, 10))
+FOOT_BLOCKS = tuple(cols + tuple(range(NU + 8 * foot, NU + 8 * foot + 8))
+                    for foot, cols in enumerate(FOOT_U_COLS))  # [F, M_y, z_f(8)]
 
 
 @dataclass(frozen=True)
 class PdipmOptions:
-    """Solver settings read by this route (`biped_pympc_tpu/ops/pdipm.py:62`)."""
+    """Solver settings read by these routes (`biped_pympc_tpu/ops/pdipm.py:62`)."""
 
     iterations: int = 20
     beta: float = 1e-8  # primal regularization
     delta: float = 1e-8  # dual regularization
     refine_steps: int = 1  # iterative-refinement passes per reduced solve
+    backend: str = "ric_aug"  # "ric_aug" (augmented) | "ric" (condensed)
 
 
 @dataclass
@@ -99,20 +112,32 @@ def _dot(a, b):
 
 @dataclass
 class _Factors:
-    k_inv: torch.Tensor  # (B, T, 30, 30) stage-block inverses
+    k_inv: torch.Tensor  # (B, T, n, n) stage-block inverses, n = 30 or 14
     yhat_inv: torch.Tensor  # (B, T, 12, 12) y-chain inverses
     q_inv: torch.Tensor  # (B, 12)
     s_coup: torch.Tensor  # (B, 12, 12) S = Q~^-1 Ad^T
 
 
-def _factor(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> _Factors:
-    """w_diag: (B, T, 16) = Sigma^-1 + delta per inequality row."""
+def _scatter_w_independent(k_inv: torch.Tensor, qp: StageQP, opts: PdipmOptions) -> None:
+    """Write the [M_x, nu] = [[r + beta, 1], [1, -delta]]^-1 pairs and the
+    M_z = 1 / (r + beta) scalars into k_inv (B, T, n, n); nu rows are last."""
+    n = k_inv.shape[-1]
+    for j, nu in ((6, n - 2), (9, n - 1)):
+        rj = qp.r_diag[:, j] + opts.beta
+        det = -rj * opts.delta - 1.0
+        k_inv[:, :, j, j] = (-opts.delta / det)[:, None]
+        k_inv[:, :, j, nu] = (-1.0 / det)[:, None]
+        k_inv[:, :, nu, j] = (-1.0 / det)[:, None]
+        k_inv[:, :, nu, nu] = (rj / det)[:, None]
+    for j in (8, 11):
+        k_inv[:, :, j, j] = (1.0 / (qp.r_diag[:, j] + opts.beta))[:, None]
+
+
+def _stage_inverse_aug(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> torch.Tensor:
+    """(B, T, 30, 30) augmented K_t^-1; w_diag (B, T, 16) = Sigma^-1 + delta."""
     T = qp.horizon
     nb = w_diag.shape[0]
     dtype, dev = w_diag.dtype, w_diag.device
-    Ad, Bd = qp.dyn.A, qp.dyn.B
-    q_inv = 1.0 / (qp.q_diag + opts.beta)
-
     # Foot blocks [[diag(r+beta), G_f^T], [G_f, -diag(W_f)]], all (B, 2, T).
     blocks = torch.zeros(nb, 2, T, 12, 12, dtype=dtype, device=dev)
     for foot, cols in enumerate(FOOT_U_COLS):
@@ -124,20 +149,37 @@ def _factor(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> _Factors:
         blocks[:, foot, :, 4:, 4:] = torch.diag_embed(-w_diag[:, :, 8 * foot:8 * foot + 8])
     blocks_inv = gauss_jordan_inverse(blocks)
 
-    # Dense (B, T, 30, 30) K^-1 from the exact foot split.
     k_inv = torch.zeros(nb, T, N_KA, N_KA, dtype=dtype, device=dev)
     for foot, idx in enumerate(FOOT_BLOCKS):
         ix = torch.tensor(idx, device=dev)
         k_inv[:, :, ix[:, None], ix[None, :]] = blocks_inv[:, foot]
-    for j, nu in ((6, 28), (9, 29)):
-        rj = qp.r_diag[:, j] + opts.beta
-        det = -rj * opts.delta - 1.0
-        k_inv[:, :, j, j] = (-opts.delta / det)[:, None]
-        k_inv[:, :, j, nu] = (-1.0 / det)[:, None]
-        k_inv[:, :, nu, j] = (-1.0 / det)[:, None]
-        k_inv[:, :, nu, nu] = (rj / det)[:, None]
-    for j in (8, 11):
-        k_inv[:, :, j, j] = (1.0 / (qp.r_diag[:, j] + opts.beta))[:, None]
+    _scatter_w_independent(k_inv, qp, opts)
+    return k_inv
+
+
+def _stage_inverse_ric(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions) -> torch.Tensor:
+    """(B, T, 14, 14) condensed K_t^-1; w_inv (B, T, 16) = Sigma / (1 + delta Sigma)."""
+    T = qp.horizon
+    nb = w_inv.shape[0]
+    dtype, dev = w_inv.dtype, w_inv.device
+    k_inv = torch.zeros(nb, T, N_KC, N_KC, dtype=dtype, device=dev)
+    for foot, cols in enumerate(FOOT_U_COLS):
+        ix = torch.tensor(cols, device=dev)
+        g_f = qp.g_u[:, 8 * foot:8 * foot + 8][:, :, ix]  # (B, 8, 4)
+        w_f = w_inv[:, :, 8 * foot:8 * foot + 8]  # (B, T, 8)
+        gtwg = (g_f[:, None] * w_f[..., None]).transpose(-1, -2) @ g_f[:, None]
+        blocks = gtwg + torch.diag_embed(qp.r_diag[:, ix] + opts.beta)[:, None]
+        k_inv[:, :, ix[:, None], ix[None, :]] = gauss_jordan_inverse(blocks)
+    _scatter_w_independent(k_inv, qp, opts)
+    return k_inv
+
+
+def _factor(qp: StageQP, k_inv: torch.Tensor, opts: PdipmOptions) -> _Factors:
+    """Fold the stage inverses into the y-chain and factor it (both routes)."""
+    T = qp.horizon
+    dtype, dev = k_inv.dtype, k_inv.device
+    Ad, Bd = qp.dyn.A, qp.dyn.B
+    q_inv = 1.0 / (qp.q_diag + opts.beta)
 
     eye = torch.eye(NX, dtype=dtype, device=dev)
     y_blk = -opts.delta * eye - torch.diag_embed(q_inv)  # (B, 12, 12)
@@ -157,8 +199,13 @@ def _factor(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> _Factors:
     return _Factors(k_inv, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
 
 
-def _solve_aug(qp: StageQP, fac: _Factors, r1, r_z, r4):
-    """One augmented reduced solve. Returns (dx (B, nz), dz (B, ni), dy (B, ne))."""
+def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
+    """One reduced solve through the stage inverses and the y-chain.
+
+    r_z (B, T * nzs) is the rhs of the z rows kept in the stage blocks:
+    nzs = 16 on the augmented route, 0 on the condensed one. Returns
+    (dx (B, nz), dz (B, T * nzs), dy (B, ne)).
+    """
     T = qp.horizon
     nb = r1.shape[0]
     Ad, Bd = qp.dyn.A, qp.dyn.B
@@ -169,11 +216,12 @@ def _solve_aug(qp: StageQP, fac: _Factors, r1, r_z, r4):
     ru = r1[:, NX * T:].reshape(nb, T, NU)
     g = r4[:, :NX * T].reshape(nb, T, NX)
     rnu = r4[:, NX * T:].reshape(nb, T, N_MX_PER_STAGE)
-    rz = r_z.reshape(nb, T, N_INEQ_PER_STAGE)
+    rz = r_z.reshape(nb, T, -1)
+    nzs = rz.shape[2]
     ry = g - q_inv[:, None] * c
     ry[:, 1:] += mv(Ad[:, None], q_inv[:, None] * c[:, :-1])
 
-    r_un = torch.cat([ru, rz, rnu], dim=2)  # (B, T, 30)
+    r_un = torch.cat([ru, rz, rnu], dim=2)  # (B, T, n)
     kr = mv(fac.k_inv, r_un)
     r_y2 = ry + mv(Bd[:, None], kr[:, :, :NU])
 
@@ -195,8 +243,8 @@ def _solve_aug(qp: StageQP, fac: _Factors, r1, r_z, r4):
     xs = q_inv[:, None] * (c - wy)
     xs[:, :-1] += q_inv[:, None] * (wy[:, 1:] @ Ad)
     dx = torch.cat([xs.reshape(nb, -1), un[:, :, :NU].reshape(nb, -1)], dim=1)
-    dz = un[:, :, NU:NU + N_INEQ_PER_STAGE].reshape(nb, -1)
-    dy = torch.cat([wy.reshape(nb, -1), un[:, :, NU + N_INEQ_PER_STAGE:].reshape(nb, -1)], dim=1)
+    dz = un[:, :, NU:NU + nzs].reshape(nb, -1)
+    dy = torch.cat([wy.reshape(nb, -1), un[:, :, NU + nzs:].reshape(nb, -1)], dim=1)
     return dx, dz, dy
 
 
@@ -211,20 +259,40 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
     mu = _dot(s, z) / ni
 
     sigma_d = z / s + opts.delta
-    w_diag = 1.0 / sigma_d + opts.delta
-    fac = _factor(qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts)
+    if opts.backend == "ric_aug":
+        w_diag = 1.0 / sigma_d + opts.delta  # W = Sigma^-1 + delta
+        fac = _factor(qp, _stage_inverse_aug(
+            qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts), opts)
 
-    def reduced_solve(r1, r2, r3, r4):
-        r_z = r3 - r2 / sigma_d
-        dx, dz, dy = _solve_aug(qp, fac, r1, r_z, r4)
-        for _ in range(opts.refine_steps):
-            m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
-            mz = qps.g_matvec(qp, dx) - w_diag * dz
-            m4 = qps.a_matvec(qp, dx) - opts.delta * dy
-            ex, ez, ey = _solve_aug(qp, fac, r1 - m1, r_z - mz, r4 - m4)
-            dx, dz, dy = dx + ex, dz + ez, dy + ey
-        ds = (r2 - dz) / sigma_d
-        return dx, ds, dz, dy
+        def reduced_solve(r1, r2, r3, r4):
+            r_z = r3 - r2 / sigma_d
+            dx, dz, dy = _solve_stages(qp, fac, r1, r_z, r4)
+            for _ in range(opts.refine_steps):
+                m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
+                mz = qps.g_matvec(qp, dx) - w_diag * dz
+                m4 = qps.a_matvec(qp, dx) - opts.delta * dy
+                ex, ez, ey = _solve_stages(qp, fac, r1 - m1, r_z - mz, r4 - m4)
+                dx, dz, dy = dx + ex, dz + ez, dy + ey
+            ds = (r2 - dz) / sigma_d
+            return dx, ds, dz, dy
+    else:
+        w_inv = sigma_d / (1.0 + opts.delta * sigma_d)  # (Sigma^-1 + delta)^-1
+        fac = _factor(qp, _stage_inverse_ric(
+            qp, w_inv.reshape(-1, T, N_INEQ_PER_STAGE), opts), opts)
+        no_z = x.new_zeros(x.shape[0], 0)
+
+        def reduced_solve(r1, r2, r3, r4):
+            r1_hat = r1 + qps.gT_matvec(qp, w_inv * (r3 - r2 / sigma_d))
+            dx, _, dy = _solve_stages(qp, fac, r1_hat, no_z, r4)
+            for _ in range(opts.refine_steps):
+                m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, w_inv * qps.g_matvec(qp, dx)) \
+                    + qps.aT_matvec(qp, dy)
+                m2 = qps.a_matvec(qp, dx) - opts.delta * dy
+                ex, _, ey = _solve_stages(qp, fac, r1_hat - m1, no_z, r4 - m2)
+                dx, dy = dx + ex, dy + ey
+            dz = w_inv * (qps.g_matvec(qp, dx) + r2 / sigma_d - r3)
+            ds = (r2 - dz) / sigma_d
+            return dx, ds, dz, dy
 
     dx_a, ds_a, dz_a, dy_a = reduced_solve(-rx, -(s * z) / s, -rs, -re)
     alpha_ap = _frac_to_boundary(s, ds_a)
@@ -250,9 +318,24 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
 
 def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions()) -> PdipmResult:
     """Run `opts.iterations` Newton steps from the cold start on every env."""
+    if opts.backend not in BACKENDS:
+        raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of {BACKENDS}")
     st = init_state(qp)
     hd, d, b = qps.h_diag(qp), qps.d_vec(qp), qps.b_vec(qp)
     residuals = torch.zeros(qp.f.shape[0], 4, dtype=qp.f.dtype, device=qp.f.device)
     for _ in range(opts.iterations):
         st, residuals = _iteration(qp, st, hd, d, b, opts)
     return PdipmResult(st.x, st.s, st.z, st.y, residuals)
+
+
+def kkt_error(qp: StageQP, res: PdipmResult) -> torch.Tensor:
+    """(B, 4) KKT residual inf-norms of a solution under the exact operator
+    (`biped_pympc_tpu/ops/pdipm.py:1214`): [||H x + f + G^T z + A^T y||,
+    ||G x + s - d||, ||A x - b||, ||s o z||]. Unlike `PdipmResult.residuals`
+    (2-norms at the start of the last Newton step), this measures the
+    returned iterate itself."""
+    rx = qps.h_diag(qp) * res.x + qp.f + qps.gT_matvec(qp, res.z) + qps.aT_matvec(qp, res.y)
+    rs = qps.g_matvec(qp, res.x) + res.s - qps.d_vec(qp)
+    re = qps.a_matvec(qp, res.x) - qps.b_vec(qp)
+    inf = lambda v: v.abs().amax(dim=-1)
+    return torch.stack([inf(rx), inf(rs), inf(re), inf(res.s * res.z)], dim=-1)

@@ -112,6 +112,13 @@ def build_qp(lin: SrbdLin, x0: torch.Tensor, x_ref: torch.Tensor,
                    f=f, dyn=dyn, b0=b0, g_u=g_u, d=d)
 
 
+def take(qp: StageQP, idx: torch.Tensor) -> StageQP:
+    """The envs `idx` (a 1-D index tensor) of a batch, every leaf gathered."""
+    dyn = AffineDynamics(A=qp.dyn.A[idx], B=qp.dyn.B[idx], c=qp.dyn.c[idx])
+    return StageQP(q_diag=qp.q_diag[idx], r_diag=qp.r_diag[idx], f=qp.f[idx], dyn=dyn,
+                   b0=qp.b0[idx], g_u=qp.g_u[idx], d=qp.d[idx])
+
+
 def h_diag(qp: StageQP) -> torch.Tensor:
     """(B, nz) diagonal of H."""
     T = qp.horizon

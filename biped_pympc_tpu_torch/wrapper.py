@@ -122,6 +122,18 @@ class MPCController:
         return self._last_mpc.grf_world
 
     @property
+    def hybrid_stats(self) -> dict:
+        """{'flagged', 'nonfinite', 'resolved', 'dropped_nonfinite'} ints of the
+        last `run_mpc` (solver="pallas_hybrid" only; {} for other solvers and
+        before the first solve). `dropped_nonfinite > 0` means the hybrid's
+        finiteness guarantee lapsed on that solve. Reading it waits for the
+        device."""
+        if self._last_mpc is None or self._last_mpc.hybrid_counts is None:
+            return {}
+        c = self._last_mpc.hybrid_counts.tolist()
+        return {"flagged": c[0], "nonfinite": c[1], "resolved": c[2], "dropped_nonfinite": c[3]}
+
+    @property
     def solver_residuals(self) -> torch.Tensor:
         """(B, 4) [||rx||, ||rs||, ||re||, mu] of the last `run_mpc`; +inf
         before the first."""

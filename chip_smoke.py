@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It builds the PDIPM kernel
-(`biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`) with nvcc, holds it against
-its plain PyTorch version on a randomized b4096 QP batch, drives
-`MPCController` (HECTOR, walking gait, 4096 envs) for 200 ticks on the card,
-checks that every solve went through the kernel and that the outputs are
-sane, and times the kernel, the plain version, `run_mpc` and one 1 kHz tick.
-Each phase prints one line of findings; any failure raises and the script
-exits non-zero. It exits non-zero without a result when no CUDA device is
-visible. The last line is a JSON object naming the device.
+Run from the repository root. It builds both PDIPM kernels with nvcc (the
+augmented route K1, `biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`, and the
+condensed route K2, `csrc/pdipm_ric.cu`), holds each against its plain
+PyTorch version on a randomized b4096 QP batch, drives `MPCController`
+(HECTOR, walking gait, 4096 envs) on the card with the default solver for
+200 ticks and with the hybrid speed mode (K2 everywhere, K1 re-solves) for
+100 ticks, checks that every solve went through the kernels and that the
+outputs are sane, and times the kernels, the plain versions, the hybrid
+solve, `run_mpc` and one 1 kHz tick. Each phase prints one line of findings;
+any failure raises and the script exits non-zero. It exits non-zero without
+a result when no CUDA device is visible. The last line is a JSON object
+naming the device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 
 B = 4096
 TICKS = 200
+HYBRID_TICKS = 100
 # Envs whose f64 reference ends with mu = s.z / ni at or below this are the
 # ones the fixed 20-step Mehrotra rule has converged on. On the rest it is
 # still moving (the f64 20- and 40-step solutions differ by up to tens of N),
@@ -121,6 +125,30 @@ def quantiles(v) -> str:
             f"p99 {q[2]:.3e} p99.9 {q[3]:.3e}")
 
 
+def walk(ctrl, obs, ticks, limit, on_solve=None):
+    """Drive `ctrl` for `ticks` 1 kHz ticks from `obs`, solving every
+    `decimation` ticks. Returns (run_mpc count, first-solve wrench, whether
+    every tau was finite and within `limit`)."""
+    import torch
+
+    n_mpc = 0
+    first_wrench = None
+    tau_ok = True
+    for step in range(ticks):
+        ctrl.update_state(obs)
+        if step % ctrl.core.mpc_cfg.decimation == 0:
+            ctrl.run_mpc()
+            n_mpc += 1
+            if first_wrench is None:
+                first_wrench = ctrl.ground_reaction_wrench.clone()
+            if on_solve is not None:
+                on_solve()
+        ctrl.run_lowlevel()
+        tau = ctrl.get_action()
+        tau_ok = tau_ok and bool((torch.isfinite(tau).all() & (tau.abs() <= limit + 1e-5).all()).item())
+    return n_mpc, first_wrench, tau_ok
+
+
 def main() -> int:
     import torch
 
@@ -130,6 +158,7 @@ def main() -> int:
     from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
     from biped_pympc_tpu_torch.models.hector import TORQUE_LIMIT
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+    from biped_pympc_tpu_torch.ops import qp as qps
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     dev = torch.device("cuda:0")
@@ -142,13 +171,13 @@ def main() -> int:
           f"devices visible {torch.cuda.device_count()}")
     print(label)
 
-    # 2. Build.
+    # 2. Build: one nvcc per kernel source, started together.
     t0 = time.perf_counter()
-    lib_path = pdipm_cuda.build()
-    print(f"[build] nvcc {' '.join(pdipm_cuda.NVCC_FLAGS)} -> {lib_path} in "
+    lib_paths = pdipm_cuda.build()
+    print(f"[build] nvcc {' '.join(pdipm_cuda.NVCC_FLAGS)} -> {sorted(lib_paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # 3. Kernel vs plain version on the card.
+    # 3. K1 (augmented route) vs its plain version on the card.
     opts = pdipm.PdipmOptions()
     qp64 = make_qp_batch(B, 0, torch.float64, dev)
     qp32 = make_qp_batch(B, 0, torch.float32, dev)
@@ -184,39 +213,66 @@ def main() -> int:
     check(finite.mean() >= F32_FINITE_SHARE, f"f32 kernel finite on {finite.mean():.4f} of envs")
     check(float(du0[conv & finite].max()) <= F32_U0_ATOL, "f32 kernel GRF off on converged envs")
 
-    # 4. Main path: MPCController at b4096 on the card.
-    ctrl = MPCController(ControllerConf(), MPCConf(verbose=False), num_envs=B, gait_id=2,
-                         device=dev)
+    # 4. K2 (condensed route) vs its plain version on the same batch. The
+    # f32 condensed solve has a documented error and NaN tail under
+    # randomization (biped_pympc_tpu/config.py:81-98): printed, not bounded.
+    ric = pdipm.PdipmOptions(backend="ric")
+    ric_plain64 = pdipm.solve(qp64, ric)
+    ric_kern64 = pdipm_cuda.solve(qp64, ric)
+    ric_kern32 = pdipm_cuda.solve(qp32, ric)
+    torch.cuda.synchronize()
+    ric_conv = (ric_plain64.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
+    ric_n_conv = int(ric_conv.sum())
+    check(ric_n_conv >= B // 10, f"only {ric_n_conv} of {B} envs converged in the f64 ric reference")
+    ric_err = np.max([(getattr(ric_kern64, n) - getattr(ric_plain64, n)).abs().amax(1).cpu().numpy()
+                      for n in "xszy"], axis=0)
+    ric_rel = np.max([((getattr(ric_kern64, n) - getattr(ric_plain64, n)).abs()
+                       / getattr(ric_plain64, n).abs().clamp_min(1.0)).amax(1).cpu().numpy()
+                      for n in "xszy"], axis=0)
+    ric_res_rel = ((ric_kern64.residuals - ric_plain64.residuals).abs()
+                   / ric_plain64.residuals.abs().clamp_min(1e-300)).amax(1).cpu().numpy()
+    ric_worst64 = float(ric_err[ric_conv].max())
+    print(f"[K2 f64 vs plain f64] b{B}: converged envs {ric_n_conv}: max |dx,ds,dz,dy| "
+          f"{ric_worst64:.3e} (bound {F64_ATOL:g}), relative to max(1, |v|) "
+          f"{ric_rel[ric_conv].max():.3e}, envs above bound {int((ric_err[ric_conv] > F64_ATOL).sum())}, "
+          f"residual rel {ric_res_rel[ric_conv].max():.3e} (bound {RES_RTOL:g}); all envs: "
+          f"{quantiles(ric_err)}, above bound {int((ric_err > F64_ATOL).sum())}, "
+          f"residual rel max {ric_res_rel.max():.3e}")
+    check(ric_worst64 <= F64_ATOL, "f64 K2 differs from the plain version")
+    check(float(ric_res_rel[ric_conv].max()) <= RES_RTOL, "f64 K2 residuals differ")
+
+    ric_finite = torch.isfinite(ric_kern32.x).all(1).cpu().numpy()
+    ric_du0 = (ric_kern32.x[:, 120:132].double() - ric_plain64.x[:, 120:132]).abs().amax(1)
+    ric_du0 = ric_du0.cpu().numpy()
+    print(f"[K2 f32 vs plain f64] finite on {int(ric_finite.sum())}/{B} envs "
+          f"({ric_finite.mean():.4%}); u0 |dGRF| [N], converged finite envs "
+          f"({int((ric_conv & ric_finite).sum())}): {quantiles(ric_du0[ric_conv & ric_finite])}; "
+          f"all finite envs: {quantiles(ric_du0[ric_finite])}, above {F32_U0_ATOL} N: "
+          f"{int((ric_du0[ric_finite] > F32_U0_ATOL).sum())}")
+
+    # 5. Main path: MPCController at b4096 on the card, default solver (K1).
     obs = torch.tensor(hector_obs(B), device=dev)
     twist = torch.zeros(B, 3, device=dev)
     twist[:, 0] = 0.3
     height = torch.full((B,), 0.55, device=dev)
+    limit = torch.tensor(TORQUE_LIMIT, device=dev)
+    ctrl = MPCController(ControllerConf(), MPCConf(verbose=False), num_envs=B, gait_id=2,
+                         device=dev)
     ctrl.set_command(twist, height)
     phase0 = ctrl.state.gait_phase.clone()
-    limit = torch.tensor(TORQUE_LIMIT, device=dev)
-    pdipm_cuda.launches = 0
-    n_mpc = 0
-    first_wrench = None
-    tau_ok = True
-    for step in range(TICKS):
-        ctrl.update_state(obs)
-        if step % ctrl.core.mpc_cfg.decimation == 0:
-            ctrl.run_mpc()
-            n_mpc += 1
-            if first_wrench is None:
-                first_wrench = ctrl.ground_reaction_wrench.clone()
-        ctrl.run_lowlevel()
-        tau = ctrl.get_action()
-        tau_ok = tau_ok and bool((torch.isfinite(tau).all() & (tau.abs() <= limit + 1e-5).all()).item())
+    for k in pdipm_cuda.launches:
+        pdipm_cuda.launches[k] = 0
+    n_mpc, first_wrench, tau_ok = walk(ctrl, obs, TICKS, limit)
     torch.cuda.synchronize()
-    launches = pdipm_cuda.launches
+    launches = dict(pdipm_cuda.launches)
     fz = -first_wrench[:, :, 2]
     phase_adv = float((ctrl.state.gait_phase - phase0).min())
     print(f"[main path] MPCController b{B} HECTOR gait 2, {TICKS} ticks: run_mpc {n_mpc}, "
           f"kernel launches {launches}; tau finite and within limits: {tau_ok}; first solve "
           f"fz left [{float(fz[:, 0].min()):.2f}, {float(fz[:, 0].max()):.2f}] N, right swing "
           f"max |fz| {float(fz[:, 1].abs().max()):.3e} N; gait phase advanced by {phase_adv:.4f}")
-    check(launches == n_mpc, "the main path did not launch the kernel once per run_mpc")
+    check(launches == {"ric_aug": n_mpc, "ric": 0},
+          "the main path did not launch K1 once per run_mpc")
     check(tau_ok, "joint torques not finite or beyond the torque limits")
     check(bool((fz[:, 1].abs() < 1.0).all()), "swinging right foot carries force")
     check(bool((first_wrench[:, 0, 2] < -50.0).all()), "stance left foot not loaded")
@@ -233,12 +289,58 @@ def main() -> int:
           f"(bound {F32_U0_ATOL})")
     check(dw <= F32_U0_ATOL, "first main-path wrench differs from the CPU reference")
 
-    # 5. Times on the card (CUDA events, after warm-up).
+    # 6. Hybrid main path: K2 on every env, K1 on the worst max(64, B // 32).
+    hyb_conf = MPCConf(solver="pallas_hybrid", verbose=False)
+    hctrl = MPCController(ControllerConf(), hyb_conf, num_envs=B, gait_id=2, device=dev)
+    hctrl.set_command(twist, height)
+    stats = []
+    for k in pdipm_cuda.launches:
+        pdipm_cuda.launches[k] = 0
+    h_mpc, h_first, h_tau_ok = walk(hctrl, obs, HYBRID_TICKS, limit,
+                                    on_solve=lambda: stats.append(hctrl.hybrid_stats))
+    torch.cuda.synchronize()
+    h_launches = dict(pdipm_cuda.launches)
+    h_fz = -h_first[:, :, 2]
+    print(f"[hybrid path] MPCController solver=pallas_hybrid b{B}, {HYBRID_TICKS} ticks: "
+          f"run_mpc {h_mpc}, kernel launches {h_launches}; hybrid_stats first "
+          f"{stats[0]}, max dropped_nonfinite {max(st['dropped_nonfinite'] for st in stats)}, "
+          f"resolved per solve {[st['resolved'] for st in stats]}; tau finite and within "
+          f"limits: {h_tau_ok}; first solve fz left [{float(h_fz[:, 0].min()):.2f}, "
+          f"{float(h_fz[:, 0].max()):.2f}] N, right swing max |fz| "
+          f"{float(h_fz[:, 1].abs().max()):.3e} N")
+    check(h_launches == {"ric_aug": h_mpc, "ric": h_mpc},
+          "the hybrid path did not launch K2 and K1 once each per run_mpc")
+    check(all(st["dropped_nonfinite"] == 0 for st in stats), "hybrid dropped non-finite envs")
+    check(h_tau_ok, "hybrid joint torques not finite or beyond the torque limits")
+    check(bool((h_fz[:, 1].abs() < 1.0).all()), "hybrid: swinging right foot carries force")
+    check(bool((h_first[:, 0, 2] < -50.0).all()), "hybrid: stance left foot not loaded")
+
+    href = MPCController(ControllerConf(), hyb_conf, num_envs=8, gait_id=2,
+                         dtype=torch.float64, device="cpu")
+    href.set_command(twist[:8].cpu(), height[:8].cpu())
+    href.update_state(obs[:8].cpu())
+    href.run_mpc()
+    h_dw = float((h_first[:8].cpu().double() - href.ground_reaction_wrench).abs().max())
+    print(f"[hybrid path vs CPU plain f64] first-solve wrench max |d| {h_dw:.3e} N over 8 envs; "
+          f"CPU hybrid_stats {href.hybrid_stats}")
+
+    # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
     k64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, opts), 10)
     p32 = cuda_ms(lambda: pdipm.solve(qp32, opts), 3)
     p64 = cuda_ms(lambda: pdipm.solve(qp64, opts), 3)
+    r32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, ric), 20)
+    r64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, ric), 10)
+    rp32 = cuda_ms(lambda: pdipm.solve(qp32, ric), 3)
+    rp64 = cuda_ms(lambda: pdipm.solve(qp64, ric), 3)
+    hyb32 = cuda_ms(lambda: pdipm_cuda.solve_hybrid(qp32, ric), 20)
+    budget = max(64, B // 32)
+    worst = torch.sort(ric_kern32.residuals.amax(1).nan_to_num(float("inf")), descending=True,
+                       stable=True).indices[:budget]
+    sub32 = qps.take(qp32, worst)
+    k1_sub = cuda_ms(lambda: pdipm_cuda.solve(sub32, opts), 20)
     mpc_ms = cuda_ms(ctrl.run_mpc, 10)
+    hmpc_ms = cuda_ms(hctrl.run_mpc, 10)
 
     def tick():
         ctrl.update_state(obs)
@@ -250,18 +352,33 @@ def main() -> int:
     print(f"[times] {label}: b{B} h10 {opts.iterations} iterations: kernel f32 {k32:.3f} ms "
           f"({units / k32 * 1e3:.0f} 5-iteration units/s), kernel f64 {k64:.3f} ms, "
           f"plain f32 {p32:.3f} ms, plain f64 {p64:.3f} ms")
-    print(f"[times] {label}: MPCController b{B} f32: run_mpc {mpc_ms:.3f} ms, 1 kHz tick "
-          f"(update_state + run_lowlevel + get_action) {tick_ms:.3f} ms")
+    print(f"[times] {label}: b{B} h10 K2 (ric): kernel f32 {r32:.3f} ms "
+          f"({units / r32 * 1e3:.0f} 5-iteration units/s), kernel f64 {r64:.3f} ms, "
+          f"plain f32 {rp32:.3f} ms, plain f64 {rp64:.3f} ms")
+    print(f"[times] {label}: b{B} f32 solve_hybrid {hyb32:.3f} ms (K1 alone on its "
+          f"{budget}-env re-solve batch {k1_sub:.3f} ms)")
+    print(f"[times] {label}: MPCController b{B} f32: run_mpc {mpc_ms:.3f} ms, hybrid run_mpc "
+          f"{hmpc_ms:.3f} ms, 1 kHz tick (update_state + run_lowlevel + get_action) "
+          f"{tick_ms:.3f} ms")
 
     print(json.dumps({"kernels": [{
         "name": "pdipm_ric_aug",
         "route": "cuda",
         "source": "biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu",
         "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:308",
-        "launches": launches,
+        "launches": launches["ric_aug"],
         "max_abs_err": worst64,
         "ms": k32,
         "plain_ms": p32,
+    }, {
+        "name": "pdipm_ric",
+        "route": "cuda",
+        "source": "biped_pympc_tpu_torch/csrc/pdipm_ric.cu",
+        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:308 (backend=ric, foot_split)",
+        "launches": h_launches["ric"],
+        "max_abs_err": ric_worst64,
+        "ms": r32,
+        "plain_ms": rp32,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

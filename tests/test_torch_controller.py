@@ -160,8 +160,8 @@ def test_reset_masks_only_selected_envs():
     assert ctrl.state.swing_state.first_swing[1].all()
 
 
-@pytest.mark.parametrize("solver", ["ric", "pallas_ric", "pallas_hybrid", "tridiag_aug",
-                                    "dense", "pallas", "pallas_aug", "pallas_ric2"])
+@pytest.mark.parametrize("solver", ["tridiag_aug", "dense", "pallas", "pallas_aug",
+                                    "pallas_ric2"])
 def test_unported_solver_names_raise(solver):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),

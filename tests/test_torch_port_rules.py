@@ -1,11 +1,12 @@
 """Rules of the torch port that hold without the card: no jax imports, the
 CPU / CUDA dispatch of the PDIPM, the build helper's errors. The one test
-marked `cuda` holds the kernel against the plain version on the card
+marked `cuda` holds each kernel against the plain version on the card
 (`python -m pytest tests/test_torch_port_rules.py -m cuda --noconftest` on a
 GPU machine, which has no jax for `tests/conftest.py`)."""
 
 import ast
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -77,23 +78,58 @@ def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def test_failed_ric_build_raises_and_does_not_fall_back(monkeypatch, tmp_path):
+    """nvcc builds both routes at once; when the condensed route's source
+    fails to compile, a CUDA solve on that route raises with the compiler's
+    output instead of running the plain version."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nfor a; do last=$a; done\n'
+                    'case "$last" in *pdipm_ric.cu) echo "pdipm_ric.cu: error" >&2; exit 1;; esac\n'
+                    'for a; do case "$a" in *.so) : > "$a";; esac; done\n')
+    nvcc.chmod(0o755)
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(pdipm_cuda, "BUILD_DIR", str(build_dir))
+    monkeypatch.setattr(pdipm_cuda, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(pdipm_cuda, "_libs", {})
+    monkeypatch.setattr(pdipm, "solve", lambda *a, **k: pytest.fail("fell back to the plain version"))
+    on_card = types.SimpleNamespace(f=types.SimpleNamespace(device=torch.device("cuda", 0)))
+    before = dict(pdipm_cuda.launches)
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*pdipm_ric.cu: error"):
+        pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric"))
+    assert pdipm_cuda.launches == before
+    built = sorted(p.name for p in build_dir.iterdir())
+    assert len(built) == 1 and built[0].startswith("libpdipm_ric_aug_"), built
+
+
+def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
+    """An edit to the header both kernels include builds both anew."""
+    header = tmp_path / "pdipm_common.cuh"
+    header.write_text("// one")
+    monkeypatch.setattr(pdipm_cuda, "HEADERS", (str(header),))
+    first = {b: pdipm_cuda.library_path(b) for b in pdipm_cuda.SOURCES}
+    header.write_text("// two")
+    second = {b: pdipm_cuda.library_path(b) for b in pdipm_cuda.SOURCES}
+    assert all(first[b] != second[b] for b in first)
+
+
 # Eight f64 Newton steps: far enough to exercise every phase, short of the
 # non-converged late steps where two correct implementations that round
 # differently part ways (PERF.md, Findings); chip_smoke.py checks the
 # full 20 steps, and f32, on converged envs. Residual norms of the equality
 # rows sit near roundoff (~1e-10), hence the absolute floor on them.
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ric_aug", "ric"])
 @pytest.mark.parametrize("horizon, refine_steps", [(10, 1), (5, 0), (20, 2)])
-def test_kernel_matches_plain_on_card(horizon, refine_steps):
+def test_kernel_matches_plain_on_card(horizon, refine_steps, backend):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     qp = _qp(64, torch.float64, "cuda", horizon)
-    opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps)
-    before = pdipm_cuda.launches
+    opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps, backend=backend)
+    before = dict(pdipm_cuda.launches)
     got = pdipm_cuda.solve(qp, opts)
     want = pdipm.solve(qp, opts)
     torch.cuda.synchronize()
-    assert pdipm_cuda.launches == before + 1
+    assert pdipm_cuda.launches == {**before, backend: before[backend] + 1}
     for name in "xszy":
         torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-7)
     torch.testing.assert_close(got.residuals, want.residuals, rtol=1e-6, atol=1e-10)
