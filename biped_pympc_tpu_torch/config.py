@@ -67,6 +67,13 @@ class MPCConf:
     augmented result where its criterion exceeds this (non-finite envs
     always do). hybrid_flag: the criterion, "resid" (the solver's final
     residuals) or "kkt" (`pdipm.kkt_error` of the returned iterate).
+    adaptive_tol: when > 0, solve in `adaptive_chunk`-step launches, each
+    warm-started from the last, and stop early once every env's residual
+    criterion max(||rx||, ||rs||, ||re||, mu) is below this tolerance (or at
+    the `newton_iterations` cap). One stop decision gates the whole batch.
+    Mirrors the reference's own loop over fused 5-iteration launches; not
+    fixed-iteration parity. 0 keeps the fixed-iteration solve.
+    "pallas_hybrid" ignores it, as in the JAX package.
     f_max: per-foot vertical-force cap [N].
     euler_rate_mode: see `models/srbd.py`. contact_frame: "world" keeps the
     contact rows in world axes (reference parity, valid near yaw 0);
@@ -93,6 +100,8 @@ class MPCConf:
     solver_delta: float = 1e-8
     f_max: float = 500.0
     solver_refine_steps: int = 1
+    adaptive_tol: float = 0.0
+    adaptive_chunk: int = 5
     euler_rate_mode: Literal["rt_omega", "r_omega"] = "rt_omega"
     contact_frame: Literal["world", "yaw"] = "world"
     print_solve_time: bool = False

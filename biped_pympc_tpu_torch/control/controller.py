@@ -69,6 +69,10 @@ class ControllerState:
     mpc_cost: torch.Tensor  # (B,)
     contact_phase: torch.Tensor  # (B, 2)
     swing_phase: torch.Tensor  # (B, 2)
+    # Learned dynamics residuals added to the continuous-time A / B blocks
+    # (`MPCController.set_srbd_residual`); None keeps the residual-free QP.
+    residual_A: torch.Tensor | None = None  # (B, 12, 12)
+    residual_B: torch.Tensor | None = None  # (B, 12, 12)
 
 
 class BipedControllerCore:
@@ -87,6 +91,7 @@ class BipedControllerCore:
         self.robot: RobotSpec = get_robot(mpc_cfg.robot)
         self.num_dof = self.robot.num_dof
         self.opts = PdipmOptions(iterations=mpc_cfg.newton_iterations,
+                                 iterations_per_launch=mpc_cfg.adaptive_chunk,
                                  beta=mpc_cfg.solver_beta, delta=mpc_cfg.solver_delta,
                                  refine_steps=mpc_cfg.solver_refine_steps,
                                  backend=_BACKEND.get(mpc_cfg.solver, mpc_cfg.solver))
@@ -157,12 +162,15 @@ class BipedControllerCore:
             state.residual_lin_accel, state.residual_ang_accel, self._q_weights,
             self._r_weights, c.horizon_length, c.decimation * c.dt,
             euler_rate_mode=c.euler_rate_mode, f_max=state.f_max, mu=state.mu,
-            contact_frame=c.contact_frame, lt=state.lt, lh=state.lh)
+            contact_frame=c.contact_frame, lt=state.lt, lh=state.lh,
+            residual_A=state.residual_A, residual_B=state.residual_B)
 
     def run_mpc(self, state: ControllerState) -> mpc.MpcOutput:
         """Assemble every env's QP, solve them in one batched PDIPM (the CUDA
         kernels on the card, the plain version on the CPU), postprocess; the
-        wrench becomes the legs' feed-forward term."""
+        wrench becomes the legs' feed-forward term. With `adaptive_tol > 0`
+        the solve is the chunked adaptive one, except in the hybrid mode
+        (`biped_pympc_tpu/control/controller.py:313-336`)."""
         c = self.mpc_cfg
         new_mem, x_ref, qp = self.assemble_mpc(state)
         counts = None
@@ -172,6 +180,8 @@ class BipedControllerCore:
                                                  with_stats=True)
             counts = torch.stack([stats.flagged, stats.nonfinite, stats.resolved,
                                   stats.dropped_nonfinite])
+        elif c.adaptive_tol > 0.0:
+            sol = pdipm_cuda.solve_adaptive(qp, self.opts, tol=c.adaptive_tol)
         else:
             sol = pdipm_cuda.solve(qp, self.opts)
         out = mpc.postprocess_solution(qp, sol, state.est.rotation_body, x_ref,

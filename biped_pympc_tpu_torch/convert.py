@@ -34,7 +34,9 @@ def _from_tree(cls, tree, dtype, device):
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = getattr(tree, f.name)
-        if dataclasses.is_dataclass(hints[f.name]):
+        if value is None:
+            kwargs[f.name] = None
+        elif dataclasses.is_dataclass(hints[f.name]):
             kwargs[f.name] = _from_tree(hints[f.name], value, dtype, device)
         else:
             kwargs[f.name] = _tensor(value, dtype, device)
@@ -53,8 +55,6 @@ def stage_qp_from_numpy(qp, dtype=torch.float64, device="cpu") -> StageQP:
 
 def controller_state_from_numpy(state, dtype=torch.float32, device="cpu") -> ControllerState:
     """A JAX `ControllerState` with numpy leaves as the port's
-    `ControllerState`. The learned residual matrices are not ported yet, so
-    a state that carries them is refused."""
-    if getattr(state, "residual_A", None) is not None or getattr(state, "residual_B", None) is not None:
-        raise NotImplementedError("residual_A / residual_B (set_srbd_residual) are not ported yet")
+    `ControllerState`, the learned residual matrices (None or (B, 12, 12))
+    included."""
     return _from_tree(ControllerState, state, dtype, device)

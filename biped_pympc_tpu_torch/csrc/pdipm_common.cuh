@@ -15,6 +15,18 @@
 
 #define PDIPM_THREADS 128
 
+// Register cap of each kernel (`__maxnreg__`). In f32 shared memory admits 4
+// blocks of K1 and 5 of K2 on an H100, so registers decide the blocks per SM:
+// 128 registers x 128 threads lets 4 run. Without the cap nvcc gave K2 167
+// registers (3 blocks) in one build and 128 (4 blocks) in another, and the
+// solve time moved by a third. `__maxnreg__` ran K1 1.0% and K2 0.2% faster
+// than the same cap set as `__launch_bounds__(128, 4)` (PERF.md, PR 3). In
+// f64 shared memory admits 2 blocks of either, and 255 leaves nvcc free.
+template <typename S>
+struct MaxRegs {
+  static constexpr int value = sizeof(S) == 4 ? 128 : 255;
+};
+
 static constexpr int NX_ = 12;   // states per knot
 static constexpr int NU_ = 12;   // inputs per stage
 static constexpr int NI_ = 16;   // inequality rows per stage
@@ -138,6 +150,186 @@ __device__ __forceinline__ S a_entry(const S* sm, const Layout& L, int e, const 
   }
   const int k = e - NX_ * T, t = k / NMX_;
   return x[NX_ * T + NU_ * t + (k % NMX_ == 0 ? 6 : 9)];
+}
+
+// ---------------------------------------------------------------------------
+// Compensated (double-float) arithmetic for the refinement residual
+// (`ops/df.py`, the plain version). Error-free transformations need every
+// add and multiply rounded on its own: nvcc's default --fmad=true would
+// contract a*b+c into an FMA and break Dekker's split and two_sum's algebra.
+// The _rn intrinsics are never contracted, so the EFTs use them alone; the
+// build flags stay as they are for the rest of the kernels.
+// ---------------------------------------------------------------------------
+template <typename S> struct Rn;
+template <> struct Rn<float> {
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+};
+template <> struct Rn<double> {
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+};
+
+// s = fl(a + b), e with s + e = a + b exactly (Knuth).
+template <typename S>
+__device__ __forceinline__ void two_sum(S a, S b, S& s, S& e) {
+  using R = Rn<S>;
+  s = R::add(a, b);
+  const S bb = R::sub(s, a);
+  e = R::add(R::sub(a, R::sub(s, bb)), R::sub(b, bb));
+}
+
+// p = fl(a * b), e with p + e = a * b (Dekker, Veltkamp split by 2^12 + 1 in
+// both dtypes, as the plain version and the JAX package do).
+template <typename S>
+__device__ __forceinline__ void two_prod(S a, S b, S& p, S& e) {
+  using R = Rn<S>;
+  const S split = S(4097);
+  p = R::mul(a, b);
+  const S ca = R::mul(split, a), cb = R::mul(split, b);
+  const S ah = R::sub(ca, R::sub(ca, a)), bh = R::sub(cb, R::sub(cb, b));
+  const S al = R::sub(a, ah), bl = R::sub(b, bh);
+  e = R::add(R::add(R::add(R::sub(R::mul(ah, bh), p), R::mul(ah, bl)), R::mul(al, bh)),
+             R::mul(al, bl));
+}
+
+// One (sum, error) pair: `ops/df.Acc`, term for term.
+template <typename S>
+struct DfAcc {
+  S s, c;
+  __device__ __forceinline__ explicit DfAcc(S init) : s(init), c(S(0)) {}
+  __device__ __forceinline__ void add(S x) {
+    S e;
+    two_sum(s, x, s, e);
+    c = Rn<S>::add(c, e);
+  }
+  // accumulate a * b
+  __device__ __forceinline__ void add_prod(S a, S b) {
+    S p, pe, se;
+    two_prod(a, b, p, pe);
+    two_sum(s, p, s, se);
+    c = Rn<S>::add(Rn<S>::add(c, se), pe);
+  }
+  __device__ __forceinline__ S value() const { return Rn<S>::add(s, c); }
+};
+
+// Compensated rows of the augmented reduced system's residual, one output
+// entry each, in the term order of `ops/df.residual_aug` (a product's first
+// factor is the vector entry or the scaled diagonal, as there). Terms the
+// plain version adds as exact zeros are skipped: adding 0 leaves the pair as
+// it is.
+//   e1[i] = r - [(hd + beta) dx + G^T dz + A^T dy][i], i < nz
+template <typename S, typename Layout>
+__device__ S df_e1_entry(const S* sm, const Layout& L, int i, S r, S hd, S beta,
+                         const S* dx, const S* dz, const S* dy) {
+  const int T = L.T;
+  const S* ad = sm + L.ad;
+  const S* bd = sm + L.bd;
+  const S* gu = sm + L.gu;
+  S hb, he;
+  two_sum(hd, beta, hb, he);
+  DfAcc<S> a(r);
+  a.add_prod(-hb, dx[i]);
+  a.add_prod(-he, dx[i]);
+  if (i < NX_ * T) {
+    const int t = i / NX_, j = i % NX_;
+    a.add(-dy[i]);
+    if (t + 1 < T)
+      for (int l = 0; l < NX_; ++l) a.add_prod(dy[(t + 1) * NX_ + l], ad[l * NX_ + j]);
+    return a.value();
+  }
+  const int k = i - NX_ * T, t = k / NU_, j = k % NU_;
+  for (int q = 0; q < NI_; ++q) a.add_prod(-dz[t * NI_ + q], gu[q * NU_ + j]);
+  for (int l = 0; l < NX_; ++l) a.add_prod(dy[t * NX_ + l], bd[l * NU_ + j]);
+  if (j == 6) a.add(-dy[NX_ * T + NMX_ * t]);
+  if (j == 9) a.add(-dy[NX_ * T + NMX_ * t + 1]);
+  return a.value();
+}
+
+//   ez[k] = r - [G dx - W dz][k], k < ni
+template <typename S, typename Layout>
+__device__ S df_ez_entry(const S* sm, const Layout& L, int k, S r, S w, const S* dx,
+                         const S* dz) {
+  const int t = k / NI_, q = k % NI_;
+  const S* gu = sm + L.gu + q * NU_;
+  const S* u = dx + NX_ * L.T + NU_ * t;
+  DfAcc<S> a(r);
+  for (int j = 0; j < NU_; ++j) a.add_prod(-u[j], gu[j]);
+  a.add_prod(w, dz[k]);
+  return a.value();
+}
+
+//   e4[e] = r - [A dx - delta dy][e], e < ne
+template <typename S, typename Layout>
+__device__ S df_e4_entry(const S* sm, const Layout& L, int e, S r, S delta, const S* dx,
+                         const S* dy) {
+  const int T = L.T;
+  DfAcc<S> a(r);
+  if (e < NX_ * T) {
+    const int t = e / NX_, i = e % NX_;
+    const S* ad = sm + L.ad + i * NX_;
+    const S* bd = sm + L.bd + i * NU_;
+    const S* u = dx + NX_ * T + NU_ * t;
+    a.add(-dx[e]);
+    if (t >= 1)
+      for (int j = 0; j < NX_; ++j) a.add_prod(dx[(t - 1) * NX_ + j], ad[j]);
+    for (int j = 0; j < NU_; ++j) a.add_prod(u[j], bd[j]);
+    a.add_prod(delta, dy[e]);
+    return a.value();
+  }
+  const int k = e - NX_ * T, t = k / NMX_;
+  a.add(-dx[NX_ * T + NU_ * t + (k % NMX_ == 0 ? 6 : 9)]);
+  a.add_prod(delta, dy[e]);
+  return a.value();
+}
+
+// ---------------------------------------------------------------------------
+// Load one env's QP into the layout's input fields and its start iterate
+// into x, s, z, y: the warm state when x0 is non-null (s0, z0, y0 with it),
+// else the cold start x = 0, s = max(d, 1), z = 1, y = 1. Every input is
+// read here, before the kernel writes any output, and a block touches only
+// its own env's rows: the kernels rely on this to let the outputs alias the
+// warm state (in-place continuation across launches).
+// ---------------------------------------------------------------------------
+template <typename S, typename Layout>
+__device__ void load_env(S* sm, const Layout& L, long env, const S* hd_in, const S* f_in,
+                         const S* ad_in, const S* bd_in, const S* b_in, const S* gu_in,
+                         const S* d_in, const S* x0, const S* s0, const S* z0, const S* y0) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nz = L.nz, ni = L.ni, ne = L.ne;
+  const bool warm = x0 != nullptr;
+  for (int i = tid; i < nz; i += nt) {
+    sm[L.hd + i] = hd_in[env * nz + i];
+    sm[L.f + i] = f_in[env * nz + i];
+    sm[L.x + i] = warm ? x0[env * nz + i] : S(0);
+  }
+  for (int i = tid; i < 144; i += nt) {
+    sm[L.ad + i] = ad_in[env * 144 + i];
+    sm[L.bd + i] = bd_in[env * 144 + i];
+  }
+  for (int i = tid; i < NI_ * NU_; i += nt) sm[L.gu + i] = gu_in[env * NI_ * NU_ + i];
+  for (int i = tid; i < ne; i += nt) {
+    sm[L.b + i] = b_in[env * ne + i];
+    sm[L.y + i] = warm ? y0[env * ne + i] : S(1);
+  }
+  for (int i = tid; i < ni; i += nt) {
+    const S dv = d_in[env * ni + i];
+    sm[L.d + i] = dv;
+    sm[L.s + i] = warm ? s0[env * ni + i] : (dv > S(1) ? dv : S(1));
+    sm[L.z + i] = warm ? z0[env * ni + i] : S(1);
+  }
+  __syncthreads();
+}
+
+// Gate of the adaptive solve: a kernel whose flag `go` (device memory) is 0
+// returns at once and leaves its outputs untouched; otherwise block 0 adds
+// one to the device counter `ran`. Both may be null (always run, no count).
+__device__ __forceinline__ bool gate_open(const int* go, int* ran) {
+  if (go != nullptr && *go == 0) return false;
+  if (ran != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(ran, 1);
+  return true;
 }
 
 // ---------------------------------------------------------------------------

@@ -3,10 +3,11 @@
 //
 // Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` on its
 // backend="ric", foot_split=True route (`factor_ric_split`, `ric_solve`, the
-// condensed reduced solve of `iteration_base`; cold start, delta corrector).
-// It computes what `ops/pdipm.py` of this package computes on that route
-// (the plain version): all `iterations` Newton steps of every env's QP in one
-// launch, from x = 0, s = max(d, 1), z = 1, y = 1.
+// condensed reduced solve of `iteration_base`; delta corrector), with its
+// warm entry (`warm=True`, :316-319). It computes what `ops/pdipm.py` of this
+// package computes on that route (the plain version): `iterations` Newton
+// steps of every env's QP in one launch, from the cold start x = 0,
+// s = max(d, 1), z = 1, y = 1 or from a given (x0, s0, z0, y0).
 //
 // The condensed route eliminates z with W^-1 = Sigma / (1 + delta Sigma):
 // per stage the [u (12), nu (2)] block is
@@ -330,13 +331,17 @@ __device__ void reduced_solve(S* sm, const Layout& L, int refine_steps, S beta, 
   __syncthreads();
 }
 
+// The outputs may alias the warm state x0, s0, z0, y0 (load_env), so none of
+// those pointers is __restrict__.
 template <typename S>
-__global__ void __launch_bounds__(PDIPM_THREADS) pdipm_ric_kernel(
+__global__ void __launch_bounds__(PDIPM_THREADS) __maxnreg__(MaxRegs<S>::value)
+pdipm_ric_kernel(
     const S* __restrict__ hd_in, const S* __restrict__ f_in, const S* __restrict__ ad_in,
     const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
-    const S* __restrict__ d_in, S* __restrict__ x_out, S* __restrict__ s_out,
-    S* __restrict__ z_out, S* __restrict__ y_out, S* __restrict__ res_out,
+    const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
+    S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran,
     int T, int iterations, int refine_steps, S beta, S delta) {
+  if (!gate_open(go, ran)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
   const Layout L = make_layout(T, (int)sizeof(S));
@@ -345,28 +350,7 @@ __global__ void __launch_bounds__(PDIPM_THREADS) pdipm_ric_kernel(
   const int nz = L.nz, ni = L.ni, ne = L.ne;
   S* red = sm + L.red;
 
-  // Load the env's QP; cold start.
-  for (int i = tid; i < nz; i += nt) {
-    sm[L.hd + i] = hd_in[env * nz + i];
-    sm[L.f + i] = f_in[env * nz + i];
-    sm[L.x + i] = S(0);
-  }
-  for (int i = tid; i < 144; i += nt) {
-    sm[L.ad + i] = ad_in[env * 144 + i];
-    sm[L.bd + i] = bd_in[env * 144 + i];
-  }
-  for (int i = tid; i < NI_ * NU_; i += nt) sm[L.gu + i] = gu_in[env * NI_ * NU_ + i];
-  for (int i = tid; i < ne; i += nt) {
-    sm[L.b + i] = b_in[env * ne + i];
-    sm[L.y + i] = S(1);
-  }
-  for (int i = tid; i < ni; i += nt) {
-    const S dv = d_in[env * ni + i];
-    sm[L.d + i] = dv;
-    sm[L.s + i] = dv > S(1) ? dv : S(1);
-    sm[L.z + i] = S(1);
-  }
-  __syncthreads();
+  load_env(sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0, y0);
   // Constants: q_inv = 1 / (Q + beta), the [M_x, nu] = [[r + beta, 1], [1, -delta]]^-1
   // and M_z = 1 / (r + beta) entries, S = Q~^-1 Ad^T, Ad Q~^-1 Ad^T, and
   // yc = -delta I - Q~^-1 - sum_j c_j Bd_j Bd_j^T over the columns j = 6, 8, 9, 11.
@@ -550,9 +534,14 @@ __global__ void __launch_bounds__(PDIPM_THREADS) pdipm_ric_kernel(
 
 template <typename S>
 static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
-                  const void* gu, const void* d, void* x, void* s, void* z, void* y, void* res,
-                  int batch, int T, int iterations, int refine_steps, double beta, double delta,
-                  void* stream) {
+                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
+                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
+                  void* ran, int batch, int T, int iterations, int refine_steps, int refine_df,
+                  double beta, double delta, void* stream) {
+  // The compensated residual is an augmented-route option. The entries keep
+  // K1's argument list; `pdipm.check_options` refuses df on this route
+  // before any launch, so this guard fires only for a direct C caller.
+  if (refine_df != 0) return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(T, (int)sizeof(S));
   cudaError_t err = cudaFuncSetAttribute(pdipm_ric_kernel<S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,8 +550,9 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
   if (batch == 0) return 0;
   pdipm_ric_kernel<S><<<batch, PDIPM_THREADS, L.bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
-      (const S*)d, (S*)x, (S*)s, (S*)z, (S*)y, (S*)res, T, iterations, refine_steps,
-      (S)beta, (S)delta);
+      (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, iterations, refine_steps, (S)beta,
+      (S)delta);
   return (int)cudaGetLastError();
 }
 
@@ -574,23 +564,27 @@ size_t pdipm_ric_smem_bytes(int T, int value_size) {
   return make_layout(T, value_size).bytes;
 }
 
-// Solve `batch` QPs on `stream`. All arrays are batch-first and contiguous:
-// hd, f, x (B, 24T); ad, bd (B, 12, 12); b, y (B, 14T); gu (B, 16, 12);
-// d, s, z (B, 16T); res (B, 4). Returns a cudaError_t (0 = success).
+// Solve `batch` QPs on `stream`; the interface of pdipm_ric_aug_f32 /
+// pdipm_ric_aug_f64 (pdipm_ric_aug.cu), except that refine_df must be 0:
+// any other value returns cudaErrorInvalidValue and launches nothing.
 int pdipm_ric_f32(const void* hd, const void* f, const void* ad, const void* bd,
-                  const void* b, const void* gu, const void* d, void* x, void* s, void* z,
-                  void* y, void* res, int batch, int T, int iterations, int refine_steps,
-                  double beta, double delta, void* stream) {
-  return launch<float>(hd, f, ad, bd, b, gu, d, x, s, z, y, res, batch, T, iterations,
-                       refine_steps, beta, delta, stream);
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  int iterations, int refine_steps, int refine_df, double beta, double delta,
+                  void* stream) {
+  return launch<float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go, ran, batch,
+                       T, iterations, refine_steps, refine_df, beta, delta, stream);
 }
 
 int pdipm_ric_f64(const void* hd, const void* f, const void* ad, const void* bd,
-                  const void* b, const void* gu, const void* d, void* x, void* s, void* z,
-                  void* y, void* res, int batch, int T, int iterations, int refine_steps,
-                  double beta, double delta, void* stream) {
-  return launch<double>(hd, f, ad, bd, b, gu, d, x, s, z, y, res, batch, T, iterations,
-                        refine_steps, beta, delta, stream);
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  int iterations, int refine_steps, int refine_df, double beta, double delta,
+                  void* stream) {
+  return launch<double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go, ran, batch,
+                        T, iterations, refine_steps, refine_df, beta, delta, stream);
 }
 
 const char* pdipm_ric_error_string(int err) {

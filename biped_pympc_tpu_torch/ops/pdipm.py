@@ -3,7 +3,9 @@
 `biped_pympc_tpu/ops/pdipm.py`).
 
 This is the plain version of the CUDA kernels in `ops/pdipm_cuda.py`: the
-CPU path runs it, and the kernels are held against it on the card.
+CPU path runs it, and the kernels are held against it on the card. `solve`
+starts from the cold start or from a given `PdipmState` (warm start);
+`solve_adaptive_batch` runs the solve in chunks with an early stop.
 
 Both routes eliminate the slacks s and eliminate or keep the inequality
 duals z per stage, then fold the stage blocks into a 12-wide dual-Riccati
@@ -33,10 +35,11 @@ recursion is sequential (the y-chain and its sweeps).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
+from biped_pympc_tpu_torch.ops import df as dfm
 from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.ops.linalg import gauss_jordan_inverse
 from biped_pympc_tpu_torch.ops.qp import NU, NX, N_INEQ_PER_STAGE, N_MX_PER_STAGE, StageQP
@@ -47,6 +50,7 @@ ALPHA_MIN = 1e-12
 SZ_FLOOR = 1e-8
 
 BACKENDS = ("ric_aug", "ric")
+REFINE_RESIDUALS = ("f32", "df")
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
 N_KC = NU + N_MX_PER_STAGE  # 14: [u, nu] per stage
 # Foot-split index sets: each foot's constraint rows touch only its own
@@ -61,10 +65,15 @@ class PdipmOptions:
     """Solver settings read by these routes (`biped_pympc_tpu/ops/pdipm.py:62`)."""
 
     iterations: int = 20
+    iterations_per_launch: int = 5  # Newton steps per chunk of the adaptive solve
     beta: float = 1e-8  # primal regularization
     delta: float = 1e-8  # dual regularization
     refine_steps: int = 1  # iterative-refinement passes per reduced solve
     backend: str = "ric_aug"  # "ric_aug" (augmented) | "ric" (condensed)
+    # Precision of the refinement residual r - K d: "f32" is the working
+    # dtype, "df" one compensated (double-float) sum per component
+    # (`ops/df.py`). "df" runs on the augmented route only.
+    refine_residual: str = "f32"
 
 
 @dataclass
@@ -248,6 +257,19 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
     return dx, dz, dy
 
 
+def refine_residual_aug(qp: StageQP, hd, w_diag, opts: PdipmOptions, dx, dz, dy, r1, r_z, r4):
+    """Refinement residual of the augmented reduced system, (e1, ez, e4) =
+    (r1, r_z, r4) - [[H + beta, G^T, A^T], [G, -W, 0], [A, 0, -delta]] (dx, dz, dy),
+    in the working dtype or, with `opts.refine_residual == "df"`, one
+    compensated sum per component (`ops/df.residual_aug`)."""
+    if opts.refine_residual == "df":
+        return dfm.residual_aug(qp, hd, w_diag, opts.beta, opts.delta, dx, dz, dy, r1, r_z, r4)
+    m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
+    mz = qps.g_matvec(qp, dx) - w_diag * dz
+    m4 = qps.a_matvec(qp, dx) - opts.delta * dy
+    return r1 - m1, r_z - mz, r4 - m4
+
+
 def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
     """One Mehrotra predictor-corrector step (reference rule, delta form)."""
     x, s, z, y = st.x, st.s, st.z, st.y
@@ -268,10 +290,8 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
             r_z = r3 - r2 / sigma_d
             dx, dz, dy = _solve_stages(qp, fac, r1, r_z, r4)
             for _ in range(opts.refine_steps):
-                m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
-                mz = qps.g_matvec(qp, dx) - w_diag * dz
-                m4 = qps.a_matvec(qp, dx) - opts.delta * dy
-                ex, ez, ey = _solve_stages(qp, fac, r1 - m1, r_z - mz, r4 - m4)
+                e1, ezr, e4 = refine_residual_aug(qp, hd, w_diag, opts, dx, dz, dy, r1, r_z, r4)
+                ex, ez, ey = _solve_stages(qp, fac, e1, ezr, e4)
                 dx, dz, dy = dx + ex, dz + ez, dy + ey
             ds = (r2 - dz) / sigma_d
             return dx, ds, dz, dy
@@ -316,16 +336,71 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
     return PdipmState(x, s, z, y), residuals
 
 
-def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions()) -> PdipmResult:
-    """Run `opts.iterations` Newton steps from the cold start on every env."""
+def check_options(opts: PdipmOptions) -> None:
+    """Raise ValueError for a route or residual precision these solvers lack
+    (`biped_pympc_tpu/ops/pdipm.py:1185-1199`)."""
     if opts.backend not in BACKENDS:
         raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of {BACKENDS}")
-    st = init_state(qp)
+    if opts.refine_residual not in REFINE_RESIDUALS:
+        raise ValueError(f"unknown refine_residual {opts.refine_residual!r}; expected one of "
+                         f"{REFINE_RESIDUALS}")
+    if opts.refine_residual == "df" and opts.backend != "ric_aug":
+        raise ValueError("refine_residual='df' is implemented for the aug backend only "
+                         f"(got backend={opts.backend!r}); see PdipmOptions.refine_residual")
+
+
+def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
+          state: PdipmState | None = None) -> PdipmResult:
+    """Run `opts.iterations` Newton steps on every env, from `state` (a
+    batch-first PdipmState: warm start, chunked continuation) or, when None,
+    from the cold start. With 0 iterations the residuals are zeros."""
+    check_options(opts)
+    st = init_state(qp) if state is None else state
     hd, d, b = qps.h_diag(qp), qps.d_vec(qp), qps.b_vec(qp)
     residuals = torch.zeros(qp.f.shape[0], 4, dtype=qp.f.dtype, device=qp.f.device)
     for _ in range(opts.iterations):
         st, residuals = _iteration(qp, st, hd, d, b, opts)
     return PdipmResult(st.x, st.s, st.z, st.y, residuals)
+
+
+def chunks(opts: PdipmOptions) -> tuple[int, int, int]:
+    """(chunk, n_full, rem) of the adaptive solve: n_full launches of
+    `chunk` Newton steps, then one of `rem` (`pdipm.py:1246-1247`)."""
+    if opts.iterations < 1 or opts.iterations_per_launch < 1:
+        raise ValueError("the adaptive solve needs iterations >= 1 and "
+                         f"iterations_per_launch >= 1: {opts}")
+    chunk = min(opts.iterations_per_launch, opts.iterations)
+    n_full, rem = divmod(opts.iterations, chunk)
+    return chunk, n_full, rem
+
+
+def solve_adaptive_batch(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
+                         tol: float = 1e-2) -> PdipmResult:
+    """Adaptive-iteration solve (`biped_pympc_tpu/ops/pdipm.py:1236`).
+
+    Runs `opts.iterations_per_launch`-step chunks, each warm-started from
+    the last, while fewer than n_full chunks ran and the largest residual
+    criterion over the batch, max(||rx||, ||rs||, ||re||, mu), is above
+    `tol`; then a remainder of `iterations % chunk` steps if the criterion
+    is still above `tol`. The criterion starts at +inf, so the first chunk
+    always runs. One decision gates the whole batch. A NaN anywhere in the
+    residuals makes `max > tol` false and ends the loop, as in the JAX
+    package (ROADMAP, Queue 3).
+    """
+    check_options(opts)
+    chunk, n_full, rem = chunks(opts)
+    st = init_state(qp)
+    res = torch.full((qp.f.shape[0], 4), float("inf"), dtype=qp.f.dtype, device=qp.f.device)
+    go = lambda: bool(res.amax() > tol)
+    k = 0
+    while k < n_full and go():
+        r = solve(qp, replace(opts, iterations=chunk), st)
+        st, res = PdipmState(r.x, r.s, r.z, r.y), r.residuals
+        k += 1
+    if rem and go():
+        r = solve(qp, replace(opts, iterations=rem), st)
+        st, res = PdipmState(r.x, r.s, r.z, r.y), r.residuals
+    return PdipmResult(st.x, st.s, st.z, st.y, res)
 
 
 def kkt_error(qp: StageQP, res: PdipmResult) -> torch.Tensor:

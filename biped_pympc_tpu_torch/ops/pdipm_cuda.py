@@ -2,10 +2,18 @@
 `biped_pympc_tpu/ops/pdipm_pallas.py`, routes `backend="ric_aug"` and
 `backend="ric"`, `foot_split=True`).
 
-`solve(qp, opts)` dispatches on where the QP lies: CUDA tensors launch the
-kernel of `opts.backend` (`csrc/pdipm_ric_aug.cu` or `csrc/pdipm_ric.cu`, one
-thread block per env), CPU tensors run the plain version `ops/pdipm.py`.
-There is no fallback between the two: a failed build or launch raises.
+`solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
+the kernel of `opts.backend` (`csrc/pdipm_ric_aug.cu` or `csrc/pdipm_ric.cu`,
+one thread block per env), CPU tensors run the plain version `ops/pdipm.py`.
+There is no fallback between the two: a failed build or launch raises. A
+given `state` is the warm start; `opts.refine_residual="df"` selects the
+compensated refinement residual (augmented route only). `refine_residual`
+runs that residual alone, through the same device code, as a check of it.
+
+`solve_adaptive` runs the solve in warm-started chunks with an early stop
+(`pdipm_pallas.solve_adaptive`). On the card every chunk is issued at once;
+each launch reads a device flag computed from the previous chunk's residuals
+and returns at once when it is 0, so the loop never waits for the device.
 
 `solve_hybrid` runs the condensed route on every env and re-solves the
 worst-criterion envs with the augmented route (`pdipm_pallas.solve_hybrid`).
@@ -43,9 +51,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
-# Kernel launches in this process, per route; chip_smoke.py reads them to
-# show that the controller's main path went through the kernels.
+# Kernel launches issued in this process: solves per route, and launches of
+# the refinement-residual entry; chip_smoke.py reads them to show that each
+# path went through the kernels.
 launches = {backend: 0 for backend in SOURCES}
+residual_launches = {"ric_aug": 0}
+# Launches of the adaptive solve whose gate was open, per (route, device):
+# one int32 each on the device, added to by the kernel itself (`chunks_ran`).
+_ran: dict = {}
+
+# C interface of `pdipm_<route>_<f32|f64>` in both libraries: the QP inputs
+# hd, f, Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (null: cold start);
+# the outputs x, s, z, y, res; the gate go and the counter ran (null: always
+# run, no count); then batch, T, iterations, refine_steps, refine_df, beta,
+# delta and the stream. The condensed route takes the same arguments; its
+# refine_df must be 0, which `pdipm.check_options` ensures before any launch.
+ENTRY_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2
+                  + [ctypes.c_void_p])
+# C interface of `pdipm_ric_aug_residual_<f32|f64>`: hd, Ad, Bd, G_u, W, dx,
+# dz, dy, r1, rz, r4; the outputs e1, ez, e4; then batch, T, refine_df, beta,
+# delta and the stream.
+RESIDUAL_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                     + [ctypes.c_void_p])
 
 _libs: dict = {}
 
@@ -113,12 +140,14 @@ def build() -> dict:
 def load_library(path: str, backend: str) -> ctypes.CDLL:
     """Load the built kernel library of a route and declare its C interface."""
     lib = ctypes.CDLL(path)
-    ptrs = [ctypes.c_void_p] * 12
-    ints = [ctypes.c_int] * 4
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"pdipm_{backend}_{suffix}")
-        fn.argtypes = ptrs + ints + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        entries = [(f"pdipm_{backend}_{suffix}", ENTRY_ARGTYPES)]
+        if backend == "ric_aug":
+            entries.append((f"pdipm_ric_aug_residual_{suffix}", RESIDUAL_ARGTYPES))
+        for name, argtypes in entries:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     smem = getattr(lib, f"pdipm_{backend}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_size_t
@@ -134,18 +163,14 @@ def _library(backend: str) -> ctypes.CDLL:
     return _libs[backend]
 
 
-def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream) -> PdipmResult:
-    """Launch the kernel of route `opts.backend` from `lib` on `qp`'s tensors;
-    `stream` is a raw stream handle (int) or None. Checks shapes and types,
-    allocates the outputs."""
+def _inputs(qp: StageQP) -> list:
+    """The kernel's QP inputs, batch-first and contiguous: hd, f, Ad, Bd, b,
+    G_u, d. Checks their shapes and types."""
     dtype = qp.f.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"PDIPM kernel takes float32 or float64, got {dtype}")
-    if opts.iterations < 0 or opts.refine_steps < 0:
-        raise ValueError(f"iterations and refine_steps must be >= 0: {opts}")
-    T = qp.horizon
     nb = qp.f.shape[0]
-    ins = [t.contiguous() for t in (  # batch-first: hd, f, Ad, Bd, b, G_u, d
+    ins = [t.contiguous() for t in (
         qps.h_diag(qp), qp.f, qp.dyn.A, qp.dyn.B, qps.b_vec(qp), qp.g_u, qps.d_vec(qp))]
     want = [(nb, qp.nz), (nb, qp.nz), (nb, 12, 12), (nb, 12, 12), (nb, qp.n_eq),
             (nb, 16, 12), (nb, qp.n_ineq)]
@@ -153,38 +178,168 @@ def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream) -> Pdi
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != qp.f.device:
             raise ValueError(f"kernel input {tuple(t.shape)} {t.dtype} {t.device}, "
                              f"expected {shape} {dtype} {qp.f.device}")
+    return ins
+
+
+def _checked(kind: str, tensors, shapes, like: torch.Tensor) -> list:
+    """`tensors` made contiguous, after checking each against its shape and
+    `like`'s dtype and device."""
+    for t, shape in zip(tensors, shapes):
+        if tuple(t.shape) != shape or t.dtype != like.dtype or t.device != like.device:
+            raise ValueError(f"{kind} {tuple(t.shape)} {t.dtype} {t.device}, expected {shape} "
+                             f"{like.dtype} {like.device}")
+    return [t.contiguous() for t in tensors]
+
+
+def _state_tensors(qp: StageQP, state: pdipm.PdipmState) -> list:
+    """x, s, z, y of a warm start, checked against the QP, contiguous."""
+    nb = qp.f.shape[0]
+    return _checked("warm state", [state.x, state.s, state.z, state.y],
+                    [(nb, qp.nz), (nb, qp.n_ineq), (nb, qp.n_ineq), (nb, qp.n_eq)], qp.f)
+
+
+def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=None, ran=None):
+    """One launch of route `opts.backend` from `lib`: warm (x0, s0, z0, y0) or
+    None for the cold start; outs (x, s, z, y, res), which may be the warm
+    tensors themselves; go / ran the gate flag and chunk counter (int32
+    device tensors) or None."""
+    if opts.iterations < 0 or opts.refine_steps < 0:
+        raise ValueError(f"iterations and refine_steps must be >= 0: {opts}")
+    T = qp.horizon
     name = f"pdipm_{opts.backend}"
     smem = getattr(lib, f"{name}_smem_bytes")(T, qp.f.element_size())
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"horizon {T} needs {smem} B of shared memory per env; "
                          f"the H100 gives a block at most {MAX_SMEM_PER_BLOCK} B")
-    new = lambda n: torch.empty(nb, n, dtype=dtype, device=qp.f.device)
-    x, s, z, y, res = new(qp.nz), new(qp.n_ineq), new(qp.n_ineq), new(qp.n_eq), new(4)
-    fn = getattr(lib, f"{name}_f32" if dtype == torch.float32 else f"{name}_f64")
-    err = fn(*[t.data_ptr() for t in (*ins, x, s, z, y, res)], nb, T, opts.iterations,
-             opts.refine_steps, opts.beta, opts.delta, stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = getattr(lib, f"{name}_f32" if qp.f.dtype == torch.float32 else f"{name}_f64")
+    err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
+             *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
+             opts.iterations, opts.refine_steps, int(opts.refine_residual == "df"), opts.beta,
+             opts.delta, stream)
     if err != 0:
         raise RuntimeError(f"PDIPM kernel {name} launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
-    return PdipmResult(x, s, z, y, res)
+    launches[opts.backend] += 1
 
 
-def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions()) -> PdipmResult:
-    """Batched PDIPM on route `opts.backend`: its CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if opts.backend not in SOURCES:
-        raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of "
-                         f"{tuple(SOURCES)}")
+def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream,
+               state: pdipm.PdipmState | None = None) -> PdipmResult:
+    """Launch the kernel of route `opts.backend` from `lib` on `qp`'s tensors,
+    from `state` (warm) or the cold start; `stream` is a raw stream handle
+    (int) or None. Checks shapes and types, allocates the outputs."""
+    ins = _inputs(qp)
+    warm = None if state is None else _state_tensors(qp, state)
+    new = lambda n: torch.empty(qp.f.shape[0], n, dtype=qp.f.dtype, device=qp.f.device)
+    outs = [new(qp.nz), new(qp.n_ineq), new(qp.n_ineq), new(qp.n_eq), new(4)]
+    _launch(lib, qp, ins, opts, stream, warm, outs)
+    return PdipmResult(*outs)
+
+
+def _device(qp: StageQP, opts: PdipmOptions) -> torch.device:
+    """Check the options and where the QP lies: CPU or CUDA."""
+    pdipm.check_options(opts)
     dev = qp.f.device
-    if dev.type == "cpu":
-        return pdipm.solve(qp, opts)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"PDIPM solve supports CPU and CUDA tensors, got {dev}")
+    return dev
+
+
+def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
+          state: pdipm.PdipmState | None = None) -> PdipmResult:
+    """Batched PDIPM on route `opts.backend`, from `state` (a batch-first
+    PdipmState, the warm start) or the cold start: its CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    dev = _device(qp, opts)
+    if dev.type == "cpu":
+        return pdipm.solve(qp, opts, state)
     lib = _library(opts.backend)
     with torch.cuda.device(dev):
-        res = run_kernel(lib, qp, opts, torch.cuda.current_stream(dev).cuda_stream)
-    launches[opts.backend] += 1
-    return res
+        return run_kernel(lib, qp, opts, torch.cuda.current_stream(dev).cuda_stream, state)
+
+
+def refine_residual(qp: StageQP, w_diag, dx, dz, dy, r1, r_z, r4,
+                    opts: PdipmOptions = PdipmOptions()):
+    """Refinement residual (e1, ez, e4) of the augmented reduced system at W =
+    diag(w_diag) (`pdipm.refine_residual_aug`), compensated when
+    `opts.refine_residual == "df"`: on CUDA tensors through K1's own device
+    code (`refine_residual` in csrc/pdipm_ric_aug.cu, one block per env), on
+    CPU tensors through the plain version. No solve calls it; it checks the
+    arithmetic of K4 where the residual cancels."""
+    dev = _device(qp, opts)
+    if dev.type == "cpu":
+        return pdipm.refine_residual_aug(qp, qps.h_diag(qp), w_diag, opts, dx, dz, dy, r1, r_z, r4)
+    lib = _library("ric_aug")
+    nb, nz, ni, ne = qp.f.shape[0], qp.nz, qp.n_ineq, qp.n_eq
+    ins = _inputs(qp)
+    vecs = _checked("residual input", [w_diag, dx, dz, dy, r1, r_z, r4],
+                    [(nb, ni), (nb, nz), (nb, ni), (nb, ne), (nb, nz), (nb, ni), (nb, ne)], qp.f)
+    outs = [torch.empty(nb, n, dtype=qp.f.dtype, device=qp.f.device) for n in (nz, ni, ne)]
+    fn = getattr(lib, "pdipm_ric_aug_residual_f32" if qp.f.dtype == torch.float32
+                 else "pdipm_ric_aug_residual_f64")
+    with torch.cuda.device(dev):
+        err = fn(*[t.data_ptr() for t in (ins[0], ins[2], ins[3], ins[5], *vecs, *outs)], nb,
+                 qp.horizon, int(opts.refine_residual == "df"), opts.beta, opts.delta,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"refinement residual kernel launch failed: "
+                           f"{lib.pdipm_ric_aug_error_string(err).decode()} ({err})")
+    residual_launches["ric_aug"] += 1
+    return tuple(outs)
+
+
+def solve_adaptive(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
+                   tol: float = 1e-2) -> PdipmResult:
+    """Adaptive-iteration solve (`pdipm_pallas.solve_adaptive`): chunks of
+    `opts.iterations_per_launch` Newton steps, each warm-started from the
+    last, while fewer than n_full chunks ran and max(||rx||, ||rs||, ||re||,
+    mu) over the whole batch is above `tol`, then a remainder of
+    `iterations % chunk` steps if it still is. See
+    `pdipm.solve_adaptive_batch`, which CPU tensors run.
+
+    On the card the n_full launches (and the remainder's) are all issued.
+    Before each, a device reduction writes go = max(res) > tol, with res = +inf
+    before the first; a launch whose go is 0 leaves the state and res as they
+    are, so every later gate stays shut, as the JAX loop's exit does. Each
+    launch continues in place in the same state buffers. Nothing waits for
+    the device; `chunks_ran` reads how many launches ran.
+    """
+    dev = _device(qp, opts)
+    if dev.type == "cpu":
+        return pdipm.solve_adaptive_batch(qp, opts, tol)
+    chunk, n_full, rem = pdipm.chunks(opts)
+    lib = _library(opts.backend)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ins = _inputs(qp)
+        st = pdipm.init_state(qp)
+        state = [t.contiguous() for t in (st.x, st.s, st.z, st.y)]
+        res = torch.full((qp.f.shape[0], 4), float("inf"), dtype=qp.f.dtype, device=qp.f.device)
+        key = (opts.backend, dev)
+        if key not in _ran:
+            _ran[key] = torch.zeros(1, dtype=torch.int32, device=qp.f.device)
+        for iters in [chunk] * n_full + [rem] * (rem > 0):
+            go = (res.amax() > tol).to(torch.int32)
+            _launch(lib, qp, ins, dataclasses.replace(opts, iterations=iters), stream, state,
+                    state + [res], go=go, ran=_ran[key])
+    return PdipmResult(*state, res)
+
+
+def chunks_ran() -> dict:
+    """{route: launches of `solve_adaptive` that ran} in this process, summed
+    over devices. Reads the device counters, so it waits for the device."""
+    out = {backend: 0 for backend in SOURCES}
+    for (backend, _), count in _ran.items():
+        out[backend] += int(count.item())
+    return out
+
+
+def reset_counts() -> None:
+    """Set the host launch counts and the device chunk counters to 0."""
+    for counts in (launches, residual_launches):
+        for key in counts:
+            counts[key] = 0
+    _ran.clear()
 
 
 @dataclass

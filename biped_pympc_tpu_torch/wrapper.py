@@ -18,8 +18,11 @@ controller's device and dtype.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import time
 
+import numpy as np
 import torch
 
 from biped_pympc_tpu_torch.config import ControllerConf, MPCConf
@@ -99,12 +102,77 @@ class MPCController:
         self.state.residual_ang_accel = self._per_env(residual_ang_accel,
                                                       self.state.residual_ang_accel)
 
+    def set_srbd_residual(self, A_residual, B_residual) -> None:
+        """Per-env learned dynamics residuals (B, 12, 12) added to the SRBD
+        linearization's continuous-time A / B blocks before discretization
+        (`biped_pympc_tpu/wrapper.py:112-145`). None for both clears them;
+        exactly one None is zero-filled in the controller dtype. A shape
+        other than (num_envs, 12, 12) raises ValueError."""
+        if (A_residual is None) != (B_residual is None):
+            zeros = torch.zeros(self.num_envs, 12, 12, dtype=self.core.dtype,
+                                device=self.core.device)
+            A_residual = zeros if A_residual is None else A_residual
+            B_residual = zeros if B_residual is None else B_residual
+        if A_residual is not None:
+            A_residual, B_residual = self._t(A_residual), self._t(B_residual)
+            want = (self.num_envs, 12, 12)
+            if tuple(A_residual.shape) != want or tuple(B_residual.shape) != want:
+                raise ValueError(f"set_srbd_residual expects shapes {want}, got "
+                                 f"{tuple(A_residual.shape)} and {tuple(B_residual.shape)}")
+        self.state.residual_A = A_residual
+        self.state.residual_B = B_residual
+
     def set_contact_parameters(self, mu=None, f_max=None, lt=None, lh=None) -> None:
         """Per-env friction coefficient, vertical-force cap [N] and toe / heel
         lever arms [m]: (B,) values or scalars; None leaves one unchanged."""
         for name, val in (("mu", mu), ("f_max", f_max), ("lt", lt), ("lh", lh)):
             if val is not None:
                 setattr(self.state, name, self._per_env(val, getattr(self.state, name)))
+
+    # checkpoint / resume (`biped_pympc_tpu/wrapper.py:329-370`)
+
+    def save_state(self, path: str) -> None:
+        """Write every `ControllerState` tensor to an .npz file, keyed by its
+        field path ("est.root_position"), with the list of paths, as JSON,
+        under "__structure__"."""
+        leaves = dict(_state_leaves(self.state))
+        np.savez(path, __structure__=np.frombuffer(json.dumps(list(leaves)).encode(), np.uint8),
+                 **{k: v.detach().cpu().numpy() for k, v in leaves.items()})
+
+    def load_state(self, path: str) -> None:
+        """Restore a state written by `save_state` (same config and batch).
+        The saved structure must match the current state's: the optional
+        residual_A / residual_B (`set_srbd_residual`) change it, so call
+        `set_srbd_residual` first to match. A structure or shape mismatch
+        raises ValueError and leaves the state as it was."""
+        leaves = dict(_state_leaves(self.state))
+        with np.load(path) as data:
+            saved = json.loads(bytes(data["__structure__"]).decode())
+            if saved != list(leaves):
+                raise ValueError(
+                    "checkpoint structure does not match the current controller state (most "
+                    "commonly: residual_A/B from set_srbd_residual present on one side only; "
+                    "call set_srbd_residual to match before load_state). Saved only: "
+                    f"{sorted(set(saved) - set(leaves))}; current only: "
+                    f"{sorted(set(leaves) - set(saved))}")
+            new = {}
+            for key, old in leaves.items():
+                arr = data[key]
+                if tuple(arr.shape) != tuple(old.shape):
+                    raise ValueError(f"checkpoint leaf {key} shape {tuple(arr.shape)} != "
+                                     f"{tuple(old.shape)} (batch size / config mismatch)")
+                new[key] = torch.as_tensor(arr, dtype=old.dtype, device=old.device)
+        for key, value in new.items():
+            *parents, name = key.split(".")
+            obj = self.state
+            for p in parents:
+                obj = getattr(obj, p)
+            setattr(obj, name, value)
+
+    def to_numpy(self, x) -> np.ndarray:
+        if torch.is_tensor(x):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
 
     # properties (`mpc_wrapper.py:72-205`)
 
@@ -232,3 +300,17 @@ class MPCController:
                                       rep(st.cp1), rep(st.cp2))
             out = out + p.reshape(nb, n, 3) * (1.0 - contact[:, i])[:, None, None]
         return out
+
+
+def _state_leaves(obj, prefix=""):
+    """(field path, tensor) of every tensor in a state dataclass tree; None
+    fields are absent."""
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if value is None:
+            continue
+        if dataclasses.is_dataclass(value):
+            yield from _state_leaves(value, f"{prefix}{f.name}.")
+        else:
+            yield f"{prefix}{f.name}", value
+

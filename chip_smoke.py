@@ -5,20 +5,27 @@
 
 Run from the repository root. It builds both PDIPM kernels with nvcc (the
 augmented route K1, `biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`, and the
-condensed route K2, `csrc/pdipm_ric.cu`), holds each against its plain
-PyTorch version on a randomized b4096 QP batch, drives `MPCController`
-(HECTOR, walking gait, 4096 envs) on the card with the default solver for
-200 ticks and with the hybrid speed mode (K2 everywhere, K1 re-solves) for
-100 ticks, checks that every solve went through the kernels and that the
-outputs are sane, and times the kernels, the plain versions, the hybrid
-solve, `run_mpc` and one 1 kHz tick. Each phase prints one line of findings;
-any failure raises and the script exits non-zero. It exits non-zero without
-a result when no CUDA device is visible. The last line is a JSON object
-naming the device.
+condensed route K2, `csrc/pdipm_ric.cu`, both with the warm entry K3 and K1
+with the compensated refinement residual K4), holds each against its plain
+PyTorch version on a randomized b4096 QP batch (K4 also alone, on residuals
+that cancel nearly every digit, with the f32 residual as a control that must
+miss the bound), checks that warm-started chunks reproduce the fixed solve
+bit for bit and that the adaptive solve stops where the JAX loop does
+without waiting for the device, drives `MPCController` (HECTOR, walking
+gait, 4096 envs) on the card with the default solver for 200 ticks, with the hybrid speed mode (K2 everywhere, K1
+re-solves) for 100 ticks and with the adaptive solve for 100 ticks, checks
+that every solve went through the kernels and that the outputs are sane, and
+times the kernels, the plain versions, the hybrid and adaptive solves,
+`run_mpc` and one 1 kHz tick. Each phase prints one line of findings; any
+failure raises and the script exits non-zero. It exits non-zero without a
+result when no CUDA device is visible. The last line is a JSON object naming
+the device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -29,6 +36,8 @@ import numpy as np
 B = 4096
 TICKS = 200
 HYBRID_TICKS = 100
+ADAPTIVE_TICKS = 100
+WALK_TOL = 1e-2  # MPCConf.adaptive_tol of the adaptive main path
 # Envs whose f64 reference ends with mu = s.z / ni at or below this are the
 # ones the fixed 20-step Mehrotra rule has converged on. On the rest it is
 # still moving (the f64 20- and 40-step solutions differ by up to tens of N),
@@ -38,6 +47,15 @@ MU_CONVERGED = 1e-5
 F64_ATOL = 1e-6
 RES_RTOL = 1e-6
 F32_U0_ATOL = 0.5  # N
+# df vs the plain residual at f64, after DF_ITERS steps: the bound and the
+# step count of tests/test_pdipm_pallas.py::test_pallas_df_refine_residual.
+DF_F64_ATOL = 1e-9
+DF_ITERS = 6
+# The refinement residual alone on the cancellation case (`cancellation_case`):
+# K1's compensated residual vs its plain version, max |difference| over each
+# component relative to the largest float64 residual of that component. The
+# f32-residual control must exceed the bound: it loses most digits there.
+DF_RES_RTOL = {"f32": 1e-6, "f64": 1e-9}
 F32_FINITE_SHARE = 0.999
 # HECTOR's standing pose, walking command (tests/test_controller.py:12-19).
 Q0 = (0.0, 0.0, 0.45, -0.9, 0.45)
@@ -125,6 +143,69 @@ def quantiles(v) -> str:
             f"p99 {q[2]:.3e} p99.9 {q[3]:.3e}")
 
 
+def widen(qp):
+    """`qp` with its own (rounded) data in float64."""
+    import torch
+
+    f = lambda t: t.to(torch.float64)
+    dyn = dataclasses.replace(qp.dyn, A=f(qp.dyn.A), B=f(qp.dyn.B), c=f(qp.dyn.c))
+    return dataclasses.replace(qp, q_diag=f(qp.q_diag), r_diag=f(qp.r_diag), f=f(qp.f), dyn=dyn,
+                               b0=f(qp.b0), g_u=f(qp.g_u), d=f(qp.d))
+
+
+def cancellation_case(qp, seed):
+    """Refinement-residual inputs on `qp`'s envs at late-iteration scales
+    (tests/test_pdipm.py::test_df_residual_accuracy): W over 1e-6..1e6,
+    directions ~30, and r = K d plus a true residual of 1e-4, so r - K d
+    cancels nearly every digit. Returns (w, (dx, dz, dy), (r1, rz, r4), the
+    residual computed in float64 from the inputs as rounded)."""
+    import torch
+    from biped_pympc_tpu_torch.ops import pdipm
+    from biped_pympc_tpu_torch.ops import qp as qps
+
+    rng = np.random.default_rng(seed)
+    nb, dtype, dev = qp.f.shape[0], qp.f.dtype, qp.f.device
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    w = t(10.0 ** rng.uniform(-6, 6, (nb, qp.n_ineq)))
+    dirs = [t(rng.standard_normal((nb, n)) * 30) for n in (qp.nz, qp.n_ineq, qp.n_eq)]
+    q64 = widen(qp)
+    zeros = [torch.zeros_like(v, dtype=torch.float64) for v in dirs]
+    neg_kd = pdipm.refine_residual_aug(q64, qps.h_diag(q64), w.double(), pdipm.PdipmOptions(),
+                                       *(v.double() for v in dirs), *zeros)
+    rhs = [(-m + torch.tensor(rng.standard_normal(tuple(m.shape)) * 1e-4, dtype=torch.float64,
+                              device=dev)).to(dtype) for m in neg_kd]
+    exact = [r.double() + m for r, m in zip(rhs, neg_kd)]
+    return w, dirs, rhs, exact
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Inside, any torch operation that waits for the device raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def bit_diff(a, b):
+    """(largest |difference| over x, s, z, y and the residuals, envs that
+    differ in any bit) of two PdipmResults; NaN in both counts as equal."""
+    import torch
+
+    worst, differ = 0.0, None
+    for name in ("x", "s", "z", "y", "residuals"):
+        u, v = getattr(a, name), getattr(b, name)
+        ints = torch.int32 if u.dtype == torch.float32 else torch.int64
+        env = (u.view(ints) != v.view(ints)).any(1)
+        differ = env if differ is None else differ | env
+        d = (u.double() - v.double()).abs()
+        worst = max(worst, float(torch.where(torch.isnan(d), 0.0, d).max()))
+    return worst, int(differ.sum())
+
+
 def walk(ctrl, obs, ticks, limit, on_solve=None):
     """Drive `ctrl` for `ticks` 1 kHz ticks from `obs`, solving every
     `decimation` ticks. Returns (run_mpc count, first-solve wrench, whether
@@ -156,6 +237,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
+    from biped_pympc_tpu_torch.control import mpc
     from biped_pympc_tpu_torch.models.hector import TORQUE_LIMIT
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
@@ -250,6 +332,162 @@ def main() -> int:
           f"all finite envs: {quantiles(ric_du0[ric_finite])}, above {F32_U0_ATOL} N: "
           f"{int((ric_du0[ric_finite] > F32_U0_ATOL).sum())}")
 
+    # 4b. K3: four warm 5-step launches vs one 20-step launch, both routes and
+    # dtypes. The loop carries only (x, s, z, y) and the kernels compute
+    # nothing from the iteration index or the start, so the bits must agree.
+    def chunked(qp, opts_, n=4):
+        step = dataclasses.replace(opts_, iterations=opts_.iterations // n)
+        r = pdipm_cuda.solve(qp, step)
+        for _ in range(n - 1):
+            r = pdipm_cuda.solve(qp, step, pdipm.PdipmState(r.x, r.s, r.z, r.y))
+        return r
+
+    warm_line = []
+    for tag, qp, opts_, fixed in (("K1 f32", qp32, opts, kern32), ("K1 f64", qp64, opts, kern64),
+                                  ("K2 f32", qp32, ric, ric_kern32),
+                                  ("K2 f64", qp64, ric, ric_kern64)):
+        worst, differ = bit_diff(chunked(qp, opts_), fixed)
+        warm_line.append(f"{tag} max |d| {worst:.3e}, envs differing in any bit {differ}")
+        check(differ == 0, f"{tag}: 4 warm 5-step launches differ from one 20-step launch")
+    print(f"[warm chunks] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
+
+    # 4c. The adaptive solve on the card: every launch issued at once, gated
+    # by a device flag; run under the sync debug mode, so a wait raises.
+    # A NaN anywhere in the residuals ends the loop for the whole batch, as
+    # in the JAX package (ROADMAP, Queue 3): K2's f32 solve goes non-finite
+    # on a few envs of this batch, so its cases run on the envs it keeps
+    # finite, and the whole batch shows the early stop.
+    ric_ok = torch.nonzero(torch.isfinite(ric_kern32.x).all(1)).flatten()
+    ric_qp32 = qps.take(qp32, ric_ok)
+
+    def adaptive_case(qp, opts_, tol):
+        pdipm_cuda.reset_counts()
+        with no_host_sync():
+            res = pdipm_cuda.solve_adaptive(qp, opts_, tol)
+        torch.cuda.synchronize()
+        return res, pdipm_cuda.launches[opts_.backend], pdipm_cuda.chunks_ran()[opts_.backend]
+
+    walk_chunks = {}
+    for tag, qp_k, opts_ in (("K1", qp32, opts), ("K2", ric_qp32, ric)):
+        five = dataclasses.replace(opts_, iterations=5)
+        cap23 = dataclasses.replace(opts_, iterations=23)
+        nan_qp = dataclasses.replace(qp_k, f=qp_k.f.clone())
+        nan_qp.f[0, 0] = float("nan")
+        cases = (("tol 0", qp_k, opts_, 0.0, pdipm_cuda.solve(qp_k, opts_), 4),
+                 ("tol 1e12", qp_k, opts_, 1e12, pdipm_cuda.solve(qp_k, five), 1),
+                 ("23 iterations", qp_k, cap23, 0.0, pdipm_cuda.solve(qp_k, cap23), 5),
+                 ("NaN in env 0", nan_qp, opts_, 0.0, pdipm_cuda.solve(nan_qp, five), 1))
+        line = [f"{qp_k.f.shape[0]} envs"]
+        for name, qp, o, tol, want, want_ran in cases:
+            res, issued, ran = adaptive_case(qp, o, tol)
+            worst, differ = bit_diff(res, want)
+            line.append(f"{name}: {ran} of {issued} launches ran, vs fixed max |d| {worst:.3e} "
+                        f"differing envs {differ}")
+            check(ran == want_ran, f"{tag} solve_adaptive {name}: {ran} chunks ran, "
+                                   f"expected {want_ran}")
+            check(differ == 0, f"{tag} solve_adaptive {name} differs from the fixed solve")
+        check(bool(torch.isnan(res.residuals[0]).all()), f"{tag}: NaN env has finite residuals")
+        _, issued, walk_chunks[tag] = adaptive_case(qp_k, opts_, WALK_TOL)
+        line.append(f"tol {WALK_TOL:g}: {walk_chunks[tag]} of {issued} ran")
+        if qp_k is not qp32:
+            _, issued, ran = adaptive_case(qp32, opts_, 0.0)
+            line.append(f"whole batch ({B - qp_k.f.shape[0]} envs non-finite at 20 steps), tol 0: "
+                        f"{ran} of {issued} ran")
+        print(f"[solve_adaptive {tag}] b{B} f32, no host sync: " + "; ".join(line))
+
+    # K3 against its plain version: the f64 adaptive solve, kernel vs plain.
+    ad64 = pdipm_cuda.solve_adaptive(qp64, opts, 0.0)
+    ad_plain64 = pdipm.solve_adaptive_batch(qp64, opts, 0.0)
+    k3_err = max(float((getattr(ad64, n) - getattr(ad_plain64, n)).abs().amax(1)[conv].max())
+                 for n in "xszy")
+    print(f"[K3 f64 vs plain f64] solve_adaptive tol 0, converged envs {n_conv}: max "
+          f"|dx,ds,dz,dy| {k3_err:.3e} (bound {F64_ATOL:g})")
+    check(k3_err <= F64_ATOL, "f64 adaptive kernel solve differs from the plain version")
+
+    # 4d. K4: the compensated refinement residual on K1, through the public
+    # solver entry `solve(qp, PdipmOptions(refine_residual="df"))`.
+    df_opts = dataclasses.replace(opts, refine_residual="df")
+    df_plain64 = pdipm.solve(qp64, df_opts)
+    df64 = pdipm_cuda.solve(qp64, df_opts)
+    df_conv = (df_plain64.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
+    df_err = np.max([(getattr(df64, n) - getattr(df_plain64, n)).abs().amax(1).cpu().numpy()
+                     for n in "xszy"], axis=0)
+    df_worst64 = float(df_err[df_conv].max())
+    short, short_df = (dataclasses.replace(o, iterations=DF_ITERS) for o in (opts, df_opts))
+    df_vs_f32 = max(float((getattr(pdipm_cuda.solve(qp64, short_df), n)
+                           - getattr(pdipm_cuda.solve(qp64, short), n)).abs().max())
+                    for n in "xszy")
+    df_vs_f32_20 = max(float((getattr(df64, n) - getattr(kern64, n)).abs().amax(1)[conv].max())
+                       for n in "xszy")
+    print(f"[K4 f64 vs plain f64] df residual, converged envs {int(df_conv.sum())}: max "
+          f"|dx,ds,dz,dy| {df_worst64:.3e} (bound {F64_ATOL:g}); all envs {quantiles(df_err)}; "
+          f"df vs f32 residual kernel at f64, {DF_ITERS} steps, all envs: {df_vs_f32:.3e} "
+          f"(bound {DF_F64_ATOL:g}), 20 steps, converged envs: {df_vs_f32_20:.3e}")
+    check(df_worst64 <= F64_ATOL, "f64 df kernel differs from the plain df version")
+    check(df_vs_f32 <= DF_F64_ATOL, "f64 df kernel differs from the f32-residual kernel")
+
+    pdipm_cuda.reset_counts()
+    df32 = pdipm_cuda.solve(qp32, df_opts)
+    torch.cuda.synchronize()
+    df_launches = pdipm_cuda.launches["ric_aug"]
+    check(df_launches == 1, "the df solve did not launch K1")
+    df_finite = torch.isfinite(df32.x).all(1).cpu().numpy()
+    df_du0 = (df32.x[:, 120:132].double() - plain64.x[:, 120:132]).abs().amax(1).cpu().numpy()
+    print(f"[K4 f32 vs plain f64] u0 |dGRF| [N], converged finite envs "
+          f"({int((conv & df_finite).sum())}): {quantiles(df_du0[conv & df_finite])} (bound "
+          f"{F32_U0_ATOL}); all finite envs ({int(df_finite.sum())}/{B}): "
+          f"{quantiles(df_du0[df_finite])}, above {F32_U0_ATOL} N: "
+          f"{int((df_du0[df_finite] > F32_U0_ATOL).sum())}; K1 f32 residual on the same envs: "
+          f"{quantiles(du0[finite])}, above {F32_U0_ATOL} N: "
+          f"{int((du0[finite] > F32_U0_ATOL).sum())}; df launches {df_launches}")
+    check(df_finite.mean() >= F32_FINITE_SHARE, f"f32 df kernel finite on {df_finite.mean():.4f}")
+    check(float(df_du0[conv & df_finite].max()) <= F32_U0_ATOL,
+          "f32 df kernel GRF off on converged envs")
+
+    # 4e. K4's arithmetic where it matters. At the solve level df and the f32
+    # residual agree to within what two roundings of the rest of a Newton
+    # step differ by, so no bound on a solve can tell a working df from one
+    # that lost its compensation: those readings are printed. The residual
+    # itself, through K1's own device code on the cancellation case, is held
+    # against the plain df version (every error-free step its own torch op);
+    # the kernel's f32 residual is the control that must fail that bound.
+    two, two_df = (dataclasses.replace(o, iterations=2) for o in (opts, df_opts))
+    two_plain_df = pdipm.solve(qp32, two_df)
+    solve_gap = lambda a: max(float((getattr(a, n) - getattr(two_plain_df, n)).abs().max())
+                              for n in "xszy")
+    res_line = [f"2-step f32 solve vs plain df: df kernel "
+                f"{solve_gap(pdipm_cuda.solve(qp32, two_df)):.3e}, f32-residual kernel "
+                f"{solve_gap(pdipm_cuda.solve(qp32, two)):.3e} (printed)"]
+    for tag, qp_k in (("f32", qp32), ("f64", qp64)):
+        w, dirs, rhs, exact = cancellation_case(qp_k, 3)
+        pdipm_cuda.reset_counts()
+        k_df = pdipm_cuda.refine_residual(qp_k, w, *dirs, *rhs, df_opts)
+        k_f32 = pdipm_cuda.refine_residual(qp_k, w, *dirs, *rhs, opts)
+        check(pdipm_cuda.residual_launches["ric_aug"] == 2,
+              "the residual check did not launch K1's residual entry")
+        p_df = pdipm.refine_residual_aug(qp_k, qps.h_diag(qp_k), w, df_opts, *dirs, *rhs)
+        rel = lambda a, b: max(float((u.double() - v.double()).abs().max() / e.abs().max())
+                               for u, v, e in zip(a, b, exact))
+        bits = sum(int((u != v).sum()) for u, v in zip(k_df, p_df))
+        got, control = rel(k_df, p_df), rel(k_f32, p_df)
+        res_line.append(f"{tag} residual, b{B}: df kernel vs plain df {got:.3e} (bound "
+                        f"{DF_RES_RTOL[tag]:g}; entries differing in any bit {bits}), f32-residual "
+                        f"kernel vs plain df {control:.3e} (control)")
+        check(got <= DF_RES_RTOL[tag], f"{tag} df residual kernel differs from its plain version")
+        check(control > DF_RES_RTOL[tag],
+              f"{tag} control: the f32 residual meets the df bound, so the check cannot fail")
+        if tag == "f32":
+            # Against the float64 residual, tests/test_pdipm.py::
+            # test_df_residual_accuracy's bounds. (In f64 that reference rounds
+            # as finely as the kernel's own residual, so it is left out.)
+            to_exact, control_exact = rel(k_df, exact), rel(k_f32, exact)
+            res_line.append(f"vs the f64 residual: df kernel {to_exact:.3e}, f32-residual kernel "
+                            f"{control_exact:.3e}")
+            check(to_exact <= 1e-6 and to_exact <= control_exact / 100,
+                  "f32 df residual kernel is not compensated")
+    print("[K4 residual] relative to each component's largest f64 residual: "
+          + "; ".join(res_line))
+
     # 5. Main path: MPCController at b4096 on the card, default solver (K1).
     obs = torch.tensor(hector_obs(B), device=dev)
     twist = torch.zeros(B, 3, device=dev)
@@ -260,8 +498,7 @@ def main() -> int:
                          device=dev)
     ctrl.set_command(twist, height)
     phase0 = ctrl.state.gait_phase.clone()
-    for k in pdipm_cuda.launches:
-        pdipm_cuda.launches[k] = 0
+    pdipm_cuda.reset_counts()
     n_mpc, first_wrench, tau_ok = walk(ctrl, obs, TICKS, limit)
     torch.cuda.synchronize()
     launches = dict(pdipm_cuda.launches)
@@ -294,8 +531,7 @@ def main() -> int:
     hctrl = MPCController(ControllerConf(), hyb_conf, num_envs=B, gait_id=2, device=dev)
     hctrl.set_command(twist, height)
     stats = []
-    for k in pdipm_cuda.launches:
-        pdipm_cuda.launches[k] = 0
+    pdipm_cuda.reset_counts()
     h_mpc, h_first, h_tau_ok = walk(hctrl, obs, HYBRID_TICKS, limit,
                                     on_solve=lambda: stats.append(hctrl.hybrid_stats))
     torch.cuda.synchronize()
@@ -324,6 +560,57 @@ def main() -> int:
     print(f"[hybrid path vs CPU plain f64] first-solve wrench max |d| {h_dw:.3e} N over 8 envs; "
           f"CPU hybrid_stats {href.hybrid_stats}")
 
+    # 6b. Adaptive main path: MPCConf(adaptive_tol=1e-2), chunks of 5 (K1 with
+    # the warm entry K3, gated on the device).
+    ad_conf = MPCConf(adaptive_tol=WALK_TOL, verbose=False)
+    actrl = MPCController(ControllerConf(), ad_conf, num_envs=B, gait_id=2, device=dev)
+    actrl.set_command(twist, height)
+    per_solve = []
+    pdipm_cuda.reset_counts()
+    a_mpc, a_first, a_tau_ok = walk(actrl, obs, ADAPTIVE_TICKS, limit, on_solve=lambda: per_solve.append(
+        (pdipm_cuda.launches["ric_aug"], pdipm_cuda.chunks_ran()["ric_aug"])))
+    torch.cuda.synchronize()
+    a_launches = dict(pdipm_cuda.launches)
+    ran_per_solve = np.diff([0] + [r for _, r in per_solve]).tolist()
+    issued_per_solve = np.diff([0] + [n for n, _ in per_solve]).tolist()
+    a_fz = -a_first[:, :, 2]
+    print(f"[adaptive path] MPCController adaptive_tol={WALK_TOL:g} b{B}, {ADAPTIVE_TICKS} ticks: "
+          f"run_mpc {a_mpc}, kernel launches {a_launches} (all warm), chunks ran per "
+          f"solve {ran_per_solve} of {issued_per_solve} issued; tau finite and within limits: "
+          f"{a_tau_ok}; first solve fz left [{float(a_fz[:, 0].min()):.2f}, "
+          f"{float(a_fz[:, 0].max()):.2f}] N, right swing max |fz| "
+          f"{float(a_fz[:, 1].abs().max()):.3e} N; vs default first solve max |d| "
+          f"{float((a_first - first_wrench).abs().max()):.3e} N")
+    check(a_launches == {"ric_aug": 4 * a_mpc, "ric": 0},
+          "the adaptive path did not issue 4 warm K1 launches per run_mpc")
+    check(all(1 <= r <= 4 for r in ran_per_solve), "adaptive chunks ran out of range")
+    check(a_tau_ok, "adaptive joint torques not finite or beyond the torque limits")
+    check(bool((a_fz[:, 1].abs() < 1.0).all()), "adaptive: swinging right foot carries force")
+    check(bool((a_first[:, 0, 2] < -50.0).all()), "adaptive: stance left foot not loaded")
+
+    # adaptive_tol = 0 forced through the adaptive route: the default wrench.
+    fctrl = MPCController(ControllerConf(), MPCConf(verbose=False), num_envs=B, gait_id=2,
+                          device=dev)
+    fctrl.set_command(twist, height)
+    fctrl.update_state(obs)
+    _, f_xref, f_qp = fctrl.core.assemble_mpc(fctrl.state)
+    f_out = mpc.postprocess_solution(f_qp, pdipm_cuda.solve_adaptive(f_qp, fctrl.core.opts, 0.0),
+                                     fctrl.state.est.rotation_body, f_xref,
+                                     fctrl.core.mpc_cfg.horizon_length,
+                                     contact_frame=fctrl.core.mpc_cfg.contact_frame)
+    f_dw = float((f_out.wrench - first_wrench).abs().max())
+    aref = MPCController(ControllerConf(), ad_conf, num_envs=8, gait_id=2, dtype=torch.float64,
+                         device="cpu")
+    aref.set_command(twist[:8].cpu(), height[:8].cpu())
+    aref.update_state(obs[:8].cpu())
+    aref.run_mpc()
+    a_dw = float((a_first[:8].cpu().double() - aref.ground_reaction_wrench).abs().max())
+    print(f"[adaptive path checks] tol 0 through the adaptive route vs default first-solve wrench: "
+          f"max |d| {f_dw:.3e} N (bitwise: {bool(torch.equal(f_out.wrench, first_wrench))}); "
+          f"first solve vs CPU plain f64 on 8 envs: max |d| {a_dw:.3e} N (bound {F32_U0_ATOL})")
+    check(torch.equal(f_out.wrench, first_wrench), "adaptive route at tol 0 differs from default")
+    check(a_dw <= F32_U0_ATOL, "first adaptive wrench differs from the CPU reference")
+
     # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
     k64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, opts), 10)
@@ -341,6 +628,15 @@ def main() -> int:
     k1_sub = cuda_ms(lambda: pdipm_cuda.solve(sub32, opts), 20)
     mpc_ms = cuda_ms(ctrl.run_mpc, 10)
     hmpc_ms = cuda_ms(hctrl.run_mpc, 10)
+    ad0 = cuda_ms(lambda: pdipm_cuda.solve_adaptive(qp32, opts, 0.0), 20)
+    ad0_ric = cuda_ms(lambda: pdipm_cuda.solve_adaptive(ric_qp32, ric, 0.0), 20)
+    r32_sub = cuda_ms(lambda: pdipm_cuda.solve(ric_qp32, ric), 20)
+    adw = cuda_ms(lambda: pdipm_cuda.solve_adaptive(qp32, opts, WALK_TOL), 20)
+    ad0_plain = cuda_ms(lambda: pdipm.solve_adaptive_batch(qp32, opts, 0.0), 3)
+    df_ms = cuda_ms(lambda: pdipm_cuda.solve(qp32, df_opts), 20)
+    df_plain_ms = cuda_ms(lambda: pdipm.solve(qp32, df_opts), 3)
+    k32_again = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
+    amp_ms = cuda_ms(actrl.run_mpc, 10)
 
     def tick():
         ctrl.update_state(obs)
@@ -360,6 +656,13 @@ def main() -> int:
     print(f"[times] {label}: MPCController b{B} f32: run_mpc {mpc_ms:.3f} ms, hybrid run_mpc "
           f"{hmpc_ms:.3f} ms, 1 kHz tick (update_state + run_lowlevel + get_action) "
           f"{tick_ms:.3f} ms")
+    print(f"[times] {label}: b{B} f32 solve_adaptive tol 0 (4 launches): K1 {ad0:.3f} ms vs "
+          f"fixed {k32:.3f} ms, K2 on its {ric_qp32.f.shape[0]} finite envs {ad0_ric:.3f} ms vs "
+          f"fixed {r32_sub:.3f} ms, plain (K1 route) {ad0_plain:.3f} "
+          f"ms; tol {WALK_TOL:g} (K1, {walk_chunks['K1']} chunks ran) {adw:.3f} ms; adaptive "
+          f"run_mpc {amp_ms:.3f} ms")
+    print(f"[times] {label}: b{B} f32 K1 with the df residual {df_ms:.3f} ms vs f32 residual "
+          f"{k32_again:.3f} ms (same run), plain df {df_plain_ms:.3f} ms")
 
     print(json.dumps({"kernels": [{
         "name": "pdipm_ric_aug",
@@ -379,6 +682,24 @@ def main() -> int:
         "max_abs_err": ric_worst64,
         "ms": r32,
         "plain_ms": rp32,
+    }, {
+        "name": "pdipm_warm_entry",
+        "route": "cuda",
+        "source": "biped_pympc_tpu_torch/csrc/pdipm_common.cuh",
+        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:316 (warm=True, via solve_adaptive:1855)",
+        "launches": a_launches["ric_aug"],
+        "max_abs_err": k3_err,
+        "ms": ad0,
+        "plain_ms": ad0_plain,
+    }, {
+        "name": "pdipm_df_residual",
+        "route": "cuda",
+        "source": "biped_pympc_tpu_torch/csrc/pdipm_common.cuh",
+        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:1290 (df_resid, refine_residual=df)",
+        "launches": df_launches,
+        "max_abs_err": df_worst64,
+        "ms": df_ms,
+        "plain_ms": df_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

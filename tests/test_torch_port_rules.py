@@ -1,11 +1,16 @@
 """Rules of the torch port that hold without the card: no jax imports, the
-CPU / CUDA dispatch of the PDIPM, the build helper's errors. The one test
-marked `cuda` holds each kernel against the plain version on the card
-(`python -m pytest tests/test_torch_port_rules.py -m cuda --noconftest` on a
-GPU machine, which has no jax for `tests/conftest.py`)."""
+CPU / CUDA dispatch of the PDIPM, the build helper's errors, the kernels' C
+interface. The tests marked `cuda` hold each kernel against the plain
+version on the card: cold and warm starts, chunked launches, the adaptive
+gate and the compensated residual (`python -m pytest
+tests/test_torch_port_rules.py -m cuda --noconftest` on a GPU machine, which
+has no jax for `tests/conftest.py`)."""
 
 import ast
+import ctypes
+import dataclasses
 import pathlib
+import re
 import types
 
 import numpy as np
@@ -35,6 +40,48 @@ def test_port_file_imports_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "biped_pympc_tpu"), (path, mod)
+
+
+def test_port_file_scan_covers_the_new_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"biped_pympc_tpu_torch/ops/df.py", "biped_pympc_tpu_torch/ops/pdipm_cuda.py",
+            "chip_smoke.py"} <= names
+
+
+_C_TYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "double": ctypes.c_double}
+
+
+def _c_entry_params(source: str, name: str):
+    """Parameter types of `int name(...)` in a kernel source's extern "C"
+    block, as ctypes types."""
+    m = re.search(rf"\bint {name}\((.*?)\)\s*\{{", source, flags=re.S)
+    assert m, name
+    kinds = []
+    for param in m.group(1).split(","):
+        decl = param.strip()
+        kinds.append("ptr" if "*" in decl else decl.split()[0])
+    return [_C_TYPES[k] for k in kinds]
+
+
+@pytest.mark.parametrize("backend", sorted(pdipm_cuda.SOURCES))
+def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
+    """`load_library` declares each entry with the types and arity the
+    source defines (a pointer passed as c_int would be cut to 32 bits)."""
+    source = pathlib.Path(pdipm_cuda.SOURCES[backend]).read_text()
+    extern_c = source[source.index('extern "C" {'):]
+    names = [f"pdipm_{backend}_{suffix}" for suffix in ("f32", "f64")]
+    if backend == "ric_aug":
+        names += [f"pdipm_ric_aug_residual_{suffix}" for suffix in ("f32", "f64")]
+    fake = types.SimpleNamespace(**{
+        name: types.SimpleNamespace()
+        for name in names + [f"pdipm_{backend}_smem_bytes", f"pdipm_{backend}_error_string"]})
+    monkeypatch.setattr(pdipm_cuda.ctypes, "CDLL", lambda path: fake)
+    lib = pdipm_cuda.load_library("unused.so", backend)
+    for name in names:
+        assert getattr(lib, name).argtypes == _c_entry_params(extern_c, name), name
+        assert getattr(lib, name).restype is ctypes.c_int
+    assert len(pdipm_cuda.ENTRY_ARGTYPES) == 26
+    assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
 def _qp(batch, dtype, device="cpu", horizon=10):
@@ -133,3 +180,101 @@ def test_kernel_matches_plain_on_card(horizon, refine_steps, backend):
     for name in "xszy":
         torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-7)
     torch.testing.assert_close(got.residuals, want.residuals, rtol=1e-6, atol=1e-10)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(getattr(a, n), getattr(b, n)) for n in ("x", "s", "z", "y", "residuals"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ric_aug", "ric"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_warm_chunks_bit_equal_fixed_on_card(dtype, backend):
+    """Four warm 5-step launches == one 20-step launch, bit for bit; and the
+    adaptive solve at tol=0 is the same solve in 4 gated launches."""
+    _card()
+    qp = _qp(64, dtype, "cuda")
+    opts = pdipm.PdipmOptions(backend=backend)
+    fixed = pdipm_cuda.solve(qp, opts)
+    five = dataclasses.replace(opts, iterations=5)
+    res = pdipm_cuda.solve(qp, five)
+    for _ in range(3):
+        res = pdipm_cuda.solve(qp, five, pdipm.PdipmState(res.x, res.s, res.z, res.y))
+    assert _bit_equal(res, fixed)
+    pdipm_cuda.reset_counts()
+    adaptive = pdipm_cuda.solve_adaptive(qp, opts, 0.0)
+    assert pdipm_cuda.launches[backend] == 4 and pdipm_cuda.chunks_ran()[backend] == 4
+    assert _bit_equal(adaptive, fixed)
+    pdipm_cuda.reset_counts()
+    one = pdipm_cuda.solve_adaptive(qp, opts, 1e12)
+    assert pdipm_cuda.launches[backend] == 4 and pdipm_cuda.chunks_ran()[backend] == 1
+    assert _bit_equal(one, pdipm_cuda.solve(qp, five))
+
+
+def _cancellation_case(qp, seed=3):
+    """Residual inputs at late-iteration scales: W over 1e-6..1e6, directions
+    ~30, r = K d + a 1e-4 true residual (K d in f64 from the rounded data),
+    so r - K d cancels nearly every digit. Returns (w, dirs, rhs)."""
+    rng = np.random.default_rng(seed)
+    nb, dtype, dev = qp.f.shape[0], qp.f.dtype, qp.f.device
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=dev)
+    w = t(10.0 ** rng.uniform(-6, 6, (nb, qp.n_ineq)))
+    dirs = [t(rng.standard_normal((nb, n)) * 30) for n in (qp.nz, qp.n_ineq, qp.n_eq)]
+    f = lambda v: v.to(torch.float64)
+    q64 = dataclasses.replace(qp, q_diag=f(qp.q_diag), r_diag=f(qp.r_diag), f=f(qp.f), b0=f(qp.b0),
+                              g_u=f(qp.g_u), d=f(qp.d), dyn=dataclasses.replace(
+                                  qp.dyn, A=f(qp.dyn.A), B=f(qp.dyn.B), c=f(qp.dyn.c)))
+    neg_kd = pdipm.refine_residual_aug(q64, qps.h_diag(q64), f(w), pdipm.PdipmOptions(),
+                                       *map(f, dirs), *[torch.zeros_like(f(v)) for v in dirs])
+    rhs = [(t(rng.standard_normal(tuple(m.shape)) * 1e-4, torch.float64) - m).to(dtype)
+           for m in neg_kd]
+    return w, dirs, rhs
+
+
+def test_refine_residual_on_cpu_is_the_plain_version():
+    qp = _qp(3, torch.float32)
+    w, dirs, rhs = _cancellation_case(qp)
+    for kind in pdipm.REFINE_RESIDUALS:
+        opts = pdipm.PdipmOptions(refine_residual=kind)
+        got = pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, opts)
+        want = pdipm.refine_residual_aug(qp, qps.h_diag(qp), w, opts, *dirs, *rhs)
+        assert all(torch.equal(g, v) for g, v in zip(got, want)), kind
+    with pytest.raises(ValueError, match="aug"):
+        pdipm_cuda.refine_residual(qp, w, *dirs, *rhs,
+                                   pdipm.PdipmOptions(backend="ric", refine_residual="df"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_df_kernel_matches_plain_on_card(dtype):
+    """The compensated refinement residual on K1 vs its plain version. On the
+    cancellation case, K1's residual code (through its residual entry) must
+    match the plain df version, every error-free step its own torch op, to
+    1e-6 (f32) / 1e-9 (f64) of the largest residual, and the f32 residual, the
+    control, must miss that bound. The solve (eight steps, as
+    test_kernel_matches_plain_on_card) is held at f64 to 1e-7, and at f32
+    against the f64 plain df solve at chip_smoke.py's GRF bound, 0.5 N."""
+    _card()
+    qp = _qp(64, dtype, "cuda")
+    opts = pdipm.PdipmOptions(iterations=8, refine_residual="df")
+    w, dirs, rhs = _cancellation_case(qp)
+    plain = pdipm.refine_residual_aug(qp, qps.h_diag(qp), w, opts, *dirs, *rhs)
+    rel = lambda got: max(float((g - p).abs().max() / p.abs().max()) for g, p in zip(got, plain))
+    bound = 1e-6 if dtype == torch.float32 else 1e-9
+    assert rel(pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, opts)) <= bound
+    control = pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, pdipm.PdipmOptions())
+    assert rel(control) > bound
+    got = pdipm_cuda.solve(qp, opts)
+    want = pdipm.solve(_qp(64, torch.float64, "cuda"), opts)
+    torch.cuda.synchronize()
+    atol = 1e-7 if dtype == torch.float64 else 0.5
+    for name in "xszy":
+        torch.testing.assert_close(getattr(got, name).double(), getattr(want, name), rtol=0,
+                                   atol=atol)
+    with pytest.raises(ValueError, match="aug"):
+        pdipm_cuda.solve(qp, dataclasses.replace(opts, backend="ric"))
