@@ -21,10 +21,13 @@ _DEFAULT_Q = (150.0, 150.0, 250.0, 100.0, 100.0, 250.0, 1.0, 1.0, 5.0, 10.0, 10.
 _DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4)
 
 # "ric_aug" / "pallas_ric_aug" select the augmented foot-split Riccati PDIPM,
-# "ric" / "pallas_ric" the condensed one, and "pallas_hybrid" the condensed
-# pass with a budgeted augmented re-solve: each the hand-written CUDA kernel
+# "ric" / "pallas_ric" the condensed one, "pallas_hybrid" the condensed
+# pass with a budgeted augmented re-solve, "tridiag_aug" / "pallas_aug" the
+# augmented block-Thomas PDIPM (42-wide stage blocks) and "tridiag" /
+# "pallas" the condensed one (26-wide): each the hand-written CUDA kernel
 # for CUDA tensors, its plain torch version for CPU tensors.
-SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_hybrid")
+SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_hybrid",
+                  "tridiag_aug", "pallas_aug", "tridiag", "pallas")
 
 
 @dataclass(frozen=True)

@@ -24,12 +24,12 @@ from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
 
 # JAX solver names not ported yet, with the ROADMAP item that ports them.
-_K5 = "Queue 2, K5 (the kernel's other routes)"
-_SOLVERS_LATER = {name: _K5 for name in (
-    "tridiag", "tridiag_aug", "dense", "pallas", "pallas_aug", "pallas_ric2")}
+_SOLVERS_LATER = {"dense": "Queue 1, item 15 (dense)",
+                  "pallas_ric2": "Queue 2, item 1 (K5c, factor_ric2)"}
 # Route of each ported solver name (`biped_pympc_tpu/control/controller.py:121`);
 # "pallas_hybrid" runs the condensed route first and re-solves with "ric_aug".
-_BACKEND = {"pallas_ric": "ric", "pallas_ric_aug": "ric_aug", "pallas_hybrid": "ric"}
+_BACKEND = {"pallas_ric": "ric", "pallas_ric_aug": "ric_aug", "pallas_hybrid": "ric",
+            "pallas": "tridiag", "pallas_aug": "tridiag_aug"}
 
 
 def _check_solver(name: str) -> None:
@@ -75,8 +75,21 @@ class ControllerState:
     residual_B: torch.Tensor | None = None  # (B, 12, 12)
 
 
+def resolve_device(device) -> torch.device:
+    """The controller's device: `device` as given, or the current CUDA device
+    when it is None. Without a card, None raises: the CPU runs only when the
+    caller asks for it (`device="cpu"`)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device=\"cpu\" to run the "
+                           "controller on the CPU (the plain torch solver)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class BipedControllerCore:
-    """Static configuration and the batched step functions."""
+    """Static configuration and the batched step functions. `device` None
+    selects the card (`resolve_device`)."""
 
     def __init__(self, cfg: ControllerConf, mpc_cfg: MPCConf, gait_id: int = 1,
                  dtype=torch.float32, device=None):
@@ -87,7 +100,7 @@ class BipedControllerCore:
         self.mpc_cfg = mpc_cfg
         self.gait_id = gait_id
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.robot: RobotSpec = get_robot(mpc_cfg.robot)
         self.num_dof = self.robot.num_dof
         self.opts = PdipmOptions(iterations=mpc_cfg.newton_iterations,

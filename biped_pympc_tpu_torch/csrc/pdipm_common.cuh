@@ -1,5 +1,8 @@
-// Device code shared by the PDIPM kernels (pdipm_ric_aug.cu, pdipm_ric.cu):
-// the QP's structured operators, block reductions, the in-place Jordan
+// Device code shared by the PDIPM kernels (pdipm_ric_aug.cu, pdipm_ric.cu,
+// and pdipm_tridiag.cuh, which pdipm_tridiag.cu and pdipm_tridiag_aug.cu
+// include): the QP's structured operators, block reductions, the
+// compensated arithmetic and the refinement residual of the augmented
+// system, the warm / cold load and the gate, the in-place 12-wide Jordan
 // inverse, the dual-Riccati y-chain and its sweeps, and the
 // fraction-to-boundary rule. Each kernel owns its shared-memory `Layout`;
 // the operators read only its fields T, gu, ad and bd.
@@ -283,6 +286,48 @@ __device__ S df_e4_entry(const S* sm, const Layout& L, int e, S r, S delta, cons
   a.add(-dx[NX_ * T + NU_ * t + (k % NMX_ == 0 ? 6 : 9)]);
   a.add_prod(delta, dy[e]);
   return a.value();
+}
+
+// Refinement residual of the augmented reduced system into (e1, ez, e4):
+//   e1 = r1 - [(hd + beta) dx + G^T dz + A^T dy],  ez = rz - [G dx - W dz],
+//   e4 = r4 - [A dx - delta dy],
+// from the layout's r1, rz, r4, hd and w, in the working precision or, with
+// refine_df, as one compensated (sum, error) pair per component. Ends
+// synchronized. K1's residual entry (pdipm_ric_aug_residual_*) runs it alone;
+// the augmented solves of K1 and K5b call it.
+template <typename S, typename Layout>
+__device__ void refine_residual(S* sm, const Layout& L, bool refine_df, S beta, S delta,
+                                const S* dx, const S* dz, const S* dy) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const S* r1 = sm + L.r1;
+  const S* rz = sm + L.rz;
+  const S* r4 = sm + L.r4;
+  const S* hd = sm + L.hd;
+  const S* w = sm + L.w;
+  S* e1 = sm + L.e1;
+  S* ez = sm + L.ez;
+  S* e4 = sm + L.e4;
+  const int nz = L.nz, ni = L.ni, ne = L.ne;
+  for (int it = tid; it < nz + ni + ne; it += nt) {
+    if (refine_df) {
+      if (it < nz) e1[it] = df_e1_entry(sm, L, it, r1[it], hd[it], beta, dx, dz, dy);
+      else if (it < nz + ni) ez[it - nz] = df_ez_entry(sm, L, it - nz, rz[it - nz], w[it - nz], dx, dz);
+      else e4[it - nz - ni] = df_e4_entry(sm, L, it - nz - ni, r4[it - nz - ni], delta, dx, dy);
+    } else if (it < nz) {
+      const int i = it;
+      S mv = (hd[i] + beta) * dx[i] + gT_entry(sm, L, i, dz) + aT_entry(sm, L, i, dy);
+      e1[i] = r1[i] - mv;
+    } else if (it < nz + ni) {
+      const int k = it - nz;
+      S mv = g_entry(sm, L, k, dx) - w[k] * dz[k];
+      ez[k] = rz[k] - mv;
+    } else {
+      const int e = it - nz - ni;
+      S mv = a_entry(sm, L, e, dx) - delta * dy[e];
+      e4[e] = r4[e] - mv;
+    }
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

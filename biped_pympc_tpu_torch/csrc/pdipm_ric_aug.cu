@@ -276,47 +276,6 @@ __device__ void solve_aug(S* sm, const Layout& L, const S* r1, const S* rz, cons
   __syncthreads();
 }
 
-// Refinement residual of the augmented reduced system into (e1, ez, e4):
-//   e1 = r1 - [(hd + beta) dx + G^T dz + A^T dy],  ez = rz - [G dx - W dz],
-//   e4 = r4 - [A dx - delta dy],
-// from the layout's r1, rz, r4, hd and w, in the working precision or, with
-// refine_df, as one compensated (sum, error) pair per component. Ends
-// synchronized. The residual entry (pdipm_ric_aug_residual_*) runs it alone.
-template <typename S>
-__device__ void refine_residual(S* sm, const Layout& L, bool refine_df, S beta, S delta,
-                                const S* dx, const S* dz, const S* dy) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const S* r1 = sm + L.r1;
-  const S* rz = sm + L.rz;
-  const S* r4 = sm + L.r4;
-  const S* hd = sm + L.hd;
-  const S* w = sm + L.w;
-  S* e1 = sm + L.e1;
-  S* ez = sm + L.ez;
-  S* e4 = sm + L.e4;
-  const int nz = L.nz, ni = L.ni, ne = L.ne;
-  for (int it = tid; it < nz + ni + ne; it += nt) {
-    if (refine_df) {
-      if (it < nz) e1[it] = df_e1_entry(sm, L, it, r1[it], hd[it], beta, dx, dz, dy);
-      else if (it < nz + ni) ez[it - nz] = df_ez_entry(sm, L, it - nz, rz[it - nz], w[it - nz], dx, dz);
-      else e4[it - nz - ni] = df_e4_entry(sm, L, it - nz - ni, r4[it - nz - ni], delta, dx, dy);
-    } else if (it < nz) {
-      const int i = it;
-      S mv = (hd[i] + beta) * dx[i] + gT_entry(sm, L, i, dz) + aT_entry(sm, L, i, dy);
-      e1[i] = r1[i] - mv;
-    } else if (it < nz + ni) {
-      const int k = it - nz;
-      S mv = g_entry(sm, L, k, dx) - w[k] * dz[k];
-      ez[k] = rz[k] - mv;
-    } else {
-      const int e = it - nz - ni;
-      S mv = a_entry(sm, L, e, dx) - delta * dy[e];
-      e4[e] = r4[e] - mv;
-    }
-  }
-  __syncthreads();
-}
-
 // Reduced solve with refinement: from (r1, r2, r3, r4) in (r1, r2, -, r4)
 // buffers with rz = r3 - r2 / sigma already formed, to directions (dx, ds, dz, dy).
 template <typename S>

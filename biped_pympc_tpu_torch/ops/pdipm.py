@@ -1,16 +1,18 @@
 """Fixed-iteration Mehrotra PDIPM, plain batched torch (twin of the
 `backend="ric_aug"` and `backend="ric"` routes, `foot_split=True`, of
-`biped_pympc_tpu/ops/pdipm.py`).
+`biped_pympc_tpu/ops/pdipm.py`, and of the `backend="tridiag"` and
+`backend="tridiag_aug"` routes of the Pallas kernel,
+`biped_pympc_tpu/ops/pdipm_pallas.py`).
 
 This is the plain version of the CUDA kernels in `ops/pdipm_cuda.py`: the
 CPU path runs it, and the kernels are held against it on the card. `solve`
 starts from the cold start or from a given `PdipmState` (warm start);
 `solve_adaptive_batch` runs the solve in chunks with an early stop.
 
-Both routes eliminate the slacks s and eliminate or keep the inequality
-duals z per stage, then fold the stage blocks into a 12-wide dual-Riccati
-chain in y with coupling S = Q~^-1 Ad^T, swept forward and backward per
-solve.
+The Riccati routes eliminate the slacks s and eliminate or keep the
+inequality duals z per stage, then fold the stage blocks into a 12-wide
+dual-Riccati chain in y with coupling S = Q~^-1 Ad^T, swept forward and
+backward per solve.
 
 - "ric_aug" (augmented): per stage the [u (12), z (16), nu (2)] block
 
@@ -29,8 +31,15 @@ solve.
   same 2x2 pairs and the same scalars. Cheaper, but the 1e8 scale enters the
   SPD blocks (the f32 tail the hybrid mode re-solves, `pdipm_cuda.py`).
 
+The block-Thomas routes eliminate the x_{t+1} rows in closed form (their
+pivot Q + beta is diagonal) and factor the rest stage by stage, in order:
+the stage block holds y_t next to [u, nu] ("tridiag", 26 wide, condensed as
+"ric") or [u, z, nu] ("tridiag_aug", 42 wide, augmented as "ric_aug"), with
+the Riccati term -Ad M_{t-1} Ad^T in its y block. Each block is inverted
+whole, with partial pivoting (`pdipm_pallas.py:424-521`, `:1134-1230`).
+
 Every tensor is batch-first; the T stages are a Python loop only where the
-recursion is sequential (the y-chain and its sweeps).
+recursion is sequential (the y-chain, the Thomas factor and the sweeps).
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ FRAC_TO_BOUNDARY = 0.99
 ALPHA_MIN = 1e-12
 SZ_FLOOR = 1e-8
 
-BACKENDS = ("ric_aug", "ric")
+BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag")
+AUG_BACKENDS = ("ric_aug", "tridiag_aug")  # z kept in the stage blocks; "df" runs here
 REFINE_RESIDUALS = ("f32", "df")
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
 N_KC = NU + N_MX_PER_STAGE  # 14: [u, nu] per stage
@@ -69,10 +79,11 @@ class PdipmOptions:
     beta: float = 1e-8  # primal regularization
     delta: float = 1e-8  # dual regularization
     refine_steps: int = 1  # iterative-refinement passes per reduced solve
-    backend: str = "ric_aug"  # "ric_aug" (augmented) | "ric" (condensed)
+    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "tridiag" (condensed)
+    backend: str = "ric_aug"
     # Precision of the refinement residual r - K d: "f32" is the working
     # dtype, "df" one compensated (double-float) sum per component
-    # (`ops/df.py`). "df" runs on the augmented route only.
+    # (`ops/df.py`). "df" runs on the augmented routes only.
     refine_residual: str = "f32"
 
 
@@ -257,6 +268,120 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
     return dx, dz, dy
 
 
+@dataclass
+class _ThomasFactors:
+    s_inv: torch.Tensor  # (B, T, n, n) stage-block inverses, n = 42 or 26
+    q_inv: torch.Tensor  # (B, 12)
+
+
+def _factor_thomas(qp: StageQP, w: torch.Tensor, opts: PdipmOptions, aug: bool) -> _ThomasFactors:
+    """Block-Thomas factor (`pdipm_pallas.py:424` `factor`, `:1134`
+    `factor_aug`). w (B, T, 16) is W = Sigma^-1 + delta (aug) or W^-1
+    (condensed). Stage t's block on [u (12), z (16, aug only), nu (2), y (12)]
+
+        [[R+beta (+ G_u^T W_t^-1 G_u), G_u^T, e^T, -Bd^T],
+         [G_u, -W_t, 0, 0], [e, 0, -delta I, 0],
+         [-Bd, 0, 0, -delta I - Ad M_{t-1} Ad^T - Q~^-1]]
+
+    is inverted with partial pivoting; M_t = Q~^-1 + Q~^-1 N_yy Q~^-1 from its
+    inverse's y block N_yy, M_{-1} = 0."""
+    T = qp.horizon
+    nb = w.shape[0]
+    dtype, dev = w.dtype, w.device
+    Ad, Bd, gu = qp.dyn.A, qp.dyn.B, qp.g_u
+    nzs = N_INEQ_PER_STAGE if aug else 0
+    nnu = NU + nzs
+    ny = nnu + N_MX_PER_STAGE
+    n = ny + NX
+    q_inv = 1.0 / (qp.q_diag + opts.beta)
+    eye = torch.eye(NX, dtype=dtype, device=dev)
+    ru = torch.diag_embed(qp.r_diag + opts.beta)
+    base = torch.zeros(nb, n, n, dtype=dtype, device=dev)
+    base[:, :NU, ny:] = -Bd.transpose(-1, -2)
+    base[:, ny:, :NU] = -Bd
+    for j, nu in ((6, nnu), (9, nnu + 1)):
+        base[:, j, nu] = 1.0
+        base[:, nu, j] = 1.0
+        base[:, nu, nu] = -opts.delta
+    if aug:
+        base[:, :NU, NU:nnu] = gu.transpose(-1, -2)
+        base[:, NU:nnu, :NU] = gu
+
+    s_inv = []
+    m_prev = torch.zeros(nb, NX, NX, dtype=dtype, device=dev)
+    for t in range(T):
+        blk = base.clone()
+        if aug:
+            blk[:, :NU, :NU] = ru
+            blk[:, NU:nnu, NU:nnu] = torch.diag_embed(-w[:, t])
+        else:
+            blk[:, :NU, :NU] = (gu * w[:, t, :, None]).transpose(-1, -2) @ gu + ru
+        admadt = (Ad @ m_prev) @ Ad.transpose(-1, -2)
+        blk[:, ny:, ny:] = -opts.delta * eye - admadt - torch.diag_embed(q_inv)
+        inv = gauss_jordan_inverse(blk)
+        s_inv.append(inv)
+        m_prev = torch.diag_embed(q_inv) + q_inv[:, :, None] * inv[:, ny:, ny:] * q_inv[:, None, :]
+    return _ThomasFactors(torch.stack(s_inv, dim=1), q_inv)
+
+
+def _solve_thomas(qp: StageQP, fac: _ThomasFactors, r1, r_z, r4):
+    """Two-sweep block-Thomas solve (`pdipm_pallas.py:478` `thomas_solve`,
+    `:1183` `thomas_solve_aug`), x_{t+1} recovered per stage in closed form.
+    r_z (B, T * nzs): nzs = 16 on the augmented route, 0 on the condensed
+    one. Returns (dx (B, nz), dz (B, T * nzs), dy (B, ne))."""
+    T = qp.horizon
+    nb = r1.shape[0]
+    Ad, q_inv, s_inv = qp.dyn.A, fac.q_inv, fac.s_inv
+    n = s_inv.shape[-1]
+    ny = n - NX
+    nzs = ny - NU - N_MX_PER_STAGE
+    mv = lambda m, v: (m @ v[..., None])[..., 0]
+
+    rx = r1[:, :NX * T].reshape(nb, T, NX)
+    ru = r1[:, NX * T:].reshape(nb, T, NU)
+    ry = r4[:, :NX * T].reshape(nb, T, NX)
+    rnu = r4[:, NX * T:].reshape(nb, T, N_MX_PER_STAGE)
+    r = torch.cat([ru, r_z.reshape(nb, T, nzs), rnu, ry - q_inv[:, None] * rx], dim=2)
+
+    # Forward: g_t[y] += Ad x_{t-1}, x_{t-1} = Q~^-1 (r_x - (S^-1 g)_{t-1}[y]).
+    g = []
+    x_prev = torch.zeros(nb, NX, dtype=r1.dtype, device=r1.device)
+    for t in range(T):
+        g_t = r[:, t].clone()
+        g_t[:, ny:] += mv(Ad, x_prev)
+        g.append(g_t)
+        x_prev = q_inv * (rx[:, t] - mv(s_inv[:, t, ny:], g_t))
+    # Backward: g_t[y] -= Q~^-1 Ad^T w_y(t+1); x_t = Q~^-1 (r_x + Ad^T w_y(t+1) - w_y(t)).
+    w = [None] * T
+    xs = [None] * T
+    wy_next = torch.zeros_like(x_prev)
+    for t in range(T - 1, -1, -1):
+        adt_wy = mv(Ad.transpose(-1, -2), wy_next)
+        g_t = g[t].clone()
+        g_t[:, ny:] -= q_inv * adt_wy
+        w[t] = mv(s_inv[:, t], g_t)
+        wy_next = w[t][:, ny:]
+        xs[t] = q_inv * (rx[:, t] + adt_wy - wy_next)
+    w = torch.stack(w, dim=1)
+    xs = torch.stack(xs, dim=1)
+    dx = torch.cat([xs.reshape(nb, -1), w[:, :, :NU].reshape(nb, -1)], dim=1)
+    dz = w[:, :, NU:NU + nzs].reshape(nb, -1)
+    dy = torch.cat([w[:, :, ny:].reshape(nb, -1), w[:, :, NU + nzs:ny].reshape(nb, -1)], dim=1)
+    return dx, dz, dy
+
+
+def _stage_solver(qp: StageQP, w: torch.Tensor, opts: PdipmOptions):
+    """Factor route `opts.backend` at w (B, T, 16), W on the augmented routes
+    and W^-1 on the condensed ones; return its reduced solve
+    (r1, r_z, r4) -> (dx, dz, dy)."""
+    if opts.backend in ("tridiag", "tridiag_aug"):
+        tf = _factor_thomas(qp, w, opts, aug=opts.backend == "tridiag_aug")
+        return lambda r1, r_z, r4: _solve_thomas(qp, tf, r1, r_z, r4)
+    stage_inverse = _stage_inverse_aug if opts.backend == "ric_aug" else _stage_inverse_ric
+    fac = _factor(qp, stage_inverse(qp, w, opts), opts)
+    return lambda r1, r_z, r4: _solve_stages(qp, fac, r1, r_z, r4)
+
+
 def refine_residual_aug(qp: StageQP, hd, w_diag, opts: PdipmOptions, dx, dz, dy, r1, r_z, r4):
     """Refinement residual of the augmented reduced system, (e1, ez, e4) =
     (r1, r_z, r4) - [[H + beta, G^T, A^T], [G, -W, 0], [A, 0, -delta]] (dx, dz, dy),
@@ -281,34 +406,32 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
     mu = _dot(s, z) / ni
 
     sigma_d = z / s + opts.delta
-    if opts.backend == "ric_aug":
+    if opts.backend in AUG_BACKENDS:
         w_diag = 1.0 / sigma_d + opts.delta  # W = Sigma^-1 + delta
-        fac = _factor(qp, _stage_inverse_aug(
-            qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts), opts)
+        stage_solve = _stage_solver(qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts)
 
         def reduced_solve(r1, r2, r3, r4):
             r_z = r3 - r2 / sigma_d
-            dx, dz, dy = _solve_stages(qp, fac, r1, r_z, r4)
+            dx, dz, dy = stage_solve(r1, r_z, r4)
             for _ in range(opts.refine_steps):
                 e1, ezr, e4 = refine_residual_aug(qp, hd, w_diag, opts, dx, dz, dy, r1, r_z, r4)
-                ex, ez, ey = _solve_stages(qp, fac, e1, ezr, e4)
+                ex, ez, ey = stage_solve(e1, ezr, e4)
                 dx, dz, dy = dx + ex, dz + ez, dy + ey
             ds = (r2 - dz) / sigma_d
             return dx, ds, dz, dy
     else:
         w_inv = sigma_d / (1.0 + opts.delta * sigma_d)  # (Sigma^-1 + delta)^-1
-        fac = _factor(qp, _stage_inverse_ric(
-            qp, w_inv.reshape(-1, T, N_INEQ_PER_STAGE), opts), opts)
+        stage_solve = _stage_solver(qp, w_inv.reshape(-1, T, N_INEQ_PER_STAGE), opts)
         no_z = x.new_zeros(x.shape[0], 0)
 
         def reduced_solve(r1, r2, r3, r4):
             r1_hat = r1 + qps.gT_matvec(qp, w_inv * (r3 - r2 / sigma_d))
-            dx, _, dy = _solve_stages(qp, fac, r1_hat, no_z, r4)
+            dx, _, dy = stage_solve(r1_hat, no_z, r4)
             for _ in range(opts.refine_steps):
                 m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, w_inv * qps.g_matvec(qp, dx)) \
                     + qps.aT_matvec(qp, dy)
                 m2 = qps.a_matvec(qp, dx) - opts.delta * dy
-                ex, _, ey = _solve_stages(qp, fac, r1_hat - m1, no_z, r4 - m2)
+                ex, _, ey = stage_solve(r1_hat - m1, no_z, r4 - m2)
                 dx, dy = dx + ex, dy + ey
             dz = w_inv * (qps.g_matvec(qp, dx) + r2 / sigma_d - r3)
             ds = (r2 - dz) / sigma_d
@@ -338,14 +461,14 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
 
 def check_options(opts: PdipmOptions) -> None:
     """Raise ValueError for a route or residual precision these solvers lack
-    (`biped_pympc_tpu/ops/pdipm.py:1185-1199`)."""
+    (`biped_pympc_tpu/ops/pdipm.py:1185-1199`, `pdipm_pallas.py:1589-1595`)."""
     if opts.backend not in BACKENDS:
         raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of {BACKENDS}")
     if opts.refine_residual not in REFINE_RESIDUALS:
         raise ValueError(f"unknown refine_residual {opts.refine_residual!r}; expected one of "
                          f"{REFINE_RESIDUALS}")
-    if opts.refine_residual == "df" and opts.backend != "ric_aug":
-        raise ValueError("refine_residual='df' is implemented for the aug backend only "
+    if opts.refine_residual == "df" and opts.backend not in AUG_BACKENDS:
+        raise ValueError("refine_residual='df' is implemented for the aug backends only "
                          f"(got backend={opts.backend!r}); see PdipmOptions.refine_residual")
 
 

@@ -1,14 +1,17 @@
 """The PDIPM as hand-written CUDA kernels, and the hybrid speed mode (twin of
-`biped_pympc_tpu/ops/pdipm_pallas.py`, routes `backend="ric_aug"` and
-`backend="ric"`, `foot_split=True`).
+`biped_pympc_tpu/ops/pdipm_pallas.py`: routes `backend="ric_aug"` and
+`backend="ric"` with `foot_split=True`, and the block-Thomas routes
+`backend="tridiag_aug"` and `backend="tridiag"`).
 
 `solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
-the kernel of `opts.backend` (`csrc/pdipm_ric_aug.cu` or `csrc/pdipm_ric.cu`,
-one thread block per env), CPU tensors run the plain version `ops/pdipm.py`.
-There is no fallback between the two: a failed build or launch raises. A
-given `state` is the warm start; `opts.refine_residual="df"` selects the
-compensated refinement residual (augmented route only). `refine_residual`
-runs that residual alone, through the same device code, as a check of it.
+the kernel of `opts.backend` (`csrc/pdipm_ric_aug.cu`, `csrc/pdipm_ric.cu`,
+`csrc/pdipm_tridiag_aug.cu` or `csrc/pdipm_tridiag.cu`, one thread block per
+env), CPU tensors run the plain version `ops/pdipm.py`. There is no fallback
+between the two: a failed build or launch raises, and so does a horizon and
+dtype whose layout does not fit in a block's shared memory. A given `state`
+is the warm start; `opts.refine_residual="df"` selects the compensated
+refinement residual (augmented routes only). `refine_residual` runs that
+residual alone, through the same device code, as a check of it.
 
 `solve_adaptive` runs the solve in warm-started chunks with an early stop
 (`pdipm_pallas.solve_adaptive`). On the card every chunk is issued at once;
@@ -42,10 +45,13 @@ from biped_pympc_tpu_torch.ops.qp import StageQP
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-# Kernel source of each route; every source includes HEADERS.
+# Kernel source of each route; every source includes HEADERS (the block-Thomas
+# sources one width each of `pdipm_tridiag.cuh`).
 SOURCES = {"ric_aug": os.path.join(_CSRC, "pdipm_ric_aug.cu"),
-           "ric": os.path.join(_CSRC, "pdipm_ric.cu")}
-HEADERS = (os.path.join(_CSRC, "pdipm_common.cuh"),)
+           "ric": os.path.join(_CSRC, "pdipm_ric.cu"),
+           "tridiag_aug": os.path.join(_CSRC, "pdipm_tridiag_aug.cu"),
+           "tridiag": os.path.join(_CSRC, "pdipm_tridiag.cu")}
+HEADERS = (os.path.join(_CSRC, "pdipm_common.cuh"), os.path.join(_CSRC, "pdipm_tridiag.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -60,11 +66,11 @@ residual_launches = {"ric_aug": 0}
 # one int32 each on the device, added to by the kernel itself (`chunks_ran`).
 _ran: dict = {}
 
-# C interface of `pdipm_<route>_<f32|f64>` in both libraries: the QP inputs
+# C interface of `pdipm_<route>_<f32|f64>` in every library: the QP inputs
 # hd, f, Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (null: cold start);
 # the outputs x, s, z, y, res; the gate go and the counter ran (null: always
 # run, no count); then batch, T, iterations, refine_steps, refine_df, beta,
-# delta and the stream. The condensed route takes the same arguments; its
+# delta and the stream. The condensed routes take the same arguments; their
 # refine_df must be 0, which `pdipm.check_options` ensures before any launch.
 ENTRY_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2
                   + [ctypes.c_void_p])
@@ -163,6 +169,13 @@ def _library(backend: str) -> ctypes.CDLL:
     return _libs[backend]
 
 
+def smem_bytes(backend: str, horizon: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory one env of route `backend` needs at `horizon`
+    in `dtype`, from the kernel library's own layout (builds it)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return getattr(_library(backend), f"pdipm_{backend}_smem_bytes")(horizon, size)
+
+
 def _inputs(qp: StageQP) -> list:
     """The kernel's QP inputs, batch-first and contiguous: hd, f, Ad, Bd, b,
     G_u, d. Checks their shapes and types."""
@@ -209,8 +222,9 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     name = f"pdipm_{opts.backend}"
     smem = getattr(lib, f"{name}_smem_bytes")(T, qp.f.element_size())
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"horizon {T} needs {smem} B of shared memory per env; "
-                         f"the H100 gives a block at most {MAX_SMEM_PER_BLOCK} B")
+        raise ValueError(f"route {opts.backend!r} at horizon {T} in {qp.f.dtype} needs {smem} B "
+                         f"of shared memory per env; an H100 block has at most "
+                         f"{MAX_SMEM_PER_BLOCK} B")
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = getattr(lib, f"{name}_f32" if qp.f.dtype == torch.float32 else f"{name}_f64")
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],

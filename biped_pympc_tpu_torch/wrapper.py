@@ -1,10 +1,13 @@
 """RL-facing `MPCController` (twin of `biped_pympc_tpu/wrapper.py`).
 
 A stateful shell around `BipedControllerCore`: it owns a `ControllerState`
-on one device and forwards each call.
+on one device and forwards each call. It runs on the card (the current CUDA
+device) unless the caller asks for the CPU with `device="cpu"`; with no
+device given and no card it raises.
 
-    ctrl = MPCController(ControllerConf(), MPCConf(), num_envs=4096, gait_id=2,
-                         device="cuda")
+    ctrl = MPCController(ControllerConf(), MPCConf(), num_envs=4096, gait_id=2)
+    # on the CPU, with the plain torch solver:
+    # MPCController(ControllerConf(), MPCConf(), num_envs=8, gait_id=2, device="cpu")
     ctrl.set_command(twist, height)
     ctrl.update_state(obs)          # every sim step (1 kHz)
     if step % mpc_cfg.decimation == 0:
@@ -35,7 +38,7 @@ class MPCController:
     """Batched biped MPC controller (`mpc_wrapper.py:4-12`)."""
 
     def __init__(self, cfg: ControllerConf, mpc_cfg: MPCConf, num_envs: int,
-                 gait_id: int = 1, dtype=torch.float32, device="cpu"):
+                 gait_id: int = 1, dtype=torch.float32, device=None):
         self.num_envs = num_envs
         self.core = BipedControllerCore(cfg, mpc_cfg, gait_id=gait_id, dtype=dtype,
                                         device=device)

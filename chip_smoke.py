@@ -3,23 +3,29 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It builds both PDIPM kernels with nvcc (the
-augmented route K1, `biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`, and the
-condensed route K2, `csrc/pdipm_ric.cu`, both with the warm entry K3 and K1
-with the compensated refinement residual K4), holds each against its plain
+Run from the repository root. It builds the four PDIPM kernels with nvcc,
+one process per source, all at once: the augmented Riccati route K1
+(`biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`), the condensed Riccati route
+K2 (`csrc/pdipm_ric.cu`), the condensed block-Thomas route K5a
+(`csrc/pdipm_tridiag.cu`) and the augmented one K5b
+(`csrc/pdipm_tridiag_aug.cu`), all with the warm entry K3, and K1 and K5b
+with the compensated refinement residual K4. It holds each against its plain
 PyTorch version on a randomized b4096 QP batch (K4 also alone, on residuals
 that cancel nearly every digit, with the f32 residual as a control that must
 miss the bound), checks that warm-started chunks reproduce the fixed solve
-bit for bit and that the adaptive solve stops where the JAX loop does
-without waiting for the device, drives `MPCController` (HECTOR, walking
-gait, 4096 envs) on the card with the default solver for 200 ticks, with the hybrid speed mode (K2 everywhere, K1
-re-solves) for 100 ticks and with the adaptive solve for 100 ticks, checks
-that every solve went through the kernels and that the outputs are sane, and
-times the kernels, the plain versions, the hybrid and adaptive solves,
-`run_mpc` and one 1 kHz tick. Each phase prints one line of findings; any
-failure raises and the script exits non-zero. It exits non-zero without a
-result when no CUDA device is visible. The last line is a JSON object naming
-the device.
+bit for bit, that the adaptive solve stops where the JAX loop does without
+waiting for the device, and that a layout over a block's shared memory
+raises before any launch. It drives `MPCController` (HECTOR, walking gait,
+4096 envs) on the card with the default solver for 200 ticks, with the
+hybrid speed mode (K2 everywhere, K1 re-solves) for 100 ticks, with the
+adaptive solve for 100 ticks, with `solver="pallas_aug"` (K5b) for 100 ticks
+and with `solver="pallas"` (K5a) for 50, checks that every solve went
+through the kernels and that the outputs are sane, and times the kernels,
+the plain versions, the hybrid and adaptive solves, `run_mpc` and one 1 kHz
+tick, each kernel beside its bound. Each phase prints one line of findings;
+any failure raises and the script exits non-zero. It exits non-zero without
+a result when no CUDA device is visible. The last line is a JSON object
+naming the device.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +45,7 @@ B = 4096
 TICKS = 200
 HYBRID_TICKS = 100
 ADAPTIVE_TICKS = 100
+THOMAS_TICKS = {"pallas_aug": 100, "pallas": 50}  # the block-Thomas main paths
 WALK_TOL = 1e-2  # MPCConf.adaptive_tol of the adaptive main path
 # Envs whose f64 reference ends with mu = s.z / ni at or below this are the
 # ones the fixed 20-step Mehrotra rule has converged on. On the rest it is
@@ -45,6 +54,13 @@ WALK_TOL = 1e-2  # MPCConf.adaptive_tol of the adaptive main path
 # the agreement bounds apply to the converged envs and the tail is printed.
 MU_CONVERGED = 1e-5
 F64_ATOL = 1e-6
+# K5a (the condensed 26-wide block-Thomas route) amplifies f64 roundoff in the
+# duals by their own scale: on the converged envs of this batch two roundings
+# of its plain version (on the card and on the CPU) differ by 8.3e-7 at a dual
+# of 1687 (9.2e-9 relative), and the kernel reads 1.084e-6 there (1.546e-8
+# relative), over F64_ATOL. Its f64 bound is relative to max(1, |v|), about
+# twice that reading; the absolute is printed.
+K5A_F64_RTOL = 3e-8
 RES_RTOL = 1e-6
 F32_U0_ATOL = 0.5  # N
 # df vs the plain residual at f64, after DF_ITERS steps: the bound and the
@@ -61,6 +77,12 @@ F32_FINITE_SHARE = 0.999
 Q0 = (0.0, 0.0, 0.45, -0.9, 0.45)
 
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
+# outside the tensor cores, FP64 on them (DMMA), HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+PEAK_BYTES = 3.35e12
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -72,6 +94,41 @@ def card_label() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def start_ptxas_report(tmp: str) -> list:
+    """Start one `nvcc -Xptxas -v` compile per kernel source (object files in
+    `tmp`), to run beside the build; `ptxas_report` reads them."""
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    flags = [f for f in pdipm_cuda.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return [subprocess.Popen([pdipm_cuda.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              f"{tmp}/{route}.o", src], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for route, src in pdipm_cuda.SOURCES.items()]
+
+
+def ptxas_report(procs) -> str:
+    """Registers and spill stores of every kernel entry, as ptxas reports
+    them; raises if a compile failed."""
+    out = []
+    for proc in procs:
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+        name = None
+        for line in text.splitlines():
+            m = re.search(r"entry function '_Z\d+(\w+?_kernel)I([fd])(?:Lb([01])E)?", line)
+            if m:
+                kind = {None: "", "1": ", aug", "0": ", condensed"}[m.group(3)]
+                name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'f64'}{kind}>"
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill and name:
+                stores = spill.group(1)
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and name:
+                out.append(f"{name} {regs.group(1)} registers, {stores} B spill stores")
+                name = None
+    return "; ".join(out)
 
 
 def make_qp_batch(batch, seed, dtype, device):
@@ -113,6 +170,73 @@ def make_qp_batch(batch, seed, dtype, device):
     return qps.build_qp(lin, t(x0), t(x_ref), t(contact), 0.025, t(mu), q, r, T)
 
 
+def needed_flops(T: int, refine_steps: int, df: bool = False) -> float:
+    """The least floating-point operations of one Newton step of one env (a
+    multiply-add counts 2), whichever route: every route computes the same
+    direction up to rounding. Per stage, with nx = nu = 12 and 16
+    inequalities: the factor as one structured elimination, with -W
+    diagonal, the nu rows a selector beside -delta I and every symmetric
+    product counted once (Ad M Ad^T; U = R + beta + G^T W^-1 G + e^T e /
+    delta; U's Cholesky factor L and L^-1 Bd^T; the y Schur complement, its
+    inverse and M_t); per reduced solve, z and nu into the u rhs and out
+    again once, and 1 + refine_steps two-sweep solves on [u, y] (z carried
+    through the refinement solves only with df, which refines the augmented
+    system); 2 refine_steps refinement residuals (the compensated ones ~25
+    flops a term); the KKT residuals, rhs, step rule and update."""
+    nx, nu, nc = 12, 12, 16
+    factor = (2 * nx ** 3 + nx * (nx + 1) * nx
+              + nu * nc + nu * (nu + 1) * nc + 2 * nu
+              + nu ** 3 // 3 + nu ** 2 * nx
+              + nx * (nx + 1) * nu + 2 * nx + nx ** 3
+              + nx * (nx + 1) + nx)
+    core = 2 * nu ** 2 + 4 * nx * nu + 8 * nx ** 2 + 9 * nx
+    z_in_out = 4 * nc * nu + 3 * nc + 8
+    reduced = z_in_out + core + refine_steps * (core + (z_in_out if df else 0))
+    residual = 26250 if df else 2090
+    return T * (factor + 2 * reduced + 2 * refine_steps * residual + 2850)
+
+
+def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False) -> float:
+    """What `route`'s kernel does now in one Newton step of one env, counted
+    from its loops (leading terms), for comparison with `needed_flops`: the
+    block-Thomas routes invert T pivoted n-wide blocks by Gauss-Jordan in
+    full (2 n^3 + n^2 each), K1 and K2 their foot blocks, and each reduced
+    solve multiplies by the stored inverses."""
+    n = {"tridiag_aug": 42, "tridiag": 26}.get(route)
+    condensed = route in ("ric", "tridiag")
+    if n is not None:
+        factor = T * (2 * n ** 3 + n ** 2 + 7344 + (6912 if condensed else 0))
+        solve = T * (2 * n ** 2 + 25 * n + 684)
+    else:
+        factor, solve = {"ric_aug": (22600 * T, 3500 * T), "ric": (15200 * T, 2700 * T)}[route]
+    residual = (26250 if df else 2090) * T
+    extra = 1760 * T if condensed else 0  # r1_hat and the dz, ds recovery
+    return factor + 2 * (1 + refine_steps) * solve + 2 * refine_steps * residual + 2850 * T + extra
+
+
+def bound(qp, opts) -> tuple:
+    """(ms, "operations" or "bytes"): the least time an H100 could take for
+    `opts.iterations` Newton steps of every env of `qp`: the larger of the
+    operations (`needed_flops`) over the peak rate of the dtype and the
+    bytes over the memory rate, each input (the QP) read once and each
+    output (x, s, z, y, the residuals) written once."""
+    T, nb, size = qp.horizon, qp.f.shape[0], qp.f.element_size()
+    flops = nb * opts.iterations * needed_flops(T, opts.refine_steps,
+                                                opts.refine_residual == "df")
+    nz, ni, ne = qp.nz, qp.n_ineq, qp.n_eq
+    values = 2 * nz + 288 + ne + 192 + ni + (nz + 2 * ni + ne + 4)
+    t_ops = flops / PEAK_FLOPS[str(qp.f.dtype).removeprefix("torch.")]
+    t_bytes = nb * values * size / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def route_counts(**counts) -> dict:
+    """Launch counts of every route: the given ones, 0 for the rest."""
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    return {route: counts.get(route, 0) for route in pdipm_cuda.SOURCES}
+
+
 def hector_obs(batch):
     obs = np.zeros((batch, 43), np.float32)
     obs[:, 2] = 0.55
@@ -143,14 +267,13 @@ def quantiles(v) -> str:
             f"p99 {q[2]:.3e} p99.9 {q[3]:.3e}")
 
 
-def widen(qp):
-    """`qp` with its own (rounded) data in float64."""
-    import torch
-
-    f = lambda t: t.to(torch.float64)
-    dyn = dataclasses.replace(qp.dyn, A=f(qp.dyn.A), B=f(qp.dyn.B), c=f(qp.dyn.c))
-    return dataclasses.replace(qp, q_diag=f(qp.q_diag), r_diag=f(qp.r_diag), f=f(qp.f), dyn=dyn,
-                               b0=f(qp.b0), g_u=f(qp.g_u), d=f(qp.d))
+def qp_map(qp, fn):
+    """`qp` with `fn` applied to every tensor, those of its dynamics too."""
+    def apply(obj):
+        return dataclasses.replace(obj, **{
+            fld.name: apply(v) if dataclasses.is_dataclass(v) else fn(v)
+            for fld in dataclasses.fields(obj) for v in (getattr(obj, fld.name),)})
+    return apply(qp)
 
 
 def cancellation_case(qp, seed):
@@ -168,7 +291,7 @@ def cancellation_case(qp, seed):
     t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
     w = t(10.0 ** rng.uniform(-6, 6, (nb, qp.n_ineq)))
     dirs = [t(rng.standard_normal((nb, n)) * 30) for n in (qp.nz, qp.n_ineq, qp.n_eq)]
-    q64 = widen(qp)
+    q64 = qp_map(qp, lambda v: v.double())
     zeros = [torch.zeros_like(v, dtype=torch.float64) for v in dirs]
     neg_kd = pdipm.refine_residual_aug(q64, qps.h_diag(q64), w.double(), pdipm.PdipmOptions(),
                                        *(v.double() for v in dirs), *zeros)
@@ -253,11 +376,15 @@ def main() -> int:
           f"devices visible {torch.cuda.device_count()}")
     print(label)
 
-    # 2. Build: one nvcc per kernel source, started together.
+    # 2. Build: one nvcc per kernel source, started together, beside one
+    # `-Xptxas -v` compile per source for the register report.
     t0 = time.perf_counter()
-    lib_paths = pdipm_cuda.build()
-    print(f"[build] nvcc {' '.join(pdipm_cuda.NVCC_FLAGS)} -> {sorted(lib_paths.values())} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas = start_ptxas_report(tmp)
+        lib_paths = pdipm_cuda.build()
+        print(f"[build] nvcc {' '.join(pdipm_cuda.NVCC_FLAGS)} -> {sorted(lib_paths.values())} "
+              f"in {time.perf_counter() - t0:.1f} s")
+        print(f"[registers] ptxas -v, sm_90a: {ptxas_report(ptxas)}")
 
     # 3. K1 (augmented route) vs its plain version on the card.
     opts = pdipm.PdipmOptions()
@@ -488,6 +615,127 @@ def main() -> int:
     print("[K4 residual] relative to each component's largest f64 residual: "
           + "; ".join(res_line))
 
+    # 4f. K5a and K5b, the block-Thomas routes, vs their plain versions on the
+    # same batch. K5b is the robust class (bounded in f32 as K1); K5a is the
+    # condensed class (its f32 line printed, as K2's).
+    def vs_plain64(tag, opts_, rtol=None):
+        """f64 kernel vs f64 plain version: bounds on the converged envs, the
+        tail printed; the bound is F64_ATOL absolute, or `rtol` relative to
+        max(1, |v|) when given. Returns (kernel f64 result, plain f64,
+        converged mask, worst converged-env absolute error)."""
+        plain = pdipm.solve(qp64, opts_)
+        kern = pdipm_cuda.solve(qp64, opts_)
+        torch.cuda.synchronize()
+        cv = (plain.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
+        check(int(cv.sum()) >= B // 10, f"only {int(cv.sum())} of {B} envs converged in the "
+                                        f"f64 {tag} reference")
+        diff = {n: (getattr(kern, n) - getattr(plain, n)).abs() for n in "xszy"}
+        err = np.max([d.amax(1).cpu().numpy() for d in diff.values()], axis=0)
+        err_rel = np.max([(d / getattr(plain, n).abs().clamp_min(1.0)).amax(1).cpu().numpy()
+                          for n, d in diff.items()], axis=0)
+        rel = ((kern.residuals - plain.residuals).abs()
+               / plain.residuals.abs().clamp_min(1e-300)).amax(1).cpu().numpy()
+        worst, worst_rel = float(err[cv].max()), float(err_rel[cv].max())
+        bounded = f"{worst_rel:.3e} relative to max(1, |v|) (bound {rtol:g}), absolute {worst:.3e}" \
+            if rtol else f"{worst:.3e} (bound {F64_ATOL:g}), relative to max(1, |v|) {worst_rel:.3e}"
+        print(f"[{tag} f64 vs plain f64] b{B} {opts_.backend}: converged envs {int(cv.sum())}: max "
+              f"|dx,ds,dz,dy| {bounded}, envs above {F64_ATOL:g} absolute "
+              f"{int((err[cv] > F64_ATOL).sum())}, residual rel {rel[cv].max():.3e} (bound "
+              f"{RES_RTOL:g}); all envs: {quantiles(err)}, above {F64_ATOL:g} "
+              f"{int((err > F64_ATOL).sum())}, residual rel max {rel.max():.3e}")
+        check(worst_rel <= rtol if rtol else worst <= F64_ATOL,
+              f"f64 {tag} differs from the plain version")
+        check(float(rel[cv].max()) <= RES_RTOL, f"f64 {tag} residuals differ")
+        return kern, plain, cv, worst
+
+    def f32_vs_plain64(tag, kern, plain, cv, bounded):
+        fin = torch.isfinite(kern.x).all(1).cpu().numpy()
+        d = (kern.x[:, 120:132].double() - plain.x[:, 120:132]).abs().amax(1).cpu().numpy()
+        print(f"[{tag} f32 vs plain f64] finite on {int(fin.sum())}/{B} envs ({fin.mean():.4%}); "
+              f"u0 |dGRF| [N], converged finite envs ({int((cv & fin).sum())}): "
+              f"{quantiles(d[cv & fin])}{f' (bound {F32_U0_ATOL})' if bounded else ''}; all "
+              f"finite envs: {quantiles(d[fin])}, above {F32_U0_ATOL} N: "
+              f"{int((d[fin] > F32_U0_ATOL).sum())}")
+        if bounded:
+            check(fin.mean() >= F32_FINITE_SHARE, f"f32 {tag} finite on {fin.mean():.4f} of envs")
+            check(float(d[cv & fin].max()) <= F32_U0_ATOL, f"f32 {tag} GRF off on converged envs")
+
+    thomas = {"K5b": pdipm.PdipmOptions(backend="tridiag_aug"),
+              "K5a": pdipm.PdipmOptions(backend="tridiag")}
+    k5 = {}
+    for tag, opts_ in thomas.items():
+        kern64_, plain64_, cv_, worst_ = vs_plain64(tag, opts_,
+                                                    K5A_F64_RTOL if tag == "K5a" else None)
+        if tag == "K5a":
+            # The route's own roundoff sensitivity: its plain version run on
+            # the CPU (other summation orders) against the same on the card.
+            idx = torch.nonzero(torch.as_tensor(cv_, device=dev)).flatten()
+            cpu = pdipm.solve(qp_map(qps.take(qp64, idx), lambda v: v.cpu()), opts_)
+            gap = {n: (getattr(cpu, n) - getattr(plain64_, n)[idx].cpu()).abs() for n in "xszy"}
+            print(f"[K5a roundoff] plain K5a f64 on the CPU vs on the card, converged envs "
+                  f"{len(idx)}: max |dx,ds,dz,dy| {max(float(g.max()) for g in gap.values()):.3e}, "
+                  f"relative to max(1, |v|) "
+                  f"{max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max()) for n, g in gap.items()):.3e} "
+                  f"(printed: two correct roundings of the route)")
+        kern32_ = pdipm_cuda.solve(qp32, opts_)
+        f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5b")
+        k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_}
+
+    # 4g. K3 on K5a and K5b: four warm 5-step launches vs one 20-step launch.
+    warm_line = []
+    for tag, opts_ in thomas.items():
+        for dt, qp in (("f32", qp32), ("f64", qp64)):
+            worst, differ = bit_diff(chunked(qp, opts_), k5[tag][dt])
+            warm_line.append(f"{tag} {dt} max |d| {worst:.3e}, envs differing in any bit {differ}")
+            check(differ == 0, f"{tag} {dt}: 4 warm 5-step launches differ from one 20-step launch")
+    print(f"[warm chunks K5] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
+
+    # 4h. K5b with the compensated residual: the device function the
+    # [K4 residual] phase holds bit for bit against plain df.
+    k5_df = dataclasses.replace(thomas["K5b"], refine_residual="df")
+    pdipm_cuda.reset_counts()
+    k5df64 = pdipm_cuda.solve(qp64, k5_df)
+    k5df32 = pdipm_cuda.solve(qp32, k5_df)
+    torch.cuda.synchronize()
+    check(pdipm_cuda.launches == route_counts(tridiag_aug=2), "the df solves did not launch K5b")
+    k5df_plain64 = pdipm.solve(qp64, k5_df)
+    k5df_cv = (k5df_plain64.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
+    k5df_err = np.max([(getattr(k5df64, n) - getattr(k5df_plain64, n)).abs().amax(1).cpu().numpy()
+                       for n in "xszy"], axis=0)
+    k5df_fin = torch.isfinite(k5df32.x).all(1).cpu().numpy()
+    k5df_du0 = (k5df32.x[:, 120:132].double() - k5df_plain64.x[:, 120:132]).abs().amax(1)
+    k5df_du0 = k5df_du0.cpu().numpy()
+    print(f"[K5b df] f64 vs plain df f64, converged envs {int(k5df_cv.sum())}: max |dx,ds,dz,dy| "
+          f"{float(k5df_err[k5df_cv].max()):.3e} (bound {F64_ATOL:g}); all envs "
+          f"{quantiles(k5df_err)}; f32 finite on {int(k5df_fin.sum())}/{B}, u0 vs plain df f64 on "
+          f"converged finite envs {quantiles(k5df_du0[k5df_cv & k5df_fin])}, above {F32_U0_ATOL} N "
+          f"over all finite envs: {int((k5df_du0[k5df_fin] > F32_U0_ATOL).sum())}")
+    check(float(k5df_err[k5df_cv].max()) <= F64_ATOL, "f64 K5b df differs from the plain df")
+    check(k5df_fin.mean() >= F32_FINITE_SHARE, "f32 K5b df not finite")
+
+    # 4i. Layouts over a block's shared memory raise before any launch: the
+    # largest horizon of each route and dtype that fits, and K5b at T = 20 in
+    # f64, which does not.
+    fits = {}
+    for route in pdipm_cuda.SOURCES:
+        for dt in (torch.float32, torch.float64):
+            fits[f"{route} {str(dt)[6:]}"] = max(
+                T_ for T_ in range(1, 65)
+                if pdipm_cuda.smem_bytes(route, T_, dt) <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
+    qp20 = dataclasses.replace(qp64, d=torch.cat([qp64.d, qp64.d], dim=1),
+                               f=torch.cat([qp64.f[:, :120], qp64.f[:, :120],
+                                            qp64.f[:, 120:], qp64.f[:, 120:]], dim=1))
+    pdipm_cuda.reset_counts()
+    try:
+        pdipm_cuda.solve(qp20, thomas["K5b"])
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised is not None and "shared memory" in raised, "K5b f64 T=20 did not raise")
+    check(pdipm_cuda.launches == route_counts(), "a layout that does not fit was launched")
+    print(f"[shared memory] largest horizon that fits per route and dtype: {fits}; K5b f64 T=20 "
+          f"raised before any launch: {raised}")
+
     # 5. Main path: MPCController at b4096 on the card, default solver (K1).
     obs = torch.tensor(hector_obs(B), device=dev)
     twist = torch.zeros(B, 3, device=dev)
@@ -508,7 +756,7 @@ def main() -> int:
           f"kernel launches {launches}; tau finite and within limits: {tau_ok}; first solve "
           f"fz left [{float(fz[:, 0].min()):.2f}, {float(fz[:, 0].max()):.2f}] N, right swing "
           f"max |fz| {float(fz[:, 1].abs().max()):.3e} N; gait phase advanced by {phase_adv:.4f}")
-    check(launches == {"ric_aug": n_mpc, "ric": 0},
+    check(launches == route_counts(ric_aug=n_mpc),
           "the main path did not launch K1 once per run_mpc")
     check(tau_ok, "joint torques not finite or beyond the torque limits")
     check(bool((fz[:, 1].abs() < 1.0).all()), "swinging right foot carries force")
@@ -544,7 +792,7 @@ def main() -> int:
           f"limits: {h_tau_ok}; first solve fz left [{float(h_fz[:, 0].min()):.2f}, "
           f"{float(h_fz[:, 0].max()):.2f}] N, right swing max |fz| "
           f"{float(h_fz[:, 1].abs().max()):.3e} N")
-    check(h_launches == {"ric_aug": h_mpc, "ric": h_mpc},
+    check(h_launches == route_counts(ric_aug=h_mpc, ric=h_mpc),
           "the hybrid path did not launch K2 and K1 once each per run_mpc")
     check(all(st["dropped_nonfinite"] == 0 for st in stats), "hybrid dropped non-finite envs")
     check(h_tau_ok, "hybrid joint torques not finite or beyond the torque limits")
@@ -581,7 +829,7 @@ def main() -> int:
           f"{float(a_fz[:, 0].max()):.2f}] N, right swing max |fz| "
           f"{float(a_fz[:, 1].abs().max()):.3e} N; vs default first solve max |d| "
           f"{float((a_first - first_wrench).abs().max()):.3e} N")
-    check(a_launches == {"ric_aug": 4 * a_mpc, "ric": 0},
+    check(a_launches == route_counts(ric_aug=4 * a_mpc),
           "the adaptive path did not issue 4 warm K1 launches per run_mpc")
     check(all(1 <= r <= 4 for r in ran_per_solve), "adaptive chunks ran out of range")
     check(a_tau_ok, "adaptive joint torques not finite or beyond the torque limits")
@@ -610,6 +858,43 @@ def main() -> int:
           f"first solve vs CPU plain f64 on 8 envs: max |d| {a_dw:.3e} N (bound {F32_U0_ATOL})")
     check(torch.equal(f_out.wrench, first_wrench), "adaptive route at tol 0 differs from default")
     check(a_dw <= F32_U0_ATOL, "first adaptive wrench differs from the CPU reference")
+
+    # 6c. Block-Thomas main paths: solver="pallas_aug" (K5b) and "pallas"
+    # (K5a), each with its launch counts from 0 and its first solve against
+    # the CPU plain f64 controller on 8 envs, bounded as the default path.
+    # K5a is the condensed class: the plain version's own f32 solve of this
+    # walk on the CPU is 0.83 N off the f64 one (K2's 0.27 N); the kernel's
+    # rounding reads 0.10 N on the H100.
+    thomas_ctrl, thomas_launches = {}, {}
+    for solver, route in (("pallas_aug", "tridiag_aug"), ("pallas", "tridiag")):
+        conf = MPCConf(solver=solver, verbose=False)
+        tctrl = MPCController(ControllerConf(), conf, num_envs=B, gait_id=2, device=dev)
+        tctrl.set_command(twist, height)
+        pdipm_cuda.reset_counts()
+        t_mpc, t_first, t_tau_ok = walk(tctrl, obs, THOMAS_TICKS[solver], limit)
+        torch.cuda.synchronize()
+        t_launches = dict(pdipm_cuda.launches)
+        t_fz = -t_first[:, :, 2]
+        tref = MPCController(ControllerConf(), conf, num_envs=8, gait_id=2, dtype=torch.float64,
+                             device="cpu")
+        tref.set_command(twist[:8].cpu(), height[:8].cpu())
+        tref.update_state(obs[:8].cpu())
+        tref.run_mpc()
+        t_dw = float((t_first[:8].cpu().double() - tref.ground_reaction_wrench).abs().max())
+        print(f"[{solver} path] MPCController solver={solver} b{B}, {THOMAS_TICKS[solver]} ticks: "
+              f"run_mpc {t_mpc}, kernel launches {t_launches}; tau finite and within limits: "
+              f"{t_tau_ok}; first solve fz left [{float(t_fz[:, 0].min()):.2f}, "
+              f"{float(t_fz[:, 0].max()):.2f}] N, right swing max |fz| "
+              f"{float(t_fz[:, 1].abs().max()):.3e} N; vs CPU plain f64 on 8 envs max |d| "
+              f"{t_dw:.3e} N (bound {F32_U0_ATOL}); vs default first solve max |d| "
+              f"{float((t_first - first_wrench).abs().max()):.3e} N")
+        check(t_launches == route_counts(**{route: t_mpc}),
+              f"the {solver} path did not launch its kernel once per run_mpc")
+        check(t_tau_ok, f"{solver}: joint torques not finite or beyond the torque limits")
+        check(bool((t_fz[:, 1].abs() < 1.0).all()), f"{solver}: swinging right foot carries force")
+        check(bool((t_first[:, 0, 2] < -50.0).all()), f"{solver}: stance left foot not loaded")
+        check(t_dw <= F32_U0_ATOL, f"{solver}: first wrench differs from the CPU reference")
+        thomas_ctrl[route], thomas_launches[route] = tctrl, t_launches[route]
 
     # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
@@ -644,6 +929,13 @@ def main() -> int:
         ctrl.get_action()
 
     tick_ms = cuda_ms(tick, 50)
+    k5_ms = {}
+    for tag, opts_ in thomas.items():
+        k5_ms[tag] = {"k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, opts_), 10),
+                      "k64": cuda_ms(lambda: pdipm_cuda.solve(qp64, opts_), 5),
+                      "p32": cuda_ms(lambda: pdipm.solve(qp32, opts_), 3),
+                      "p64": cuda_ms(lambda: pdipm.solve(qp64, opts_), 3),
+                      "mpc": cuda_ms(thomas_ctrl[opts_.backend].run_mpc, 5)}
     units = B * opts.iterations / 5
     print(f"[times] {label}: b{B} h10 {opts.iterations} iterations: kernel f32 {k32:.3f} ms "
           f"({units / k32 * 1e3:.0f} 5-iteration units/s), kernel f64 {k64:.3f} ms, "
@@ -663,44 +955,53 @@ def main() -> int:
           f"run_mpc {amp_ms:.3f} ms")
     print(f"[times] {label}: b{B} f32 K1 with the df residual {df_ms:.3f} ms vs f32 residual "
           f"{k32_again:.3f} ms (same run), plain df {df_plain_ms:.3f} ms")
+    bounds = {
+        "ric_aug": bound(qp32, opts), "ric": bound(qp32, ric), "warm": bound(qp32, opts),
+        "df": bound(qp32, df_opts), "tridiag_aug": bound(qp32, thomas["K5b"]),
+        "tridiag": bound(qp32, thomas["K5a"])}
+    for tag, opts_ in thomas.items():
+        t = k5_ms[tag]
+        b32, by = bounds[opts_.backend]
+        b64, _ = bound(qp64, opts_)
+        print(f"[times] {label}: b{B} h10 {tag} ({opts_.backend}): kernel f32 {t['k32']:.3f} ms "
+              f"({units / t['k32'] * 1e3:.0f} 5-iteration units/s), kernel f64 {t['k64']:.3f} ms, "
+              f"plain f32 {t['p32']:.3f} ms, plain f64 {t['p64']:.3f} ms; bound f32 {b32:.3f} ms, "
+              f"f64 {b64:.3f} ms (by {by}); MPCController run_mpc {t['mpc']:.3f} ms")
+    print(f"[times] {label}: bounds at b{B} f32 (ms, bound by): "
+          + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in bounds.items()))
+    steps = [("ric_aug", opts), ("ric", ric), ("ric_aug df", df_opts),
+             ("tridiag_aug", thomas["K5b"]), ("tridiag", thomas["K5a"])]
+    print(f"[flops] per env and Newton step at h{qp32.horizon}: what the kernel's loops do / "
+          f"the least (the bounds' count): " + ", ".join(
+              f"{k} {kernel_flops(o.backend, qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
+              f" / {needed_flops(qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
+              for k, o in steps))
 
-    print(json.dumps({"kernels": [{
-        "name": "pdipm_ric_aug",
-        "route": "cuda",
-        "source": "biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu",
-        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:308",
-        "launches": launches["ric_aug"],
-        "max_abs_err": worst64,
-        "ms": k32,
-        "plain_ms": p32,
-    }, {
-        "name": "pdipm_ric",
-        "route": "cuda",
-        "source": "biped_pympc_tpu_torch/csrc/pdipm_ric.cu",
-        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:308 (backend=ric, foot_split)",
-        "launches": h_launches["ric"],
-        "max_abs_err": ric_worst64,
-        "ms": r32,
-        "plain_ms": rp32,
-    }, {
-        "name": "pdipm_warm_entry",
-        "route": "cuda",
-        "source": "biped_pympc_tpu_torch/csrc/pdipm_common.cuh",
-        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:316 (warm=True, via solve_adaptive:1855)",
-        "launches": a_launches["ric_aug"],
-        "max_abs_err": k3_err,
-        "ms": ad0,
-        "plain_ms": ad0_plain,
-    }, {
-        "name": "pdipm_df_residual",
-        "route": "cuda",
-        "source": "biped_pympc_tpu_torch/csrc/pdipm_common.cuh",
-        "replaces": "biped_pympc_tpu/ops/pdipm_pallas.py:1290 (df_resid, refine_residual=df)",
-        "launches": df_launches,
-        "max_abs_err": df_worst64,
-        "ms": df_ms,
-        "plain_ms": df_plain_ms,
-    }]}))
+    def entry(name, source, replaces, launches_, err, ms, plain_ms, key):
+        return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/csrc/{source}",
+                "replaces": f"biped_pympc_tpu/ops/pdipm_pallas.py:{replaces}",
+                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("pdipm_ric_aug", "pdipm_ric_aug.cu", "308", launches["ric_aug"], worst64, k32, p32,
+              "ric_aug"),
+        entry("pdipm_ric", "pdipm_ric.cu", "308 (backend=ric, foot_split)", h_launches["ric"],
+              ric_worst64, r32, rp32, "ric"),
+        entry("pdipm_warm_entry", "pdipm_common.cuh",
+              "316 (warm=True, via solve_adaptive:1855)", a_launches["ric_aug"], k3_err, ad0,
+              ad0_plain, "warm"),
+        entry("pdipm_df_residual", "pdipm_common.cuh", "1290 (df_resid, refine_residual=df)",
+              df_launches, df_worst64, df_ms, df_plain_ms, "df"),
+        entry("pdipm_tridiag_aug", "pdipm_tridiag_aug.cu",
+              "308 (backend=tridiag_aug: factor_aug :1134, thomas_solve_aug :1183)",
+              thomas_launches["tridiag_aug"], k5["K5b"]["err"], k5_ms["K5b"]["k32"],
+              k5_ms["K5b"]["p32"], "tridiag_aug"),
+        entry("pdipm_tridiag", "pdipm_tridiag.cu",
+              "308 (backend=tridiag: factor :424, thomas_solve :478)",
+              thomas_launches["tridiag"], k5["K5a"]["err"], k5_ms["K5a"]["k32"],
+              k5_ms["K5a"]["p32"], "tridiag"),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -167,7 +167,7 @@ def _drive_adaptive(tol):
         num_envs=B, gait_id=2, dtype=jnp.float64)
     tc = tpkg.MPCController(
         tpkg.ControllerConf(), tpkg.MPCConf(solver="ric_aug", adaptive_tol=tol, verbose=False),
-        num_envs=B, gait_id=2, dtype=torch.float64)
+        num_envs=B, gait_id=2, dtype=torch.float64, device="cpu")
     plain_solve = tpdipm.solve
     chunk_max = []  # per port solve: max(res) after each chunk that ran
 
@@ -215,7 +215,7 @@ def test_full_cap_equals_the_fixed_controller():
     """Chunked to the cap, the adaptive controller is the fixed one bit for bit."""
     _, tc, trace, _ = _drive_adaptive(ADAPTIVE_TOLS["full_cap"][0])
     fixed = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver="ric_aug", verbose=False),
-                               num_envs=B, gait_id=2, dtype=torch.float64)
+                               num_envs=B, gait_id=2, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(0)
     obs = _obs(B, rng)
     twist = np.zeros((B, 3))
@@ -233,7 +233,7 @@ def test_hybrid_ignores_adaptive_tol():
         c = tpkg.MPCController(tpkg.ControllerConf(),
                                tpkg.MPCConf(solver="pallas_hybrid", adaptive_tol=tol,
                                             verbose=False),
-                               num_envs=4, gait_id=2, dtype=torch.float64)
+                               num_envs=4, gait_id=2, dtype=torch.float64, device="cpu")
         c.set_command(np.tile([0.2, 0.0, 0.0], (4, 1)), np.full(4, 0.55))
         c.update_state(obs)
         c.run_mpc()

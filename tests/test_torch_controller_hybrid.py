@@ -56,7 +56,7 @@ def test_hybrid_controller_matches_jax():
     jc = jpkg.MPCController(jpkg.ControllerConf(), jpkg.MPCConf(**kw), num_envs=B, gait_id=2,
                             dtype=jnp.float64)
     tc = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(**kw), num_envs=B, gait_id=2,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     assert tc.hybrid_stats == {} == jc.hybrid_stats
     seen = []
 
@@ -78,7 +78,7 @@ def test_pallas_ric_controller_matches_jax_ric():
                             num_envs=B, gait_id=2, dtype=jnp.float64)
     tc = tpkg.MPCController(tpkg.ControllerConf(),
                             tpkg.MPCConf(solver="pallas_ric", verbose=False),
-                            num_envs=B, gait_id=2, dtype=torch.float64)
+                            num_envs=B, gait_id=2, dtype=torch.float64, device="cpu")
     _assert_trace_close(_drive(jc, tc))
     assert tc.hybrid_stats == {}
 
@@ -86,7 +86,7 @@ def test_pallas_ric_controller_matches_jax_ric():
 @pytest.mark.parametrize("solver", ["pallas_ric_aug", "ric"])
 def test_hybrid_stats_empty_for_other_solvers(solver):
     ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
-                              num_envs=2, gait_id=2, dtype=torch.float64)
+                              num_envs=2, gait_id=2, dtype=torch.float64, device="cpu")
     ctrl.set_command(np.zeros((2, 3)), np.full(2, 0.55))
     ctrl.update_state(_obs(2))
     assert ctrl.hybrid_stats == {}

@@ -144,8 +144,58 @@ def test_failed_ric_build_raises_and_does_not_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*pdipm_ric.cu: error"):
         pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric"))
     assert pdipm_cuda.launches == before
-    built = sorted(p.name for p in build_dir.iterdir())
-    assert len(built) == 1 and built[0].startswith("libpdipm_ric_aug_"), built
+    built = sorted(p.name.rsplit("_", 1)[0] for p in build_dir.iterdir())
+    assert built == ["libpdipm_ric_aug", "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
+
+
+def test_kernel_sources_include_only_their_own_headers():
+    """The kernel sources stand alone: every #include is a system header or a
+    file of csrc/, nothing of the JAX package."""
+    csrc = REPO / "biped_pympc_tpu_torch" / "csrc"
+    for path in sorted(csrc.iterdir()):
+        for inc in re.findall(r'^#include\s+(\S+)', path.read_text(), flags=re.M):
+            assert inc.startswith("<") or (csrc / inc.strip('"')).is_file(), (path.name, inc)
+    assert {pathlib.Path(p).name for p in (*pdipm_cuda.SOURCES.values(), *pdipm_cuda.HEADERS)} \
+        == {p.name for p in csrc.iterdir()}
+
+
+def test_layout_over_the_shared_memory_limit_raises_before_launch():
+    """A (route, horizon, dtype) whose layout exceeds an H100 block's shared
+    memory raises ValueError naming all four, and launches nothing."""
+    def entry(*args):
+        pytest.fail("launched a layout that does not fit")
+
+    fake = types.SimpleNamespace(pdipm_tridiag_aug_smem_bytes=lambda T, size: 387736,
+                                 pdipm_tridiag_aug_f64=entry)
+    before = dict(pdipm_cuda.launches)
+    with pytest.raises(ValueError, match=r"'tridiag_aug' at horizon 10 in torch.float64 needs "
+                                         r"387736 B .* at most 232448 B"):
+        pdipm_cuda.run_kernel(fake, _qp(2, torch.float64), pdipm.PdipmOptions(backend="tridiag_aug"),
+                              None)
+    assert pdipm_cuda.launches == before
+
+
+def test_controller_without_device_needs_a_card(monkeypatch):
+    """The controller runs on the card unless asked for the CPU: with no card
+    and no device it raises, naming device="cpu", and never falls back."""
+    import biped_pympc_tpu_torch as tpkg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=1)
+    ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=1,
+                              device="cpu")
+    assert ctrl.state.gait_phase.device.type == "cpu"
+
+
+@pytest.mark.parametrize("solver, item", [("dense", "Queue 1, item 15"),
+                                          ("pallas_ric2", "Queue 2, item 1")])
+def test_unported_solvers_name_their_roadmap_item(solver, item):
+    import biped_pympc_tpu_torch as tpkg
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
+                           num_envs=1, device="cpu")
 
 
 def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
@@ -164,15 +214,25 @@ def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
 # differently part ways (PERF.md, Findings); chip_smoke.py checks the
 # full 20 steps, and f32, on converged envs. Residual norms of the equality
 # rows sit near roundoff (~1e-10), hence the absolute floor on them.
+ROUTES = ["ric_aug", "ric", "tridiag_aug", "tridiag"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["ric_aug", "ric"])
+@pytest.mark.parametrize("backend", ROUTES)
 @pytest.mark.parametrize("horizon, refine_steps", [(10, 1), (5, 0), (20, 2)])
 def test_kernel_matches_plain_on_card(horizon, refine_steps, backend):
+    """A (route, horizon) whose f64 layout does not fit in shared memory
+    (tridiag_aug at T = 20) must raise before any launch instead."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     qp = _qp(64, torch.float64, "cuda", horizon)
     opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps, backend=backend)
     before = dict(pdipm_cuda.launches)
+    if pdipm_cuda.smem_bytes(backend, horizon, torch.float64) > pdipm_cuda.MAX_SMEM_PER_BLOCK:
+        with pytest.raises(ValueError, match="shared memory"):
+            pdipm_cuda.solve(qp, opts)
+        assert pdipm_cuda.launches == before
+        return
     got = pdipm_cuda.solve(qp, opts)
     want = pdipm.solve(qp, opts)
     torch.cuda.synchronize()
@@ -192,7 +252,7 @@ def _bit_equal(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["ric_aug", "ric"])
+@pytest.mark.parametrize("backend", ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_warm_chunks_bit_equal_fixed_on_card(dtype, backend):
     """Four warm 5-step launches == one 20-step launch, bit for bit; and the
@@ -278,3 +338,26 @@ def test_df_kernel_matches_plain_on_card(dtype):
                                    atol=atol)
     with pytest.raises(ValueError, match="aug"):
         pdipm_cuda.solve(qp, dataclasses.replace(opts, backend="ric"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tridiag_aug_df_kernel_matches_plain_on_card(dtype):
+    """K5b with the compensated residual (the device function K1's residual
+    entry checks) vs the plain df solve at f64, the bounds of
+    test_df_kernel_matches_plain_on_card; K5a refuses df before any launch."""
+    _card()
+    qp = _qp(64, dtype, "cuda")
+    opts = pdipm.PdipmOptions(iterations=8, refine_residual="df", backend="tridiag_aug")
+    before = dict(pdipm_cuda.launches)
+    got = pdipm_cuda.solve(qp, opts)
+    want = pdipm.solve(_qp(64, torch.float64, "cuda"), opts)
+    torch.cuda.synchronize()
+    assert pdipm_cuda.launches == {**before, "tridiag_aug": before["tridiag_aug"] + 1}
+    atol = 1e-7 if dtype == torch.float64 else 0.5
+    for name in "xszy":
+        torch.testing.assert_close(getattr(got, name).double(), getattr(want, name), rtol=0,
+                                   atol=atol)
+    with pytest.raises(ValueError, match="aug"):
+        pdipm_cuda.solve(qp, dataclasses.replace(opts, backend="tridiag"))
+    assert pdipm_cuda.launches["tridiag"] == before["tridiag"]

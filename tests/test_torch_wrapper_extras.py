@@ -26,7 +26,7 @@ def _residuals(seed=5):
 
 def _port(num_envs=B, dtype=torch.float64):
     c = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=num_envs,
-                           gait_id=2, dtype=dtype)
+                           gait_id=2, dtype=dtype, device="cpu")
     c.set_command(np.tile([0.2, 0.0, 0.1], (num_envs, 1)), np.full(num_envs, 0.55))
     return c
 
@@ -47,7 +47,7 @@ def test_srbd_residual_controller_matches_jax():
                             num_envs=B, gait_id=2, dtype=jnp.float64)
     tc = tpkg.MPCController(tpkg.ControllerConf(),
                             tpkg.MPCConf(solver="ric_aug", verbose=False),
-                            num_envs=B, gait_id=2, dtype=torch.float64)
+                            num_envs=B, gait_id=2, dtype=torch.float64, device="cpu")
     free = _port()
     for c in (jc, tc, free):
         c.set_command(np.tile([0.2, 0.0, 0.1], (B, 1)), np.full(B, 0.55))
