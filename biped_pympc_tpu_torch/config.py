@@ -15,19 +15,21 @@ truncated.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Literal, Tuple
+from typing import Literal, Tuple, Union
 
 _DEFAULT_Q = (150.0, 150.0, 250.0, 100.0, 100.0, 250.0, 1.0, 1.0, 5.0, 10.0, 10.0, 1.0)
 _DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4)
 
-# "ric_aug" / "pallas_ric_aug" select the augmented foot-split Riccati PDIPM,
-# "ric" / "pallas_ric" the condensed one, "pallas_hybrid" the condensed
-# pass with a budgeted augmented re-solve, "tridiag_aug" / "pallas_aug" the
-# augmented block-Thomas PDIPM (42-wide stage blocks) and "tridiag" /
-# "pallas" the condensed one (26-wide): each the hand-written CUDA kernel
-# for CUDA tensors, its plain torch version for CPU tensors.
-SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_hybrid",
-                  "tridiag_aug", "pallas_aug", "tridiag", "pallas")
+# "ric_aug" / "pallas_ric_aug" select the augmented Riccati PDIPM, "ric" /
+# "pallas_ric" the condensed one (each foot-split or whole,
+# `solver_foot_split`), "pallas_ric2" the condensed one with the nu pair
+# eliminated by a rank-2 update, "pallas_hybrid" the condensed pass with a
+# budgeted augmented re-solve, "tridiag_aug" / "pallas_aug" the augmented
+# block-Thomas PDIPM (42-wide stage blocks) and "tridiag" / "pallas" the
+# condensed one (26-wide): each the hand-written CUDA kernel for CUDA
+# tensors, its plain torch version for CPU tensors.
+SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_ric2",
+                  "pallas_hybrid", "tridiag_aug", "pallas_aug", "tridiag", "pallas")
 
 
 @dataclass(frozen=True)
@@ -77,6 +79,17 @@ class MPCConf:
     Mirrors the reference's own loop over fused 5-iteration launches; not
     fixed-iteration parity. 0 keeps the fixed-iteration solve.
     "pallas_hybrid" ignores it, as in the JAX package.
+    solver_foot_split: on the "ric" / "ric_aug" routes, invert each foot's
+    stage block apart (exact: the blocks decouple by foot) or, False, the
+    whole 14- / 30-wide block, the dense cross-check
+    (`biped_pympc_tpu/config.py:137-155`; the JAX package measured a
+    narrower f32 stress tail for the unsplit condensed route on its TPU).
+    solver_foot_pack: packing of the split's two foot blocks
+    (`biped_pympc_tpu/config.py:156-169`); not ported, so a truthy value
+    raises NotImplementedError where the JAX package would act on it.
+    solver_kkt_scale: "jacobi" inverts each stage block of the Riccati
+    routes through its Jacobi equilibration (exact; only rounding changes;
+    `biped_pympc_tpu/config.py:184-199`). The block-Thomas routes ignore it.
     f_max: per-foot vertical-force cap [N].
     euler_rate_mode: see `models/srbd.py`. contact_frame: "world" keeps the
     contact rows in world axes (reference parity, valid near yaw 0);
@@ -103,8 +116,11 @@ class MPCConf:
     solver_delta: float = 1e-8
     f_max: float = 500.0
     solver_refine_steps: int = 1
+    solver_foot_split: bool = True
+    solver_foot_pack: Union[bool, Literal["apply"]] = False
     adaptive_tol: float = 0.0
     adaptive_chunk: int = 5
+    solver_kkt_scale: Literal["none", "jacobi"] = "none"
     euler_rate_mode: Literal["rt_omega", "r_omega"] = "rt_omega"
     contact_frame: Literal["world", "yaw"] = "world"
     print_solve_time: bool = False

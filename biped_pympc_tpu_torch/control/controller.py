@@ -24,12 +24,11 @@ from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
 
 # JAX solver names not ported yet, with the ROADMAP item that ports them.
-_SOLVERS_LATER = {"dense": "Queue 1, item 15 (dense)",
-                  "pallas_ric2": "Queue 2, item 1 (K5c, factor_ric2)"}
+_SOLVERS_LATER = {"dense": "Queue 1, item 15 (dense)"}
 # Route of each ported solver name (`biped_pympc_tpu/control/controller.py:121`);
 # "pallas_hybrid" runs the condensed route first and re-solves with "ric_aug".
-_BACKEND = {"pallas_ric": "ric", "pallas_ric_aug": "ric_aug", "pallas_hybrid": "ric",
-            "pallas": "tridiag", "pallas_aug": "tridiag_aug"}
+_BACKEND = {"pallas_ric": "ric", "pallas_ric2": "ric2", "pallas_ric_aug": "ric_aug",
+            "pallas_hybrid": "ric", "pallas": "tridiag", "pallas_aug": "tridiag_aug"}
 
 
 def _check_solver(name: str) -> None:
@@ -41,6 +40,26 @@ def _check_solver(name: str) -> None:
     raise NotImplementedError(
         f"MPCConf.solver={name!r} is not ported to biped_pympc_tpu_torch; "
         f"ported: {SOLVERS_PORTED}. See ROADMAP {where}.")
+
+
+def solver_options(c: MPCConf) -> PdipmOptions:
+    """The PDIPM options of an MPCConf, mapped as the JAX controller maps them
+    (`biped_pympc_tpu/control/controller.py:121-147`): the foot split only
+    on "ric" / "ric_aug", the KKT scaling as it is. A foot packing that the
+    JAX package would act on (a "pallas_*" name, the split on, a "ric" /
+    "ric_aug" route) raises: it is not ported. Where JAX ignores it, so
+    does the port."""
+    _check_solver(c.solver)
+    backend = _BACKEND.get(c.solver, c.solver)
+    split = c.solver_foot_split and backend in ("ric", "ric_aug")
+    if split and c.solver.startswith("pallas") and c.solver_foot_pack:
+        raise NotImplementedError(
+            f"MPCConf.solver_foot_pack={c.solver_foot_pack!r} is not ported to "
+            "biped_pympc_tpu_torch. See ROADMAP Queue 2, item 3 (K5e, the foot packing).")
+    return PdipmOptions(iterations=c.newton_iterations, iterations_per_launch=c.adaptive_chunk,
+                        beta=c.solver_beta, delta=c.solver_delta,
+                        refine_steps=c.solver_refine_steps, backend=backend, foot_split=split,
+                        kkt_scale=c.solver_kkt_scale)
 
 
 @dataclass
@@ -93,7 +112,7 @@ class BipedControllerCore:
 
     def __init__(self, cfg: ControllerConf, mpc_cfg: MPCConf, gait_id: int = 1,
                  dtype=torch.float32, device=None):
-        _check_solver(mpc_cfg.solver)
+        self.opts = solver_options(mpc_cfg)
         if gait_id not in (1, 2):
             raise ValueError(f"Invalid gait_id: {gait_id} (1 or 2)")
         self.cfg = cfg
@@ -103,11 +122,6 @@ class BipedControllerCore:
         self.device = resolve_device(device)
         self.robot: RobotSpec = get_robot(mpc_cfg.robot)
         self.num_dof = self.robot.num_dof
-        self.opts = PdipmOptions(iterations=mpc_cfg.newton_iterations,
-                                 iterations_per_launch=mpc_cfg.adaptive_chunk,
-                                 beta=mpc_cfg.solver_beta, delta=mpc_cfg.solver_delta,
-                                 refine_steps=mpc_cfg.solver_refine_steps,
-                                 backend=_BACKEND.get(mpc_cfg.solver, mpc_cfg.solver))
         t = lambda v: torch.tensor(v, dtype=dtype, device=self.device)
         self._q_weights = t(mpc_cfg.Q)
         self._r_weights = t(mpc_cfg.R)

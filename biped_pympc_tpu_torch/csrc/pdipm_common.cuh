@@ -1,11 +1,15 @@
-// Device code shared by the PDIPM kernels (pdipm_ric_aug.cu, pdipm_ric.cu,
-// and pdipm_tridiag.cuh, which pdipm_tridiag.cu and pdipm_tridiag_aug.cu
-// include): the QP's structured operators, block reductions, the
-// compensated arithmetic and the refinement residual of the augmented
-// system, the warm / cold load and the gate, the in-place 12-wide Jordan
-// inverse, the dual-Riccati y-chain and its sweeps, and the
-// fraction-to-boundary rule. Each kernel owns its shared-memory `Layout`;
-// the operators read only its fields T, gu, ad and bd.
+// Device code shared by every PDIPM kernel: the QP's structured operators,
+// block reductions, the compensated arithmetic and the refinement residual
+// of the augmented system, the warm / cold load and the gate, the in-place
+// n-wide Jordan inverse with its Jacobi equilibration, the dual-Riccati
+// y-chain and its sweeps, the fraction-to-boundary rule, and the one
+// Newton-step kernel `pdipm_kernel<P, S>` with its two reduced-solve forms
+// and its host `launch`. A route is a policy P (the end of this file says
+// what it supplies): pdipm_ric_aug.cu (K1), pdipm_ric.cu (K2) and, through
+// pdipm_riccati.cuh, pdipm_ric2.cu (K5c), pdipm_ric_dense.cu and
+// pdipm_ric_aug_dense.cu (K5d); through pdipm_tridiag.cuh, pdipm_tridiag.cu
+// (K5a) and pdipm_tridiag_aug.cu (K5b). Each route owns its shared-memory
+// `Layout`; the operators read only its fields T, gu, ad and bd.
 //
 // Every function here is called by all threads of a block; the ones that
 // end in __syncthreads leave the block synchronized.
@@ -34,7 +38,6 @@ static constexpr int NX_ = 12;   // states per knot
 static constexpr int NU_ = 12;   // inputs per stage
 static constexpr int NI_ = 16;   // inequality rows per stage
 static constexpr int NMX_ = 2;   // Mx rows per stage
-static constexpr int NB_ = 12;   // width of the matrices gj_inverse_inplace inverts
 
 // Next `n` values of a shared-memory layout, starting at offset o.
 static __host__ __device__ __forceinline__ int take(int& o, int n) {
@@ -378,61 +381,64 @@ __device__ __forceinline__ bool gate_open(const int* go, int* ran) {
 }
 
 // ---------------------------------------------------------------------------
-// In-place Gauss-Jordan inverse of `count` 12x12 matrices at `mats`
-// (stride 144). With pivoting, each step swaps the largest |entry| of column
-// k (rows >= k, first on ties) into row k and the column swaps are undone at
-// the end, in reverse order.
+// In-place Gauss-Jordan inverse of `count` independent N x N matrices at
+// `mats` (stride N * N), all eliminated together: N barrier steps whatever
+// the count. The inverse's pivot entry is written as 1/pivot directly. With
+// pivoting, each step swaps the largest |entry| of column k (rows >= k,
+// first on ties) into row k and the row swaps are undone as column swaps at
+// the end, last first. colk and prow hold count * N values, piv count * N.
 // ---------------------------------------------------------------------------
-template <typename S>
+template <int N, typename S>
 __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, S* colk, S* prow, int* piv) {
+  constexpr int NN = N * N;
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k = 0; k < NB_; ++k) {
+  for (int k = 0; k < N; ++k) {
     // Pivot choice, row swap, and the step's column / scaled pivot row.
     for (int mi = tid; mi < count; mi += nt) {
-      S* a = mats + mi * 144;
+      S* a = mats + mi * NN;
       int p = k;
       if (pivot) {
-        S best = a[k * NB_ + k] < S(0) ? -a[k * NB_ + k] : a[k * NB_ + k];
-        for (int i = k + 1; i < NB_; ++i) {
-          S v = a[i * NB_ + k];
+        S best = a[k * N + k] < S(0) ? -a[k * N + k] : a[k * N + k];
+        for (int i = k + 1; i < N; ++i) {
+          S v = a[i * N + k];
           v = v < S(0) ? -v : v;
           if (v > best) { best = v; p = i; }
         }
-        piv[mi * NB_ + k] = p;
+        piv[mi * N + k] = p;
         if (p != k)
-          for (int j = 0; j < NB_; ++j) {
-            S tmp = a[k * NB_ + j];
-            a[k * NB_ + j] = a[p * NB_ + j];
-            a[p * NB_ + j] = tmp;
+          for (int j = 0; j < N; ++j) {
+            S tmp = a[k * N + j];
+            a[k * N + j] = a[p * N + j];
+            a[p * N + j] = tmp;
           }
       }
-      const S pv = a[k * NB_ + k];
-      for (int i = 0; i < NB_; ++i) colk[mi * NB_ + i] = a[i * NB_ + k];
-      for (int j = 0; j < NB_; ++j) prow[mi * NB_ + j] = j == k ? S(1) / pv : a[k * NB_ + j] / pv;
+      const S pv = a[k * N + k];
+      for (int i = 0; i < N; ++i) colk[mi * N + i] = a[i * N + k];
+      for (int j = 0; j < N; ++j) prow[mi * N + j] = j == k ? S(1) / pv : a[k * N + j] / pv;
     }
     __syncthreads();
     // Jordan step: row k <- scaled row; column k <- -col / pivot; rest rank-1.
-    for (int it = tid; it < count * 144; it += nt) {
-      const int mi = it / 144, i = (it % 144) / NB_, j = it % NB_;
-      S* a = mats + mi * 144;
-      const S pr = prow[mi * NB_ + j];
+    for (int it = tid; it < count * NN; it += nt) {
+      const int mi = it / NN, i = (it % NN) / N, j = it % N;
+      S* a = mats + mi * NN;
+      const S pr = prow[mi * N + j];
       if (i == k) {
-        a[i * NB_ + j] = pr;
+        a[i * N + j] = pr;
       } else if (j == k) {
-        a[i * NB_ + j] = -colk[mi * NB_ + i] * prow[mi * NB_ + k];
+        a[i * N + j] = -colk[mi * N + i] * prow[mi * N + k];
       } else {
-        a[i * NB_ + j] -= colk[mi * NB_ + i] * pr;
+        a[i * N + j] -= colk[mi * N + i] * pr;
       }
     }
     __syncthreads();
   }
   if (!pivot) return;
   // inv(A) = inv(P A) P: undo the row swaps as column swaps, last first.
-  for (int it = tid; it < count * NB_; it += nt) {
-    const int mi = it / NB_, i = it % NB_;
-    S* row = mats + mi * 144 + i * NB_;
-    for (int k = NB_ - 1; k >= 0; --k) {
-      const int p = piv[mi * NB_ + k];
+  for (int it = tid; it < count * N; it += nt) {
+    const int mi = it / N, i = it % N;
+    S* row = mats + mi * NN + i * N;
+    for (int k = N - 1; k >= 0; --k) {
+      const int p = piv[mi * N + k];
       if (p != k) {
         S tmp = row[k];
         row[k] = row[p];
@@ -441,6 +447,48 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, S* colk, S* p
     }
   }
   __syncthreads();
+}
+
+// Jacobi equilibration (`kkt_scale="jacobi"`, `pdipm_pallas.py:333`):
+// K^-1 = D (D K D)^-1 D with D = 1 / sqrt(max(|diag K|, 1e-30)), an IEEE
+// square root and division. jacobi_factor writes D of `count` N x N blocks
+// at `mats` into dsc (count * N values); jacobi_apply scales every entry as
+// (a_ij d_i) d_j, before the inverse and again after it.
+template <typename S>
+__device__ __forceinline__ S jacobi_d(S a) {
+  a = a < S(0) ? -a : a;
+  return S(1) / sqrt(a > S(1e-30) || a != a ? a : S(1e-30));
+}
+
+template <int N, typename S>
+__device__ void jacobi_factor(const S* mats, int count, S* dsc) {
+  for (int it = threadIdx.x; it < count * N; it += blockDim.x) {
+    const int mi = it / N, i = it % N;
+    dsc[it] = jacobi_d(mats[mi * N * N + i * N + i]);
+  }
+  __syncthreads();
+}
+
+template <int N, typename S>
+__device__ void jacobi_apply(S* mats, int count, const S* dsc) {
+  for (int it = threadIdx.x; it < count * N * N; it += blockDim.x) {
+    const int mi = it / (N * N), i = (it / N) % N, j = it % N;
+    mats[it] = mats[it] * dsc[mi * N + i] * dsc[mi * N + j];
+  }
+  __syncthreads();
+}
+
+// The stage inverses of a route: `count` independent N x N blocks inverted
+// in place, equilibrated first when `jacobi` (dsc: count * N scratch values).
+template <int N, typename S>
+__device__ void stage_inverse(S* mats, int count, bool pivot, bool jacobi, S* colk, S* prow,
+                              int* piv, S* dsc) {
+  if (jacobi) {
+    jacobi_factor<N>(mats, count, dsc);
+    jacobi_apply<N>(mats, count, dsc);
+  }
+  gj_inverse_inplace<N>(mats, count, pivot, colk, prow, piv);
+  if (jacobi) jacobi_apply<N>(mats, count, dsc);
 }
 
 // ---------------------------------------------------------------------------
@@ -471,7 +519,7 @@ __device__ void dual_riccati_chain(S* m, const S* sc, int T, S* q1, S* colk, S* 
       }
       __syncthreads();
     }
-    gj_inverse_inplace(mt, 1, false, colk, prow, piv);
+    gj_inverse_inplace<NX_>(mt, 1, false, colk, prow, piv);
   }
 }
 
@@ -530,4 +578,325 @@ __device__ S frac_to_boundary(const S* v, const S* dv, int n, S* red) {
   S a = S(0.99) * mn;
   a = (a != a) ? a : (a < S(1) ? a : S(1));
   return (a != a) ? a : (a > S(1e-12) ? a : S(1e-12));
+}
+
+// ---------------------------------------------------------------------------
+// The two reduced-solve forms, each with its refinement, from the layout's
+// rhs buffers to the directions (dx, ds, dz, dy). They call the route's one
+// solve P::solve(sm, L, r1, rz, r4, dx, dz, dy) (rz and dz only on the
+// augmented routes).
+// ---------------------------------------------------------------------------
+
+// Augmented: rz = r3 - r2 / Sigma already formed; the refinement residual of
+// the [x, z, y] system (`refine_residual`, working precision or df).
+template <typename P, typename S, typename Layout>
+__device__ void reduced_solve_aug(S* sm, const Layout& L, int refine_steps, bool refine_df,
+                                  S beta, S delta, S* dx, S* ds, S* dz, S* dy) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const S* r2 = sm + L.r2;
+  const S* sig = sm + L.sig;
+  S* ex = sm + L.ex;
+  S* ezz = sm + L.ezz;
+  S* ey = sm + L.ey;
+  const int nz = L.nz, ni = L.ni, ne = L.ne;
+
+  P::solve(sm, L, sm + L.r1, sm + L.rz, sm + L.r4, dx, dz, dy);
+  for (int rs = 0; rs < refine_steps; ++rs) {
+    refine_residual(sm, L, refine_df, beta, delta, dx, dz, dy);
+    P::solve(sm, L, sm + L.e1, sm + L.ez, sm + L.e4, ex, ezz, ey);
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) dx[it] += ex[it];
+      else if (it < nz + ni) dz[it - nz] += ezz[it - nz];
+      else dy[it - nz - ni] += ey[it - nz - ni];
+    }
+    __syncthreads();
+  }
+  for (int k = tid; k < ni; k += nt) ds[k] = (r2[k] - dz[k]) / sig[k];
+  __syncthreads();
+}
+
+// Condensed: tmp = W^-1 (r3 - r2 / Sigma) already formed, z eliminated.
+template <typename P, typename S, typename Layout>
+__device__ void reduced_solve_condensed(S* sm, const Layout& L, int refine_steps, S beta,
+                                        S delta, S* dx, S* ds, S* dz, S* dy) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const S* r1 = sm + L.r1;
+  const S* r2 = sm + L.r2;
+  const S* r3 = sm + L.r3;
+  const S* r4 = sm + L.r4;
+  const S* hd = sm + L.hd;
+  const S* w = sm + L.w;
+  const S* sig = sm + L.sig;
+  S* r1h = sm + L.r1h;
+  S* tmp = sm + L.tmp;
+  S* e1 = sm + L.e1;
+  S* e4 = sm + L.e4;
+  S* ex = sm + L.ex;
+  S* ey = sm + L.ey;
+  const int nz = L.nz, ni = L.ni, ne = L.ne;
+
+  // r1_hat = r1 + G^T (W^-1 (r3 - r2 / Sigma))
+  for (int i = tid; i < nz; i += nt) r1h[i] = r1[i] + gT_entry(sm, L, i, tmp);
+  __syncthreads();
+  P::solve(sm, L, r1h, (const S*)nullptr, r4, dx, (S*)nullptr, dy);
+  for (int rs = 0; rs < refine_steps; ++rs) {
+    for (int k = tid; k < ni; k += nt) tmp[k] = w[k] * g_entry(sm, L, k, dx);
+    __syncthreads();
+    for (int it = tid; it < nz + ne; it += nt) {
+      if (it < nz) {
+        const int i = it;
+        S mv = (hd[i] + beta) * dx[i] + gT_entry(sm, L, i, tmp) + aT_entry(sm, L, i, dy);
+        e1[i] = r1h[i] - mv;
+      } else {
+        const int e = it - nz;
+        S mv = a_entry(sm, L, e, dx) - delta * dy[e];
+        e4[e] = r4[e] - mv;
+      }
+    }
+    __syncthreads();
+    P::solve(sm, L, e1, (const S*)nullptr, e4, ex, (S*)nullptr, ey);
+    for (int it = tid; it < nz + ne; it += nt) {
+      if (it < nz) dx[it] += ex[it];
+      else dy[it - nz] += ey[it - nz];
+    }
+    __syncthreads();
+  }
+  // dz = W^-1 (G dx + r2 / Sigma - r3), ds = (r2 - dz) / Sigma
+  for (int k = tid; k < ni; k += nt) {
+    const S v = w[k] * (g_entry(sm, L, k, dx) + r2[k] / sig[k] - r3[k]);
+    dz[k] = v;
+    ds[k] = (r2[k] - v) / sig[k];
+  }
+  __syncthreads();
+}
+
+// The route's reduced solve: the augmented or the condensed form.
+template <typename P, typename S, typename Layout>
+__device__ __forceinline__ void reduced_solve(S* sm, const Layout& L, int refine_steps,
+                                              bool refine_df, S beta, S delta, S* dx, S* ds,
+                                              S* dz, S* dy) {
+  if constexpr (P::AUG) {
+    reduced_solve_aug<P>(sm, L, refine_steps, refine_df, beta, delta, dx, ds, dz, dy);
+  } else {
+    reduced_solve_condensed<P>(sm, L, refine_steps, beta, delta, dx, ds, dz, dy);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Newton-step kernel of every route: `iterations` Mehrotra steps (delta
+// corrector) of one env per block, from the cold start or the warm state.
+//
+// A route policy P supplies:
+//   Layout, make_layout(T, size_of_s)  its shared-memory layout (host and
+//        device); besides the fields read above and below, `piv` (byte
+//        offset of its int pivot table) and `bytes`;
+//   AUG  true: z stays in the stage blocks, W = Sigma^-1 + delta, the
+//        augmented reduced solve, refine_df accepted; false: z eliminated
+//        with W^-1 = Sigma / (1 + delta Sigma), the condensed reduced solve,
+//        refine_df refused by `launch`;
+//   setup(sm, L, beta, delta)  the solve's constants, after load_env;
+//   factor(sm, L, piv, beta, delta, jacobi)  the factorization at the
+//        current W (W^-1), `jacobi` = kkt_scale "jacobi" (routes without
+//        stage inverses to equilibrate ignore it);
+//   solve(sm, L, r1, rz, r4, dx, dz, dy)  one reduced solve through it.
+//
+// The outputs may alias the warm state x0, s0, z0, y0 (load_env), so none of
+// those pointers is __restrict__.
+// ---------------------------------------------------------------------------
+template <typename P, typename S>
+__global__ void __launch_bounds__(PDIPM_THREADS) __maxnreg__(MaxRegs<S>::value)
+pdipm_kernel(
+    const S* __restrict__ hd_in, const S* __restrict__ f_in, const S* __restrict__ ad_in,
+    const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
+    const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
+    S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran,
+    int T, int iterations, int refine_steps, int refine_df, int kkt_jacobi, S beta, S delta) {
+  if (!gate_open(go, ran)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* sm = reinterpret_cast<S*>(smem_raw);
+  const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
+  int* piv = reinterpret_cast<int*>(smem_raw + L.piv);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long env = blockIdx.x;
+  const int nz = L.nz, ni = L.ni, ne = L.ne;
+  S* red = sm + L.red;
+
+  load_env(sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0, y0);
+  P::setup(sm, L, beta, delta);
+
+  S* x = sm + L.x;
+  S* s = sm + L.s;
+  S* z = sm + L.z;
+  S* y = sm + L.y;
+  S* rx = sm + L.rx;
+  S* rsb = sm + L.rs;
+  S* re = sm + L.re;
+  S* sig = sm + L.sig;
+  S* w = sm + L.w;
+  S* r1 = sm + L.r1;
+  S* r2 = sm + L.r2;
+  S* r4 = sm + L.r4;
+  S* dxa = sm + L.dxa; S* dsa = sm + L.dsa; S* dza = sm + L.dza; S* dya = sm + L.dya;
+  S* dxc = sm + L.dxc; S* dsc = sm + L.dsc; S* dzc = sm + L.dzc; S* dyc = sm + L.dyc;
+  const S nif = S(ni);
+  const bool df = refine_df != 0;
+  const bool jacobi = kkt_jacobi != 0;
+
+  for (int iter = 0; iter < iterations; ++iter) {
+    // KKT residuals at the current iterate, Sigma, and W = 1 / Sigma + delta
+    // (augmented) or W^-1 = Sigma / (1 + delta Sigma) (condensed).
+    S part = S(0);
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) {
+        const int i = it;
+        rx[i] = sm[L.hd + i] * x[i] + sm[L.f + i] + gT_entry(sm, L, i, z) + aT_entry(sm, L, i, y);
+      } else if (it < nz + ni) {
+        const int k = it - nz;
+        rsb[k] = g_entry(sm, L, k, x) + s[k] - sm[L.d + k];
+        const S sg = z[k] / s[k] + delta;
+        sig[k] = sg;
+        w[k] = P::AUG ? S(1) / sg + delta : sg / (S(1) + delta * sg);
+        part += s[k] * z[k];
+      } else {
+        const int e = it - nz - ni;
+        re[e] = a_entry(sm, L, e, x) - sm[L.b + e];
+      }
+    }
+    const S mu = block_sum(part, red) / nif;  // syncs
+
+    P::factor(sm, L, piv, beta, delta, jacobi);
+
+    // Affine direction: rhs (-rx, -(s z)/s, -rs, -re).
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) {
+        r1[it] = -rx[it];
+      } else if (it < nz + ni) {
+        const int k = it - nz;
+        const S v2 = -(s[k] * z[k]) / s[k];
+        r2[k] = v2;
+        if constexpr (P::AUG) {
+          sm[L.rz + k] = -rsb[k] - v2 / sig[k];
+        } else {
+          const S v3 = -rsb[k];
+          sm[L.r3 + k] = v3;
+          sm[L.tmp + k] = w[k] * (v3 - v2 / sig[k]);
+        }
+      } else {
+        r4[it - nz - ni] = -re[it - nz - ni];
+      }
+    }
+    __syncthreads();
+    reduced_solve<P>(sm, L, refine_steps, df, beta, delta, dxa, dsa, dza, dya);
+    const S ap = frac_to_boundary(s, dsa, ni, red);
+    const S adl = frac_to_boundary(z, dza, ni, red);
+    part = S(0);
+    for (int k = tid; k < ni; k += nt) part += (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]);
+    const S mu_aff = block_sum(part, red) / nif;
+    const S ratio = mu_aff / mu;
+    const S sigma = ratio * ratio * ratio;
+
+    // Corrector: rhs (0, -rc/s, 0, 0), rc = s z + ds_a dz_a - sigma mu.
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) {
+        r1[it] = S(0);
+      } else if (it < nz + ni) {
+        const int k = it - nz;
+        const S rc = s[k] * z[k] + dsa[k] * dza[k] - sigma * mu;
+        const S v2 = -rc / s[k];
+        r2[k] = v2;
+        if constexpr (P::AUG) {
+          sm[L.rz + k] = S(0) - v2 / sig[k];
+        } else {
+          sm[L.r3 + k] = S(0);
+          sm[L.tmp + k] = w[k] * (S(0) - v2 / sig[k]);
+        }
+      } else {
+        r4[it - nz - ni] = S(0);
+      }
+    }
+    __syncthreads();
+    reduced_solve<P>(sm, L, refine_steps, df, beta, delta, dxc, dsc, dzc, dyc);
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) {
+        dxa[it] += dxc[it];
+      } else if (it < nz + ni) {
+        const int k = it - nz;
+        dsa[k] += dsc[k];
+        dza[k] += dzc[k];
+      } else {
+        dya[it - nz - ni] += dyc[it - nz - ni];
+      }
+    }
+    __syncthreads();
+    const S alp = frac_to_boundary(s, dsa, ni, red);
+    const S ald = frac_to_boundary(z, dza, ni, red);
+    for (int it = tid; it < nz + ni + ne; it += nt) {
+      if (it < nz) {
+        x[it] += alp * dxa[it];
+      } else if (it < nz + ni) {
+        const int k = it - nz;
+        const S sn = s[k] + alp * dsa[k];
+        const S zn = z[k] + ald * dza[k];
+        s[k] = sn > S(1e-8) || sn != sn ? sn : S(1e-8);
+        z[k] = zn > S(1e-8) || zn != zn ? zn : S(1e-8);
+      } else {
+        y[it - nz - ni] += ald * dya[it - nz - ni];
+      }
+    }
+    __syncthreads();
+  }
+
+  // Residual norms of the last step's start, and mu after it.
+  S p0 = S(0), p1 = S(0), p2 = S(0), p3 = S(0);
+  if (iterations > 0) {
+    for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
+    for (int k = tid; k < ni; k += nt) {
+      p1 += rsb[k] * rsb[k];
+      p3 += s[k] * z[k];
+    }
+    for (int e = tid; e < ne; e += nt) p2 += re[e] * re[e];
+  }
+  p0 = block_sum(p0, red);
+  p1 = block_sum(p1, red);
+  p2 = block_sum(p2, red);
+  p3 = block_sum(p3, red);
+  for (int i = tid; i < nz; i += nt) x_out[env * nz + i] = x[i];
+  for (int k = tid; k < ni; k += nt) {
+    s_out[env * ni + k] = s[k];
+    z_out[env * ni + k] = z[k];
+  }
+  for (int e = tid; e < ne; e += nt) y_out[env * ne + e] = y[e];
+  if (tid == 0) {
+    res_out[env * 4 + 0] = sqrt(p0);
+    res_out[env * 4 + 1] = sqrt(p1);
+    res_out[env * 4 + 2] = sqrt(p2);
+    res_out[env * 4 + 3] = p3 / nif;
+  }
+}
+
+// Host side of every route's `pdipm_<route>_f32` / `_f64` entry: sets the
+// kernel's shared memory, launches `batch` blocks on `stream` and returns a
+// cudaError_t (0 = success). The compensated residual refines the augmented
+// system; a condensed route keeps the common argument list, and
+// `pdipm.check_options` refuses df there before any launch, so the guard
+// below fires only for a direct C caller.
+template <typename P, typename S>
+static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
+                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
+                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
+                  void* ran, int batch, int T, int iterations, int refine_steps, int refine_df,
+                  int kkt_jacobi, double beta, double delta, void* stream) {
+  if (!P::AUG && refine_df != 0) return (int)cudaErrorInvalidValue;
+  const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
+  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0) return 0;
+  pdipm_kernel<P, S><<<batch, PDIPM_THREADS, L.bytes, (cudaStream_t)stream>>>(
+      (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
+      (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, iterations, refine_steps, refine_df,
+      kkt_jacobi, (S)beta, (S)delta);
+  return (int)cudaGetLastError();
 }

@@ -1,0 +1,169 @@
+// Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP on the rank-2
+// condensed route (K5c), one thread block per env.
+//
+// Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` (:308) on its
+// backend="ric2" route: `factor_ric2` (:839) and `_kinv2_apply` (:885), the
+// condensed reduced solve of `iteration_base` (:1252-1274) through
+// `ric_solve` (:929), the delta corrector, the warm entry (`warm=True`,
+// :316-319) and kkt_scale="jacobi" on Ru (:860). It computes what the "ric2"
+// route of `ops/pdipm.py` computes (the plain version).
+//
+// Per stage the 12-wide SPD block Ru = G^T W_t^-1 G + diag(r + beta) is
+// inverted without pivoting; the 2-wide nu block (diagonal -delta) is
+// eliminated by the Schur identity instead of sitting in the elimination:
+// with E selecting u columns 6 and 9, S = -delta I - E Ru^-1 E^T (2x2,
+// negative definite) is inverted in closed form, and
+//
+//     K^-1 = [[Ru^-1 + Ru^-1 E^T S^-1 E Ru^-1, -Ru^-1 E^T S^-1],
+//             [-S^-1 E Ru^-1,                   S^-1]],
+//
+// applied row by row through that formula, never assembled. kuu = Ru^-1 +
+// (E Ru^-1)^T S^-1 (E Ru^-1), a rank-2 update, feeds the y-chain.
+//
+// What bounds it on an H100: as the other Riccati routes (pdipm_ric_aug.cu),
+// an env reads 1,260 values and writes 704, so the kernel is bound by the
+// latency and barriers of small dependent eliminations, not by bandwidth.
+// Its stage work is T 12-wide inverses per step, eliminated together (12
+// barrier steps), against K2's 2T 4x4 ones per thread.
+//
+// What the design does about that: every value of an env lives in the
+// block's dynamic shared memory for the whole solve; the T stage blocks are
+// independent and share each Jordan step's barrier; each K^-1 row recomputes
+// the two E Ru^-1 r entries it needs instead of waiting at a barrier for them.
+//
+// Numerics: the 2x2 determinant sa * sc - sb * sb, with Ru^-1[6,6] ~
+// 1 / (r + beta) ~ 1e4, follows the JAX formula as written. Ru carries
+// G^T W^-1 G with W^-1 up to ~1e8, as K2's foot blocks do; the Jordan step
+// writes the inverse's pivot entry as 1/pivot directly. Build without
+// --use_fast_math: division and sqrt stay IEEE.
+
+#include "pdipm_riccati.cuh"
+
+// The route's policy for the Newton-step kernel of pdipm_common.cuh. Layout:
+// ka holds the T Ru^-1 (12x12), kuu the T (K^-1)_uu, sn the T S^-1 (2x2).
+struct Ric2 {
+  static constexpr bool AUG = false;
+  using Layout = RicLayout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s) {
+    return make_ric_layout(T, size_of_s, NU_, false, true, false);
+  }
+
+  template <typename S>
+  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(sm, L, beta, delta);
+  }
+
+  // Row o (< 14) of K_t^-1 r, r = [u (12), nu (2)], by the block formula
+  // (`_kinv2_apply`): t1 = Ru^-1 r_u, eta = S^-1 (r_nu - E t1) is the nu part,
+  // du = t1 - (E Ru^-1)^T eta.
+  template <typename S>
+  static __device__ __forceinline__ S kinv_row(const S* sm, const Layout& L, int t, int o,
+                                               const S* r) {
+    const S* ri = sm + L.ka + t * 144;
+    const S* sn = sm + L.sn + t * 4;
+    S t6 = S(0), t9 = S(0);
+    for (int j = 0; j < NU_; ++j) t6 += ri[6 * NU_ + j] * r[j];
+    for (int j = 0; j < NU_; ++j) t9 += ri[9 * NU_ + j] * r[j];
+    const S e0 = r[NU_] - t6, e1 = r[NU_ + 1] - t9;
+    const S eta0 = sn[0] * e0 + sn[1] * e1;
+    const S eta1 = sn[2] * e0 + sn[3] * e1;
+    if (o == NU_) return eta0;
+    if (o == NU_ + 1) return eta1;
+    S t1 = S(0);
+    for (int j = 0; j < NU_; ++j) t1 += ri[o * NU_ + j] * r[j];
+    return t1 - (ri[6 * NU_ + o] * eta0 + ri[9 * NU_ + o] * eta1);
+  }
+
+  template <typename S>
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool jacobi) {
+    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const S* hd = sm + L.hd;
+    const S* gu = sm + L.gu;
+    const S* w = sm + L.w;
+    S* ka = sm + L.ka;
+    S* kuu = sm + L.kuu;
+    S* sn = sm + L.sn;
+    // Ru_t = G^T diag(W_t^-1) G + diag(r + beta), all T stages.
+    for (int it = tid; it < T * 144; it += nt) {
+      const int t = it / 144, r = (it % 144) / NU_, c = it % NU_;
+      const S* wt = w + t * NI_;
+      S acc = S(0);
+      for (int q = 0; q < NI_; ++q) acc += gu[q * NU_ + r] * gu[q * NU_ + c] * wt[q];
+      ka[it] = r == c ? acc + (hd[NX_ * T + r] + beta) : acc;
+    }
+    __syncthreads();
+    stage_inverse<NU_>(ka, T, false, jacobi, sm + L.colk, sm + L.prow, piv, sm + L.run);
+    // S^-1 in closed form, S = [[sa, sb], [sb, sc]].
+    for (int t = tid; t < T; t += nt) {
+      const S* ri = ka + t * 144;
+      const S sa = -delta - ri[6 * NU_ + 6];
+      const S sb = -ri[6 * NU_ + 9];
+      const S sc = -delta - ri[9 * NU_ + 9];
+      const S det = sa * sc - sb * sb;
+      sn[t * 4 + 0] = sc / det;
+      sn[t * 4 + 1] = -sb / det;
+      sn[t * 4 + 2] = -sb / det;
+      sn[t * 4 + 3] = sa / det;
+    }
+    __syncthreads();
+    // kuu = Ru^-1 + (E Ru^-1)^T S^-1 (E Ru^-1); E Ru^-1 is rows 6 and 9 of Ru^-1.
+    for (int it = tid; it < T * 144; it += nt) {
+      const int t = it / 144, i = (it % 144) / NU_, j = it % NU_;
+      const S* ri = ka + t * 144;
+      const S* s4 = sn + t * 4;
+      const S e6j = ri[6 * NU_ + j], e9j = ri[9 * NU_ + j];
+      const S si0 = s4[0] * e6j + s4[1] * e9j;
+      const S si1 = s4[2] * e6j + s4[3] * e9j;
+      kuu[it] = ri[i * NU_ + j] + (ri[6 * NU_ + i] * si0 + ri[9 * NU_ + i] * si1);
+    }
+    __syncthreads();
+    y_chain_from_kuu(sm, L, kuu, 144, NU_, delta, piv);
+  }
+
+  template <typename S>
+  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
+                               S* dx, S* dz, S* dy) {
+    riccati_solve<Ric2>(sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};
+
+extern "C" {
+
+// Dynamic shared memory of one block, in bytes, for horizon T and a value
+// size of 4 (float) or 8 (double).
+size_t pdipm_ric2_smem_bytes(int T, int value_size) {
+  return Ric2::make_layout(T, value_size).bytes;
+}
+
+// Solve `batch` QPs on `stream`; the interface of pdipm_ric_aug_f32 /
+// pdipm_ric_aug_f64 (pdipm_ric_aug.cu), except that refine_df must be 0:
+// any other value returns cudaErrorInvalidValue and launches nothing.
+
+int pdipm_ric2_f32(const void* hd, const void* f, const void* ad, const void* bd,
+                   const void* b, const void* gu, const void* d, const void* x0,
+                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                   void* y, void* res, const void* go, void* ran, int batch, int T,
+                   int iterations, int refine_steps, int refine_df, int kkt_jacobi,
+                   double beta, double delta, void* stream) {
+  return launch<Ric2, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
+                             res, go, ran, batch, T, iterations, refine_steps, refine_df,
+                             kkt_jacobi, beta, delta, stream);
+}
+
+int pdipm_ric2_f64(const void* hd, const void* f, const void* ad, const void* bd,
+                   const void* b, const void* gu, const void* d, const void* x0,
+                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                   void* y, void* res, const void* go, void* ran, int batch, int T,
+                   int iterations, int refine_steps, int refine_df, int kkt_jacobi,
+                   double beta, double delta, void* stream) {
+  return launch<Ric2, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
+                              res, go, ran, batch, T, iterations, refine_steps, refine_df,
+                              kkt_jacobi, beta, delta, stream);
+}
+
+const char* pdipm_ric2_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

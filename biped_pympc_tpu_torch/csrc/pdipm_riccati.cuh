@@ -1,0 +1,340 @@
+// The Riccati routes' shared pieces: the solve's constants, the one reduced
+// solve through the stage inverses and the 12-wide dual-Riccati y-chain, the
+// y-chain's factor from P_t = Bd (K_t^-1)_uu, and the layout and policy of
+// the unsplit routes (K5d). Included by pdipm_ric_aug.cu (K1),
+// pdipm_ric.cu (K2), pdipm_ric2.cu (K5c), pdipm_ric_dense.cu (K5d-c) and
+// pdipm_ric_aug_dense.cu (K5d-a).
+//
+// Per stage the [u (12), nu (2)] block (condensed; z eliminated with
+// W^-1 = Sigma / (1 + delta Sigma)) or the [u (12), z (16), nu (2)] block
+// (augmented; W = Sigma^-1 + delta) couples to the dual y_t only through
+// Bd. Each route inverts (or factors) the T stage blocks, all independent;
+// folding them in leaves the y-chain Yhat_t = Y'_t - S^T Yhat_{t-1}^-1 S
+// with S = Q~^-1 Ad^T and Y'_t = -delta I - Q~^-1 - Bd (K_t^-1)_uu Bd^T
+// - [t >= 1] Ad Q~^-1 Ad^T (`pdipm_pallas.py:542-570`). A route supplies
+// `kinv_row(sm, L, t, o, r)`, row o of K_t^-1 r.
+
+#pragma once
+
+#include "pdipm_common.cuh"
+
+static constexpr int NUN_ = NU_ + NMX_;        // 14: [u, nu] per stage
+static constexpr int NKA_ = NU_ + NI_ + NMX_;  // 30: [u, z, nu] per stage
+
+// q_inv = 1 / (Q + beta), S = Q~^-1 Ad^T and Ad Q~^-1 Ad^T; with PAIRS
+// (foot split) also the [M_x, nu] = [[r + beta, 1], [1, -delta]]^-1 and
+// M_z = 1 / (r + beta) coefficients cf, and with YC (K2) the W-independent
+// yc = -delta I - Q~^-1 - sum_j c_j Bd_j Bd_j^T over the columns 6, 8, 9, 11.
+template <bool PAIRS, bool YC, typename S, typename Layout>
+__device__ void riccati_setup(S* sm, const Layout& L, S beta, S delta) {
+  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+  for (int i = tid; i < NX_; i += nt) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
+  if constexpr (PAIRS) {
+    if (tid == 0) {
+      S* cf = sm + L.cf;
+      const S* rr = sm + L.hd + NX_ * T;
+      for (int q = 0; q < 2; ++q) {
+        const S rj = rr[q == 0 ? 6 : 9] + beta;
+        const S det = -rj * delta - S(1);
+        cf[3 * q + 0] = -delta / det;
+        cf[3 * q + 1] = -S(1) / det;
+        cf[3 * q + 2] = rj / det;
+      }
+      cf[6] = S(1) / (rr[8] + beta);
+      cf[7] = S(1) / (rr[11] + beta);
+    }
+  }
+  __syncthreads();
+  for (int it = tid; it < (YC ? 3 : 2) * 144; it += nt) {
+    const int k = it % 144, i = k / NX_, j = k % NX_;
+    const S* ad = sm + L.ad;
+    const S* qinv = sm + L.qinv;
+    if (it < 144) {
+      sm[L.sc + k] = qinv[i] * ad[j * NX_ + i];
+    } else if (it < 288) {
+      S acc = S(0);
+      for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * qinv[l] * ad[j * NX_ + l];
+      sm[L.adqad + k] = acc;
+    } else if constexpr (YC) {
+      const S* bd = sm + L.bd;
+      const S* cf = sm + L.cf;
+      const S couter = cf[0] * bd[i * NU_ + 6] * bd[j * NU_ + 6]
+                     + cf[6] * bd[i * NU_ + 8] * bd[j * NU_ + 8]
+                     + cf[3] * bd[i * NU_ + 9] * bd[j * NU_ + 9]
+                     + cf[7] * bd[i * NU_ + 11] * bd[j * NU_ + 11];
+      sm[L.yc + k] = (i == j ? -delta - qinv[i] : S(0)) - couter;
+    }
+  }
+  __syncthreads();
+}
+
+// Y'_t from P_t = Bd (K_t^-1)_uu at L.p (T x 144), then the dual-Riccati
+// chain: L.m holds Yhat_t^-1 on exit.
+template <typename S, typename Layout>
+__device__ void y_chain_from_p(S* sm, const Layout& L, S delta, int* piv) {
+  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+  const S* bd = sm + L.bd;
+  const S* qinv = sm + L.qinv;
+  const S* p = sm + L.p;
+  S* m = sm + L.m;
+  for (int it = tid; it < T * 144; it += nt) {
+    const int t = it / 144, i = (it % 144) / NX_, l = it % NX_;
+    const S* pt = p + t * 144 + i * NX_;
+    S bkb = S(0);
+    for (int j = 0; j < NU_; ++j) bkb += pt[j] * bd[l * NU_ + j];
+    S v = i == l ? -delta - qinv[i] : S(0);
+    v -= bkb;
+    if (t >= 1) v -= sm[L.adqad + i * NX_ + l];
+    m[it] = v;
+  }
+  __syncthreads();
+  dual_riccati_chain(m, sm + L.sc, T, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+}
+
+// P_t = Bd kuu_t for a dense (K_t^-1)_uu, entry (j, c) of stage t at
+// kuu[t * stage_stride + j * row_stride + c]; then `y_chain_from_p`.
+template <typename S, typename Layout>
+__device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage_stride,
+                                 int row_stride, S delta, int* piv) {
+  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+  const S* bd = sm + L.bd;
+  S* p = sm + L.p;
+  for (int it = tid; it < T * 144; it += nt) {
+    const int t = it / 144, i = (it % 144) / NX_, c = it % NX_;
+    const S* k = kuu + t * stage_stride + c;
+    S v = S(0);
+    for (int j = 0; j < NU_; ++j) v += bd[i * NU_ + j] * k[j * row_stride];
+    p[it] = v;
+  }
+  __syncthreads();
+  y_chain_from_p(sm, L, delta, piv);
+}
+
+// ---------------------------------------------------------------------------
+// One reduced solve of route P through its stage inverses (P::kinv_row) and
+// the y-chain: (r1, r4) -> (dx, dy) condensed, (r1, rz, r4) -> (dx, dz, dy)
+// augmented (`ric_solve:929`, `ric_solve_aug:1061`).
+// ---------------------------------------------------------------------------
+template <typename P, typename S, typename Layout>
+__device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
+                              S* dx, S* dz, S* dy) {
+  constexpr int NZS = P::AUG ? NI_ : 0;  // z rows of the stage rhs
+  constexpr int NR = NU_ + NZS + NMX_;   // stage rhs width: 30 or 14
+  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+  const S* ad = sm + L.ad;
+  const S* bd = sm + L.bd;
+  const S* qinv = sm + L.qinv;
+  const S* sc = sm + L.sc;
+  const S* m = sm + L.m;
+  S* run = sm + L.run;
+  S* kr = sm + L.kr;
+  S* g = sm + L.g;
+  S* wy = sm + L.wy;
+  S* v12 = sm + L.v12;
+
+  // Stage rhs [u, (z,) nu] and the x-eliminated y rows
+  // ry_t = g_t - Q~^-1 c_t + [t >= 1] Ad Q~^-1 c_{t-1}.
+  for (int it = tid; it < T * NR + T * NX_; it += nt) {
+    if (it < T * NR) {
+      const int t = it / NR, r = it % NR;
+      run[it] = r < NU_ ? r1[NX_ * T + NU_ * t + r]
+              : r < NU_ + NZS ? rz[NI_ * t + r - NU_]
+              : r4[NX_ * T + NMX_ * t + r - NU_ - NZS];
+    } else {
+      const int k = it - T * NR, t = k / NX_, i = k % NX_;
+      S v = r4[k] - qinv[i] * r1[k];
+      if (t >= 1) {
+        S acc = S(0);
+        for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * (qinv[l] * r1[(t - 1) * NX_ + l]);
+        v += acc;
+      }
+      g[k] = v;
+    }
+  }
+  __syncthreads();
+  // u rows of K^-1 r_un
+  for (int it = tid; it < T * NU_; it += nt) {
+    const int t = it / NU_, o = it % NU_;
+    kr[it] = P::kinv_row(sm, L, t, o, run + t * NR);
+  }
+  __syncthreads();
+  // r'_y = ry + Bd (K^-1 r_un)_u
+  for (int it = tid; it < T * NX_; it += nt) {
+    const int t = it / NX_, i = it % NX_;
+    S acc = S(0);
+    for (int j = 0; j < NU_; ++j) acc += bd[i * NU_ + j] * kr[t * NU_ + j];
+    g[it] += acc;
+  }
+  __syncthreads();
+  y_sweeps(m, sc, T, g, wy, v12);
+  // u rhs += Bd^T y_t
+  for (int it = tid; it < T * NU_; it += nt) {
+    const int t = it / NU_, r = it % NU_;
+    S acc = S(0);
+    for (int l = 0; l < NX_; ++l) acc += wy[t * NX_ + l] * bd[l * NU_ + r];
+    run[t * NR + r] += acc;
+  }
+  __syncthreads();
+  // [u, (z,) nu] = K^-1 rhs; x_{t+1} = Q~^-1 (c_t - y_t + Ad^T y_{t+1}); y.
+  for (int it = tid; it < T * NR + T * NX_; it += nt) {
+    if (it < T * NR) {
+      const int t = it / NR, o = it % NR;
+      const S v = P::kinv_row(sm, L, t, o, run + t * NR);
+      if (o < NU_) dx[NX_ * T + NU_ * t + o] = v;
+      else if (o < NU_ + NZS) dz[NI_ * t + o - NU_] = v;
+      else dy[NX_ * T + NMX_ * t + o - NU_ - NZS] = v;
+    } else {
+      const int k = it - T * NR, t = k / NX_, i = k % NX_;
+      S v = qinv[i] * (r1[k] - wy[k]);
+      if (t + 1 < T) {
+        S acc = S(0);
+        for (int l = 0; l < NX_; ++l) acc += wy[(t + 1) * NX_ + l] * ad[l * NX_ + i];
+        v += qinv[i] * acc;
+      }
+      dx[k] = v;
+      dy[k] = wy[k];
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory layout of the routes that keep dense stage inverses: K5c
+// (`ric2`, the T 12-wide Ru^-1 with kuu and the 2x2 S^-1 per stage) and K5d
+// (T dense n-wide K_t^-1, n = 14 or 30). Buffers a route does not use have
+// length 0.
+// ---------------------------------------------------------------------------
+struct RicLayout {
+  int T, nz, ni, ne;
+  // inputs
+  int hd, f, ad, bd, b, gu, d;
+  // iterates, residuals, Sigma and W (augmented) or W^-1 (condensed)
+  int x, s, z, y, rx, rs, re, sig, w;
+  // constants of the solve: q_inv, S = Q~^-1 Ad^T, Ad Q~^-1 Ad^T
+  int qinv, sc, adqad;
+  // factors: T stage inverses, ric2's kuu and S^-1, T y-chain inverses,
+  // P_t = Bd (K_t^-1)_uu, elimination scratch
+  int ka, kuu, sn, m, p, colk, prow, q1;
+  // reduced-solve rhs (rz augmented; r3, tmp, r1h condensed), refinement,
+  // directions
+  int r1, r2, r3, r4, rz, tmp, r1h, e1, ez, e4, ex, ezz, ey;
+  int dxa, dsa, dza, dya, dxc, dsc, dzc, dyc;
+  // sweep scratch; `run` (T stage rhs) also holds Jacobi's D during the factor
+  int run, kr, g, wy, v12, red;
+  int total;      // values of S
+  int piv;        // byte offset of the int pivot table
+  size_t bytes;   // total bytes
+};
+
+// n: stage-block width; aug: z kept (augmented); ric2: kuu and S^-1 stored;
+// pivot: the stage inverses pivot (their int table).
+static __host__ __device__ RicLayout make_ric_layout(int T, int size_of_s, int n, bool aug,
+                                                     bool ric2, bool pivot) {
+  RicLayout L;
+  L.T = T;
+  L.nz = 24 * T;
+  L.ni = 16 * T;
+  L.ne = 14 * T;
+  const int nia = aug ? L.ni : 0, nic = aug ? 0 : L.ni;
+  int o = 0;
+  L.hd = take(o, L.nz); L.f = take(o, L.nz); L.ad = take(o, 144); L.bd = take(o, 144);
+  L.b = take(o, L.ne); L.gu = take(o, NI_ * NU_); L.d = take(o, L.ni);
+  L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
+  L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
+  L.sig = take(o, L.ni); L.w = take(o, L.ni);
+  L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, 144);
+  L.ka = take(o, T * n * n); L.kuu = take(o, ric2 ? T * 144 : 0); L.sn = take(o, ric2 ? T * 4 : 0);
+  L.m = take(o, T * 144); L.p = take(o, T * 144);
+  L.colk = take(o, T * n); L.prow = take(o, T * n); L.q1 = take(o, 144);
+  L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r3 = take(o, nic); L.r4 = take(o, L.ne);
+  L.rz = take(o, nia); L.tmp = take(o, nic); L.r1h = take(o, aug ? 0 : L.nz);
+  L.e1 = take(o, L.nz); L.ez = take(o, nia); L.e4 = take(o, L.ne);
+  L.ex = take(o, L.nz); L.ezz = take(o, nia); L.ey = take(o, L.ne);
+  L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+  L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+  L.run = take(o, T * (aug ? NKA_ : NUN_)); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+  L.wy = take(o, T * NX_); L.v12 = take(o, NX_); L.red = take(o, PDIPM_THREADS);
+  L.total = o;
+  L.piv = o * size_of_s;
+  L.bytes = (size_t)L.piv + (pivot ? sizeof(int) * T * n : 0);
+  return L;
+}
+
+// ---------------------------------------------------------------------------
+// K5d: the unsplit Riccati routes (`factor_ric:896`, `factor_ric_aug:1007`,
+// foot_split=False). Stage t's dense block
+//   condensed (n = 14): [[R + beta + G^T W_t^-1 G, e^T], [e, -delta I]],
+//     symmetric quasi-definite: inverted without pivoting (`:916-921`);
+//   augmented (n = 30): [[R + beta, G^T, e^T], [G, -W_t, 0], [e, 0, -delta I]],
+//     inverted with partial pivoting (`aug_pivot=True`: natural order gives
+//     NaN on stress problems, `biped_pympc_tpu/ops/pdipm.py:150-155`),
+// all T blocks eliminated together, equilibrated when `jacobi`.
+// ---------------------------------------------------------------------------
+template <bool AUG_>
+struct RicDenseRoute {
+  static constexpr bool AUG = AUG_;
+  static constexpr int N = AUG ? NKA_ : NUN_;
+  using Layout = RicLayout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s) {
+    return make_ric_layout(T, size_of_s, N, AUG, false, AUG);
+  }
+
+  template <typename S>
+  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(sm, L, beta, delta);
+  }
+
+  // Row o of K_t^-1 r, the stored inverse's row.
+  template <typename S>
+  static __device__ __forceinline__ S kinv_row(const S* sm, const Layout& L, int t, int o,
+                                               const S* r) {
+    const S* k = sm + L.ka + t * N * N + o * N;
+    S acc = S(0);
+    for (int j = 0; j < N; ++j) acc += k[j] * r[j];
+    return acc;
+  }
+
+  template <typename S>
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool jacobi) {
+    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const S* hd = sm + L.hd;
+    const S* gu = sm + L.gu;
+    const S* w = sm + L.w;
+    S* ka = sm + L.ka;
+    for (int it = tid; it < T * N * N; it += nt) {
+      const int t = it / (N * N), r = (it / N) % N, c = it % N;
+      const S* wt = w + t * NI_;
+      S v = S(0);
+      if (r < NU_ && c < NU_) {
+        if constexpr (AUG) {
+          if (r == c) v = hd[NX_ * T + r] + beta;
+        } else {
+          S acc = S(0);
+          for (int q = 0; q < NI_; ++q) acc += gu[q * NU_ + r] * gu[q * NU_ + c] * wt[q];
+          v = r == c ? acc + (hd[NX_ * T + r] + beta) : acc;
+        }
+      } else if (r < NU_ && c >= N - NMX_) {  // e^T: u6 -> nu0, u9 -> nu1
+        v = (r == 6 && c == N - 2) || (r == 9 && c == N - 1) ? S(1) : S(0);
+      } else if (c < NU_ && r >= N - NMX_) {  // e
+        v = (c == 6 && r == N - 2) || (c == 9 && r == N - 1) ? S(1) : S(0);
+      } else if (r >= N - NMX_ && c >= N - NMX_) {  // nu block
+        v = r == c ? -delta : S(0);
+      } else if constexpr (AUG) {
+        if (r < NU_ && c < NU_ + NI_) v = gu[(c - NU_) * NU_ + r];       // G^T
+        else if (c < NU_ && r < NU_ + NI_) v = gu[(r - NU_) * NU_ + c];  // G
+        else if (r == c) v = -wt[r - NU_];                               // -W_t
+      }
+      ka[it] = v;
+    }
+    __syncthreads();
+    stage_inverse<N>(ka, T, AUG, jacobi, sm + L.colk, sm + L.prow, piv, sm + L.run);
+    y_chain_from_kuu(sm, L, ka, N * N, N, delta, piv);
+  }
+
+  template <typename S>
+  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
+                               S* dx, S* dz, S* dy) {
+    riccati_solve<RicDenseRoute>(sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};

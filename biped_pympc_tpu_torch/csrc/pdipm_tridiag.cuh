@@ -1,14 +1,14 @@
-// The block-Thomas PDIPM, one thread block per env: the kernel that
-// pdipm_tridiag.cu (condensed, 26-wide stage blocks, K5a) and
-// pdipm_tridiag_aug.cu (augmented, 42-wide, K5b) instantiate, one width each.
-// Those sources carry the notes on what each replaces and what bounds it.
+// The block-Thomas routes' policy for the Newton-step kernel of
+// pdipm_common.cuh: pdipm_tridiag.cu (condensed, 26-wide stage blocks, K5a)
+// and pdipm_tridiag_aug.cu (augmented, 42-wide, K5b) instantiate one width
+// each. Those sources carry the notes on what each replaces and what bounds
+// it.
 //
-// Per Newton step: the KKT residuals, Sigma and W (or W^-1); the Thomas
-// factor, T stages in order, each building its N x N block on
+// The factor runs T stages in order, each building its N x N block on
 // [u (12), z (16, augmented only), nu (2), y (12)] in its own slot of
-// shared memory and inverting it there with partial pivoting; then the
-// affine and corrector reduced solves with refinement, the step rule and
-// the update, as in pdipm_ric_aug.cu / pdipm_ric.cu.
+// shared memory and inverting it there with partial pivoting; the solve is
+// the two sweeps through the stored inverses. These routes ignore
+// kkt_scale, as the JAX kernel's `factor` / `factor_aug` do.
 
 #pragma once
 
@@ -44,7 +44,7 @@ struct Layout {
 };
 
 template <bool AUG>
-static __host__ __device__ Layout make_layout(int T, int size_of_s) {
+static __host__ __device__ Layout make_tridiag_layout(int T, int size_of_s) {
   constexpr int N = Thomas<AUG>::N;
   Layout L;
   L.T = T;
@@ -154,7 +154,7 @@ __device__ void gj_inverse_pivot(S* a, S* colk, S* prow, S* rowk, int* piv) {
 // y block N_yy. The stages are sequential: S_t needs M_{t-1}.
 // ---------------------------------------------------------------------------
 template <typename S, bool AUG>
-__device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta) {
+__device__ void thomas_factor(S* sm, const Layout& L, int* piv, S beta, S delta) {
   using K = Thomas<AUG>;
   constexpr int N = K::N, NNU = K::NNU, NY = K::NY;
   const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
@@ -305,274 +305,32 @@ __device__ void thomas_solve(S* sm, const Layout& L, const S* r1, const S* rz, c
   __syncthreads();
 }
 
-// Reduced solve with refinement, from the layout's rhs buffers to directions
-// (dx, ds, dz, dy). Augmented: rz = r3 - r2 / Sigma already formed, the
-// refinement residual of the [x, z, y] system (`refine_residual`).
-// Condensed: tmp = W^-1 (r3 - r2 / Sigma) already formed, z eliminated.
-template <typename S, bool AUG>
-__device__ void reduced_solve(S* sm, const Layout& L, int refine_steps, bool refine_df, S beta,
-                              S delta, S* dx, S* ds, S* dz, S* dy) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const S* r1 = sm + L.r1;
-  const S* r2 = sm + L.r2;
-  const S* r4 = sm + L.r4;
-  const S* sig = sm + L.sig;
-  const S* w = sm + L.w;
-  S* ex = sm + L.ex;
-  S* ey = sm + L.ey;
-  const int nz = L.nz, ni = L.ni, ne = L.ne;
-  if constexpr (AUG) {
-    S* ezz = sm + L.ezz;
-    thomas_solve<S, true>(sm, L, r1, sm + L.rz, r4, dx, dz, dy);
-    for (int rs = 0; rs < refine_steps; ++rs) {
-      refine_residual(sm, L, refine_df, beta, delta, dx, dz, dy);
-      thomas_solve<S, true>(sm, L, sm + L.e1, sm + L.ez, sm + L.e4, ex, ezz, ey);
-      for (int it = tid; it < nz + ni + ne; it += nt) {
-        if (it < nz) dx[it] += ex[it];
-        else if (it < nz + ni) dz[it - nz] += ezz[it - nz];
-        else dy[it - nz - ni] += ey[it - nz - ni];
-      }
-      __syncthreads();
-    }
-    for (int k = tid; k < ni; k += nt) ds[k] = (r2[k] - dz[k]) / sig[k];
-    __syncthreads();
-  } else {
-    const S* r3 = sm + L.r3;
-    const S* hd = sm + L.hd;
-    S* r1h = sm + L.r1h;
-    S* tmp = sm + L.tmp;
-    S* e1 = sm + L.e1;
-    S* e4 = sm + L.e4;
-    // r1_hat = r1 + G^T (W^-1 (r3 - r2 / Sigma))
-    for (int i = tid; i < nz; i += nt) r1h[i] = r1[i] + gT_entry(sm, L, i, tmp);
-    __syncthreads();
-    thomas_solve<S, false>(sm, L, r1h, nullptr, r4, dx, nullptr, dy);
-    for (int rs = 0; rs < refine_steps; ++rs) {
-      for (int k = tid; k < ni; k += nt) tmp[k] = w[k] * g_entry(sm, L, k, dx);
-      __syncthreads();
-      for (int it = tid; it < nz + ne; it += nt) {
-        if (it < nz) {
-          const int i = it;
-          S mv = (hd[i] + beta) * dx[i] + gT_entry(sm, L, i, tmp) + aT_entry(sm, L, i, dy);
-          e1[i] = r1h[i] - mv;
-        } else {
-          const int e = it - nz;
-          S mv = a_entry(sm, L, e, dx) - delta * dy[e];
-          e4[e] = r4[e] - mv;
-        }
-      }
-      __syncthreads();
-      thomas_solve<S, false>(sm, L, e1, nullptr, e4, ex, nullptr, ey);
-      for (int it = tid; it < nz + ne; it += nt) {
-        if (it < nz) dx[it] += ex[it];
-        else dy[it - nz] += ey[it - nz];
-      }
-      __syncthreads();
-    }
-    // dz = W^-1 (G dx + r2 / Sigma - r3), ds = (r2 - dz) / Sigma
-    for (int k = tid; k < ni; k += nt) {
-      const S v = w[k] * (g_entry(sm, L, k, dx) + r2[k] / sig[k] - r3[k]);
-      dz[k] = v;
-      ds[k] = (r2[k] - v) / sig[k];
-    }
-    __syncthreads();
+template <bool AUG_>
+struct ThomasRoute {
+  static constexpr bool AUG = AUG_;
+  using Layout = ::Layout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s) {
+    return make_tridiag_layout<AUG>(T, size_of_s);
   }
-}
 
-// The outputs may alias the warm state x0, s0, z0, y0 (load_env), so none of
-// those pointers is __restrict__.
-template <typename S, bool AUG>
-__global__ void __launch_bounds__(PDIPM_THREADS) __maxnreg__(MaxRegs<S>::value)
-pdipm_tridiag_kernel(
-    const S* __restrict__ hd_in, const S* __restrict__ f_in, const S* __restrict__ ad_in,
-    const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
-    const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
-    S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran,
-    int T, int iterations, int refine_steps, int refine_df, S beta, S delta) {
-  if (!gate_open(go, ran)) return;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* sm = reinterpret_cast<S*>(smem_raw);
-  const Layout L = make_layout<AUG>(T, (int)sizeof(S));
-  int* piv = reinterpret_cast<int*>(smem_raw + L.piv);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long env = blockIdx.x;
-  const int nz = L.nz, ni = L.ni, ne = L.ne;
-  S* red = sm + L.red;
-
-  load_env(sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0, y0);
-  for (int i = tid; i < NX_; i += nt) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
-  __syncthreads();
-
-  S* x = sm + L.x;
-  S* s = sm + L.s;
-  S* z = sm + L.z;
-  S* y = sm + L.y;
-  S* rx = sm + L.rx;
-  S* rsb = sm + L.rs;
-  S* re = sm + L.re;
-  S* sig = sm + L.sig;
-  S* w = sm + L.w;
-  S* r1 = sm + L.r1;
-  S* r2 = sm + L.r2;
-  S* r4 = sm + L.r4;
-  S* dxa = sm + L.dxa; S* dsa = sm + L.dsa; S* dza = sm + L.dza; S* dya = sm + L.dya;
-  S* dxc = sm + L.dxc; S* dsc = sm + L.dsc; S* dzc = sm + L.dzc; S* dyc = sm + L.dyc;
-  const S nif = S(ni);
-  const bool df = refine_df != 0;
-
-  for (int iter = 0; iter < iterations; ++iter) {
-    // KKT residuals at the current iterate, Sigma, and W = 1 / Sigma + delta
-    // (augmented) or W^-1 = Sigma / (1 + delta Sigma) (condensed).
-    S part = S(0);
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        const int i = it;
-        rx[i] = sm[L.hd + i] * x[i] + sm[L.f + i] + gT_entry(sm, L, i, z) + aT_entry(sm, L, i, y);
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        rsb[k] = g_entry(sm, L, k, x) + s[k] - sm[L.d + k];
-        const S sg = z[k] / s[k] + delta;
-        sig[k] = sg;
-        w[k] = AUG ? S(1) / sg + delta : sg / (S(1) + delta * sg);
-        part += s[k] * z[k];
-      } else {
-        const int e = it - nz - ni;
-        re[e] = a_entry(sm, L, e, x) - sm[L.b + e];
-      }
-    }
-    const S mu = block_sum(part, red) / nif;  // syncs
-
-    factor<S, AUG>(sm, L, piv, beta, delta);
-
-    // Affine direction: rhs (-rx, -(s z)/s, -rs, -re).
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        r1[it] = -rx[it];
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        const S v2 = -(s[k] * z[k]) / s[k];
-        r2[k] = v2;
-        if constexpr (AUG) {
-          sm[L.rz + k] = -rsb[k] - v2 / sig[k];
-        } else {
-          const S v3 = -rsb[k];
-          sm[L.r3 + k] = v3;
-          sm[L.tmp + k] = w[k] * (v3 - v2 / sig[k]);
-        }
-      } else {
-        r4[it - nz - ni] = -re[it - nz - ni];
-      }
-    }
-    __syncthreads();
-    reduced_solve<S, AUG>(sm, L, refine_steps, df, beta, delta, dxa, dsa, dza, dya);
-    const S ap = frac_to_boundary(s, dsa, ni, red);
-    const S adl = frac_to_boundary(z, dza, ni, red);
-    part = S(0);
-    for (int k = tid; k < ni; k += nt) part += (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]);
-    const S mu_aff = block_sum(part, red) / nif;
-    const S ratio = mu_aff / mu;
-    const S sigma = ratio * ratio * ratio;
-
-    // Corrector: rhs (0, -rc/s, 0, 0), rc = s z + ds_a dz_a - sigma mu.
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        r1[it] = S(0);
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        const S rc = s[k] * z[k] + dsa[k] * dza[k] - sigma * mu;
-        const S v2 = -rc / s[k];
-        r2[k] = v2;
-        if constexpr (AUG) {
-          sm[L.rz + k] = S(0) - v2 / sig[k];
-        } else {
-          sm[L.r3 + k] = S(0);
-          sm[L.tmp + k] = w[k] * (S(0) - v2 / sig[k]);
-        }
-      } else {
-        r4[it - nz - ni] = S(0);
-      }
-    }
-    __syncthreads();
-    reduced_solve<S, AUG>(sm, L, refine_steps, df, beta, delta, dxc, dsc, dzc, dyc);
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        dxa[it] += dxc[it];
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        dsa[k] += dsc[k];
-        dza[k] += dzc[k];
-      } else {
-        dya[it - nz - ni] += dyc[it - nz - ni];
-      }
-    }
-    __syncthreads();
-    const S alp = frac_to_boundary(s, dsa, ni, red);
-    const S ald = frac_to_boundary(z, dza, ni, red);
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        x[it] += alp * dxa[it];
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        const S sn = s[k] + alp * dsa[k];
-        const S zn = z[k] + ald * dza[k];
-        s[k] = sn > S(1e-8) || sn != sn ? sn : S(1e-8);
-        z[k] = zn > S(1e-8) || zn != zn ? zn : S(1e-8);
-      } else {
-        y[it - nz - ni] += ald * dya[it - nz - ni];
-      }
-    }
+  template <typename S>
+  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
+    for (int i = threadIdx.x; i < NX_; i += blockDim.x) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
     __syncthreads();
   }
 
-  // Residual norms of the last step's start, and mu after it.
-  S p0 = S(0), p1 = S(0), p2 = S(0), p3 = S(0);
-  if (iterations > 0) {
-    for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
-    for (int k = tid; k < ni; k += nt) {
-      p1 += rsb[k] * rsb[k];
-      p3 += s[k] * z[k];
-    }
-    for (int e = tid; e < ne; e += nt) p2 += re[e] * re[e];
+  template <typename S>
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool) {
+    thomas_factor<S, AUG>(sm, L, piv, beta, delta);
   }
-  p0 = block_sum(p0, red);
-  p1 = block_sum(p1, red);
-  p2 = block_sum(p2, red);
-  p3 = block_sum(p3, red);
-  for (int i = tid; i < nz; i += nt) x_out[env * nz + i] = x[i];
-  for (int k = tid; k < ni; k += nt) {
-    s_out[env * ni + k] = s[k];
-    z_out[env * ni + k] = z[k];
-  }
-  for (int e = tid; e < ne; e += nt) y_out[env * ne + e] = y[e];
-  if (tid == 0) {
-    res_out[env * 4 + 0] = sqrt(p0);
-    res_out[env * 4 + 1] = sqrt(p1);
-    res_out[env * 4 + 2] = sqrt(p2);
-    res_out[env * 4 + 3] = p3 / nif;
-  }
-}
 
-template <typename S, bool AUG>
-static int launch_tridiag(const void* hd, const void* f, const void* ad, const void* bd,
-                          const void* b, const void* gu, const void* d, const void* x0,
-                          const void* s0, const void* z0, const void* y0, void* x, void* s,
-                          void* z, void* y, void* res, const void* go, void* ran, int batch,
-                          int T, int iterations, int refine_steps, int refine_df, double beta,
-                          double delta, void* stream) {
-  // The compensated residual is an augmented-route option; the condensed
-  // entries keep the common argument list, and `pdipm.check_options` refuses
-  // df there before any launch, so this guard fires only for a direct C caller.
-  if (!AUG && refine_df != 0) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout<AUG>(T, (int)sizeof(S));
-  cudaError_t err = cudaFuncSetAttribute(pdipm_tridiag_kernel<S, AUG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (batch == 0) return 0;
-  pdipm_tridiag_kernel<S, AUG><<<batch, PDIPM_THREADS, L.bytes, (cudaStream_t)stream>>>(
-      (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
-      (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
-      (S*)y, (S*)res, (const int*)go, (int*)ran, T, iterations, refine_steps, refine_df,
-      (S)beta, (S)delta);
-  return (int)cudaGetLastError();
-}
+  template <typename S>
+  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
+                               S* dx, S* dz, S* dy) {
+    thomas_solve<S, AUG>(sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};
+
+struct Tridiag : ThomasRoute<false> {};    // K5a, 26-wide, condensed
+struct TridiagAug : ThomasRoute<true> {};  // K5b, 42-wide, augmented

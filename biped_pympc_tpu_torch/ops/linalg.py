@@ -27,12 +27,14 @@ def inverse_3x3(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
-def gauss_jordan_inverse(a: torch.Tensor) -> torch.Tensor:
-    """Invert (..., n, n) by Gauss-Jordan elimination with partial pivoting.
+def gauss_jordan_inverse(a: torch.Tensor, pivot: bool = True) -> torch.Tensor:
+    """Invert (..., n, n) by Gauss-Jordan elimination on the (n, 2n) tableau.
 
-    Each step picks the largest |entry| of column k among rows >= k (the
-    first one on ties), swaps it into row k, normalizes that row and
-    eliminates column k from every other row of the (n, 2n) tableau.
+    With `pivot`, each step picks the largest |entry| of column k among rows
+    >= k (the first one on ties) and swaps it into row k; without, it takes
+    the diagonal as it stands (`pdipm_pallas._gj_inverse_nopivot`), for the
+    definite and quasi-definite blocks. Then it normalizes row k and
+    eliminates column k from every other row.
     """
     n = a.shape[-1]
     batch = a.shape[:-2]
@@ -40,14 +42,16 @@ def gauss_jordan_inverse(a: torch.Tensor) -> torch.Tensor:
     aug = torch.cat([a, eye], dim=-1)
     rows = torch.arange(n, device=a.device)
     for k in range(n):
-        cand = torch.where(rows >= k, aug[..., :, k].abs(),
-                           torch.full_like(aug[..., :, k], -1.0))
-        p = torch.argmax(cand, dim=-1)
-        row_p = torch.gather(
-            aug, -2, p[..., None, None].expand(*batch, 1, 2 * n))[..., 0, :]
-        row_k = aug[..., k, :]
-        is_p = (rows == p[..., None])[..., None]
-        aug = torch.where(is_p, row_k[..., None, :], aug)
+        row_p = aug[..., k, :]
+        if pivot:
+            cand = torch.where(rows >= k, aug[..., :, k].abs(),
+                               torch.full_like(aug[..., :, k], -1.0))
+            p = torch.argmax(cand, dim=-1)
+            row_p = torch.gather(
+                aug, -2, p[..., None, None].expand(*batch, 1, 2 * n))[..., 0, :]
+            row_k = aug[..., k, :]
+            is_p = (rows == p[..., None])[..., None]
+            aug = torch.where(is_p, row_k[..., None, :], aug)
         pivot_row = row_p / row_p[..., k:k + 1]
         aug[..., k, :] = pivot_row
         factors = aug[..., :, k].clone()

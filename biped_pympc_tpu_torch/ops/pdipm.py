@@ -1,8 +1,8 @@
-"""Fixed-iteration Mehrotra PDIPM, plain batched torch (twin of the
-`backend="ric_aug"` and `backend="ric"` routes, `foot_split=True`, of
-`biped_pympc_tpu/ops/pdipm.py`, and of the `backend="tridiag"` and
-`backend="tridiag_aug"` routes of the Pallas kernel,
-`biped_pympc_tpu/ops/pdipm_pallas.py`).
+"""Fixed-iteration Mehrotra PDIPM, plain batched torch (twin of the routes
+of the Pallas kernel `biped_pympc_tpu/ops/pdipm_pallas.py`: "ric_aug" and
+"ric" with and without the foot split, "ric2", "tridiag_aug" and "tridiag",
+with `kkt_scale` "none" or "jacobi"; and of the pure-JAX routes of the same
+names in `biped_pympc_tpu/ops/pdipm.py`).
 
 This is the plain version of the CUDA kernels in `ops/pdipm_cuda.py`: the
 CPU path runs it, and the kernels are held against it on the card. `solve`
@@ -30,6 +30,15 @@ backward per solve.
   splits into two 4x4 SPD blocks on u columns {0,1,2,7} / {3,4,5,10}, the
   same 2x2 pairs and the same scalars. Cheaper, but the 1e8 scale enters the
   SPD blocks (the f32 tail the hybrid mode re-solves, `pdipm_cuda.py`).
+- "ric2" (condensed, rank 2): the 12-wide SPD Ru = R+beta + G_u^T W_t^-1 G_u
+  is inverted and the nu pair eliminated by the Schur identity,
+  S = -delta I - E Ru^-1 E^T in closed form (`factor_ric2`, `:839`).
+
+With `foot_split=False` the "ric" / "ric_aug" blocks are inverted whole, 14
+and 30 wide (`factor_ric:896`, `factor_ric_aug:1007`), the dense cross-check
+of the split. `kkt_scale="jacobi"` inverts each stage block (never the
+closed-form pairs and scalars) through D (D K D)^-1 D, D = |diag K|^-1/2
+(`jacobi_scaled`, `:333`).
 
 The block-Thomas routes eliminate the x_{t+1} rows in closed form (their
 pivot Q + beta is diagonal) and factor the rest stage by stage, in order:
@@ -45,6 +54,7 @@ recursion is sequential (the y-chain, the Thomas factor and the sweeps).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Callable
 
 import torch
 
@@ -58,9 +68,10 @@ FRAC_TO_BOUNDARY = 0.99
 ALPHA_MIN = 1e-12
 SZ_FLOOR = 1e-8
 
-BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag")
+BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2")
 AUG_BACKENDS = ("ric_aug", "tridiag_aug")  # z kept in the stage blocks; "df" runs here
 REFINE_RESIDUALS = ("f32", "df")
+KKT_SCALES = ("none", "jacobi")
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
 N_KC = NU + N_MX_PER_STAGE  # 14: [u, nu] per stage
 # Foot-split index sets: each foot's constraint rows touch only its own
@@ -79,12 +90,22 @@ class PdipmOptions:
     beta: float = 1e-8  # primal regularization
     delta: float = 1e-8  # dual regularization
     refine_steps: int = 1  # iterative-refinement passes per reduced solve
-    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "tridiag" (condensed)
+    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "ric2" / "tridiag" (condensed)
     backend: str = "ric_aug"
     # Precision of the refinement residual r - K d: "f32" is the working
     # dtype, "df" one compensated (double-float) sum per component
     # (`ops/df.py`). "df" runs on the augmented routes only.
     refine_residual: str = "f32"
+    # "ric" / "ric_aug": invert each foot's block apart (the stage blocks
+    # decouple exactly by foot) or, False, the whole 14- / 30-wide block.
+    # The JAX PdipmOptions defaults to False; the port keeps True, the
+    # controllers' default (`MPCConf.solver_foot_split`), so that callers
+    # that never name it keep the split routes. Ignored by the others.
+    foot_split: bool = True
+    # "jacobi": each stage inverse of the Riccati routes through its Jacobi
+    # equilibration, K^-1 = D (D K D)^-1 D (exact; only rounding changes).
+    # The block-Thomas routes ignore it, as in the JAX package.
+    kkt_scale: str = "none"
 
 
 @dataclass
@@ -130,12 +151,37 @@ def _dot(a, b):
     return (a * b).sum(dim=-1)
 
 
+def _mv(m, v):
+    return (m @ v[..., None])[..., 0]
+
+
 @dataclass
 class _Factors:
-    k_inv: torch.Tensor  # (B, T, n, n) stage-block inverses, n = 30 or 14
+    kinv: Callable  # (B, T, n) -> (B, T, n): K_t^-1 r per stage, n = 30 or 14
     yhat_inv: torch.Tensor  # (B, T, 12, 12) y-chain inverses
     q_inv: torch.Tensor  # (B, 12)
     s_coup: torch.Tensor  # (B, 12, 12) S = Q~^-1 Ad^T
+
+
+def _jacobi_scaled(inverse, k: torch.Tensor, opts: "PdipmOptions") -> torch.Tensor:
+    """inverse(k) for (..., n, n) blocks, through the Jacobi-equilibrated
+    K_hat = D K D, D = 1 / sqrt(max(|diag K|, 1e-30)), when `opts.kkt_scale`
+    is "jacobi": K^-1 = D K_hat^-1 D (`pdipm_pallas.py:333`)."""
+    if opts.kkt_scale != "jacobi":
+        return inverse(k)
+    d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1).abs(), min=1e-30))
+    di, dj = d[..., :, None], d[..., None, :]
+    return inverse(k * di * dj) * di * dj
+
+
+def _nopivot_inverse(k: torch.Tensor) -> torch.Tensor:
+    return gauss_jordan_inverse(k, pivot=False)
+
+
+def _gtwg(qp: StageQP, w: torch.Tensor, cols=slice(None), rows=slice(None)) -> torch.Tensor:
+    """(B, T, n, n) G^T diag(w_t) G over the given rows and columns of G_u."""
+    g = qp.g_u[:, rows][:, :, cols]  # (B, r, n)
+    return (g[:, None] * w[:, :, rows, None]).transpose(-1, -2) @ g[:, None]
 
 
 def _scatter_w_independent(k_inv: torch.Tensor, qp: StageQP, opts: PdipmOptions) -> None:
@@ -167,7 +213,7 @@ def _stage_inverse_aug(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) ->
         blocks[:, foot, :, :4, 4:] = g_f.transpose(-1, -2)[:, None]
         blocks[:, foot, :, 4:, :4] = g_f[:, None]
         blocks[:, foot, :, 4:, 4:] = torch.diag_embed(-w_diag[:, :, 8 * foot:8 * foot + 8])
-    blocks_inv = gauss_jordan_inverse(blocks)
+    blocks_inv = _jacobi_scaled(gauss_jordan_inverse, blocks, opts)
 
     k_inv = torch.zeros(nb, T, N_KA, N_KA, dtype=dtype, device=dev)
     for foot, idx in enumerate(FOOT_BLOCKS):
@@ -185,26 +231,92 @@ def _stage_inverse_ric(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions) -> 
     k_inv = torch.zeros(nb, T, N_KC, N_KC, dtype=dtype, device=dev)
     for foot, cols in enumerate(FOOT_U_COLS):
         ix = torch.tensor(cols, device=dev)
-        g_f = qp.g_u[:, 8 * foot:8 * foot + 8][:, :, ix]  # (B, 8, 4)
-        w_f = w_inv[:, :, 8 * foot:8 * foot + 8]  # (B, T, 8)
-        gtwg = (g_f[:, None] * w_f[..., None]).transpose(-1, -2) @ g_f[:, None]
+        gtwg = _gtwg(qp, w_inv, ix, slice(8 * foot, 8 * foot + 8))
         blocks = gtwg + torch.diag_embed(qp.r_diag[:, ix] + opts.beta)[:, None]
-        k_inv[:, :, ix[:, None], ix[None, :]] = gauss_jordan_inverse(blocks)
+        k_inv[:, :, ix[:, None], ix[None, :]] = _jacobi_scaled(_nopivot_inverse, blocks, opts)
     _scatter_w_independent(k_inv, qp, opts)
     return k_inv
 
 
-def _factor(qp: StageQP, k_inv: torch.Tensor, opts: PdipmOptions) -> _Factors:
-    """Fold the stage inverses into the y-chain and factor it (both routes)."""
+def _e_select(dtype, dev) -> torch.Tensor:
+    """(2, 12) selector E of the Mx rows: u columns 6 and 9."""
+    e = torch.zeros(N_MX_PER_STAGE, NU, dtype=dtype, device=dev)
+    e[0, 6] = e[1, 9] = 1.0
+    return e
+
+
+def _stage_inverse_ric_dense(qp: StageQP, w_inv: torch.Tensor,
+                             opts: PdipmOptions) -> torch.Tensor:
+    """(B, T, 14, 14) inverse of the unsplit condensed block
+    [[R+beta + G_u^T W_t^-1 G_u, e^T], [e, -delta I]] (`factor_ric:896`):
+    symmetric quasi-definite, so inverted without pivoting."""
+    nb, T = w_inv.shape[0], qp.horizon
+    dtype, dev = w_inv.dtype, w_inv.device
+    e = _e_select(dtype, dev)
+    k = torch.zeros(nb, T, N_KC, N_KC, dtype=dtype, device=dev)
+    k[:, :, :NU, :NU] = _gtwg(qp, w_inv) + torch.diag_embed(qp.r_diag + opts.beta)[:, None]
+    k[:, :, :NU, NU:] = e.T
+    k[:, :, NU:, :NU] = e
+    k[:, :, NU:, NU:] = -opts.delta * torch.eye(N_MX_PER_STAGE, dtype=dtype, device=dev)
+    return _jacobi_scaled(_nopivot_inverse, k, opts)
+
+
+def _stage_inverse_aug_dense(qp: StageQP, w_diag: torch.Tensor,
+                             opts: PdipmOptions) -> torch.Tensor:
+    """(B, T, 30, 30) inverse of the unsplit augmented block
+    [[R+beta, G_u^T, e^T], [G_u, -W_t, 0], [e, 0, -delta I]]
+    (`factor_ric_aug:1007`), with partial pivoting (`aug_pivot=True`)."""
+    nb, T = w_diag.shape[0], qp.horizon
+    dtype, dev = w_diag.dtype, w_diag.device
+    e = _e_select(dtype, dev)
+    z0, n0 = NU, NU + N_INEQ_PER_STAGE
+    k = torch.zeros(nb, T, N_KA, N_KA, dtype=dtype, device=dev)
+    k[:, :, :NU, :NU] = torch.diag_embed(qp.r_diag + opts.beta)[:, None]
+    k[:, :, :NU, z0:n0] = qp.g_u.transpose(-1, -2)[:, None]
+    k[:, :, z0:n0, :NU] = qp.g_u[:, None]
+    k[:, :, z0:n0, z0:n0] = torch.diag_embed(-w_diag)
+    k[:, :, :NU, n0:] = e.T
+    k[:, :, n0:, :NU] = e
+    k[:, :, n0:, n0:] = -opts.delta * torch.eye(N_MX_PER_STAGE, dtype=dtype, device=dev)
+    return _jacobi_scaled(gauss_jordan_inverse, k, opts)
+
+
+def _stage_ric2(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
+    """The rank-2 stage factor (`factor_ric2:839`): Ru = R+beta + G_u^T W_t^-1
+    G_u inverted without pivoting, S = -delta I - E Ru^-1 E^T (2x2) in closed
+    form. Returns ((K^-1)_uu = Ru^-1 + (E Ru^-1)^T S^-1 (E Ru^-1), and K^-1
+    applied by the block formula, `_kinv2_apply:885`)."""
+    ru = _gtwg(qp, w_inv) + torch.diag_embed(qp.r_diag + opts.beta)[:, None]
+    ru_inv = _jacobi_scaled(_nopivot_inverse, ru, opts)  # (B, T, 12, 12)
+    erui = ru_inv[:, :, (6, 9), :]  # E Ru^-1: rows 6 and 9
+    sa = -opts.delta - ru_inv[:, :, 6, 6]
+    sb = -ru_inv[:, :, 6, 9]
+    sc = -opts.delta - ru_inv[:, :, 9, 9]
+    det = sa * sc - sb * sb
+    snu_inv = torch.stack([torch.stack([sc / det, -sb / det], dim=-1),
+                           torch.stack([-sb / det, sa / det], dim=-1)], dim=-2)  # (B, T, 2, 2)
+    kuu = ru_inv + erui.transpose(-1, -2) @ (snu_inv @ erui)
+
+    def kinv(r):
+        t1 = _mv(ru_inv, r[..., :NU])
+        eta = _mv(snu_inv, r[..., NU:] - t1[..., (6, 9)])
+        du = t1 - (erui * eta[..., None]).sum(dim=-2)
+        return torch.cat([du, eta], dim=-1)
+
+    return kuu, kinv
+
+
+def _factor(qp: StageQP, kuu: torch.Tensor, kinv: Callable, opts: PdipmOptions) -> _Factors:
+    """Fold the stage inverses ((K_t^-1)_uu and K_t^-1 applied) into the
+    y-chain and factor it (every Riccati route)."""
     T = qp.horizon
-    dtype, dev = k_inv.dtype, k_inv.device
+    dtype, dev = kuu.dtype, kuu.device
     Ad, Bd = qp.dyn.A, qp.dyn.B
     q_inv = 1.0 / (qp.q_diag + opts.beta)
 
     eye = torch.eye(NX, dtype=dtype, device=dev)
     y_blk = -opts.delta * eye - torch.diag_embed(q_inv)  # (B, 12, 12)
     adqad = (Ad * q_inv[:, None, :]) @ Ad.transpose(-1, -2)
-    kuu = k_inv[:, :, :NU, :NU]
     bkb = Bd[:, None] @ kuu @ Bd.transpose(-1, -2)[:, None]  # (B, T, 12, 12)
     s_coup = q_inv[:, :, None] * Ad.transpose(-1, -2)
 
@@ -216,7 +328,7 @@ def _factor(qp: StageQP, k_inv: torch.Tensor, opts: PdipmOptions) -> _Factors:
             yhat = yhat - adqad - s_coup.transpose(-1, -2) @ m_prev @ s_coup
         m_prev = gauss_jordan_inverse(yhat)
         yhat_inv.append(m_prev)
-    return _Factors(k_inv, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
+    return _Factors(kinv, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
 
 
 def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
@@ -230,7 +342,6 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
     nb = r1.shape[0]
     Ad, Bd = qp.dyn.A, qp.dyn.B
     q_inv, s_coup, yinv = fac.q_inv, fac.s_coup, fac.yhat_inv
-    mv = lambda m, v: (m @ v[..., None])[..., 0]
 
     c = r1[:, :NX * T].reshape(nb, T, NX)
     ru = r1[:, NX * T:].reshape(nb, T, NU)
@@ -239,26 +350,26 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
     rz = r_z.reshape(nb, T, -1)
     nzs = rz.shape[2]
     ry = g - q_inv[:, None] * c
-    ry[:, 1:] += mv(Ad[:, None], q_inv[:, None] * c[:, :-1])
+    ry[:, 1:] += _mv(Ad[:, None], q_inv[:, None] * c[:, :-1])
 
     r_un = torch.cat([ru, rz, rnu], dim=2)  # (B, T, n)
-    kr = mv(fac.k_inv, r_un)
-    r_y2 = ry + mv(Bd[:, None], kr[:, :, :NU])
+    kr = fac.kinv(r_un)
+    r_y2 = ry + _mv(Bd[:, None], kr[:, :, :NU])
 
     s_t = s_coup.transpose(-1, -2)
     gg = [r_y2[:, 0]]
     for t in range(1, T):
-        gg.append(r_y2[:, t] - mv(s_t, mv(yinv[:, t - 1], gg[-1])))
+        gg.append(r_y2[:, t] - _mv(s_t, _mv(yinv[:, t - 1], gg[-1])))
     wy = [None] * T
     y_next = None
     for t in range(T - 1, -1, -1):
-        rhs = gg[t] if y_next is None else gg[t] - mv(s_coup, y_next)
-        y_next = mv(yinv[:, t], rhs)
+        rhs = gg[t] if y_next is None else gg[t] - _mv(s_coup, y_next)
+        y_next = _mv(yinv[:, t], rhs)
         wy[t] = y_next
     wy = torch.stack(wy, dim=1)  # (B, T, 12)
 
     rhs_un = torch.cat([ru + wy @ Bd, r_un[:, :, NU:]], dim=2)
-    un = mv(fac.k_inv, rhs_un)
+    un = fac.kinv(rhs_un)
 
     xs = q_inv[:, None] * (c - wy)
     xs[:, :-1] += q_inv[:, None] * (wy[:, 1:] @ Ad)
@@ -335,7 +446,6 @@ def _solve_thomas(qp: StageQP, fac: _ThomasFactors, r1, r_z, r4):
     n = s_inv.shape[-1]
     ny = n - NX
     nzs = ny - NU - N_MX_PER_STAGE
-    mv = lambda m, v: (m @ v[..., None])[..., 0]
 
     rx = r1[:, :NX * T].reshape(nb, T, NX)
     ru = r1[:, NX * T:].reshape(nb, T, NU)
@@ -348,18 +458,18 @@ def _solve_thomas(qp: StageQP, fac: _ThomasFactors, r1, r_z, r4):
     x_prev = torch.zeros(nb, NX, dtype=r1.dtype, device=r1.device)
     for t in range(T):
         g_t = r[:, t].clone()
-        g_t[:, ny:] += mv(Ad, x_prev)
+        g_t[:, ny:] += _mv(Ad, x_prev)
         g.append(g_t)
-        x_prev = q_inv * (rx[:, t] - mv(s_inv[:, t, ny:], g_t))
+        x_prev = q_inv * (rx[:, t] - _mv(s_inv[:, t, ny:], g_t))
     # Backward: g_t[y] -= Q~^-1 Ad^T w_y(t+1); x_t = Q~^-1 (r_x + Ad^T w_y(t+1) - w_y(t)).
     w = [None] * T
     xs = [None] * T
     wy_next = torch.zeros_like(x_prev)
     for t in range(T - 1, -1, -1):
-        adt_wy = mv(Ad.transpose(-1, -2), wy_next)
+        adt_wy = _mv(Ad.transpose(-1, -2), wy_next)
         g_t = g[t].clone()
         g_t[:, ny:] -= q_inv * adt_wy
-        w[t] = mv(s_inv[:, t], g_t)
+        w[t] = _mv(s_inv[:, t], g_t)
         wy_next = w[t][:, ny:]
         xs[t] = q_inv * (rx[:, t] + adt_wy - wy_next)
     w = torch.stack(w, dim=1)
@@ -377,8 +487,16 @@ def _stage_solver(qp: StageQP, w: torch.Tensor, opts: PdipmOptions):
     if opts.backend in ("tridiag", "tridiag_aug"):
         tf = _factor_thomas(qp, w, opts, aug=opts.backend == "tridiag_aug")
         return lambda r1, r_z, r4: _solve_thomas(qp, tf, r1, r_z, r4)
-    stage_inverse = _stage_inverse_aug if opts.backend == "ric_aug" else _stage_inverse_ric
-    fac = _factor(qp, stage_inverse(qp, w, opts), opts)
+    if opts.backend == "ric2":
+        kuu, kinv = _stage_ric2(qp, w, opts)
+    else:
+        stage_inverse = {("ric_aug", True): _stage_inverse_aug,
+                         ("ric_aug", False): _stage_inverse_aug_dense,
+                         ("ric", True): _stage_inverse_ric,
+                         ("ric", False): _stage_inverse_ric_dense}[opts.backend, opts.foot_split]
+        k_inv = stage_inverse(qp, w, opts)
+        kuu, kinv = k_inv[:, :, :NU, :NU], lambda r: _mv(k_inv, r)
+    fac = _factor(qp, kuu, kinv, opts)
     return lambda r1, r_z, r4: _solve_stages(qp, fac, r1, r_z, r4)
 
 
@@ -460,13 +578,16 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
 
 
 def check_options(opts: PdipmOptions) -> None:
-    """Raise ValueError for a route or residual precision these solvers lack
-    (`biped_pympc_tpu/ops/pdipm.py:1185-1199`, `pdipm_pallas.py:1589-1595`)."""
+    """Raise ValueError for a route, residual precision or KKT scaling these
+    solvers lack (`biped_pympc_tpu/ops/pdipm.py:1185-1199`,
+    `pdipm_pallas.py:1589-1595`)."""
     if opts.backend not in BACKENDS:
         raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of {BACKENDS}")
     if opts.refine_residual not in REFINE_RESIDUALS:
         raise ValueError(f"unknown refine_residual {opts.refine_residual!r}; expected one of "
                          f"{REFINE_RESIDUALS}")
+    if opts.kkt_scale not in KKT_SCALES:
+        raise ValueError(f"unknown kkt_scale {opts.kkt_scale!r}; expected one of {KKT_SCALES}")
     if opts.refine_residual == "df" and opts.backend not in AUG_BACKENDS:
         raise ValueError("refine_residual='df' is implemented for the aug backends only "
                          f"(got backend={opts.backend!r}); see PdipmOptions.refine_residual")

@@ -1,17 +1,18 @@
 """The PDIPM as hand-written CUDA kernels, and the hybrid speed mode (twin of
-`biped_pympc_tpu/ops/pdipm_pallas.py`: routes `backend="ric_aug"` and
-`backend="ric"` with `foot_split=True`, and the block-Thomas routes
-`backend="tridiag_aug"` and `backend="tridiag"`).
+`biped_pympc_tpu/ops/pdipm_pallas.py`: every route of `_pdipm_kernel` but the
+foot packing and the tableau Gauss-Jordan form).
 
 `solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
-the kernel of `opts.backend` (`csrc/pdipm_ric_aug.cu`, `csrc/pdipm_ric.cu`,
-`csrc/pdipm_tridiag_aug.cu` or `csrc/pdipm_tridiag.cu`, one thread block per
-env), CPU tensors run the plain version `ops/pdipm.py`. There is no fallback
-between the two: a failed build or launch raises, and so does a horizon and
-dtype whose layout does not fit in a block's shared memory. A given `state`
-is the warm start; `opts.refine_residual="df"` selects the compensated
-refinement residual (augmented routes only). `refine_residual` runs that
-residual alone, through the same device code, as a check of it.
+the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
+"ric_aug" also `opts.foot_split`; one library per source in `SOURCES`, one
+thread block per env), CPU tensors run the plain version `ops/pdipm.py`.
+There is no fallback between the two: a failed build or launch raises, and
+so does a horizon and dtype whose layout does not fit in a block's shared
+memory. A given `state` is the warm start; `opts.refine_residual="df"`
+selects the compensated refinement residual (augmented routes only),
+`opts.kkt_scale="jacobi"` the Jacobi equilibration of the Riccati routes'
+stage inverses. `refine_residual` runs that residual alone, through the same
+device code, as a check of it.
 
 `solve_adaptive` runs the solve in warm-started chunks with an early stop
 (`pdipm_pallas.solve_adaptive`). On the card every chunk is issued at once;
@@ -22,7 +23,9 @@ and returns at once when it is 0, so the loop never waits for the device.
 worst-criterion envs with the augmented route (`pdipm_pallas.solve_hybrid`).
 
 The kernels are compiled with nvcc for sm_90a at first use into `_build/`
-beside this package, one library per source, and loaded with ctypes.
+beside this package, one library per source, and loaded with ctypes. Every
+source instantiates the one Newton-step kernel of `csrc/pdipm_common.cuh`
+with its route's factorization.
 """
 
 from __future__ import annotations
@@ -45,21 +48,26 @@ from biped_pympc_tpu_torch.ops.qp import StageQP
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-# Kernel source of each route; every source includes HEADERS (the block-Thomas
-# sources one width each of `pdipm_tridiag.cuh`).
-SOURCES = {"ric_aug": os.path.join(_CSRC, "pdipm_ric_aug.cu"),
-           "ric": os.path.join(_CSRC, "pdipm_ric.cu"),
-           "tridiag_aug": os.path.join(_CSRC, "pdipm_tridiag_aug.cu"),
-           "tridiag": os.path.join(_CSRC, "pdipm_tridiag.cu")}
-HEADERS = (os.path.join(_CSRC, "pdipm_common.cuh"), os.path.join(_CSRC, "pdipm_tridiag.cuh"))
+# Kernel source of each route (`route`); every source includes HEADERS: the
+# Riccati routes `pdipm_riccati.cuh`, the block-Thomas routes one width each
+# of `pdipm_tridiag.cuh`, all of them `pdipm_common.cuh`.
+SOURCES = {"ric_aug": os.path.join(_CSRC, "pdipm_ric_aug.cu"),              # K1
+           "ric": os.path.join(_CSRC, "pdipm_ric.cu"),                      # K2
+           "tridiag_aug": os.path.join(_CSRC, "pdipm_tridiag_aug.cu"),      # K5b
+           "tridiag": os.path.join(_CSRC, "pdipm_tridiag.cu"),              # K5a
+           "ric2": os.path.join(_CSRC, "pdipm_ric2.cu"),                    # K5c
+           "ric_dense": os.path.join(_CSRC, "pdipm_ric_dense.cu"),          # K5d-c
+           "ric_aug_dense": os.path.join(_CSRC, "pdipm_ric_aug_dense.cu")}  # K5d-a
+HEADERS = tuple(os.path.join(_CSRC, name) for name in
+                ("pdipm_common.cuh", "pdipm_riccati.cuh", "pdipm_tridiag.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
-# Kernel launches issued in this process: solves per route, and launches of
-# the refinement-residual entry; chip_smoke.py reads them to show that each
-# path went through the kernels.
+# Kernel launches issued in this process: solves per route (`route`), and
+# launches of the refinement-residual entry; chip_smoke.py reads them to show
+# that each path went through the kernels.
 launches = {backend: 0 for backend in SOURCES}
 residual_launches = {"ric_aug": 0}
 # Launches of the adaptive solve whose gate was open, per (route, device):
@@ -69,10 +77,12 @@ _ran: dict = {}
 # C interface of `pdipm_<route>_<f32|f64>` in every library: the QP inputs
 # hd, f, Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (null: cold start);
 # the outputs x, s, z, y, res; the gate go and the counter ran (null: always
-# run, no count); then batch, T, iterations, refine_steps, refine_df, beta,
-# delta and the stream. The condensed routes take the same arguments; their
-# refine_df must be 0, which `pdipm.check_options` ensures before any launch.
-ENTRY_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2
+# run, no count); then batch, T, iterations, refine_steps, refine_df,
+# kkt_jacobi, beta, delta and the stream. The condensed routes take the same
+# arguments; their refine_df must be 0, which `pdipm.check_options` ensures
+# before any launch. The block-Thomas routes ignore kkt_jacobi, as the JAX
+# kernel's do.
+ENTRY_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_double] * 2
                   + [ctypes.c_void_p])
 # C interface of `pdipm_ric_aug_residual_<f32|f64>`: hd, Ad, Bd, G_u, W, dx,
 # dz, dy, r1, rz, r4; the outputs e1, ez, e4; then batch, T, refine_df, beta,
@@ -94,6 +104,15 @@ def find_nvcc() -> str:
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
         "toolkit is needed to build the PDIPM kernels")
+
+
+def route(opts: PdipmOptions) -> str:
+    """The kernel (key of `SOURCES`) that runs `opts`: `opts.backend`, with
+    "_dense" for "ric" / "ric_aug" when `opts.foot_split` is off (the unsplit
+    14- / 30-wide stage blocks, `pdipm_pallas.py:896`, `:1007`)."""
+    if opts.backend in ("ric", "ric_aug") and not opts.foot_split:
+        return f"{opts.backend}_dense"
+    return opts.backend
 
 
 def library_path(backend: str) -> str:
@@ -212,34 +231,35 @@ def _state_tensors(qp: StageQP, state: pdipm.PdipmState) -> list:
 
 
 def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=None, ran=None):
-    """One launch of route `opts.backend` from `lib`: warm (x0, s0, z0, y0) or
+    """One launch of route `route(opts)` from `lib`: warm (x0, s0, z0, y0) or
     None for the cold start; outs (x, s, z, y, res), which may be the warm
     tensors themselves; go / ran the gate flag and chunk counter (int32
     device tensors) or None."""
     if opts.iterations < 0 or opts.refine_steps < 0:
         raise ValueError(f"iterations and refine_steps must be >= 0: {opts}")
     T = qp.horizon
-    name = f"pdipm_{opts.backend}"
+    key = route(opts)
+    name = f"pdipm_{key}"
     smem = getattr(lib, f"{name}_smem_bytes")(T, qp.f.element_size())
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"route {opts.backend!r} at horizon {T} in {qp.f.dtype} needs {smem} B "
+        raise ValueError(f"route {key!r} at horizon {T} in {qp.f.dtype} needs {smem} B "
                          f"of shared memory per env; an H100 block has at most "
                          f"{MAX_SMEM_PER_BLOCK} B")
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = getattr(lib, f"{name}_f32" if qp.f.dtype == torch.float32 else f"{name}_f64")
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
              *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
-             opts.iterations, opts.refine_steps, int(opts.refine_residual == "df"), opts.beta,
-             opts.delta, stream)
+             opts.iterations, opts.refine_steps, int(opts.refine_residual == "df"),
+             int(opts.kkt_scale == "jacobi"), opts.beta, opts.delta, stream)
     if err != 0:
         raise RuntimeError(f"PDIPM kernel {name} launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
-    launches[opts.backend] += 1
+    launches[key] += 1
 
 
 def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream,
                state: pdipm.PdipmState | None = None) -> PdipmResult:
-    """Launch the kernel of route `opts.backend` from `lib` on `qp`'s tensors,
+    """Launch the kernel of route `route(opts)` from `lib` on `qp`'s tensors,
     from `state` (warm) or the cold start; `stream` is a raw stream handle
     (int) or None. Checks shapes and types, allocates the outputs."""
     ins = _inputs(qp)
@@ -261,13 +281,13 @@ def _device(qp: StageQP, opts: PdipmOptions) -> torch.device:
 
 def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
           state: pdipm.PdipmState | None = None) -> PdipmResult:
-    """Batched PDIPM on route `opts.backend`, from `state` (a batch-first
+    """Batched PDIPM on route `route(opts)`, from `state` (a batch-first
     PdipmState, the warm start) or the cold start: its CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     dev = _device(qp, opts)
     if dev.type == "cpu":
         return pdipm.solve(qp, opts, state)
-    lib = _library(opts.backend)
+    lib = _library(route(opts))
     with torch.cuda.device(dev):
         return run_kernel(lib, qp, opts, torch.cuda.current_stream(dev).cuda_stream, state)
 
@@ -322,14 +342,14 @@ def solve_adaptive(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
     if dev.type == "cpu":
         return pdipm.solve_adaptive_batch(qp, opts, tol)
     chunk, n_full, rem = pdipm.chunks(opts)
-    lib = _library(opts.backend)
+    lib = _library(route(opts))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ins = _inputs(qp)
         st = pdipm.init_state(qp)
         state = [t.contiguous() for t in (st.x, st.s, st.z, st.y)]
         res = torch.full((qp.f.shape[0], 4), float("inf"), dtype=qp.f.dtype, device=qp.f.device)
-        key = (opts.backend, dev)
+        key = (route(opts), dev)
         if key not in _ran:
             _ran[key] = torch.zeros(1, dtype=torch.int32, device=qp.f.device)
         for iters in [chunk] * n_full + [rem] * (rem > 0):
@@ -378,10 +398,12 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(backend="ric"),
     whole batch, ranks each env by its criterion (the largest final
     residual, or with flag="kkt" the largest `pdipm.kkt_error`), and
     re-solves the `budget` worst with the augmented route at the same
-    iterations, refinement, beta and delta, from the cold start. An env with
-    a non-finite criterion or any non-finite value in x, s, z or y ranks
-    +inf. Re-solved envs whose criterion exceeds `flag_tol`, or is +inf, take
-    the augmented result. budget <= 0 selects max(64, B // 32); the budget
+    iterations, refinement, beta, delta, foot split and KKT scaling, from
+    the cold start (`opts._replace(backend="ric_aug")`,
+    `pdipm_pallas.py:1826`). An env with a non-finite criterion or any
+    non-finite value in x, s, z or y ranks +inf. Re-solved envs whose
+    criterion exceeds `flag_tol`, or is +inf, take the augmented result.
+    budget <= 0 selects max(64, B // 32); the budget
     is clamped to B. The size of the re-solve is fixed by B and the budget,
     so nothing here waits for the device.
 

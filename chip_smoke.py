@@ -3,35 +3,43 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It builds the four PDIPM kernels with nvcc,
-one process per source, all at once: the augmented Riccati route K1
-(`biped_pympc_tpu_torch/csrc/pdipm_ric_aug.cu`), the condensed Riccati route
-K2 (`csrc/pdipm_ric.cu`), the condensed block-Thomas route K5a
-(`csrc/pdipm_tridiag.cu`) and the augmented one K5b
-(`csrc/pdipm_tridiag_aug.cu`), all with the warm entry K3, and K1 and K5b
-with the compensated refinement residual K4. It holds each against its plain
-PyTorch version on a randomized b4096 QP batch (K4 also alone, on residuals
-that cancel nearly every digit, with the f32 residual as a control that must
-miss the bound), checks that warm-started chunks reproduce the fixed solve
-bit for bit, that the adaptive solve stops where the JAX loop does without
-waiting for the device, and that a layout over a block's shared memory
-raises before any launch. It drives `MPCController` (HECTOR, walking gait,
-4096 envs) on the card with the default solver for 200 ticks, with the
-hybrid speed mode (K2 everywhere, K1 re-solves) for 100 ticks, with the
-adaptive solve for 100 ticks, with `solver="pallas_aug"` (K5b) for 100 ticks
-and with `solver="pallas"` (K5a) for 50, checks that every solve went
-through the kernels and that the outputs are sane, and times the kernels,
-the plain versions, the hybrid and adaptive solves, `run_mpc` and one 1 kHz
-tick, each kernel beside its bound. Each phase prints one line of findings;
-any failure raises and the script exits non-zero. It exits non-zero without
-a result when no CUDA device is visible. The last line is a JSON object
-naming the device.
+Run from the repository root. It builds the seven PDIPM kernels with nvcc,
+one process per source, all at once, each one route's factorization in the
+one Newton-step kernel of `biped_pympc_tpu_torch/csrc/pdipm_common.cuh`: the
+augmented Riccati route K1 (`csrc/pdipm_ric_aug.cu`), the condensed Riccati
+route K2 (`csrc/pdipm_ric.cu`), the condensed block-Thomas route K5a
+(`csrc/pdipm_tridiag.cu`), the augmented one K5b (`csrc/pdipm_tridiag_aug.cu`),
+the rank-2 condensed route K5c (`csrc/pdipm_ric2.cu`) and the unsplit
+Riccati routes K5d-c (`csrc/pdipm_ric_dense.cu`, 14-wide) and K5d-a
+(`csrc/pdipm_ric_aug_dense.cu`, 30-wide), all with the warm entry K3, the
+augmented ones with the compensated refinement residual K4, the Riccati ones
+with the Jacobi equilibration. It holds each against its plain PyTorch
+version on a randomized b4096 QP batch (K4 also alone, on residuals that
+cancel nearly every digit, with the f32 residual as a control that must miss
+the bound), checks that warm-started chunks reproduce the fixed solve bit for
+bit, that the adaptive solve stops where the JAX loop does without waiting
+for the device, that a layout over a block's shared memory raises before any
+launch, and prints whether K1, K2, K5a and K5b still give the bits their
+builds gave before the Newton step was shared. It drives `MPCController`
+(HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
+ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
+ticks, with the adaptive solve for 100 ticks, with `solver="pallas_aug"`
+(K5b) for 100 ticks and, for 50 ticks each, with `"pallas"` (K5a),
+`"pallas_ric2"` (K5c), `"pallas_ric"` unsplit (K5d-c), `"pallas_ric_aug"`
+unsplit (K5d-a) and `"pallas_ric_aug"` with Jacobi scaling (K1), checks that
+every solve went through the kernels and that the outputs are sane, and
+times the kernels, the plain versions, the hybrid and adaptive solves,
+`run_mpc` and one 1 kHz tick, each kernel beside its bound. Each phase prints
+one line of findings; any failure raises and the script exits non-zero. It
+exits non-zero without a result when no CUDA device is visible. The last line
+is a JSON object naming the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -45,7 +53,7 @@ B = 4096
 TICKS = 200
 HYBRID_TICKS = 100
 ADAPTIVE_TICKS = 100
-THOMAS_TICKS = {"pallas_aug": 100, "pallas": 50}  # the block-Thomas main paths
+PATH_TICKS = 50  # each main path of a route beyond the default's, but pallas_aug's 100
 WALK_TOL = 1e-2  # MPCConf.adaptive_tol of the adaptive main path
 # Envs whose f64 reference ends with mu = s.z / ni at or below this are the
 # ones the fixed 20-step Mehrotra rule has converged on. On the rest it is
@@ -54,13 +62,16 @@ WALK_TOL = 1e-2  # MPCConf.adaptive_tol of the adaptive main path
 # the agreement bounds apply to the converged envs and the tail is printed.
 MU_CONVERGED = 1e-5
 F64_ATOL = 1e-6
-# K5a (the condensed 26-wide block-Thomas route) amplifies f64 roundoff in the
-# duals by their own scale: on the converged envs of this batch two roundings
-# of its plain version (on the card and on the CPU) differ by 8.3e-7 at a dual
-# of 1687 (9.2e-9 relative), and the kernel reads 1.084e-6 there (1.546e-8
-# relative), over F64_ATOL. Its f64 bound is relative to max(1, |v|), about
-# twice that reading; the absolute is printed.
-K5A_F64_RTOL = 3e-8
+# The condensed routes with W^-1 (up to 1e8) inside a pivoted or dense stage
+# block amplify f64 roundoff in the duals by their own scale. K5a (26-wide
+# block-Thomas): on the converged envs of this batch two roundings of its
+# plain version (on the card and on the CPU) differ by 8.3e-7 at a dual of
+# 1687 (9.2e-9 relative), and the kernel reads 1.084e-6 there (1.546e-8
+# relative), over F64_ATOL. K5c (rank 2) and K5d-c (unsplit 14-wide) read
+# 1.3e-6 and 1.8e-6 against their own roundings' 1.5e-6 and 1.1e-6 (PERF.md,
+# Findings). Their f64 bound is relative to max(1, |v|), about twice
+# K5a's reading; the absolute is printed, with each route's roundoff witness.
+CONDENSED_F64_RTOL = 3e-8
 RES_RTOL = 1e-6
 F32_U0_ATOL = 0.5  # N
 # df vs the plain residual at f64, after DF_ITERS steps: the bound and the
@@ -73,6 +84,17 @@ DF_ITERS = 6
 # f32-residual control must exceed the bound: it loses most digits there.
 DF_RES_RTOL = {"f32": 1e-6, "f64": 1e-9}
 F32_FINITE_SHARE = 0.999
+# Before K1, K2, K5a and K5b shared one Newton-step kernel: `digest` of their
+# solves of this script's b4096 batch (cold, 20 steps) and of the batch's
+# kernel inputs, from their own builds on the H100 (PERF.md, Findings), and
+# those builds' f32 times here (ms, NVIDIA H100 80GB HBM3, 700 W).
+PARENT_DIGESTS = {
+    ("inputs", "f32"): "05629153b7e71eb1", ("inputs", "f64"): "3fc20ad8fe8070e3",
+    ("K1", "f32"): "e543b119adb31b23", ("K1", "f64"): "cef4d2fd5ec4e055",
+    ("K2", "f32"): "66f7c8cd4f532621", ("K2", "f64"): "10614b834db20089",
+    ("K5a", "f32"): "e67af260dc43ddee", ("K5a", "f64"): "33349eaf5fa2d05a",
+    ("K5b", "f32"): "35fefd1d16af3dbf", ("K5b", "f64"): "d96756e2a481a2dc"}
+PARENT_MS = {"K1": 43.063, "K2": 29.921, "K5a": 79.702, "K5b": 347.991}
 # HECTOR's standing pose, walking command (tests/test_controller.py:12-19).
 Q0 = (0.0, 0.0, 0.45, -0.9, 0.45)
 
@@ -110,17 +132,22 @@ def start_ptxas_report(tmp: str) -> list:
 
 def ptxas_report(procs) -> str:
     """Registers and spill stores of every kernel entry, as ptxas reports
-    them; raises if a compile failed."""
+    them; raises if a compile failed. The Newton-step kernel is named by its
+    route policy, `pdipm_kernel<RicAug, f32>`."""
     out = []
     for proc in procs:
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
         name = None
         for line in text.splitlines():
-            m = re.search(r"entry function '_Z\d+(\w+?_kernel)I([fd])(?:Lb([01])E)?", line)
+            m = re.search(r"entry function '_Z\d+(\w+?_kernel)I(\w+)'", line)
             if m:
-                kind = {None: "", "1": ", aug", "0": ", condensed"}[m.group(3)]
-                name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'f64'}{kind}>"
+                args, policy = m.group(2), ""
+                n = re.match(r"\d+", args)
+                if n:  # a route policy's mangled name: its length, then the name
+                    end = n.end() + int(n.group())
+                    policy, args = args[n.end():end] + ", ", args[end:]
+                name = f"{m.group(1)}<{policy}{'f32' if args[0] == 'f' else 'f64'}>"
             spill = re.search(r"(\d+) bytes spill stores", line)
             if spill and name:
                 stores = spill.group(1)
@@ -200,15 +227,20 @@ def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False) -> flo
     """What `route`'s kernel does now in one Newton step of one env, counted
     from its loops (leading terms), for comparison with `needed_flops`: the
     block-Thomas routes invert T pivoted n-wide blocks by Gauss-Jordan in
-    full (2 n^3 + n^2 each), K1 and K2 their foot blocks, and each reduced
-    solve multiplies by the stored inverses."""
+    full (2 n^3 + n^2 each), K1 and K2 their foot blocks, K5c its 12-wide Ru
+    blocks, K5d its dense 14- / 30-wide blocks (each Riccati route then the
+    y-chain's folding and 12-wide inverses, ~17k per stage), and each reduced
+    solve multiplies by the stored inverses (K5c recomputes two rows of
+    Ru^-1 r for each row it applies)."""
     n = {"tridiag_aug": 42, "tridiag": 26}.get(route)
-    condensed = route in ("ric", "tridiag")
+    condensed = route in ("ric", "tridiag", "ric2", "ric_dense")
     if n is not None:
         factor = T * (2 * n ** 3 + n ** 2 + 7344 + (6912 if condensed else 0))
         solve = T * (2 * n ** 2 + 25 * n + 684)
     else:
-        factor, solve = {"ric_aug": (22600 * T, 3500 * T), "ric": (15200 * T, 2700 * T)}[route]
+        factor, solve = {"ric_aug": (22600 * T, 3500 * T), "ric": (15200 * T, 2700 * T),
+                         "ric2": (28800 * T, 4100 * T), "ric_dense": (30000 * T, 2900 * T),
+                         "ric_aug_dense": (72300 * T, 4500 * T)}[route]
     residual = (26250 if df else 2090) * T
     extra = 1760 * T if condensed else 0  # r1_hat and the dz, ds recovery
     return factor + 2 * (1 + refine_steps) * solve + 2 * refine_steps * residual + 2850 * T + extra
@@ -311,6 +343,19 @@ def no_host_sync():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def digest(tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def results(res) -> list:
+    """x, s, z, y and the residuals of a PdipmResult."""
+    return [res.x, res.s, res.z, res.y, res.residuals]
 
 
 def bit_diff(a, b):
@@ -638,7 +683,8 @@ def main() -> int:
         worst, worst_rel = float(err[cv].max()), float(err_rel[cv].max())
         bounded = f"{worst_rel:.3e} relative to max(1, |v|) (bound {rtol:g}), absolute {worst:.3e}" \
             if rtol else f"{worst:.3e} (bound {F64_ATOL:g}), relative to max(1, |v|) {worst_rel:.3e}"
-        print(f"[{tag} f64 vs plain f64] b{B} {opts_.backend}: converged envs {int(cv.sum())}: max "
+        print(f"[{tag} f64 vs plain f64] b{B} {pdipm_cuda.route(opts_)}"
+              f"{' jacobi' if opts_.kkt_scale == 'jacobi' else ''}: converged envs {int(cv.sum())}: max "
               f"|dx,ds,dz,dy| {bounded}, envs above {F64_ATOL:g} absolute "
               f"{int((err[cv] > F64_ATOL).sum())}, residual rel {rel[cv].max():.3e} (bound "
               f"{RES_RTOL:g}); all envs: {quantiles(err)}, above {F64_ATOL:g} "
@@ -648,35 +694,43 @@ def main() -> int:
         check(float(rel[cv].max()) <= RES_RTOL, f"f64 {tag} residuals differ")
         return kern, plain, cv, worst
 
-    def f32_vs_plain64(tag, kern, plain, cv, bounded):
+    def f32_tail(kern, plain, cv):
+        """(finite envs, u0 |dGRF| per env, summary) of an f32 solve against
+        the f64 plain version."""
         fin = torch.isfinite(kern.x).all(1).cpu().numpy()
         d = (kern.x[:, 120:132].double() - plain.x[:, 120:132]).abs().amax(1).cpu().numpy()
-        print(f"[{tag} f32 vs plain f64] finite on {int(fin.sum())}/{B} envs ({fin.mean():.4%}); "
-              f"u0 |dGRF| [N], converged finite envs ({int((cv & fin).sum())}): "
-              f"{quantiles(d[cv & fin])}{f' (bound {F32_U0_ATOL})' if bounded else ''}; all "
-              f"finite envs: {quantiles(d[fin])}, above {F32_U0_ATOL} N: "
+        return fin, d, (f"finite on {int(fin.sum())}/{B} envs ({fin.mean():.4%}); u0 |dGRF| [N], "
+                        f"converged finite envs ({int((cv & fin).sum())}): {quantiles(d[cv & fin])}")
+
+    def f32_vs_plain64(tag, kern, plain, cv, bounded):
+        fin, d, summary = f32_tail(kern, plain, cv)
+        print(f"[{tag} f32 vs plain f64] {summary}{f' (bound {F32_U0_ATOL})' if bounded else ''}; "
+              f"all finite envs: {quantiles(d[fin])}, above {F32_U0_ATOL} N: "
               f"{int((d[fin] > F32_U0_ATOL).sum())}")
         if bounded:
             check(fin.mean() >= F32_FINITE_SHARE, f"f32 {tag} finite on {fin.mean():.4f} of envs")
             check(float(d[cv & fin].max()) <= F32_U0_ATOL, f"f32 {tag} GRF off on converged envs")
+
+    def roundoff(tag, opts_, plain, cv):
+        """The route's own roundoff sensitivity: its plain version run on the
+        CPU (other summation orders) against the same on the card."""
+        idx = torch.nonzero(torch.as_tensor(cv, device=dev)).flatten()
+        cpu = pdipm.solve(qp_map(qps.take(qp64, idx), lambda v: v.cpu()), opts_)
+        gap = {n: (getattr(cpu, n) - getattr(plain, n)[idx].cpu()).abs() for n in "xszy"}
+        print(f"[{tag} roundoff] plain {tag} f64 on the CPU vs on the card, converged envs "
+              f"{len(idx)}: max |dx,ds,dz,dy| {max(float(g.max()) for g in gap.values()):.3e}, "
+              f"relative to max(1, |v|) "
+              f"{max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max()) for n, g in gap.items()):.3e} "
+              f"(printed: two correct roundings of the route)")
 
     thomas = {"K5b": pdipm.PdipmOptions(backend="tridiag_aug"),
               "K5a": pdipm.PdipmOptions(backend="tridiag")}
     k5 = {}
     for tag, opts_ in thomas.items():
         kern64_, plain64_, cv_, worst_ = vs_plain64(tag, opts_,
-                                                    K5A_F64_RTOL if tag == "K5a" else None)
+                                                    CONDENSED_F64_RTOL if tag == "K5a" else None)
         if tag == "K5a":
-            # The route's own roundoff sensitivity: its plain version run on
-            # the CPU (other summation orders) against the same on the card.
-            idx = torch.nonzero(torch.as_tensor(cv_, device=dev)).flatten()
-            cpu = pdipm.solve(qp_map(qps.take(qp64, idx), lambda v: v.cpu()), opts_)
-            gap = {n: (getattr(cpu, n) - getattr(plain64_, n)[idx].cpu()).abs() for n in "xszy"}
-            print(f"[K5a roundoff] plain K5a f64 on the CPU vs on the card, converged envs "
-                  f"{len(idx)}: max |dx,ds,dz,dy| {max(float(g.max()) for g in gap.values()):.3e}, "
-                  f"relative to max(1, |v|) "
-                  f"{max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max()) for n, g in gap.items()):.3e} "
-                  f"(printed: two correct roundings of the route)")
+            roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5b")
         k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_}
@@ -713,6 +767,58 @@ def main() -> int:
     check(float(k5df_err[k5df_cv].max()) <= F64_ATOL, "f64 K5b df differs from the plain df")
     check(k5df_fin.mean() >= F32_FINITE_SHARE, "f32 K5b df not finite")
 
+    # 4j. K5c (rank-2, condensed), K5d-c (unsplit 14-wide, condensed) and
+    # K5d-a (unsplit 30-wide, augmented) vs their plain versions. K5d-a is
+    # the robust class (bounded in f32 as K1); the condensed pair is bounded
+    # in f64 as K5a, with its roundoff witness, and its f32 lines are
+    # printed, as K2's.
+    riccati = {"K5c": pdipm.PdipmOptions(backend="ric2"),
+               "K5d-c": pdipm.PdipmOptions(backend="ric", foot_split=False),
+               "K5d-a": pdipm.PdipmOptions(backend="ric_aug", foot_split=False)}
+    k5n = {}
+    for tag, opts_ in riccati.items():
+        condensed = tag != "K5d-a"
+        kern64_, plain64_, cv_, worst_ = vs_plain64(tag, opts_,
+                                                    CONDENSED_F64_RTOL if condensed else None)
+        if condensed:
+            roundoff(tag, opts_, plain64_, cv_)
+        kern32_ = pdipm_cuda.solve(qp32, opts_)
+        f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5d-a")
+        k5n[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_}
+
+    # 4k. Jacobi equilibration (kkt_scale="jacobi") on K1 and K5d-c: f64
+    # kernel vs f64 plain version (same scaling) within the route's bound,
+    # and the f32 u0 tail beside the unscaled kernel's on the same envs.
+    jacobi = {"K1 jacobi": (opts, kern32, None),
+              "K5d-c jacobi": (riccati["K5d-c"], k5n["K5d-c"]["f32"], CONDENSED_F64_RTOL)}
+    for tag, (base, unscaled32, rtol) in jacobi.items():
+        opts_ = dataclasses.replace(base, kkt_scale="jacobi")
+        _, plain64_, cv_, _ = vs_plain64(tag, opts_, rtol)
+        scaled = f32_tail(pdipm_cuda.solve(qp32, opts_), plain64_, cv_)[2]
+        unscaled = f32_tail(unscaled32, plain64_, cv_)[2]
+        print(f"[{tag} f32 vs plain f64] jacobi: {scaled}; unscaled: {unscaled} (printed)")
+
+    # 4l. K3 on the new kernels: four warm 5-step launches vs one 20-step one.
+    warm_line = []
+    for tag, opts_ in riccati.items():
+        for dt, qp in (("f32", qp32), ("f64", qp64)):
+            worst, differ = bit_diff(chunked(qp, opts_), k5n[tag][dt])
+            warm_line.append(f"{tag} {dt} max |d| {worst:.3e}, envs differing in any bit {differ}")
+            check(differ == 0, f"{tag} {dt}: 4 warm 5-step launches differ from one 20-step launch")
+    print(f"[warm chunks K5c/K5d] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
+
+    # 4m. The shared Newton step left K1, K2, K5a and K5b as they were: the
+    # digest of each one's x, s, z, y and residuals on this batch against
+    # the one the build before the move gave (PARENT_DIGESTS); printed with
+    # the times in 7.
+    inputs_same = all(digest(pdipm_cuda._inputs(qp)) == PARENT_DIGESTS["inputs", dt]
+                      for dt, qp in (("f32", qp32), ("f64", qp64)))
+    refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]
+                     for tag, runs in (("K1", {"f32": kern32, "f64": kern64}),
+                                       ("K2", {"f32": ric_kern32, "f64": ric_kern64}),
+                                       ("K5a", k5["K5a"]), ("K5b", k5["K5b"]))
+                     for dt in ("f32", "f64")}
+
     # 4i. Layouts over a block's shared memory raise before any launch: the
     # largest horizon of each route and dtype that fits, and K5b at T = 20 in
     # f64, which does not.
@@ -726,14 +832,15 @@ def main() -> int:
                                f=torch.cat([qp64.f[:, :120], qp64.f[:, :120],
                                             qp64.f[:, 120:], qp64.f[:, 120:]], dim=1))
     pdipm_cuda.reset_counts()
-    try:
-        pdipm_cuda.solve(qp20, thomas["K5b"])
-        raised = None
-    except ValueError as exc:
-        raised = str(exc)
-    check(raised is not None and "shared memory" in raised, "K5b f64 T=20 did not raise")
+    raised = {}
+    for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"])):
+        try:
+            pdipm_cuda.solve(qp20, opts_)
+        except ValueError as exc:
+            raised[tag] = str(exc)
+        check("shared memory" in raised.get(tag, ""), f"{tag} f64 T=20 did not raise")
     check(pdipm_cuda.launches == route_counts(), "a layout that does not fit was launched")
-    print(f"[shared memory] largest horizon that fits per route and dtype: {fits}; K5b f64 T=20 "
+    print(f"[shared memory] largest horizon that fits per route and dtype: {fits}; f64 T=20 "
           f"raised before any launch: {raised}")
 
     # 5. Main path: MPCController at b4096 on the card, default solver (K1).
@@ -859,19 +966,29 @@ def main() -> int:
     check(torch.equal(f_out.wrench, first_wrench), "adaptive route at tol 0 differs from default")
     check(a_dw <= F32_U0_ATOL, "first adaptive wrench differs from the CPU reference")
 
-    # 6c. Block-Thomas main paths: solver="pallas_aug" (K5b) and "pallas"
-    # (K5a), each with its launch counts from 0 and its first solve against
-    # the CPU plain f64 controller on 8 envs, bounded as the default path.
-    # K5a is the condensed class: the plain version's own f32 solve of this
-    # walk on the CPU is 0.83 N off the f64 one (K2's 0.27 N); the kernel's
-    # rounding reads 0.10 N on the H100.
-    thomas_ctrl, thomas_launches = {}, {}
-    for solver, route in (("pallas_aug", "tridiag_aug"), ("pallas", "tridiag")):
-        conf = MPCConf(solver=solver, verbose=False)
+    # 6c. The main paths of the other routes, each with its launch counts
+    # from 0 and its first solve against the CPU plain f64 controller on 8
+    # envs: "pallas_aug" (K5b), "pallas" (K5a), "pallas_ric2" (K5c),
+    # "pallas_ric" unsplit (K5d-c), "pallas_ric_aug" unsplit (K5d-a) and
+    # "pallas_ric_aug" with Jacobi scaling (K1). The augmented paths and K5a
+    # are bounded as the default path (K5a is the condensed class: the plain
+    # version's own f32 solve of this walk on the CPU is 0.83 N off the f64
+    # one, K2's 0.27 N; the kernel's rounding reads 0.10 N on the H100); the
+    # first wrench of K5c and K5d-c is printed, as the hybrid's.
+    paths = (("pallas_aug", {}, "tridiag_aug", 2 * PATH_TICKS, True),
+             ("pallas", {}, "tridiag", PATH_TICKS, True),
+             ("pallas_ric2", {}, "ric2", PATH_TICKS, False),
+             ("pallas_ric", {"solver_foot_split": False}, "ric_dense", PATH_TICKS, False),
+             ("pallas_ric_aug", {"solver_foot_split": False}, "ric_aug_dense", PATH_TICKS, True),
+             ("pallas_ric_aug", {"solver_kkt_scale": "jacobi"}, "ric_aug", PATH_TICKS, True))
+    path_ctrl, path_launches = {}, {}
+    for solver, knobs, route, ticks, bounded in paths:
+        name = " ".join([solver] + [f"{k}={v!r}" for k, v in knobs.items()])
+        conf = MPCConf(solver=solver, verbose=False, **knobs)
         tctrl = MPCController(ControllerConf(), conf, num_envs=B, gait_id=2, device=dev)
         tctrl.set_command(twist, height)
         pdipm_cuda.reset_counts()
-        t_mpc, t_first, t_tau_ok = walk(tctrl, obs, THOMAS_TICKS[solver], limit)
+        t_mpc, t_first, t_tau_ok = walk(tctrl, obs, ticks, limit)
         torch.cuda.synchronize()
         t_launches = dict(pdipm_cuda.launches)
         t_fz = -t_first[:, :, 2]
@@ -881,20 +998,23 @@ def main() -> int:
         tref.update_state(obs[:8].cpu())
         tref.run_mpc()
         t_dw = float((t_first[:8].cpu().double() - tref.ground_reaction_wrench).abs().max())
-        print(f"[{solver} path] MPCController solver={solver} b{B}, {THOMAS_TICKS[solver]} ticks: "
+        print(f"[{name} path] MPCController b{B}, {ticks} ticks: "
               f"run_mpc {t_mpc}, kernel launches {t_launches}; tau finite and within limits: "
               f"{t_tau_ok}; first solve fz left [{float(t_fz[:, 0].min()):.2f}, "
               f"{float(t_fz[:, 0].max()):.2f}] N, right swing max |fz| "
               f"{float(t_fz[:, 1].abs().max()):.3e} N; vs CPU plain f64 on 8 envs max |d| "
-              f"{t_dw:.3e} N (bound {F32_U0_ATOL}); vs default first solve max |d| "
-              f"{float((t_first - first_wrench).abs().max()):.3e} N")
+              f"{t_dw:.3e} N{f' (bound {F32_U0_ATOL})' if bounded else ' (printed)'}; vs default "
+              f"first solve max |d| {float((t_first - first_wrench).abs().max()):.3e} N")
         check(t_launches == route_counts(**{route: t_mpc}),
-              f"the {solver} path did not launch its kernel once per run_mpc")
-        check(t_tau_ok, f"{solver}: joint torques not finite or beyond the torque limits")
-        check(bool((t_fz[:, 1].abs() < 1.0).all()), f"{solver}: swinging right foot carries force")
-        check(bool((t_first[:, 0, 2] < -50.0).all()), f"{solver}: stance left foot not loaded")
-        check(t_dw <= F32_U0_ATOL, f"{solver}: first wrench differs from the CPU reference")
-        thomas_ctrl[route], thomas_launches[route] = tctrl, t_launches[route]
+              f"the {name} path did not launch its kernel once per run_mpc")
+        check(t_tau_ok, f"{name}: joint torques not finite or beyond the torque limits")
+        check(bool((t_fz[:, 1].abs() < 1.0).all()), f"{name}: swinging right foot carries force")
+        check(bool((t_first[:, 0, 2] < -50.0).all()), f"{name}: stance left foot not loaded")
+        check(float((tctrl.state.gait_phase - phase0).min()) > 0.0,
+              f"{name}: gait phase did not advance")
+        if bounded:
+            check(t_dw <= F32_U0_ATOL, f"{name}: first wrench differs from the CPU reference")
+        path_ctrl[name], path_launches[name] = tctrl, t_launches[route]
 
     # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
@@ -930,12 +1050,20 @@ def main() -> int:
 
     tick_ms = cuda_ms(tick, 50)
     k5_ms = {}
-    for tag, opts_ in thomas.items():
-        k5_ms[tag] = {"k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, opts_), 10),
+    for tag, opts_, path in (("K5b", thomas["K5b"], "pallas_aug"), ("K5a", thomas["K5a"], "pallas"),
+                             ("K5c", riccati["K5c"], "pallas_ric2"),
+                             ("K5d-c", riccati["K5d-c"], "pallas_ric solver_foot_split=False"),
+                             ("K5d-a", riccati["K5d-a"],
+                              "pallas_ric_aug solver_foot_split=False")):
+        k5_ms[tag] = {"opts": opts_,
+                      "k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, opts_), 10),
                       "k64": cuda_ms(lambda: pdipm_cuda.solve(qp64, opts_), 5),
                       "p32": cuda_ms(lambda: pdipm.solve(qp32, opts_), 3),
                       "p64": cuda_ms(lambda: pdipm.solve(qp64, opts_), 3),
-                      "mpc": cuda_ms(thomas_ctrl[opts_.backend].run_mpc, 5)}
+                      "mpc": cuda_ms(path_ctrl[path].run_mpc, 5)}
+    jac_opts = dataclasses.replace(opts, kkt_scale="jacobi")
+    jac32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, jac_opts), 20)
+    jac_mpc = cuda_ms(path_ctrl["pallas_ric_aug solver_kkt_scale='jacobi'"].run_mpc, 10)
     units = B * opts.iterations / 5
     print(f"[times] {label}: b{B} h10 {opts.iterations} iterations: kernel f32 {k32:.3f} ms "
           f"({units / k32 * 1e3:.0f} 5-iteration units/s), kernel f64 {k64:.3f} ms, "
@@ -955,27 +1083,34 @@ def main() -> int:
           f"run_mpc {amp_ms:.3f} ms")
     print(f"[times] {label}: b{B} f32 K1 with the df residual {df_ms:.3f} ms vs f32 residual "
           f"{k32_again:.3f} ms (same run), plain df {df_plain_ms:.3f} ms")
-    bounds = {
-        "ric_aug": bound(qp32, opts), "ric": bound(qp32, ric), "warm": bound(qp32, opts),
-        "df": bound(qp32, df_opts), "tridiag_aug": bound(qp32, thomas["K5b"]),
-        "tridiag": bound(qp32, thomas["K5a"])}
-    for tag, opts_ in thomas.items():
-        t = k5_ms[tag]
-        b32, by = bounds[opts_.backend]
-        b64, _ = bound(qp64, opts_)
-        print(f"[times] {label}: b{B} h10 {tag} ({opts_.backend}): kernel f32 {t['k32']:.3f} ms "
+    print(f"[times] {label}: b{B} f32 K1 with kkt_scale=jacobi {jac32:.3f} ms vs unscaled "
+          f"{k32_again:.3f} ms; its MPCController run_mpc {jac_mpc:.3f} ms vs {mpc_ms:.3f} ms")
+    bounds = {"ric_aug": bound(qp32, opts), "ric": bound(qp32, ric), "warm": bound(qp32, opts),
+              "df": bound(qp32, df_opts)}
+    bounds.update({pdipm_cuda.route(t["opts"]): bound(qp32, t["opts"]) for t in k5_ms.values()})
+    for tag, t in k5_ms.items():
+        key = pdipm_cuda.route(t["opts"])
+        b32, by = bounds[key]
+        b64, _ = bound(qp64, t["opts"])
+        print(f"[times] {label}: b{B} h10 {tag} ({key}): kernel f32 {t['k32']:.3f} ms "
               f"({units / t['k32'] * 1e3:.0f} 5-iteration units/s), kernel f64 {t['k64']:.3f} ms, "
               f"plain f32 {t['p32']:.3f} ms, plain f64 {t['p64']:.3f} ms; bound f32 {b32:.3f} ms, "
               f"f64 {b64:.3f} ms (by {by}); MPCController run_mpc {t['mpc']:.3f} ms")
     print(f"[times] {label}: bounds at b{B} f32 (ms, bound by): "
           + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in bounds.items()))
-    steps = [("ric_aug", opts), ("ric", ric), ("ric_aug df", df_opts),
-             ("tridiag_aug", thomas["K5b"]), ("tridiag", thomas["K5a"])]
+    steps = [("ric_aug", opts), ("ric", ric), ("ric_aug df", df_opts)] + [
+        (pdipm_cuda.route(t["opts"]), t["opts"]) for t in k5_ms.values()]
     print(f"[flops] per env and Newton step at h{qp32.horizon}: what the kernel's loops do / "
           f"the least (the bounds' count): " + ", ".join(
-              f"{k} {kernel_flops(o.backend, qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
+              f"{k} {kernel_flops(pdipm_cuda.route(o), qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
               f" / {needed_flops(qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
               for k, o in steps))
+    now = {"K1": k32, "K2": r32, "K5a": k5_ms["K5a"]["k32"], "K5b": k5_ms["K5b"]["k32"]}
+    print(f"[refactor] {label}: K1, K2, K5a and K5b in the one Newton-step kernel, b{B} cold "
+          f"20 steps: inputs as recorded: {inputs_same}; x, s, z, y and residuals bitwise the "
+          f"build before the move (digest): {refactor_same}; f32 ms now / before the move: "
+          + ", ".join(f"{k} {v:.3f} / {PARENT_MS[k]:.3f} ({v / PARENT_MS[k] - 1:+.1%})"
+                      for k, v in now.items()))
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, key):
         return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/csrc/{source}",
@@ -995,12 +1130,24 @@ def main() -> int:
               df_launches, df_worst64, df_ms, df_plain_ms, "df"),
         entry("pdipm_tridiag_aug", "pdipm_tridiag_aug.cu",
               "308 (backend=tridiag_aug: factor_aug :1134, thomas_solve_aug :1183)",
-              thomas_launches["tridiag_aug"], k5["K5b"]["err"], k5_ms["K5b"]["k32"],
+              path_launches["pallas_aug"], k5["K5b"]["err"], k5_ms["K5b"]["k32"],
               k5_ms["K5b"]["p32"], "tridiag_aug"),
         entry("pdipm_tridiag", "pdipm_tridiag.cu",
               "308 (backend=tridiag: factor :424, thomas_solve :478)",
-              thomas_launches["tridiag"], k5["K5a"]["err"], k5_ms["K5a"]["k32"],
+              path_launches["pallas"], k5["K5a"]["err"], k5_ms["K5a"]["k32"],
               k5_ms["K5a"]["p32"], "tridiag"),
+        entry("pdipm_ric2", "pdipm_ric2.cu",
+              "308 (backend=ric2: factor_ric2 :839, _kinv2_apply :885)",
+              path_launches["pallas_ric2"], k5n["K5c"]["err"], k5_ms["K5c"]["k32"],
+              k5_ms["K5c"]["p32"], "ric2"),
+        entry("pdipm_ric_dense", "pdipm_ric_dense.cu",
+              "308 (backend=ric, foot_split=False: factor_ric :896)",
+              path_launches["pallas_ric solver_foot_split=False"], k5n["K5d-c"]["err"],
+              k5_ms["K5d-c"]["k32"], k5_ms["K5d-c"]["p32"], "ric_dense"),
+        entry("pdipm_ric_aug_dense", "pdipm_ric_aug_dense.cu",
+              "308 (backend=ric_aug, foot_split=False: factor_ric_aug :1007)",
+              path_launches["pallas_ric_aug solver_foot_split=False"], k5n["K5d-a"]["err"],
+              k5_ms["K5d-a"]["k32"], k5_ms["K5d-a"]["p32"], "ric_aug_dense"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -160,7 +160,7 @@ def test_reset_masks_only_selected_envs():
     assert ctrl.state.swing_state.first_swing[1].all()
 
 
-@pytest.mark.parametrize("solver", ["dense", "pallas_ric2"])
+@pytest.mark.parametrize("solver", ["dense"])
 def test_unported_solver_names_raise(solver):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),

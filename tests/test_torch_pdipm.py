@@ -99,5 +99,6 @@ def test_plain_float32_grf_tracks_golden(seed):
 def test_cpu_solve_dispatches_to_plain_and_leaves_counter(batch, port_result):
     before = dict(pdipm_cuda.launches)
     res = pdipm_cuda.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)))
-    assert pdipm_cuda.launches == before == {"ric_aug": 0, "ric": 0, "tridiag_aug": 0, "tridiag": 0}
+    assert pdipm_cuda.launches == before == {"ric_aug": 0, "ric": 0, "tridiag_aug": 0, "tridiag": 0,
+                                              "ric2": 0, "ric_dense": 0, "ric_aug_dense": 0}
     _assert_state_close(res, port_result, atol=0.0)

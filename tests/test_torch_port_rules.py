@@ -80,7 +80,7 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     for name in names:
         assert getattr(lib, name).argtypes == _c_entry_params(extern_c, name), name
         assert getattr(lib, name).restype is ctypes.c_int
-    assert len(pdipm_cuda.ENTRY_ARGTYPES) == 26
+    assert len(pdipm_cuda.ENTRY_ARGTYPES) == 27
     assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
@@ -145,7 +145,8 @@ def test_failed_ric_build_raises_and_does_not_fall_back(monkeypatch, tmp_path):
         pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric"))
     assert pdipm_cuda.launches == before
     built = sorted(p.name.rsplit("_", 1)[0] for p in build_dir.iterdir())
-    assert built == ["libpdipm_ric_aug", "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
+    assert built == ["libpdipm_ric2", "libpdipm_ric_aug", "libpdipm_ric_aug_dense",
+                     "libpdipm_ric_dense", "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
 
 
 def test_kernel_sources_include_only_their_own_headers():
@@ -188,14 +189,24 @@ def test_controller_without_device_needs_a_card(monkeypatch):
     assert ctrl.state.gait_phase.device.type == "cpu"
 
 
-@pytest.mark.parametrize("solver, item", [("dense", "Queue 1, item 15"),
-                                          ("pallas_ric2", "Queue 2, item 1")])
+@pytest.mark.parametrize("solver, item", [("dense", "Queue 1, item 15")])
 def test_unported_solvers_name_their_roadmap_item(solver, item):
     import biped_pympc_tpu_torch as tpkg
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
                            num_envs=1, device="cpu")
+
+
+@pytest.mark.parametrize("pack", [True, "apply"])
+def test_foot_pack_names_its_roadmap_item(pack):
+    """The foot packing (K5e) is not ported: on a setting where the JAX
+    controller packs, building the controller raises, naming K5e."""
+    import biped_pympc_tpu_torch as tpkg
+
+    conf = tpkg.MPCConf(solver="pallas_ric_aug", solver_foot_pack=pack, verbose=False)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 2, item 3 \(K5e"):
+        tpkg.MPCController(tpkg.ControllerConf(), conf, num_envs=1, device="cpu")
 
 
 def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
@@ -214,7 +225,18 @@ def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
 # differently part ways (PERF.md, Findings); chip_smoke.py checks the
 # full 20 steps, and f32, on converged envs. Residual norms of the equality
 # rows sit near roundoff (~1e-10), hence the absolute floor on them.
-ROUTES = ["ric_aug", "ric", "tridiag_aug", "tridiag"]
+# The options of each kernel (`pdipm_cuda.route`):
+OPTIONS = {"ric_aug": {}, "ric": dict(backend="ric"), "tridiag_aug": dict(backend="tridiag_aug"),
+           "tridiag": dict(backend="tridiag"), "ric2": dict(backend="ric2"),
+           "ric_dense": dict(backend="ric", foot_split=False),
+           "ric_aug_dense": dict(backend="ric_aug", foot_split=False)}
+ROUTES = list(OPTIONS)
+RICCATI = ["ric_aug", "ric", "ric2", "ric_dense", "ric_aug_dense"]  # take kkt_scale
+
+
+def test_options_cover_every_kernel():
+    assert sorted(OPTIONS) == sorted(pdipm_cuda.SOURCES)
+    assert all(pdipm_cuda.route(pdipm.PdipmOptions(**kw)) == key for key, kw in OPTIONS.items())
 
 
 @pytest.mark.cuda
@@ -226,7 +248,7 @@ def test_kernel_matches_plain_on_card(horizon, refine_steps, backend):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     qp = _qp(64, torch.float64, "cuda", horizon)
-    opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps, backend=backend)
+    opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps, **OPTIONS[backend])
     before = dict(pdipm_cuda.launches)
     if pdipm_cuda.smem_bytes(backend, horizon, torch.float64) > pdipm_cuda.MAX_SMEM_PER_BLOCK:
         with pytest.raises(ValueError, match="shared memory"):
@@ -259,7 +281,7 @@ def test_warm_chunks_bit_equal_fixed_on_card(dtype, backend):
     adaptive solve at tol=0 is the same solve in 4 gated launches."""
     _card()
     qp = _qp(64, dtype, "cuda")
-    opts = pdipm.PdipmOptions(backend=backend)
+    opts = pdipm.PdipmOptions(**OPTIONS[backend])
     fixed = pdipm_cuda.solve(qp, opts)
     five = dataclasses.replace(opts, iterations=5)
     res = pdipm_cuda.solve(qp, five)
@@ -274,6 +296,37 @@ def test_warm_chunks_bit_equal_fixed_on_card(dtype, backend):
     one = pdipm_cuda.solve_adaptive(qp, opts, 1e12)
     assert pdipm_cuda.launches[backend] == 4 and pdipm_cuda.chunks_ran()[backend] == 1
     assert _bit_equal(one, pdipm_cuda.solve(qp, five))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", RICCATI)
+def test_jacobi_kernel_matches_plain_on_card(backend):
+    """kkt_scale="jacobi" on every Riccati kernel vs its plain version at
+    f64, the bounds of test_kernel_matches_plain_on_card; the flag reaches
+    the kernel (the scaled solve is not the unscaled one bit for bit)."""
+    _card()
+    qp = _qp(64, torch.float64, "cuda")
+    opts = pdipm.PdipmOptions(iterations=8, kkt_scale="jacobi", **OPTIONS[backend])
+    got = pdipm_cuda.solve(qp, opts)
+    want = pdipm.solve(qp, opts)
+    torch.cuda.synchronize()
+    for name in "xszy":
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-7)
+    assert not _bit_equal(got, pdipm_cuda.solve(qp, dataclasses.replace(opts, kkt_scale="none")))
+
+
+@pytest.mark.cuda
+def test_unsplit_aug_f64_layout_refused_at_horizon_20_on_card():
+    """K5d-a keeps T x 900 stored inverses: in f64 at horizon 20 its layout
+    exceeds a block's shared memory and the solve raises before any launch."""
+    _card()
+    opts = pdipm.PdipmOptions(**OPTIONS["ric_aug_dense"])
+    assert pdipm_cuda.smem_bytes("ric_aug_dense", 20, torch.float64) > pdipm_cuda.MAX_SMEM_PER_BLOCK
+    assert pdipm_cuda.smem_bytes("ric_aug_dense", 10, torch.float64) <= pdipm_cuda.MAX_SMEM_PER_BLOCK
+    before = dict(pdipm_cuda.launches)
+    with pytest.raises(ValueError, match="'ric_aug_dense' at horizon 20 in torch.float64"):
+        pdipm_cuda.solve(_qp(4, torch.float64, "cuda", 20), opts)
+    assert pdipm_cuda.launches == before
 
 
 def _cancellation_case(qp, seed=3):
