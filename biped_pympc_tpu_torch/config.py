@@ -85,8 +85,12 @@ class MPCConf:
     (`biped_pympc_tpu/config.py:137-155`; the JAX package measured a
     narrower f32 stress tail for the unsplit condensed route on its TPU).
     solver_foot_pack: packing of the split's two foot blocks
-    (`biped_pympc_tpu/config.py:156-169`); not ported, so a truthy value
-    raises NotImplementedError where the JAX package would act on it.
+    (`biped_pympc_tpu/config.py:156-169`): True or "apply" runs the packed
+    kernel of the route (K5e, `pdipm_ric_pack.cu` / `pdipm_ric_aug_pack.cu`)
+    for a "pallas_*" name with the split on and a "ric" / "ric_aug" route,
+    and is ignored elsewhere, as in the JAX package. "pallas_hybrid" then
+    runs the packed condensed route and re-solves with the packed augmented
+    one.
     solver_kkt_scale: "jacobi" inverts each stage block of the Riccati
     routes through its Jacobi equilibration (exact; only rounding changes;
     `biped_pympc_tpu/config.py:184-199`). The block-Thomas routes ignore it.

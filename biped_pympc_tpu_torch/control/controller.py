@@ -45,21 +45,20 @@ def _check_solver(name: str) -> None:
 def solver_options(c: MPCConf) -> PdipmOptions:
     """The PDIPM options of an MPCConf, mapped as the JAX controller maps them
     (`biped_pympc_tpu/control/controller.py:121-147`): the foot split only
-    on "ric" / "ric_aug", the KKT scaling as it is. A foot packing that the
-    JAX package would act on (a "pallas_*" name, the split on, a "ric" /
-    "ric_aug" route) raises: it is not ported. Where JAX ignores it, so
-    does the port."""
+    on "ric" / "ric_aug", the KKT scaling as it is, and the foot packing
+    (ROADMAP Queue 2, item 3 (K5e)) only for a "pallas_*" name with the split
+    on and a "ric" / "ric_aug" route, keeping its value (True or "apply");
+    every other field at its default."""
     _check_solver(c.solver)
     backend = _BACKEND.get(c.solver, c.solver)
     split = c.solver_foot_split and backend in ("ric", "ric_aug")
-    if split and c.solver.startswith("pallas") and c.solver_foot_pack:
-        raise NotImplementedError(
-            f"MPCConf.solver_foot_pack={c.solver_foot_pack!r} is not ported to "
-            "biped_pympc_tpu_torch. See ROADMAP Queue 2, item 3 (K5e, the foot packing).")
+    # solver_foot_pack last, so that its value survives the chain.
+    pack = (c.solver_foot_split and c.solver.startswith("pallas")
+            and backend in ("ric", "ric_aug") and c.solver_foot_pack)
     return PdipmOptions(iterations=c.newton_iterations, iterations_per_launch=c.adaptive_chunk,
                         beta=c.solver_beta, delta=c.solver_delta,
                         refine_steps=c.solver_refine_steps, backend=backend, foot_split=split,
-                        kkt_scale=c.solver_kkt_scale)
+                        kkt_scale=c.solver_kkt_scale, foot_pack=pack)
 
 
 @dataclass

@@ -3,9 +3,11 @@
 // of the augmented system, the warm / cold load and the gate, the in-place
 // n-wide Jordan inverse with its Jacobi equilibration, the dual-Riccati
 // y-chain and its sweeps, the fraction-to-boundary rule, and the one
-// Newton-step kernel `pdipm_kernel<P, S>` with its two reduced-solve forms
-// and its host `launch`. A route is a policy P (the end of this file says
-// what it supplies): pdipm_ric_aug.cu (K1), pdipm_ric.cu (K2) and, through
+// Newton-step kernel `pdipm_kernel<P, S>` with its two reduced-solve forms,
+// its four corrector forms and its host `launch`. A route is a policy P (the
+// end of this file says what it supplies): through pdipm_split.cuh,
+// pdipm_ric_aug.cu (K1), pdipm_ric.cu (K2) and their packed twins
+// pdipm_ric_aug_pack.cu and pdipm_ric_pack.cu (K5e); through
 // pdipm_riccati.cuh, pdipm_ric2.cu (K5c), pdipm_ric_dense.cu and
 // pdipm_ric_aug_dense.cu (K5d); through pdipm_tridiag.cuh, pdipm_tridiag.cu
 // (K5a) and pdipm_tridiag_aug.cu (K5b). Each route owns its shared-memory
@@ -38,6 +40,46 @@ static constexpr int NX_ = 12;   // states per knot
 static constexpr int NU_ = 12;   // inputs per stage
 static constexpr int NI_ = 16;   // inequality rows per stage
 static constexpr int NMX_ = 2;   // Mx rows per stage
+
+// The solve's options as the host passes them, by pointer, to every route's
+// `pdipm_<route>_<f32|f64>` entry (`pdipm_cuda.PdipmArgs` declares the same
+// fields in the same order). The ints are flags and counts; the doubles the
+// regularizations and the step rule's constants.
+struct PdipmArgs {
+  int iterations;      // Newton steps of this launch
+  int refine_steps;    // refinement passes of a refined reduced solve
+  int refine_skip;     // the first this-many steps run at refine 0
+  int refine_df;       // compensated refinement residual (augmented routes)
+  int kkt_jacobi;      // Jacobi equilibration of the Riccati stage inverses
+  int gj_inplace;      // no-pivot inverses scale the pivot row by 1 / pivot
+  int aug_pivot;       // "ric_aug": pivot search in the stage inverses
+  int k_pivot;         // unsplit "ric": pivot search in the stage inverses
+  int corrector_form;  // CORRECTOR_* below
+  int foot_pack;       // packed routes: FOOT_PACK_* below
+  double beta, delta, sigma_cap, frac_to_boundary, alpha_min, sz_floor;
+};
+
+// `PdipmOptions.corrector_form`, in the order of `pdipm.CORRECTOR_FORMS`.
+enum { CORRECTOR_DELTA = 0, CORRECTOR_COMBINED = 1, CORRECTOR_SUM_REFINE = 2,
+       CORRECTOR_AFF_REF = 3 };
+// `PdipmOptions.foot_pack` on the packed routes: one paired elimination, or
+// the split's own elimination stored packed.
+enum { FOOT_PACK_PAIR = 1, FOOT_PACK_APPLY = 2 };
+
+// What a route's factor reads of the options.
+struct FactorFlags {
+  bool jacobi, gj_inplace, aug_pivot, k_pivot;
+  int foot_pack;
+};
+
+// The options in the kernel's value type, passed by value to the kernel.
+template <typename S>
+struct StepArgs {
+  int iterations, refine_steps, refine_skip, corrector_form;
+  bool refine_df;
+  FactorFlags ff;
+  S beta, delta, sigma_cap, frac_to_boundary, alpha_min, sz_floor;
+};
 
 // Next `n` values of a shared-memory layout, starting at offset o.
 static __host__ __device__ __forceinline__ int take(int& o, int n) {
@@ -381,53 +423,72 @@ __device__ __forceinline__ bool gate_open(const int* go, int* ran) {
 }
 
 // ---------------------------------------------------------------------------
-// In-place Gauss-Jordan inverse of `count` independent N x N matrices at
-// `mats` (stride N * N), all eliminated together: N barrier steps whatever
-// the count. The inverse's pivot entry is written as 1/pivot directly. With
-// pivoting, each step swaps the largest |entry| of column k (rows >= k,
-// first on ties) into row k and the row swaps are undone as column swaps at
-// the end, last first. colk and prow hold count * N values, piv count * N.
+// In-place Gauss-Jordan inverse of `count` independent N x N matrices, all
+// eliminated together: N barrier steps whatever the count. With LD = N the
+// blocks lie at `mats` with stride N * N; with LD = 2N they are the halves
+// of stage pairs [K_L | K_R] (N rows of 2N values, `gj_pair`), block mi the
+// half mi % 2 of pair mi / 2. The inverse's pivot entry is written as 1/pivot
+// directly. The pivot row is scaled by the pivot's reciprocal when `recip`
+// (`_gj_inverse_nopivot_inplace`, gj_form="inplace", and the paired forms),
+// else divided by the pivot (`_gj_inverse`, `_gj_inverse_nopivot`). With
+// pivoting, each step swaps the largest |entry| of column k (rows >= k, as
+// argmax picks it: NaN first, then the first maximum) into row k and the row
+// swaps are undone as column swaps at the end, last first. colk and prow hold count * N values, piv count * N.
 // ---------------------------------------------------------------------------
-template <int N, typename S>
-__device__ void gj_inverse_inplace(S* mats, int count, bool pivot, S* colk, S* prow, int* piv) {
+template <int N, int LD>
+__device__ __forceinline__ int gj_block(int mi) {
+  if constexpr (LD == N) return mi * N * N;
+  else return (mi >> 1) * N * LD + (mi & 1) * N;
+}
+
+template <int N, typename S, int LD = N>
+__device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S* colk, S* prow,
+                                   int* piv) {
   constexpr int NN = N * N;
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int k = 0; k < N; ++k) {
     // Pivot choice, row swap, and the step's column / scaled pivot row.
     for (int mi = tid; mi < count; mi += nt) {
-      S* a = mats + mi * NN;
+      S* a = mats + gj_block<N, LD>(mi);
       int p = k;
       if (pivot) {
-        S best = a[k * N + k] < S(0) ? -a[k * N + k] : a[k * N + k];
+        // argmax of |column k| over rows >= k: NaN above every number, the
+        // first maximum on ties.
+        S best = a[k * LD + k] < S(0) ? -a[k * LD + k] : a[k * LD + k];
         for (int i = k + 1; i < N; ++i) {
-          S v = a[i * N + k];
+          S v = a[i * LD + k];
           v = v < S(0) ? -v : v;
-          if (v > best) { best = v; p = i; }
+          if (v > best || (v != v && best == best)) { best = v; p = i; }
         }
         piv[mi * N + k] = p;
         if (p != k)
           for (int j = 0; j < N; ++j) {
-            S tmp = a[k * N + j];
-            a[k * N + j] = a[p * N + j];
-            a[p * N + j] = tmp;
+            S tmp = a[k * LD + j];
+            a[k * LD + j] = a[p * LD + j];
+            a[p * LD + j] = tmp;
           }
       }
-      const S pv = a[k * N + k];
-      for (int i = 0; i < N; ++i) colk[mi * N + i] = a[i * N + k];
-      for (int j = 0; j < N; ++j) prow[mi * N + j] = j == k ? S(1) / pv : a[k * N + j] / pv;
+      const S pv = a[k * LD + k];
+      const S ipv = S(1) / pv;
+      for (int i = 0; i < N; ++i) colk[mi * N + i] = a[i * LD + k];
+      if (recip) {
+        for (int j = 0; j < N; ++j) prow[mi * N + j] = j == k ? ipv : ipv * a[k * LD + j];
+      } else {
+        for (int j = 0; j < N; ++j) prow[mi * N + j] = j == k ? ipv : a[k * LD + j] / pv;
+      }
     }
     __syncthreads();
     // Jordan step: row k <- scaled row; column k <- -col / pivot; rest rank-1.
     for (int it = tid; it < count * NN; it += nt) {
       const int mi = it / NN, i = (it % NN) / N, j = it % N;
-      S* a = mats + mi * NN;
+      S* a = mats + gj_block<N, LD>(mi);
       const S pr = prow[mi * N + j];
       if (i == k) {
-        a[i * N + j] = pr;
+        a[i * LD + j] = pr;
       } else if (j == k) {
-        a[i * N + j] = -colk[mi * N + i] * prow[mi * N + k];
+        a[i * LD + j] = -colk[mi * N + i] * prow[mi * N + k];
       } else {
-        a[i * N + j] -= colk[mi * N + i] * pr;
+        a[i * LD + j] -= colk[mi * N + i] * pr;
       }
     }
     __syncthreads();
@@ -436,7 +497,7 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, S* colk, S* p
   // inv(A) = inv(P A) P: undo the row swaps as column swaps, last first.
   for (int it = tid; it < count * N; it += nt) {
     const int mi = it / N, i = it % N;
-    S* row = mats + mi * NN + i * N;
+    S* row = mats + gj_block<N, LD>(mi) + i * LD;
     for (int k = N - 1; k >= 0; --k) {
       const int p = piv[mi * N + k];
       if (p != k) {
@@ -447,6 +508,17 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, S* colk, S* p
     }
   }
   __syncthreads();
+}
+
+// The paired elimination of the packed routes (`_gj_pair_inplace`,
+// `_gj_pair_pivot`): the T stage pairs [K_L | K_R] at `pairs` (N rows of 2N
+// values each), both halves of every pair eliminated in each of the N
+// barrier steps, each half with its own pivot search and row swaps (a swap
+// moves only its half's columns). Both JAX forms scale the pivot row by the
+// reciprocal. colk and prow hold 2T * N values, piv 2T * N.
+template <int N, typename S>
+__device__ void gj_pair(S* pairs, int T, bool pivot, S* colk, S* prow, int* piv) {
+  gj_inverse_inplace<N, S, 2 * N>(pairs, 2 * T, pivot, true, colk, prow, piv);
 }
 
 // Jacobi equilibration (`kkt_scale="jacobi"`, `pdipm_pallas.py:333`):
@@ -480,14 +552,16 @@ __device__ void jacobi_apply(S* mats, int count, const S* dsc) {
 
 // The stage inverses of a route: `count` independent N x N blocks inverted
 // in place, equilibrated first when `jacobi` (dsc: count * N scratch values).
+// Pivoted, they divide by the pivot (`_gj_inverse`); without pivoting they
+// take the no-pivot form of `gj_inplace` (`pdipm_pallas.py:327-331`).
 template <int N, typename S>
-__device__ void stage_inverse(S* mats, int count, bool pivot, bool jacobi, S* colk, S* prow,
-                              int* piv, S* dsc) {
+__device__ void stage_inverse(S* mats, int count, bool pivot, bool gj_inplace, bool jacobi,
+                              S* colk, S* prow, int* piv, S* dsc) {
   if (jacobi) {
     jacobi_factor<N>(mats, count, dsc);
     jacobi_apply<N>(mats, count, dsc);
   }
-  gj_inverse_inplace<N>(mats, count, pivot, colk, prow, piv);
+  gj_inverse_inplace<N>(mats, count, pivot, !pivot && gj_inplace, colk, prow, piv);
   if (jacobi) jacobi_apply<N>(mats, count, dsc);
 }
 
@@ -495,10 +569,12 @@ __device__ void stage_inverse(S* mats, int count, bool pivot, bool jacobi, S* co
 // The dual-Riccati y-chain, the same for every route once the stage blocks
 // are folded in. `m` holds the T blocks Y'_t (12x12, stride 144) on entry
 // and Yhat_t^-1 on exit, Yhat_t = Y'_t - S^T Yhat_{t-1}^-1 S, S = Q~^-1 Ad^T
-// at `sc`. The blocks are negative definite: inverted without pivoting.
+// at `sc`. The blocks are negative definite: inverted without pivoting, in
+// the no-pivot form of `gj_inplace` (`pdipm_pallas.py:562`).
 // ---------------------------------------------------------------------------
 template <typename S>
-__device__ void dual_riccati_chain(S* m, const S* sc, int T, S* q1, S* colk, S* prow, int* piv) {
+__device__ void dual_riccati_chain(S* m, const S* sc, int T, bool gj_inplace, S* q1, S* colk,
+                                   S* prow, int* piv) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int t = 0; t < T; ++t) {
     S* mt = m + t * 144;
@@ -519,7 +595,7 @@ __device__ void dual_riccati_chain(S* m, const S* sc, int T, S* q1, S* colk, S* 
       }
       __syncthreads();
     }
-    gj_inverse_inplace<NX_>(mt, 1, false, colk, prow, piv);
+    gj_inverse_inplace<NX_>(mt, 1, false, gj_inplace, colk, prow, piv);
   }
 }
 
@@ -566,18 +642,19 @@ __device__ void y_sweeps(const S* m, const S* sc, int T, S* g, S* wy, S* v12) {
   }
 }
 
-// alpha = max(min(1, 0.99 min_i(dv_i < 0 ? -v_i / dv_i : 1)), 1e-12)
+// alpha = max(min(1, frac min_i(dv_i < 0 ? -v_i / dv_i : 1)), alpha_min);
+// NaN propagates, as jnp.minimum / jnp.maximum do.
 template <typename S>
-__device__ S frac_to_boundary(const S* v, const S* dv, int n, S* red) {
+__device__ S frac_to_boundary(const S* v, const S* dv, int n, S* red, S frac, S alpha_min) {
   S mn = S(INFINITY);
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const S c = dv[k] < S(0) ? -v[k] / dv[k] : S(1);
     mn = nan_min(mn, c);
   }
   mn = block_min(mn, red);
-  S a = S(0.99) * mn;
+  S a = frac * mn;
   a = (a != a) ? a : (a < S(1) ? a : S(1));
-  return (a != a) ? a : (a > S(1e-12) ? a : S(1e-12));
+  return (a != a) ? a : (a > alpha_min ? a : alpha_min);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,9 +759,51 @@ __device__ __forceinline__ void reduced_solve(S* sm, const Layout& L, int refine
   }
 }
 
+// Inequality row k of a reduced solve's rhs from its (r2, r3) entries: r2,
+// and rz = r3 - r2 / Sigma (augmented) or r3 and tmp = W^-1 (r3 - r2 / Sigma)
+// (condensed), as `reduced_solve` reads them.
+template <typename P, typename S, typename Layout>
+__device__ __forceinline__ void set_rhs_ineq(S* sm, const Layout& L, int k, S v2, S v3) {
+  sm[L.r2 + k] = v2;
+  if constexpr (P::AUG) {
+    sm[L.rz + k] = v3 - v2 / sm[L.sig + k];
+  } else {
+    sm[L.r3 + k] = v3;
+    sm[L.tmp + k] = sm[L.w + k] * (v3 - v2 / sm[L.sig + k]);
+  }
+}
+
+// d += e over the four parts of a direction (nz, ni, ni, ne values).
+template <typename S, typename Layout>
+__device__ void add_direction(const Layout& L, S* dx, S* ds, S* dz, S* dy, const S* ex,
+                              const S* es, const S* ez, const S* ey) {
+  const int tid = threadIdx.x, nt = blockDim.x, nz = L.nz, ni = L.ni, ne = L.ne;
+  for (int it = tid; it < nz + ni + ne; it += nt) {
+    if (it < nz) {
+      dx[it] += ex[it];
+    } else if (it < nz + ni) {
+      const int k = it - nz;
+      ds[k] += es[k];
+      dz[k] += ez[k];
+    } else {
+      dy[it - nz - ni] += ey[it - nz - ni];
+    }
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
-// The Newton-step kernel of every route: `iterations` Mehrotra steps (delta
-// corrector) of one env per block, from the cold start or the warm state.
+// The Newton-step kernel of every route: `iterations` Mehrotra steps of one
+// env per block, from the cold start or the warm state, in the corrector
+// form of `A.corrector_form` (`iteration_base`, `pdipm_pallas.py:1237-1485`):
+//   delta       refined affine solve, refined corrector solve, added;
+//   combined    unrefined affine solve, then one refined solve of the summed
+//               rhs (-rx, -(s z + rc) / s, -rs, -re) into the direction;
+//   sum_refine  both unrefined, added, then `refine` passes of one unrefined
+//               solve of the full 4-row KKT residual of the sum, added;
+//   aff_ref     refined affine solve, unrefined corrector, added.
+// The first A.refine_skip steps run at refine 0 (`:1499-1517`). Sigma = z / s
+// + delta is capped at A.sigma_cap when that is > 0, before W is formed.
 //
 // A route policy P supplies:
 //   Layout, make_layout(T, size_of_s)  its shared-memory layout (host and
@@ -695,11 +814,14 @@ __device__ __forceinline__ void reduced_solve(S* sm, const Layout& L, int refine
 //        with W^-1 = Sigma / (1 + delta Sigma), the condensed reduced solve,
 //        refine_df refused by `launch`;
 //   setup(sm, L, beta, delta)  the solve's constants, after load_env;
-//   factor(sm, L, piv, beta, delta, jacobi)  the factorization at the
-//        current W (W^-1), `jacobi` = kkt_scale "jacobi" (routes without
-//        stage inverses to equilibrate ignore it);
+//   factor(sm, L, piv, beta, delta, ff)  the factorization at the current W
+//        (W^-1), with the options it reads (`FactorFlags`; routes ignore
+//        those that do not apply to them);
 //   solve(sm, L, r1, rz, r4, dx, dz, dy)  one reduced solve through it.
 //
+// The corrector forms reuse the corrector's buffers (dxc ... dyc) for the
+// sum_refine correction and e1 (read only by a refinement pass, which the
+// form's inner solves never run) for its summed r2, so no layout grows.
 // The outputs may alias the warm state x0, s0, z0, y0 (load_env), so none of
 // those pointers is __restrict__.
 // ---------------------------------------------------------------------------
@@ -709,8 +831,8 @@ pdipm_kernel(
     const S* __restrict__ hd_in, const S* __restrict__ f_in, const S* __restrict__ ad_in,
     const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
     const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
-    S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran,
-    int T, int iterations, int refine_steps, int refine_df, int kkt_jacobi, S beta, S delta) {
+    S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran, int T,
+    const StepArgs<S> A) {
   if (!gate_open(go, ran)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
@@ -720,6 +842,7 @@ pdipm_kernel(
   const long env = blockIdx.x;
   const int nz = L.nz, ni = L.ni, ne = L.ne;
   S* red = sm + L.red;
+  const S beta = A.beta, delta = A.delta;
 
   load_env(sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0, y0);
   P::setup(sm, L, beta, delta);
@@ -734,15 +857,16 @@ pdipm_kernel(
   S* sig = sm + L.sig;
   S* w = sm + L.w;
   S* r1 = sm + L.r1;
-  S* r2 = sm + L.r2;
   S* r4 = sm + L.r4;
+  S* r2s = sm + L.e1;  // sum_refine: the summed direction's r2
   S* dxa = sm + L.dxa; S* dsa = sm + L.dsa; S* dza = sm + L.dza; S* dya = sm + L.dya;
   S* dxc = sm + L.dxc; S* dsc = sm + L.dsc; S* dzc = sm + L.dzc; S* dyc = sm + L.dyc;
   const S nif = S(ni);
-  const bool df = refine_df != 0;
-  const bool jacobi = kkt_jacobi != 0;
+  const bool df = A.refine_df;
+  const int form = A.corrector_form;
 
-  for (int iter = 0; iter < iterations; ++iter) {
+  for (int iter = 0; iter < A.iterations; ++iter) {
+    const int refine = iter < A.refine_skip ? 0 : A.refine_steps;
     // KKT residuals at the current iterate, Sigma, and W = 1 / Sigma + delta
     // (augmented) or W^-1 = Sigma / (1 + delta Sigma) (condensed).
     S part = S(0);
@@ -753,7 +877,8 @@ pdipm_kernel(
       } else if (it < nz + ni) {
         const int k = it - nz;
         rsb[k] = g_entry(sm, L, k, x) + s[k] - sm[L.d + k];
-        const S sg = z[k] / s[k] + delta;
+        S sg = z[k] / s[k] + delta;
+        if (A.sigma_cap > S(0) && sg > A.sigma_cap) sg = A.sigma_cap;
         sig[k] = sg;
         w[k] = P::AUG ? S(1) / sg + delta : sg / (S(1) + delta * sg);
         part += s[k] * z[k];
@@ -764,72 +889,87 @@ pdipm_kernel(
     }
     const S mu = block_sum(part, red) / nif;  // syncs
 
-    P::factor(sm, L, piv, beta, delta, jacobi);
+    P::factor(sm, L, piv, beta, delta, A.ff);
 
-    // Affine direction: rhs (-rx, -(s z)/s, -rs, -re).
+    // Affine direction: rhs (-rx, -(s z)/s, -rs, -re); unrefined in the
+    // combined and sum_refine forms.
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
         r1[it] = -rx[it];
       } else if (it < nz + ni) {
         const int k = it - nz;
-        const S v2 = -(s[k] * z[k]) / s[k];
-        r2[k] = v2;
-        if constexpr (P::AUG) {
-          sm[L.rz + k] = -rsb[k] - v2 / sig[k];
-        } else {
-          const S v3 = -rsb[k];
-          sm[L.r3 + k] = v3;
-          sm[L.tmp + k] = w[k] * (v3 - v2 / sig[k]);
-        }
+        set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k]) / s[k], -rsb[k]);
       } else {
         r4[it - nz - ni] = -re[it - nz - ni];
       }
     }
     __syncthreads();
-    reduced_solve<P>(sm, L, refine_steps, df, beta, delta, dxa, dsa, dza, dya);
-    const S ap = frac_to_boundary(s, dsa, ni, red);
-    const S adl = frac_to_boundary(z, dza, ni, red);
+    const bool cheap_affine = form == CORRECTOR_COMBINED || form == CORRECTOR_SUM_REFINE;
+    reduced_solve<P>(sm, L, cheap_affine ? 0 : refine, df, beta, delta, dxa, dsa, dza, dya);
+    const S ap = frac_to_boundary(s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
+    const S adl = frac_to_boundary(z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
     part = S(0);
     for (int k = tid; k < ni; k += nt) part += (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]);
     const S mu_aff = block_sum(part, red) / nif;
     const S ratio = mu_aff / mu;
     const S sigma = ratio * ratio * ratio;
 
-    // Corrector: rhs (0, -rc/s, 0, 0), rc = s z + ds_a dz_a - sigma mu.
+    // Corrector, rc = s z + ds_a dz_a - sigma mu: rhs (0, -rc/s, 0, 0), or
+    // the summed rhs (-rx, -(s z + rc)/s, -rs, -re) in the combined form.
+    const bool combined = form == CORRECTOR_COMBINED;
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
-        r1[it] = S(0);
+        r1[it] = combined ? -rx[it] : S(0);
       } else if (it < nz + ni) {
         const int k = it - nz;
         const S rc = s[k] * z[k] + dsa[k] * dza[k] - sigma * mu;
-        const S v2 = -rc / s[k];
-        r2[k] = v2;
-        if constexpr (P::AUG) {
-          sm[L.rz + k] = S(0) - v2 / sig[k];
+        if (combined) {
+          set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k] + rc) / s[k], -rsb[k]);
         } else {
-          sm[L.r3 + k] = S(0);
-          sm[L.tmp + k] = w[k] * (S(0) - v2 / sig[k]);
+          set_rhs_ineq<P>(sm, L, k, -rc / s[k], S(0));
+          if (form == CORRECTOR_SUM_REFINE) r2s[k] = -(s[k] * z[k] + rc) / s[k];
         }
       } else {
-        r4[it - nz - ni] = S(0);
+        r4[it - nz - ni] = combined ? -re[it - nz - ni] : S(0);
       }
     }
     __syncthreads();
-    reduced_solve<P>(sm, L, refine_steps, df, beta, delta, dxc, dsc, dzc, dyc);
-    for (int it = tid; it < nz + ni + ne; it += nt) {
-      if (it < nz) {
-        dxa[it] += dxc[it];
-      } else if (it < nz + ni) {
-        const int k = it - nz;
-        dsa[k] += dsc[k];
-        dza[k] += dzc[k];
-      } else {
-        dya[it - nz - ni] += dyc[it - nz - ni];
+    if (combined) {
+      reduced_solve<P>(sm, L, refine, df, beta, delta, dxa, dsa, dza, dya);
+    } else {
+      reduced_solve<P>(sm, L, form == CORRECTOR_DELTA ? refine : 0, df, beta, delta, dxc, dsc,
+                       dzc, dyc);
+      add_direction(L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
+    }
+    if (form == CORRECTOR_SUM_REFINE) {
+      // Refine the summed direction against the full 4-row KKT residual:
+      // m1 = H dx + beta dx + G^T dz + A^T dy, m2 = Sigma ds + dz,
+      // m3 = G dx + ds - delta dz, m4 = A dx - delta dy.
+      for (int rs = 0; rs < refine; ++rs) {
+        for (int it = tid; it < nz + ni + ne; it += nt) {
+          if (it < nz) {
+            const int i = it;
+            const S m1 = sm[L.hd + i] * dxa[i] + beta * dxa[i] + gT_entry(sm, L, i, dza)
+                       + aT_entry(sm, L, i, dya);
+            r1[i] = -rx[i] - m1;
+          } else if (it < nz + ni) {
+            const int k = it - nz;
+            const S m2 = sig[k] * dsa[k] + dza[k];
+            const S m3 = g_entry(sm, L, k, dxa) + dsa[k] - delta * dza[k];
+            set_rhs_ineq<P>(sm, L, k, r2s[k] - m2, -rsb[k] - m3);
+          } else {
+            const int e = it - nz - ni;
+            r4[e] = -re[e] - (a_entry(sm, L, e, dxa) - delta * dya[e]);
+          }
+        }
+        __syncthreads();
+        reduced_solve<P>(sm, L, 0, df, beta, delta, dxc, dsc, dzc, dyc);
+        add_direction(L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
       }
     }
-    __syncthreads();
-    const S alp = frac_to_boundary(s, dsa, ni, red);
-    const S ald = frac_to_boundary(z, dza, ni, red);
+    const S alp = frac_to_boundary(s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
+    const S ald = frac_to_boundary(z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
+    const S floor_ = A.sz_floor;
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
         x[it] += alp * dxa[it];
@@ -837,8 +977,8 @@ pdipm_kernel(
         const int k = it - nz;
         const S sn = s[k] + alp * dsa[k];
         const S zn = z[k] + ald * dza[k];
-        s[k] = sn > S(1e-8) || sn != sn ? sn : S(1e-8);
-        z[k] = zn > S(1e-8) || zn != zn ? zn : S(1e-8);
+        s[k] = sn > floor_ || sn != sn ? sn : floor_;
+        z[k] = zn > floor_ || zn != zn ? zn : floor_;
       } else {
         y[it - nz - ni] += ald * dya[it - nz - ni];
       }
@@ -848,7 +988,7 @@ pdipm_kernel(
 
   // Residual norms of the last step's start, and mu after it.
   S p0 = S(0), p1 = S(0), p2 = S(0), p3 = S(0);
-  if (iterations > 0) {
+  if (A.iterations > 0) {
     for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
     for (int k = tid; k < ni; k += nt) {
       p1 += rsb[k] * rsb[k];
@@ -875,18 +1015,31 @@ pdipm_kernel(
 }
 
 // Host side of every route's `pdipm_<route>_f32` / `_f64` entry: sets the
-// kernel's shared memory, launches `batch` blocks on `stream` and returns a
-// cudaError_t (0 = success). The compensated residual refines the augmented
-// system; a condensed route keeps the common argument list, and
-// `pdipm.check_options` refuses df there before any launch, so the guard
-// below fires only for a direct C caller.
+// kernel's shared memory, launches `batch` blocks on `stream` with the
+// options `*args` and returns a cudaError_t (0 = success). The compensated
+// residual refines the augmented system; a condensed route keeps the common
+// argument list, and `pdipm.check_options` refuses df there before any
+// launch, so the guard below fires only for a direct C caller.
 template <typename P, typename S>
 static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
                   const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
                   const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
-                  void* ran, int batch, int T, int iterations, int refine_steps, int refine_df,
-                  int kkt_jacobi, double beta, double delta, void* stream) {
-  if (!P::AUG && refine_df != 0) return (int)cudaErrorInvalidValue;
+                  void* ran, int batch, int T, const PdipmArgs* args, void* stream) {
+  if (args == nullptr || (!P::AUG && args->refine_df != 0)) return (int)cudaErrorInvalidValue;
+  StepArgs<S> a;
+  a.iterations = args->iterations;
+  a.refine_steps = args->refine_steps;
+  a.refine_skip = args->refine_skip;
+  a.corrector_form = args->corrector_form;
+  a.refine_df = args->refine_df != 0;
+  a.ff = FactorFlags{args->kkt_jacobi != 0, args->gj_inplace != 0, args->aug_pivot != 0,
+                     args->k_pivot != 0, args->foot_pack};
+  a.beta = (S)args->beta;
+  a.delta = (S)args->delta;
+  a.sigma_cap = (S)args->sigma_cap;
+  a.frac_to_boundary = (S)args->frac_to_boundary;
+  a.alpha_min = (S)args->alpha_min;
+  a.sz_floor = (S)args->sz_floor;
   const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
   cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -896,7 +1049,12 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
   pdipm_kernel<P, S><<<batch, PDIPM_THREADS, L.bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
       (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
-      (S*)y, (S*)res, (const int*)go, (int*)ran, T, iterations, refine_steps, refine_df,
-      kkt_jacobi, (S)beta, (S)delta);
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a);
   return (int)cudaGetLastError();
 }
+
+// One route's extern "C" entries take these arguments: the QP inputs hd, f,
+// Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (all null: cold start);
+// the outputs x, s, z, y, res (they may be the warm buffers); the gate go and
+// the counter ran (null: always run, no count); batch, T, the options and the
+// stream (`pdipm_cuda.ENTRY_ARGTYPES`).

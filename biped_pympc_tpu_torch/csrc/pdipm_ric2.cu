@@ -9,8 +9,9 @@
 // route of `ops/pdipm.py` computes (the plain version).
 //
 // Per stage the 12-wide SPD block Ru = G^T W_t^-1 G + diag(r + beta) is
-// inverted without pivoting; the 2-wide nu block (diagonal -delta) is
-// eliminated by the Schur identity instead of sitting in the elimination:
+// inverted without pivoting, in the form of gj_form; the 2-wide nu block
+// (diagonal -delta) is eliminated by the Schur identity instead of sitting
+// in the elimination:
 // with E selecting u columns 6 and 9, S = -delta I - E Ru^-1 E^T (2x2,
 // negative definite) is inverted in closed form, and
 //
@@ -76,7 +77,8 @@ struct Ric2 {
   }
 
   template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool jacobi) {
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags ff) {
     const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
@@ -93,7 +95,8 @@ struct Ric2 {
       ka[it] = r == c ? acc + (hd[NX_ * T + r] + beta) : acc;
     }
     __syncthreads();
-    stage_inverse<NU_>(ka, T, false, jacobi, sm + L.colk, sm + L.prow, piv, sm + L.run);
+    stage_inverse<NU_>(ka, T, false, ff.gj_inplace, ff.jacobi, sm + L.colk, sm + L.prow, piv,
+                       sm + L.run);
     // S^-1 in closed form, S = [[sa, sb], [sb, sc]].
     for (int t = tid; t < T; t += nt) {
       const S* ri = ka + t * 144;
@@ -118,7 +121,7 @@ struct Ric2 {
       kuu[it] = ri[i * NU_ + j] + (ri[6 * NU_ + i] * si0 + ri[9 * NU_ + i] * si1);
     }
     __syncthreads();
-    y_chain_from_kuu(sm, L, kuu, 144, NU_, delta, piv);
+    y_chain_from_kuu(sm, L, kuu, 144, NU_, delta, ff.gj_inplace, piv);
   }
 
   template <typename S>
@@ -144,22 +147,18 @@ int pdipm_ric2_f32(const void* hd, const void* f, const void* ad, const void* bd
                    const void* b, const void* gu, const void* d, const void* x0,
                    const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                    void* y, void* res, const void* go, void* ran, int batch, int T,
-                   int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                   double beta, double delta, void* stream) {
-  return launch<Ric2, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
-                             res, go, ran, batch, T, iterations, refine_steps, refine_df,
-                             kkt_jacobi, beta, delta, stream);
+                   const PdipmArgs* args, void* stream) {
+  return launch<Ric2, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                             ran, batch, T, args, stream);
 }
 
 int pdipm_ric2_f64(const void* hd, const void* f, const void* ad, const void* bd,
                    const void* b, const void* gu, const void* d, const void* x0,
                    const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                    void* y, void* res, const void* go, void* ran, int batch, int T,
-                   int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                   double beta, double delta, void* stream) {
-  return launch<Ric2, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
-                              res, go, ran, batch, T, iterations, refine_steps, refine_df,
-                              kkt_jacobi, beta, delta, stream);
+                   const PdipmArgs* args, void* stream) {
+  return launch<Ric2, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                              ran, batch, T, args, stream);
 }
 
 const char* pdipm_ric2_error_string(int err) {

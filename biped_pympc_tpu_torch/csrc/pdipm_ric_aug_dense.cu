@@ -50,22 +50,18 @@ int pdipm_ric_aug_dense_f32(const void* hd, const void* f, const void* ad, const
                             const void* b, const void* gu, const void* d, const void* x0,
                             const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                             void* y, void* res, const void* go, void* ran, int batch, int T,
-                            int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                            double beta, double delta, void* stream) {
-  return launch<RicAugDense, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
-                                    res, go, ran, batch, T, iterations, refine_steps, refine_df,
-                                    kkt_jacobi, beta, delta, stream);
+                            const PdipmArgs* args, void* stream) {
+  return launch<RicAugDense, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                                    ran, batch, T, args, stream);
 }
 
 int pdipm_ric_aug_dense_f64(const void* hd, const void* f, const void* ad, const void* bd,
                             const void* b, const void* gu, const void* d, const void* x0,
                             const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                             void* y, void* res, const void* go, void* ran, int batch, int T,
-                            int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                            double beta, double delta, void* stream) {
-  return launch<RicAugDense, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
-                                     res, go, ran, batch, T, iterations, refine_steps, refine_df,
-                                     kkt_jacobi, beta, delta, stream);
+                            const PdipmArgs* args, void* stream) {
+  return launch<RicAugDense, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                                     ran, batch, T, args, stream);
 }
 
 const char* pdipm_ric_aug_dense_error_string(int err) {

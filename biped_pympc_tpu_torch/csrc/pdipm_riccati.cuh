@@ -69,9 +69,9 @@ __device__ void riccati_setup(S* sm, const Layout& L, S beta, S delta) {
 }
 
 // Y'_t from P_t = Bd (K_t^-1)_uu at L.p (T x 144), then the dual-Riccati
-// chain: L.m holds Yhat_t^-1 on exit.
+// chain in the no-pivot form of `gj_inplace`: L.m holds Yhat_t^-1 on exit.
 template <typename S, typename Layout>
-__device__ void y_chain_from_p(S* sm, const Layout& L, S delta, int* piv) {
+__device__ void y_chain_from_p(S* sm, const Layout& L, S delta, bool gj_inplace, int* piv) {
   const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
   const S* bd = sm + L.bd;
   const S* qinv = sm + L.qinv;
@@ -88,14 +88,14 @@ __device__ void y_chain_from_p(S* sm, const Layout& L, S delta, int* piv) {
     m[it] = v;
   }
   __syncthreads();
-  dual_riccati_chain(m, sm + L.sc, T, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+  dual_riccati_chain(m, sm + L.sc, T, gj_inplace, sm + L.q1, sm + L.colk, sm + L.prow, piv);
 }
 
 // P_t = Bd kuu_t for a dense (K_t^-1)_uu, entry (j, c) of stage t at
 // kuu[t * stage_stride + j * row_stride + c]; then `y_chain_from_p`.
 template <typename S, typename Layout>
 __device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage_stride,
-                                 int row_stride, S delta, int* piv) {
+                                 int row_stride, S delta, bool gj_inplace, int* piv) {
   const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
   const S* bd = sm + L.bd;
   S* p = sm + L.p;
@@ -107,7 +107,7 @@ __device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage
     p[it] = v;
   }
   __syncthreads();
-  y_chain_from_p(sm, L, delta, piv);
+  y_chain_from_p(sm, L, delta, gj_inplace, piv);
 }
 
 // ---------------------------------------------------------------------------
@@ -227,7 +227,7 @@ struct RicLayout {
 };
 
 // n: stage-block width; aug: z kept (augmented); ric2: kuu and S^-1 stored;
-// pivot: the stage inverses pivot (their int table).
+// pivot: the stage inverses may pivot (their int table).
 static __host__ __device__ RicLayout make_ric_layout(int T, int size_of_s, int n, bool aug,
                                                      bool ric2, bool pivot) {
   RicLayout L;
@@ -264,11 +264,13 @@ static __host__ __device__ RicLayout make_ric_layout(int T, int size_of_s, int n
 // K5d: the unsplit Riccati routes (`factor_ric:896`, `factor_ric_aug:1007`,
 // foot_split=False). Stage t's dense block
 //   condensed (n = 14): [[R + beta + G^T W_t^-1 G, e^T], [e, -delta I]],
-//     symmetric quasi-definite: inverted without pivoting (`:916-921`);
+//     symmetric quasi-definite: inverted without pivoting unless `k_pivot`
+//     (`:916-921`);
 //   augmented (n = 30): [[R + beta, G^T, e^T], [G, -W_t, 0], [e, 0, -delta I]],
-//     inverted with partial pivoting (`aug_pivot=True`: natural order gives
-//     NaN on stress problems, `biped_pympc_tpu/ops/pdipm.py:150-155`),
-// all T blocks eliminated together, equilibrated when `jacobi`.
+//     inverted with partial pivoting unless `aug_pivot` is off (natural
+//     order gives NaN on stress problems, `biped_pympc_tpu/ops/pdipm.py:150-155`),
+// all T blocks eliminated together, equilibrated when `jacobi`; the
+// no-pivot inverses in the form of `gj_inplace`.
 // ---------------------------------------------------------------------------
 template <bool AUG_>
 struct RicDenseRoute {
@@ -277,7 +279,7 @@ struct RicDenseRoute {
   using Layout = RicLayout;
 
   static __host__ __device__ Layout make_layout(int T, int size_of_s) {
-    return make_ric_layout(T, size_of_s, N, AUG, false, AUG);
+    return make_ric_layout(T, size_of_s, N, AUG, false, true);
   }
 
   template <typename S>
@@ -296,7 +298,8 @@ struct RicDenseRoute {
   }
 
   template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool jacobi) {
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags ff) {
     const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
@@ -328,8 +331,9 @@ struct RicDenseRoute {
       ka[it] = v;
     }
     __syncthreads();
-    stage_inverse<N>(ka, T, AUG, jacobi, sm + L.colk, sm + L.prow, piv, sm + L.run);
-    y_chain_from_kuu(sm, L, ka, N * N, N, delta, piv);
+    stage_inverse<N>(ka, T, AUG ? ff.aug_pivot : ff.k_pivot, ff.gj_inplace, ff.jacobi,
+                     sm + L.colk, sm + L.prow, piv, sm + L.run);
+    y_chain_from_kuu(sm, L, ka, N * N, N, delta, ff.gj_inplace, piv);
   }
 
   template <typename S>

@@ -52,22 +52,18 @@ int pdipm_tridiag_f32(const void* hd, const void* f, const void* ad, const void*
                       const void* b, const void* gu, const void* d, const void* x0,
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
-                      int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                      double beta, double delta, void* stream) {
-  return launch<Tridiag, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go, ran,
-                                batch, T, iterations, refine_steps, refine_df, kkt_jacobi,
-                                beta, delta, stream);
+                      const PdipmArgs* args, void* stream) {
+  return launch<Tridiag, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                                ran, batch, T, args, stream);
 }
 
 int pdipm_tridiag_f64(const void* hd, const void* f, const void* ad, const void* bd,
                       const void* b, const void* gu, const void* d, const void* x0,
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
-                      int iterations, int refine_steps, int refine_df, int kkt_jacobi,
-                      double beta, double delta, void* stream) {
-  return launch<Tridiag, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go, ran,
-                                 batch, T, iterations, refine_steps, refine_df, kkt_jacobi,
-                                 beta, delta, stream);
+                      const PdipmArgs* args, void* stream) {
+  return launch<Tridiag, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                                 ran, batch, T, args, stream);
 }
 
 const char* pdipm_tridiag_error_string(int err) {

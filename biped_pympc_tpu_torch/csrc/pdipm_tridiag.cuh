@@ -321,7 +321,7 @@ struct ThomasRoute {
   }
 
   template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, bool) {
+  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, FactorFlags) {
     thomas_factor<S, AUG>(sm, L, piv, beta, delta);
   }
 

@@ -9,6 +9,14 @@ CPU path runs it, and the kernels are held against it on the card. `solve`
 starts from the cold start or from a given `PdipmState` (warm start);
 `solve_adaptive_batch` runs the solve in chunks with an early stop.
 
+Where the pure-JAX routes of `biped_pympc_tpu/ops/pdipm.py` ignore a field
+of `PdipmOptions`, these routes follow the Pallas kernel, whose plain
+version they are: `foot_pack` (the paired stage inverses, `:675-709`,
+`:791-823`), `gj_form` (every no-pivot inverse, the y-chain's included,
+`:327-331`), `k_pivot` (`:921`), `aug_pivot` (`:800-825`, `:1037`) and
+`refine_skip_iters` (`:1499-1517`). `corrector_form`, `sigma_cap` and the
+step constants follow `iteration_base` (`:1237-1485`).
+
 The Riccati routes eliminate the slacks s and eliminate or keep the
 inequality duals z per stage, then fold the stage blocks into a 12-wide
 dual-Riccati chain in y with coupling S = Q~^-1 Ad^T, swept forward and
@@ -60,18 +68,15 @@ import torch
 
 from biped_pympc_tpu_torch.ops import df as dfm
 from biped_pympc_tpu_torch.ops import qp as qps
-from biped_pympc_tpu_torch.ops.linalg import gauss_jordan_inverse
+from biped_pympc_tpu_torch.ops.linalg import GJ_FORMS, gauss_jordan_inverse, gauss_jordan_pair_inverse
 from biped_pympc_tpu_torch.ops.qp import NU, NX, N_INEQ_PER_STAGE, N_MX_PER_STAGE, StageQP
-
-# Reference constants (`sparse_pdipm_solver.py:461,466-467,511-515`).
-FRAC_TO_BOUNDARY = 0.99
-ALPHA_MIN = 1e-12
-SZ_FLOOR = 1e-8
 
 BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2")
 AUG_BACKENDS = ("ric_aug", "tridiag_aug")  # z kept in the stage blocks; "df" runs here
 REFINE_RESIDUALS = ("f32", "df")
 KKT_SCALES = ("none", "jacobi")
+CORRECTOR_FORMS = ("delta", "combined", "sum_refine", "aff_ref")
+FOOT_PACKS = (False, True, "apply")
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30: [u, z, nu] per stage
 N_KC = NU + N_MX_PER_STAGE  # 14: [u, nu] per stage
 # Foot-split index sets: each foot's constraint rows touch only its own
@@ -83,29 +88,56 @@ FOOT_BLOCKS = tuple(cols + tuple(range(NU + 8 * foot, NU + 8 * foot + 8))
 
 @dataclass(frozen=True)
 class PdipmOptions:
-    """Solver settings read by these routes (`biped_pympc_tpu/ops/pdipm.py:62`)."""
+    """Solver settings: every field `_pdipm_kernel` reads, with the names and
+    defaults of `biped_pympc_tpu/ops/pdipm.py:62-201`. Two JAX fields are
+    left out: `interpret` (the Pallas lowering switch) and `inv_impl` (the
+    inverse of the pure-JAX routes, which belong with the unported "dense"
+    route, ROADMAP Queue 1 item 15)."""
 
     iterations: int = 20
     iterations_per_launch: int = 5  # Newton steps per chunk of the adaptive solve
     beta: float = 1e-8  # primal regularization
     delta: float = 1e-8  # dual regularization
-    refine_steps: int = 1  # iterative-refinement passes per reduced solve
+    frac_to_boundary: float = 0.99  # step = this x the largest feasible one
+    alpha_min: float = 1e-12  # floor of a step length
+    sz_floor: float = 1e-8  # floor of s and z after a step
     # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "ric2" / "tridiag" (condensed)
-    backend: str = "ric_aug"
+    backend: str = "tridiag"
+    refine_steps: int = 0  # iterative-refinement passes per reduced solve
+    # The first min(this, iterations) Newton steps of a solve (of a launch,
+    # under the adaptive solve's chunks) run at refine 0, the rest at
+    # refine_steps; only when refine_steps > 0.
+    refine_skip_iters: int = 0
     # Precision of the refinement residual r - K d: "f32" is the working
     # dtype, "df" one compensated (double-float) sum per component
-    # (`ops/df.py`). "df" runs on the augmented routes only.
+    # (`ops/df.py`). "df" runs on the augmented routes only, and not with
+    # corrector_form "sum_refine".
     refine_residual: str = "f32"
+    sigma_cap: float = 0.0  # > 0: cap z / s + delta at this value before W is formed
+    # The no-pivot Gauss-Jordan inverses: "inplace" scales the pivot row by
+    # the pivot's reciprocal, "tableau" divides it (`linalg.gauss_jordan_inverse`).
+    gj_form: str = "inplace"
+    # "delta": refined affine + refined corrector solves, added (the
+    # reference rule); "combined": unrefined affine, then one refined solve
+    # of the summed rhs; "sum_refine": both unrefined, the sum refined
+    # against the full 4-row KKT residual; "aff_ref": refined affine,
+    # unrefined corrector.
+    corrector_form: str = "delta"
+    aug_pivot: bool = True  # "ric_aug": pivot search in the stage inverses
+    k_pivot: bool = False  # "ric" unsplit: pivot search in the 14-wide stage inverse
     # "ric" / "ric_aug": invert each foot's block apart (the stage blocks
     # decouple exactly by foot) or, False, the whole 14- / 30-wide block.
-    # The JAX PdipmOptions defaults to False; the port keeps True, the
-    # controllers' default (`MPCConf.solver_foot_split`), so that callers
-    # that never name it keep the split routes. Ignored by the others.
-    foot_split: bool = True
+    # Ignored by the others.
+    foot_split: bool = False
     # "jacobi": each stage inverse of the Riccati routes through its Jacobi
     # equilibration, K^-1 = D (D K D)^-1 D (exact; only rounding changes).
-    # The block-Thomas routes ignore it, as in the JAX package.
+    # The block-Thomas routes and the packed split ignore it, as in the JAX
+    # kernel.
     kkt_scale: str = "none"
+    # The split "ric" / "ric_aug" routes: False, or both feet's stage blocks
+    # stored as one (n, 2n) pair [K_L | K_R], inverted by one paired
+    # elimination (True) or by the split's own and then packed ("apply").
+    foot_pack: bool | str = False
 
 
 @dataclass
@@ -138,13 +170,14 @@ def init_state(qp: StageQP) -> PdipmState:
     )
 
 
-def _frac_to_boundary(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
-    """(B,) largest step in (0, 1] keeping v + alpha dv > 0 (times 0.99)."""
+def _frac_to_boundary(v: torch.Tensor, dv: torch.Tensor, opts: "PdipmOptions") -> torch.Tensor:
+    """(B,) largest step in (0, 1] keeping v + alpha dv > 0, times
+    `opts.frac_to_boundary`, at least `opts.alpha_min`."""
     neg = dv < 0
     cand = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
                        torch.ones_like(v))
-    alpha = torch.clamp(FRAC_TO_BOUNDARY * cand.min(dim=-1).values, max=1.0)
-    return torch.clamp(alpha, min=ALPHA_MIN)
+    alpha = torch.clamp(opts.frac_to_boundary * cand.min(dim=-1).values, max=1.0)
+    return torch.clamp(alpha, min=opts.alpha_min)
 
 
 def _dot(a, b):
@@ -174,8 +207,37 @@ def _jacobi_scaled(inverse, k: torch.Tensor, opts: "PdipmOptions") -> torch.Tens
     return inverse(k * di * dj) * di * dj
 
 
-def _nopivot_inverse(k: torch.Tensor) -> torch.Tensor:
-    return gauss_jordan_inverse(k, pivot=False)
+def _nopivot(opts: "PdipmOptions") -> Callable:
+    """The no-pivot inverse of `opts.gj_form` (`pdipm_pallas.py:327-331`)."""
+    return lambda k: gauss_jordan_inverse(k, pivot=False, form=opts.gj_form)
+
+
+def _pivoted_or_not(pivot: bool, opts: "PdipmOptions") -> Callable:
+    """The pivoted inverse (`_gj_inverse`) when `pivot`, else `_nopivot`."""
+    return gauss_jordan_inverse if pivot else _nopivot(opts)
+
+
+def _packed(opts: "PdipmOptions") -> bool:
+    """The split "ric" / "ric_aug" stage blocks are packed in pairs."""
+    return bool(opts.foot_pack) and opts.foot_split and opts.backend in ("ric", "ric_aug")
+
+
+def _bkb_packed(qp: StageQP, k8: torch.Tensor, opts: "PdipmOptions") -> torch.Tensor:
+    """(B, T, 12, 12) Bd (K_t^-1)_uu Bd^T from the packed (B, T, 4, 8) pair of
+    the feet's {F, M_y} inverses, in the order of `_split_bkb_pack`
+    (`pdipm_pallas.py:630-645`): [Bd_L K_L^-1 | Bd_R K_R^-1] contracted with
+    [Bd_L | Bd_R] over the 8 packed columns, plus the W-independent columns
+    6, 8, 9, 11 (`_bkb_couter`)."""
+    bd = qp.dyn.B
+    bd_l, bd_r = (bd[:, :, list(cols)] for cols in FOOT_U_COLS)  # (B, 12, 4)
+    m1 = torch.cat([bd_l[:, None] @ k8[..., :4], bd_r[:, None] @ k8[..., 4:]], dim=-1)
+    bkb = m1 @ torch.cat([bd_l, bd_r], dim=-1).transpose(-1, -2)[:, None]
+    couter = 0.0
+    for j in (6, 8, 9, 11):
+        rj = qp.r_diag[:, j] + opts.beta
+        c = -opts.delta / (-rj * opts.delta - 1.0) if j in (6, 9) else 1.0 / rj
+        couter = couter + bd[:, :, j, None] * bd[:, None, :, j] * c[:, None, None]
+    return bkb + couter[:, None]
 
 
 def _gtwg(qp: StageQP, w: torch.Tensor, cols=slice(None), rows=slice(None)) -> torch.Tensor:
@@ -199,8 +261,27 @@ def _scatter_w_independent(k_inv: torch.Tensor, qp: StageQP, opts: PdipmOptions)
         k_inv[:, :, j, j] = (1.0 / (qp.r_diag[:, j] + opts.beta))[:, None]
 
 
-def _stage_inverse_aug(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> torch.Tensor:
-    """(B, T, 30, 30) augmented K_t^-1; w_diag (B, T, 16) = Sigma^-1 + delta."""
+def _foot_inverses(blocks: torch.Tensor, opts: PdipmOptions, pivot: bool) -> tuple:
+    """Inverses of the split's foot blocks (B, 2, T, n, n), pivoted or not,
+    and None or, when packed, the (B, T, 4, 8) pair of their {F, M_y}
+    corners. Packed (`foot_pack`, `pdipm_pallas.py:675-709`, `:791-823`):
+    True inverts each stage's pair [K_L | K_R] by one paired elimination,
+    "apply" the blocks as the split does and then packs them; neither
+    equilibrates (the JAX kernel ignores `kkt_scale` there)."""
+    if not _packed(opts):
+        return _jacobi_scaled(_pivoted_or_not(pivot, opts), blocks, opts), None
+    n = blocks.shape[-1]
+    if opts.foot_pack == "apply":
+        inv = _pivoted_or_not(pivot, opts)(blocks)
+    else:
+        pair = gauss_jordan_pair_inverse(torch.cat([blocks[:, 0], blocks[:, 1]], dim=-1), pivot)
+        inv = torch.stack([pair[..., :n], pair[..., n:]], dim=1)
+    return inv, torch.cat([inv[:, 0, :, :4, :4], inv[:, 1, :, :4, :4]], dim=-1)
+
+
+def _stage_inverse_aug(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions):
+    """(B, T, 30, 30) augmented K_t^-1, and the packed corners (`_foot_inverses`);
+    w_diag (B, T, 16) = Sigma^-1 + delta."""
     T = qp.horizon
     nb = w_diag.shape[0]
     dtype, dev = w_diag.dtype, w_diag.device
@@ -213,29 +294,33 @@ def _stage_inverse_aug(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) ->
         blocks[:, foot, :, :4, 4:] = g_f.transpose(-1, -2)[:, None]
         blocks[:, foot, :, 4:, :4] = g_f[:, None]
         blocks[:, foot, :, 4:, 4:] = torch.diag_embed(-w_diag[:, :, 8 * foot:8 * foot + 8])
-    blocks_inv = _jacobi_scaled(gauss_jordan_inverse, blocks, opts)
+    blocks_inv, k8 = _foot_inverses(blocks, opts, opts.aug_pivot)
 
     k_inv = torch.zeros(nb, T, N_KA, N_KA, dtype=dtype, device=dev)
     for foot, idx in enumerate(FOOT_BLOCKS):
         ix = torch.tensor(idx, device=dev)
         k_inv[:, :, ix[:, None], ix[None, :]] = blocks_inv[:, foot]
     _scatter_w_independent(k_inv, qp, opts)
-    return k_inv
+    return k_inv, k8
 
 
-def _stage_inverse_ric(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions) -> torch.Tensor:
-    """(B, T, 14, 14) condensed K_t^-1; w_inv (B, T, 16) = Sigma / (1 + delta Sigma)."""
+def _stage_inverse_ric(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
+    """(B, T, 14, 14) condensed K_t^-1, and the packed corners (`_foot_inverses`);
+    w_inv (B, T, 16) = Sigma / (1 + delta Sigma)."""
     T = qp.horizon
     nb = w_inv.shape[0]
     dtype, dev = w_inv.dtype, w_inv.device
+    blocks = torch.stack([
+        _gtwg(qp, w_inv, list(cols), slice(8 * foot, 8 * foot + 8))
+        + torch.diag_embed(qp.r_diag[:, list(cols)] + opts.beta)[:, None]
+        for foot, cols in enumerate(FOOT_U_COLS)], dim=1)  # (B, 2, T, 4, 4)
+    blocks_inv, k8 = _foot_inverses(blocks, opts, pivot=False)
     k_inv = torch.zeros(nb, T, N_KC, N_KC, dtype=dtype, device=dev)
     for foot, cols in enumerate(FOOT_U_COLS):
         ix = torch.tensor(cols, device=dev)
-        gtwg = _gtwg(qp, w_inv, ix, slice(8 * foot, 8 * foot + 8))
-        blocks = gtwg + torch.diag_embed(qp.r_diag[:, ix] + opts.beta)[:, None]
-        k_inv[:, :, ix[:, None], ix[None, :]] = _jacobi_scaled(_nopivot_inverse, blocks, opts)
+        k_inv[:, :, ix[:, None], ix[None, :]] = blocks_inv[:, foot]
     _scatter_w_independent(k_inv, qp, opts)
-    return k_inv
+    return k_inv, k8
 
 
 def _e_select(dtype, dev) -> torch.Tensor:
@@ -249,7 +334,8 @@ def _stage_inverse_ric_dense(qp: StageQP, w_inv: torch.Tensor,
                              opts: PdipmOptions) -> torch.Tensor:
     """(B, T, 14, 14) inverse of the unsplit condensed block
     [[R+beta + G_u^T W_t^-1 G_u, e^T], [e, -delta I]] (`factor_ric:896`):
-    symmetric quasi-definite, so inverted without pivoting."""
+    symmetric quasi-definite, so inverted without pivoting unless
+    `opts.k_pivot` (`:921`)."""
     nb, T = w_inv.shape[0], qp.horizon
     dtype, dev = w_inv.dtype, w_inv.device
     e = _e_select(dtype, dev)
@@ -258,14 +344,14 @@ def _stage_inverse_ric_dense(qp: StageQP, w_inv: torch.Tensor,
     k[:, :, :NU, NU:] = e.T
     k[:, :, NU:, :NU] = e
     k[:, :, NU:, NU:] = -opts.delta * torch.eye(N_MX_PER_STAGE, dtype=dtype, device=dev)
-    return _jacobi_scaled(_nopivot_inverse, k, opts)
+    return _jacobi_scaled(_pivoted_or_not(opts.k_pivot, opts), k, opts)
 
 
 def _stage_inverse_aug_dense(qp: StageQP, w_diag: torch.Tensor,
                              opts: PdipmOptions) -> torch.Tensor:
     """(B, T, 30, 30) inverse of the unsplit augmented block
     [[R+beta, G_u^T, e^T], [G_u, -W_t, 0], [e, 0, -delta I]]
-    (`factor_ric_aug:1007`), with partial pivoting (`aug_pivot=True`)."""
+    (`factor_ric_aug:1007`), with partial pivoting when `opts.aug_pivot`."""
     nb, T = w_diag.shape[0], qp.horizon
     dtype, dev = w_diag.dtype, w_diag.device
     e = _e_select(dtype, dev)
@@ -278,7 +364,7 @@ def _stage_inverse_aug_dense(qp: StageQP, w_diag: torch.Tensor,
     k[:, :, :NU, n0:] = e.T
     k[:, :, n0:, :NU] = e
     k[:, :, n0:, n0:] = -opts.delta * torch.eye(N_MX_PER_STAGE, dtype=dtype, device=dev)
-    return _jacobi_scaled(gauss_jordan_inverse, k, opts)
+    return _jacobi_scaled(_pivoted_or_not(opts.aug_pivot, opts), k, opts)
 
 
 def _stage_ric2(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
@@ -287,7 +373,7 @@ def _stage_ric2(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
     form. Returns ((K^-1)_uu = Ru^-1 + (E Ru^-1)^T S^-1 (E Ru^-1), and K^-1
     applied by the block formula, `_kinv2_apply:885`)."""
     ru = _gtwg(qp, w_inv) + torch.diag_embed(qp.r_diag + opts.beta)[:, None]
-    ru_inv = _jacobi_scaled(_nopivot_inverse, ru, opts)  # (B, T, 12, 12)
+    ru_inv = _jacobi_scaled(_nopivot(opts), ru, opts)  # (B, T, 12, 12)
     erui = ru_inv[:, :, (6, 9), :]  # E Ru^-1: rows 6 and 9
     sa = -opts.delta - ru_inv[:, :, 6, 6]
     sb = -ru_inv[:, :, 6, 9]
@@ -306,18 +392,19 @@ def _stage_ric2(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
     return kuu, kinv
 
 
-def _factor(qp: StageQP, kuu: torch.Tensor, kinv: Callable, opts: PdipmOptions) -> _Factors:
-    """Fold the stage inverses ((K_t^-1)_uu and K_t^-1 applied) into the
-    y-chain and factor it (every Riccati route)."""
+def _factor(qp: StageQP, bkb: torch.Tensor, kinv: Callable, opts: PdipmOptions) -> _Factors:
+    """Fold the stage inverses (Bd (K_t^-1)_uu Bd^T (B, T, 12, 12) and K_t^-1
+    applied) into the y-chain and factor it (every Riccati route). The
+    y-chain blocks are negative definite: inverted without pivoting, in
+    `opts.gj_form` (`pdipm_pallas.py:562`)."""
     T = qp.horizon
-    dtype, dev = kuu.dtype, kuu.device
-    Ad, Bd = qp.dyn.A, qp.dyn.B
+    dtype, dev = bkb.dtype, bkb.device
+    Ad = qp.dyn.A
     q_inv = 1.0 / (qp.q_diag + opts.beta)
 
     eye = torch.eye(NX, dtype=dtype, device=dev)
     y_blk = -opts.delta * eye - torch.diag_embed(q_inv)  # (B, 12, 12)
     adqad = (Ad * q_inv[:, None, :]) @ Ad.transpose(-1, -2)
-    bkb = Bd[:, None] @ kuu @ Bd.transpose(-1, -2)[:, None]  # (B, T, 12, 12)
     s_coup = q_inv[:, :, None] * Ad.transpose(-1, -2)
 
     yhat_inv = []
@@ -326,7 +413,7 @@ def _factor(qp: StageQP, kuu: torch.Tensor, kinv: Callable, opts: PdipmOptions) 
         yhat = y_blk - bkb[:, t]
         if t >= 1:
             yhat = yhat - adqad - s_coup.transpose(-1, -2) @ m_prev @ s_coup
-        m_prev = gauss_jordan_inverse(yhat)
+        m_prev = _nopivot(opts)(yhat)
         yhat_inv.append(m_prev)
     return _Factors(kinv, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
 
@@ -487,16 +574,21 @@ def _stage_solver(qp: StageQP, w: torch.Tensor, opts: PdipmOptions):
     if opts.backend in ("tridiag", "tridiag_aug"):
         tf = _factor_thomas(qp, w, opts, aug=opts.backend == "tridiag_aug")
         return lambda r1, r_z, r4: _solve_thomas(qp, tf, r1, r_z, r4)
+    k8 = None
     if opts.backend == "ric2":
         kuu, kinv = _stage_ric2(qp, w, opts)
     else:
-        stage_inverse = {("ric_aug", True): _stage_inverse_aug,
-                         ("ric_aug", False): _stage_inverse_aug_dense,
-                         ("ric", True): _stage_inverse_ric,
-                         ("ric", False): _stage_inverse_ric_dense}[opts.backend, opts.foot_split]
-        k_inv = stage_inverse(qp, w, opts)
+        if opts.foot_split:
+            split = _stage_inverse_aug if opts.backend == "ric_aug" else _stage_inverse_ric
+            k_inv, k8 = split(qp, w, opts)
+        else:
+            dense = _stage_inverse_aug_dense if opts.backend == "ric_aug" else _stage_inverse_ric_dense
+            k_inv = dense(qp, w, opts)
         kuu, kinv = k_inv[:, :, :NU, :NU], lambda r: _mv(k_inv, r)
-    fac = _factor(qp, kuu, kinv, opts)
+    Bd = qp.dyn.B
+    bkb = (Bd[:, None] @ kuu @ Bd.transpose(-1, -2)[:, None] if k8 is None
+           else _bkb_packed(qp, k8, opts))
+    fac = _factor(qp, bkb, kinv, opts)
     return lambda r1, r_z, r4: _solve_stages(qp, fac, r1, r_z, r4)
 
 
@@ -513,8 +605,10 @@ def refine_residual_aug(qp: StageQP, hd, w_diag, opts: PdipmOptions, dx, dz, dy,
     return r1 - m1, r_z - mz, r4 - m4
 
 
-def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
-    """One Mehrotra predictor-corrector step (reference rule, delta form)."""
+def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions, refine: int):
+    """One Mehrotra predictor-corrector step in `opts.corrector_form`
+    (`iteration_base`, `pdipm_pallas.py:1237-1485`), its reduced solves
+    refined `refine` times where the form refines."""
     x, s, z, y = st.x, st.s, st.z, st.y
     ni = qp.n_ineq
     T = qp.horizon
@@ -524,14 +618,16 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
     mu = _dot(s, z) / ni
 
     sigma_d = z / s + opts.delta
+    if opts.sigma_cap > 0.0:
+        sigma_d = torch.clamp(sigma_d, max=opts.sigma_cap)
     if opts.backend in AUG_BACKENDS:
         w_diag = 1.0 / sigma_d + opts.delta  # W = Sigma^-1 + delta
         stage_solve = _stage_solver(qp, w_diag.reshape(-1, T, N_INEQ_PER_STAGE), opts)
 
-        def reduced_solve(r1, r2, r3, r4):
+        def reduced_solve(r1, r2, r3, r4, refine=refine):
             r_z = r3 - r2 / sigma_d
             dx, dz, dy = stage_solve(r1, r_z, r4)
-            for _ in range(opts.refine_steps):
+            for _ in range(refine):
                 e1, ezr, e4 = refine_residual_aug(qp, hd, w_diag, opts, dx, dz, dy, r1, r_z, r4)
                 ex, ez, ey = stage_solve(e1, ezr, e4)
                 dx, dz, dy = dx + ex, dz + ez, dy + ey
@@ -542,10 +638,10 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
         stage_solve = _stage_solver(qp, w_inv.reshape(-1, T, N_INEQ_PER_STAGE), opts)
         no_z = x.new_zeros(x.shape[0], 0)
 
-        def reduced_solve(r1, r2, r3, r4):
+        def reduced_solve(r1, r2, r3, r4, refine=refine):
             r1_hat = r1 + qps.gT_matvec(qp, w_inv * (r3 - r2 / sigma_d))
             dx, _, dy = stage_solve(r1_hat, no_z, r4)
-            for _ in range(opts.refine_steps):
+            for _ in range(refine):
                 m1 = (hd + opts.beta) * dx + qps.gT_matvec(qp, w_inv * qps.g_matvec(qp, dx)) \
                     + qps.aT_matvec(qp, dy)
                 m2 = qps.a_matvec(qp, dx) - opts.delta * dy
@@ -555,22 +651,40 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
             ds = (r2 - dz) / sigma_d
             return dx, ds, dz, dy
 
-    dx_a, ds_a, dz_a, dy_a = reduced_solve(-rx, -(s * z) / s, -rs, -re)
-    alpha_ap = _frac_to_boundary(s, ds_a)
-    alpha_ad = _frac_to_boundary(z, dz_a)
+    form = opts.corrector_form
+    dx_a, ds_a, dz_a, dy_a = reduced_solve(-rx, -(s * z) / s, -rs, -re,
+                                           0 if form in ("combined", "sum_refine") else refine)
+    alpha_ap = _frac_to_boundary(s, ds_a, opts)
+    alpha_ad = _frac_to_boundary(z, dz_a, opts)
     mu_aff = _dot(s + alpha_ap[:, None] * ds_a, z + alpha_ad[:, None] * dz_a) / ni
     sigma = (mu_aff / mu) ** 3
 
     rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
-    dx_c, ds_c, dz_c, dy_c = reduced_solve(
-        torch.zeros_like(rx), -rc / s, torch.zeros_like(s), torch.zeros_like(re))
-    dx, ds, dz, dy = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c, dy_a + dy_c
-    alpha_p = _frac_to_boundary(s, ds)[:, None]
-    alpha_d = _frac_to_boundary(z, dz)[:, None]
+    zeros = (torch.zeros_like(rx), torch.zeros_like(s), torch.zeros_like(re))
+    if form == "combined":
+        # One refined solve of the summed rhs; the reference's corrector rhs
+        # keeps s z, so the sum is -(s z + rc) / s.
+        dx, ds, dz, dy = reduced_solve(-rx, -(s * z + rc) / s, -rs, -re)
+    else:
+        dx_c, ds_c, dz_c, dy_c = reduced_solve(zeros[0], -rc / s, zeros[1], zeros[2],
+                                               refine if form == "delta" else 0)
+        dx, ds, dz, dy = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c, dy_a + dy_c
+    if form == "sum_refine":
+        # Refine the summed direction against the full 4-row KKT residual.
+        r2s = -(s * z + rc) / s
+        for _ in range(refine):
+            m1 = hd * dx + opts.beta * dx + qps.gT_matvec(qp, dz) + qps.aT_matvec(qp, dy)
+            m2 = sigma_d * ds + dz
+            m3 = qps.g_matvec(qp, dx) + ds - opts.delta * dz
+            m4 = qps.a_matvec(qp, dx) - opts.delta * dy
+            ex, es, ez, ey = reduced_solve(-rx - m1, r2s - m2, -rs - m3, -re - m4, 0)
+            dx, ds, dz, dy = dx + ex, ds + es, dz + ez, dy + ey
+    alpha_p = _frac_to_boundary(s, ds, opts)[:, None]
+    alpha_d = _frac_to_boundary(z, dz, opts)[:, None]
 
     x = x + alpha_p * dx
-    s = torch.clamp(s + alpha_p * ds, min=SZ_FLOOR)
-    z = torch.clamp(z + alpha_d * dz, min=SZ_FLOOR)
+    s = torch.clamp(s + alpha_p * ds, min=opts.sz_floor)
+    z = torch.clamp(z + alpha_d * dz, min=opts.sz_floor)
     y = y + alpha_d * dy
     norm = lambda v: torch.linalg.vector_norm(v, dim=-1)
     residuals = torch.stack([norm(rx), norm(rs), norm(re), _dot(s, z) / ni], dim=-1)
@@ -578,19 +692,29 @@ def _iteration(qp: StageQP, st: PdipmState, hd, d, b, opts: PdipmOptions):
 
 
 def check_options(opts: PdipmOptions) -> None:
-    """Raise ValueError for a route, residual precision or KKT scaling these
-    solvers lack (`biped_pympc_tpu/ops/pdipm.py:1185-1199`,
-    `pdipm_pallas.py:1589-1595`)."""
-    if opts.backend not in BACKENDS:
-        raise ValueError(f"unknown PDIPM backend {opts.backend!r}; expected one of {BACKENDS}")
-    if opts.refine_residual not in REFINE_RESIDUALS:
-        raise ValueError(f"unknown refine_residual {opts.refine_residual!r}; expected one of "
-                         f"{REFINE_RESIDUALS}")
-    if opts.kkt_scale not in KKT_SCALES:
-        raise ValueError(f"unknown kkt_scale {opts.kkt_scale!r}; expected one of {KKT_SCALES}")
+    """Raise ValueError for a route, residual precision, KKT scaling,
+    Gauss-Jordan form, corrector form or foot packing these solvers lack,
+    and for the df residual where the JAX kernel refuses it: on a condensed
+    route or with corrector_form "sum_refine" (`pdipm_pallas.py:1582-1602`)."""
+    for name, known in (("backend", BACKENDS), ("refine_residual", REFINE_RESIDUALS),
+                        ("kkt_scale", KKT_SCALES), ("gj_form", GJ_FORMS),
+                        ("corrector_form", CORRECTOR_FORMS), ("foot_pack", FOOT_PACKS)):
+        value = getattr(opts, name)
+        if not any(value == k and type(value) is type(k) for k in known):
+            label = "PDIPM backend" if name == "backend" else name
+            raise ValueError(f"unknown {label} {value!r}; expected one of {known}")
     if opts.refine_residual == "df" and opts.backend not in AUG_BACKENDS:
         raise ValueError("refine_residual='df' is implemented for the aug backends only "
                          f"(got backend={opts.backend!r}); see PdipmOptions.refine_residual")
+    if opts.refine_residual == "df" and opts.corrector_form == "sum_refine":
+        raise ValueError("refine_residual='df' is not implemented for corrector_form='sum_refine'")
+
+
+def refine_schedule(opts: PdipmOptions) -> int:
+    """Newton steps at the start of a solve (or of one launch) that run at
+    refine 0: min(refine_skip_iters, iterations) when refine_steps > 0
+    (`pdipm_pallas.py:1499-1517`)."""
+    return min(opts.refine_skip_iters, opts.iterations) if opts.refine_steps > 0 else 0
 
 
 def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
@@ -602,8 +726,9 @@ def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
     st = init_state(qp) if state is None else state
     hd, d, b = qps.h_diag(qp), qps.d_vec(qp), qps.b_vec(qp)
     residuals = torch.zeros(qp.f.shape[0], 4, dtype=qp.f.dtype, device=qp.f.device)
-    for _ in range(opts.iterations):
-        st, residuals = _iteration(qp, st, hd, d, b, opts)
+    skip = refine_schedule(opts)
+    for it in range(opts.iterations):
+        st, residuals = _iteration(qp, st, hd, d, b, opts, 0 if it < skip else opts.refine_steps)
     return PdipmResult(st.x, st.s, st.z, st.y, residuals)
 
 
@@ -629,7 +754,8 @@ def solve_adaptive_batch(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
     is still above `tol`. The criterion starts at +inf, so the first chunk
     always runs. One decision gates the whole batch. A NaN anywhere in the
     residuals makes `max > tol` false and ends the loop, as in the JAX
-    package (ROADMAP, Queue 3).
+    package (ROADMAP, Queue 3). `refine_skip_iters` counts per chunk, as
+    JAX's chunked launches count it (`biped_pympc_tpu/ops/pdipm.py:88-91`).
     """
     check_options(opts)
     chunk, n_full, rem = chunks(opts)

@@ -1,18 +1,19 @@
 """The PDIPM as hand-written CUDA kernels, and the hybrid speed mode (twin of
-`biped_pympc_tpu/ops/pdipm_pallas.py`: every route of `_pdipm_kernel` but the
-foot packing and the tableau Gauss-Jordan form).
+`biped_pympc_tpu/ops/pdipm_pallas.py`: every route and option of
+`_pdipm_kernel`).
 
 `solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
 the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
-"ric_aug" also `opts.foot_split`; one library per source in `SOURCES`, one
-thread block per env), CPU tensors run the plain version `ops/pdipm.py`.
-There is no fallback between the two: a failed build or launch raises, and
-so does a horizon and dtype whose layout does not fit in a block's shared
-memory. A given `state` is the warm start; `opts.refine_residual="df"`
-selects the compensated refinement residual (augmented routes only),
-`opts.kkt_scale="jacobi"` the Jacobi equilibration of the Riccati routes'
-stage inverses. `refine_residual` runs that residual alone, through the same
-device code, as a check of it.
+"ric_aug" also `opts.foot_split` and `opts.foot_pack`; one library per source
+in `SOURCES`, one thread block per env), CPU tensors run the plain version
+`ops/pdipm.py`. There is no fallback between the two: a failed build or
+launch raises, and so does a horizon and dtype whose layout does not fit in a
+block's shared memory. A given `state` is the warm start; every other field
+of `PdipmOptions` reaches the kernel through `PdipmArgs` (the refinement and
+its schedule, the residual's precision, the KKT scaling, the Gauss-Jordan
+form and pivot knobs, the corrector form, the sigma cap and the step rule's
+constants). `refine_residual` runs the compensated residual alone, through
+the same device code, as a check of it.
 
 `solve_adaptive` runs the solve in warm-started chunks with an early stop
 (`pdipm_pallas.solve_adaptive`). On the card every chunk is issued at once;
@@ -20,7 +21,8 @@ each launch reads a device flag computed from the previous chunk's residuals
 and returns at once when it is 0, so the loop never waits for the device.
 
 `solve_hybrid` runs the condensed route on every env and re-solves the
-worst-criterion envs with the augmented route (`pdipm_pallas.solve_hybrid`).
+worst-criterion envs with the augmented route, pivoted
+(`pdipm_pallas.solve_hybrid`).
 
 The kernels are compiled with nvcc for sm_90a at first use into `_build/`
 beside this package, one library per source, and loaded with ctypes. Every
@@ -49,17 +51,21 @@ from biped_pympc_tpu_torch.ops.qp import StageQP
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 # Kernel source of each route (`route`); every source includes HEADERS: the
-# Riccati routes `pdipm_riccati.cuh`, the block-Thomas routes one width each
-# of `pdipm_tridiag.cuh`, all of them `pdipm_common.cuh`.
+# Riccati routes `pdipm_riccati.cuh` (the foot-split ones, packed or not,
+# through `pdipm_split.cuh`), the block-Thomas routes one width each of
+# `pdipm_tridiag.cuh`, all of them `pdipm_common.cuh`.
 SOURCES = {"ric_aug": os.path.join(_CSRC, "pdipm_ric_aug.cu"),              # K1
            "ric": os.path.join(_CSRC, "pdipm_ric.cu"),                      # K2
            "tridiag_aug": os.path.join(_CSRC, "pdipm_tridiag_aug.cu"),      # K5b
            "tridiag": os.path.join(_CSRC, "pdipm_tridiag.cu"),              # K5a
            "ric2": os.path.join(_CSRC, "pdipm_ric2.cu"),                    # K5c
            "ric_dense": os.path.join(_CSRC, "pdipm_ric_dense.cu"),          # K5d-c
-           "ric_aug_dense": os.path.join(_CSRC, "pdipm_ric_aug_dense.cu")}  # K5d-a
+           "ric_aug_dense": os.path.join(_CSRC, "pdipm_ric_aug_dense.cu"),  # K5d-a
+           "ric_pack": os.path.join(_CSRC, "pdipm_ric_pack.cu"),            # K5e-c
+           "ric_aug_pack": os.path.join(_CSRC, "pdipm_ric_aug_pack.cu")}    # K5e-a
 HEADERS = tuple(os.path.join(_CSRC, name) for name in
-                ("pdipm_common.cuh", "pdipm_riccati.cuh", "pdipm_tridiag.cuh"))
+                ("pdipm_common.cuh", "pdipm_riccati.cuh", "pdipm_split.cuh",
+                 "pdipm_tridiag.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -74,16 +80,42 @@ residual_launches = {"ric_aug": 0}
 # one int32 each on the device, added to by the kernel itself (`chunks_ran`).
 _ran: dict = {}
 
+
+class PdipmArgs(ctypes.Structure):
+    """The options of one launch, `struct PdipmArgs` of csrc/pdipm_common.cuh
+    field for field (`args`): ints, then doubles."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "iterations", "refine_steps", "refine_skip", "refine_df", "kkt_jacobi", "gj_inplace",
+        "aug_pivot", "k_pivot", "corrector_form", "foot_pack")] + [
+        (name, ctypes.c_double) for name in (
+            "beta", "delta", "sigma_cap", "frac_to_boundary", "alpha_min", "sz_floor")]
+
+
+def args(opts: PdipmOptions) -> PdipmArgs:
+    """`opts` as the kernels read them: the refinement schedule as the count
+    of leading steps at refine 0 (`pdipm.refine_schedule`), the corrector form
+    as its index in `pdipm.CORRECTOR_FORMS`, foot_pack as 0 / 1 (True) / 2
+    ("apply")."""
+    return PdipmArgs(
+        iterations=opts.iterations, refine_steps=opts.refine_steps,
+        refine_skip=pdipm.refine_schedule(opts), refine_df=int(opts.refine_residual == "df"),
+        kkt_jacobi=int(opts.kkt_scale == "jacobi"), gj_inplace=int(opts.gj_form == "inplace"),
+        aug_pivot=int(opts.aug_pivot), k_pivot=int(opts.k_pivot),
+        corrector_form=pdipm.CORRECTOR_FORMS.index(opts.corrector_form),
+        foot_pack={False: 0, True: 1, "apply": 2}[opts.foot_pack], beta=opts.beta,
+        delta=opts.delta, sigma_cap=opts.sigma_cap, frac_to_boundary=opts.frac_to_boundary,
+        alpha_min=opts.alpha_min, sz_floor=opts.sz_floor)
+
+
 # C interface of `pdipm_<route>_<f32|f64>` in every library: the QP inputs
 # hd, f, Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (null: cold start);
 # the outputs x, s, z, y, res; the gate go and the counter ran (null: always
-# run, no count); then batch, T, iterations, refine_steps, refine_df,
-# kkt_jacobi, beta, delta and the stream. The condensed routes take the same
-# arguments; their refine_df must be 0, which `pdipm.check_options` ensures
-# before any launch. The block-Thomas routes ignore kkt_jacobi, as the JAX
-# kernel's do.
-ENTRY_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_double] * 2
-                  + [ctypes.c_void_p])
+# run, no count); then batch, T, a pointer to the options (`PdipmArgs`) and
+# the stream. The condensed routes take the same arguments; their refine_df
+# must be 0, which `pdipm.check_options` ensures before any launch. Each
+# route reads the options that apply to it, as the JAX kernel does.
+ENTRY_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 # C interface of `pdipm_ric_aug_residual_<f32|f64>`: hd, Ad, Bd, G_u, W, dx,
 # dz, dy, r1, rz, r4; the outputs e1, ez, e4; then batch, T, refine_df, beta,
 # delta and the stream.
@@ -109,9 +141,14 @@ def find_nvcc() -> str:
 def route(opts: PdipmOptions) -> str:
     """The kernel (key of `SOURCES`) that runs `opts`: `opts.backend`, with
     "_dense" for "ric" / "ric_aug" when `opts.foot_split` is off (the unsplit
-    14- / 30-wide stage blocks, `pdipm_pallas.py:896`, `:1007`)."""
-    if opts.backend in ("ric", "ric_aug") and not opts.foot_split:
-        return f"{opts.backend}_dense"
+    14- / 30-wide stage blocks, `pdipm_pallas.py:896`, `:1007`) and "_pack"
+    when it is on and `opts.foot_pack` is True or "apply" (the packed stage
+    pairs, `:675-709`, `:791-823`)."""
+    if opts.backend in ("ric", "ric_aug"):
+        if not opts.foot_split:
+            return f"{opts.backend}_dense"
+        if opts.foot_pack:
+            return f"{opts.backend}_pack"
     return opts.backend
 
 
@@ -247,10 +284,10 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
                          f"{MAX_SMEM_PER_BLOCK} B")
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = getattr(lib, f"{name}_f32" if qp.f.dtype == torch.float32 else f"{name}_f64")
+    options = args(opts)
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
              *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
-             opts.iterations, opts.refine_steps, int(opts.refine_residual == "df"),
-             int(opts.kkt_scale == "jacobi"), opts.beta, opts.delta, stream)
+             ctypes.addressof(options), stream)
     if err != 0:
         raise RuntimeError(f"PDIPM kernel {name} launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
@@ -389,18 +426,19 @@ class HybridStats:
     dropped_nonfinite: torch.Tensor  # non-finite envs not rescued
 
 
-def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(backend="ric"),
-                 budget: int = 0, flag_tol: float = 1.0, flag: str = "resid",
-                 with_stats: bool = False):
+def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int = 0,
+                 flag_tol: float = 1.0, aug_opts: PdipmOptions | None = None,
+                 flag: str = "resid", with_stats: bool = False):
     """Fast solve on every env, then a robust re-solve of the flagged envs.
 
-    Runs route `opts.backend` (the condensed "ric" in the speed mode) on the
-    whole batch, ranks each env by its criterion (the largest final
-    residual, or with flag="kkt" the largest `pdipm.kkt_error`), and
-    re-solves the `budget` worst with the augmented route at the same
-    iterations, refinement, beta, delta, foot split and KKT scaling, from
-    the cold start (`opts._replace(backend="ric_aug")`,
-    `pdipm_pallas.py:1826`). An env with a non-finite criterion or any
+    Runs `opts` (the condensed "ric" in the speed mode) on the whole batch,
+    ranks each env by its criterion (the largest final residual, or with
+    flag="kkt" the largest `pdipm.kkt_error`), and re-solves the `budget`
+    worst from the cold start with `aug_opts` or, when None, with `opts` on
+    the augmented route with its pivot search (`opts._replace(backend=
+    "ric_aug", aug_pivot=True)`, `pdipm_pallas.py:1826-1828`): the same
+    iterations, refinement, foot split and packing, KKT scaling and step
+    options. An env with a non-finite criterion or any
     non-finite value in x, s, z or y ranks +inf. Re-solved envs whose
     criterion exceeds `flag_tol`, or is +inf, take the augmented result.
     budget <= 0 selects max(64, B // 32); the budget
@@ -425,7 +463,9 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(backend="ric"),
     # lower index comes first, as in jax.lax.top_k, so both rescue the same envs.
     vals, idx = torch.sort(crit, descending=True, stable=True)
     vals, idx = vals[:k], idx[:k]
-    res_aug = solve(qps.take(qp, idx), dataclasses.replace(opts, backend="ric_aug"))
+    if aug_opts is None:
+        aug_opts = dataclasses.replace(opts, backend="ric_aug", aug_pivot=True)
+    res_aug = solve(qps.take(qp, idx), aug_opts)
     need = (vals > flag_tol) | torch.isinf(vals)  # (k,)
 
     def merge(a, b):

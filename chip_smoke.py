@@ -3,31 +3,39 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It builds the seven PDIPM kernels with nvcc,
+Run from the repository root. It builds the nine PDIPM kernels with nvcc,
 one process per source, all at once, each one route's factorization in the
 one Newton-step kernel of `biped_pympc_tpu_torch/csrc/pdipm_common.cuh`: the
 augmented Riccati route K1 (`csrc/pdipm_ric_aug.cu`), the condensed Riccati
 route K2 (`csrc/pdipm_ric.cu`), the condensed block-Thomas route K5a
 (`csrc/pdipm_tridiag.cu`), the augmented one K5b (`csrc/pdipm_tridiag_aug.cu`),
-the rank-2 condensed route K5c (`csrc/pdipm_ric2.cu`) and the unsplit
+the rank-2 condensed route K5c (`csrc/pdipm_ric2.cu`), the unsplit
 Riccati routes K5d-c (`csrc/pdipm_ric_dense.cu`, 14-wide) and K5d-a
-(`csrc/pdipm_ric_aug_dense.cu`, 30-wide), all with the warm entry K3, the
-augmented ones with the compensated refinement residual K4, the Riccati ones
-with the Jacobi equilibration. It holds each against its plain PyTorch
-version on a randomized b4096 QP batch (K4 also alone, on residuals that
-cancel nearly every digit, with the f32 residual as a control that must miss
-the bound), checks that warm-started chunks reproduce the fixed solve bit for
-bit, that the adaptive solve stops where the JAX loop does without waiting
-for the device, that a layout over a block's shared memory raises before any
-launch, and prints whether K1, K2, K5a and K5b still give the bits their
+(`csrc/pdipm_ric_aug_dense.cu`, 30-wide), and the packed foot-split routes
+K5e-c (`csrc/pdipm_ric_pack.cu`) and K5e-a (`csrc/pdipm_ric_aug_pack.cu`),
+all with the warm entry K3, the augmented ones with the compensated
+refinement residual K4, the Riccati ones with the Jacobi equilibration, the
+Gauss-Jordan form and pivot knobs (K5f), and every one with the step
+variants of the Newton step (K5g: the corrector forms, the refinement
+schedule, the sigma cap). It holds each against its plain PyTorch version on
+a randomized b4096 QP batch (K4 also alone, on residuals that cancel nearly
+every digit, with the f32 residual as a control that must miss the bound),
+prints how far the packed routes and the two Gauss-Jordan forms part from
+the routes and form they replace, checks that warm-started chunks reproduce
+the fixed solve bit for bit, that the adaptive solve stops where the JAX
+loop does without waiting for the device, that a layout over a block's
+shared memory raises before any launch, and prints whether K1 and K2 (in
+their former Gauss-Jordan form), K5a and K5b still give the bits their
 builds gave before the Newton step was shared. It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
 ticks, with the adaptive solve for 100 ticks, with `solver="pallas_aug"`
 (K5b) for 100 ticks and, for 50 ticks each, with `"pallas"` (K5a),
 `"pallas_ric2"` (K5c), `"pallas_ric"` unsplit (K5d-c), `"pallas_ric_aug"`
-unsplit (K5d-a) and `"pallas_ric_aug"` with Jacobi scaling (K1), checks that
-every solve went through the kernels and that the outputs are sane, and
+unsplit (K5d-a), `"pallas_ric_aug"` with Jacobi scaling (K1), and with the
+foot packing: `"pallas_ric_aug"` and `"pallas_hybrid"` with
+`solver_foot_pack=True` and `"pallas_ric"` with `"apply"` (K5e). It checks
+that every solve went through the kernels and that the outputs are sane, and
 times the kernels, the plain versions, the hybrid and adaptive solves,
 `run_mpc` and one 1 kHz tick, each kernel beside its bound. Each phase prints
 one line of findings; any failure raises and the script exits non-zero. It
@@ -71,6 +79,8 @@ F64_ATOL = 1e-6
 # 1.3e-6 and 1.8e-6 against their own roundings' 1.5e-6 and 1.1e-6 (PERF.md,
 # Findings). Their f64 bound is relative to max(1, |v|), about twice
 # K5a's reading; the absolute is printed, with each route's roundoff witness.
+# K2 joins the class under the reciprocal Gauss-Jordan form (gj_form
+# "inplace"): 9.949e-7 absolute, 4.360e-9 relative (PERF.md, Findings).
 CONDENSED_F64_RTOL = 3e-8
 RES_RTOL = 1e-6
 F32_U0_ATOL = 0.5  # N
@@ -84,6 +94,12 @@ DF_ITERS = 6
 # f32-residual control must exceed the bound: it loses most digits there.
 DF_RES_RTOL = {"f32": 1e-6, "f64": 1e-9}
 F32_FINITE_SHARE = 0.999
+# Newton steps after which the unpivoted augmented solves (4o) and the
+# sigma-capped ones (4p) are held, on every env both sides keep finite.
+SHORT_STEPS = 8
+# The step variants (4p) may part from their plain versions this many times
+# as far as two roundings of the plain version part from each other.
+WITNESS_FACTOR = 4
 # Before K1, K2, K5a and K5b shared one Newton-step kernel: `digest` of their
 # solves of this script's b4096 batch (cold, 20 steps) and of the batch's
 # kernel inputs, from their own builds on the H100 (PERF.md, Findings), and
@@ -95,6 +111,10 @@ PARENT_DIGESTS = {
     ("K5a", "f32"): "e67af260dc43ddee", ("K5a", "f64"): "33349eaf5fa2d05a",
     ("K5b", "f32"): "35fefd1d16af3dbf", ("K5b", "f64"): "d96756e2a481a2dc"}
 PARENT_MS = {"K1": 43.063, "K2": 29.921, "K5a": 79.702, "K5b": 347.991}
+# K1 and K2 f32 before the Gauss-Jordan form was an option, when every
+# no-pivot inverse ran "tableau" (ms, NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md, Findings).
+TABLEAU_MS = {"K1": 43.180, "K2": 28.864}
 # HECTOR's standing pose, walking command (tests/test_controller.py:12-19).
 Q0 = (0.0, 0.0, 0.45, -0.9, 0.45)
 
@@ -197,7 +217,14 @@ def make_qp_batch(batch, seed, dtype, device):
     return qps.build_qp(lin, t(x0), t(x_ref), t(contact), 0.025, t(mu), q, r, T)
 
 
-def needed_flops(T: int, refine_steps: int, df: bool = False) -> float:
+def refined_solves(corrector_form: str) -> int:
+    """Reduced solves per Newton step that refinement passes follow: both in
+    the "delta" form, one in the others (the combined solve, the summed
+    direction, the affine solve; `pdipm_pallas.py:1402-1467`)."""
+    return 2 if corrector_form == "delta" else 1
+
+
+def needed_flops(T: int, refine_steps: int, df: bool = False, corrector_form: str = "delta") -> float:
     """The least floating-point operations of one Newton step of one env (a
     multiply-add counts 2), whichever route: every route computes the same
     direction up to rounding. Per stage, with nx = nu = 12 and 16
@@ -206,10 +233,12 @@ def needed_flops(T: int, refine_steps: int, df: bool = False) -> float:
     product counted once (Ad M Ad^T; U = R + beta + G^T W^-1 G + e^T e /
     delta; U's Cholesky factor L and L^-1 Bd^T; the y Schur complement, its
     inverse and M_t); per reduced solve, z and nu into the u rhs and out
-    again once, and 1 + refine_steps two-sweep solves on [u, y] (z carried
-    through the refinement solves only with df, which refines the augmented
-    system); 2 refine_steps refinement residuals (the compensated ones ~25
-    flops a term); the KKT residuals, rhs, step rule and update."""
+    again once, and one two-sweep solve on [u, y]; per refinement pass one
+    more solve (z carried through it only with df, which refines the
+    augmented system, and with sum_refine, whose passes solve a general rhs)
+    and one refinement residual (the compensated ones ~25 flops a term),
+    `refine_steps` passes after each of the form's refined solves
+    (`refined_solves`); the KKT residuals, rhs, step rule and update."""
     nx, nu, nc = 12, 12, 16
     factor = (2 * nx ** 3 + nx * (nx + 1) * nx
               + nu * nc + nu * (nu + 1) * nc + 2 * nu
@@ -218,43 +247,59 @@ def needed_flops(T: int, refine_steps: int, df: bool = False) -> float:
               + nx * (nx + 1) + nx)
     core = 2 * nu ** 2 + 4 * nx * nu + 8 * nx ** 2 + 9 * nx
     z_in_out = 4 * nc * nu + 3 * nc + 8
-    reduced = z_in_out + core + refine_steps * (core + (z_in_out if df else 0))
     residual = 26250 if df else 2090
-    return T * (factor + 2 * reduced + 2 * refine_steps * residual + 2850)
+    carried = z_in_out if df or corrector_form == "sum_refine" else 0
+    passes = refined_solves(corrector_form) * refine_steps
+    return T * (factor + 2 * (z_in_out + core) + passes * (core + carried + residual) + 2850)
 
 
-def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False) -> float:
+def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False,
+                 corrector_form: str = "delta") -> float:
     """What `route`'s kernel does now in one Newton step of one env, counted
     from its loops (leading terms), for comparison with `needed_flops`: the
     block-Thomas routes invert T pivoted n-wide blocks by Gauss-Jordan in
-    full (2 n^3 + n^2 each), K1 and K2 their foot blocks, K5c its 12-wide Ru
-    blocks, K5d its dense 14- / 30-wide blocks (each Riccati route then the
-    y-chain's folding and 12-wide inverses, ~17k per stage), and each reduced
-    solve multiplies by the stored inverses (K5c recomputes two rows of
-    Ru^-1 r for each row it applies)."""
+    full (2 n^3 + n^2 each), K1 and K2 (and their packed twins K5e) their
+    foot blocks, K5c its 12-wide Ru blocks, K5d its dense 14- / 30-wide
+    blocks (each Riccati route then the y-chain's folding and 12-wide
+    inverses, ~17k per stage), and each reduced solve multiplies by the
+    stored inverses (K5c recomputes two rows of Ru^-1 r for each row it
+    applies); two solves per step and one more per refinement pass."""
     n = {"tridiag_aug": 42, "tridiag": 26}.get(route)
-    condensed = route in ("ric", "tridiag", "ric2", "ric_dense")
+    condensed = route in ("ric", "tridiag", "ric2", "ric_dense", "ric_pack")
     if n is not None:
         factor = T * (2 * n ** 3 + n ** 2 + 7344 + (6912 if condensed else 0))
         solve = T * (2 * n ** 2 + 25 * n + 684)
     else:
         factor, solve = {"ric_aug": (22600 * T, 3500 * T), "ric": (15200 * T, 2700 * T),
                          "ric2": (28800 * T, 4100 * T), "ric_dense": (30000 * T, 2900 * T),
-                         "ric_aug_dense": (72300 * T, 4500 * T)}[route]
+                         "ric_aug_dense": (72300 * T, 4500 * T),
+                         "ric_pack": (15200 * T, 2700 * T),
+                         "ric_aug_pack": (22600 * T, 3500 * T)}[route]
     residual = (26250 if df else 2090) * T
     extra = 1760 * T if condensed else 0  # r1_hat and the dz, ds recovery
-    return factor + 2 * (1 + refine_steps) * solve + 2 * refine_steps * residual + 2850 * T + extra
+    passes = refined_solves(corrector_form) * refine_steps
+    return factor + (2 + passes) * solve + passes * residual + 2850 * T + extra
+
+
+def step_refines(opts) -> list:
+    """The refinement passes of each Newton step of one launch of `opts`:
+    0 for the first `refine_skip_iters` (`pdipm.refine_schedule`)."""
+    from biped_pympc_tpu_torch.ops import pdipm
+
+    skip = pdipm.refine_schedule(opts)
+    return [0 if it < skip else opts.refine_steps for it in range(opts.iterations)]
 
 
 def bound(qp, opts) -> tuple:
     """(ms, "operations" or "bytes"): the least time an H100 could take for
     `opts.iterations` Newton steps of every env of `qp`: the larger of the
-    operations (`needed_flops`) over the peak rate of the dtype and the
-    bytes over the memory rate, each input (the QP) read once and each
-    output (x, s, z, y, the residuals) written once."""
+    operations (`needed_flops` of each step, at its refinement passes and in
+    its corrector form) over the peak rate of the dtype and the bytes over
+    the memory rate, each input (the QP) read once and each output (x, s, z,
+    y, the residuals) written once."""
     T, nb, size = qp.horizon, qp.f.shape[0], qp.f.element_size()
-    flops = nb * opts.iterations * needed_flops(T, opts.refine_steps,
-                                                opts.refine_residual == "df")
+    flops = nb * sum(needed_flops(T, r, opts.refine_residual == "df", opts.corrector_form)
+                     for r in step_refines(opts))
     nz, ni, ne = qp.nz, qp.n_ineq, qp.n_eq
     values = 2 * nz + 288 + ne + 192 + ni + (nz + 2 * ni + ne + 4)
     t_ops = flops / PEAK_FLOPS[str(qp.f.dtype).removeprefix("torch.")]
@@ -431,8 +476,10 @@ def main() -> int:
               f"in {time.perf_counter() - t0:.1f} s")
         print(f"[registers] ptxas -v, sm_90a: {ptxas_report(ptxas)}")
 
-    # 3. K1 (augmented route) vs its plain version on the card.
-    opts = pdipm.PdipmOptions()
+    # 3. K1 (augmented route) vs its plain version on the card, with the
+    # controller's options (MPCConf defaults: the split "ric_aug" route, one
+    # refinement pass; every other field at its default, gj_form "inplace").
+    opts = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
     qp64 = make_qp_batch(B, 0, torch.float64, dev)
     qp32 = make_qp_batch(B, 0, torch.float32, dev)
     plain64 = pdipm.solve(qp64, opts)
@@ -470,7 +517,7 @@ def main() -> int:
     # 4. K2 (condensed route) vs its plain version on the same batch. The
     # f32 condensed solve has a documented error and NaN tail under
     # randomization (biped_pympc_tpu/config.py:81-98): printed, not bounded.
-    ric = pdipm.PdipmOptions(backend="ric")
+    ric = dataclasses.replace(opts, backend="ric")
     ric_plain64 = pdipm.solve(qp64, ric)
     ric_kern64 = pdipm_cuda.solve(qp64, ric)
     ric_kern32 = pdipm_cuda.solve(qp32, ric)
@@ -487,12 +534,14 @@ def main() -> int:
                    / ric_plain64.residuals.abs().clamp_min(1e-300)).amax(1).cpu().numpy()
     ric_worst64 = float(ric_err[ric_conv].max())
     print(f"[K2 f64 vs plain f64] b{B}: converged envs {ric_n_conv}: max |dx,ds,dz,dy| "
-          f"{ric_worst64:.3e} (bound {F64_ATOL:g}), relative to max(1, |v|) "
-          f"{ric_rel[ric_conv].max():.3e}, envs above bound {int((ric_err[ric_conv] > F64_ATOL).sum())}, "
+          f"{ric_rel[ric_conv].max():.3e} relative to max(1, |v|) (bound {CONDENSED_F64_RTOL:g}), "
+          f"absolute {ric_worst64:.3e}, envs above {F64_ATOL:g} absolute "
+          f"{int((ric_err[ric_conv] > F64_ATOL).sum())}, "
           f"residual rel {ric_res_rel[ric_conv].max():.3e} (bound {RES_RTOL:g}); all envs: "
           f"{quantiles(ric_err)}, above bound {int((ric_err > F64_ATOL).sum())}, "
           f"residual rel max {ric_res_rel.max():.3e}")
-    check(ric_worst64 <= F64_ATOL, "f64 K2 differs from the plain version")
+    check(float(ric_rel[ric_conv].max()) <= CONDENSED_F64_RTOL,
+          "f64 K2 differs from the plain version")
     check(float(ric_res_rel[ric_conv].max()) <= RES_RTOL, "f64 K2 residuals differ")
 
     ric_finite = torch.isfinite(ric_kern32.x).all(1).cpu().numpy()
@@ -663,16 +712,20 @@ def main() -> int:
     # 4f. K5a and K5b, the block-Thomas routes, vs their plain versions on the
     # same batch. K5b is the robust class (bounded in f32 as K1); K5a is the
     # condensed class (its f32 line printed, as K2's).
-    def vs_plain64(tag, opts_, rtol=None):
-        """f64 kernel vs f64 plain version: bounds on the converged envs, the
+    def vs_plain64(tag, opts_, rtol=None, converged=True):
+        """f64 kernel vs f64 plain version: bounds on the converged envs (or,
+        `converged` False, on every env the plain version keeps finite), the
         tail printed; the bound is F64_ATOL absolute, or `rtol` relative to
         max(1, |v|) when given. Returns (kernel f64 result, plain f64,
-        converged mask, worst converged-env absolute error)."""
+        mask of the bounded envs, worst bounded-env absolute error)."""
         plain = pdipm.solve(qp64, opts_)
         kern = pdipm_cuda.solve(qp64, opts_)
         torch.cuda.synchronize()
-        cv = (plain.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
-        check(int(cv.sum()) >= B // 10, f"only {int(cv.sum())} of {B} envs converged in the "
+        if converged:
+            cv = (plain.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
+        else:
+            cv = torch.isfinite(torch.cat(results(plain), 1)).all(1).cpu().numpy()
+        check(int(cv.sum()) >= B // 10, f"only {int(cv.sum())} of {B} envs to hold in the "
                                         f"f64 {tag} reference")
         diff = {n: (getattr(kern, n) - getattr(plain, n)).abs() for n in "xszy"}
         err = np.max([d.amax(1).cpu().numpy() for d in diff.values()], axis=0)
@@ -684,7 +737,8 @@ def main() -> int:
         bounded = f"{worst_rel:.3e} relative to max(1, |v|) (bound {rtol:g}), absolute {worst:.3e}" \
             if rtol else f"{worst:.3e} (bound {F64_ATOL:g}), relative to max(1, |v|) {worst_rel:.3e}"
         print(f"[{tag} f64 vs plain f64] b{B} {pdipm_cuda.route(opts_)}"
-              f"{' jacobi' if opts_.kkt_scale == 'jacobi' else ''}: converged envs {int(cv.sum())}: max "
+              f"{' jacobi' if opts_.kkt_scale == 'jacobi' else ''}, {opts_.iterations} steps: "
+              f"{'converged' if converged else 'finite'} envs {int(cv.sum())}: max "
               f"|dx,ds,dz,dy| {bounded}, envs above {F64_ATOL:g} absolute "
               f"{int((err[cv] > F64_ATOL).sum())}, residual rel {rel[cv].max():.3e} (bound "
               f"{RES_RTOL:g}); all envs: {quantiles(err)}, above {F64_ATOL:g} "
@@ -717,14 +771,16 @@ def main() -> int:
         idx = torch.nonzero(torch.as_tensor(cv, device=dev)).flatten()
         cpu = pdipm.solve(qp_map(qps.take(qp64, idx), lambda v: v.cpu()), opts_)
         gap = {n: (getattr(cpu, n) - getattr(plain, n)[idx].cpu()).abs() for n in "xszy"}
+        worst = max(float(g.max()) for g in gap.values())
+        rel = max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max()) for n, g in gap.items())
         print(f"[{tag} roundoff] plain {tag} f64 on the CPU vs on the card, converged envs "
-              f"{len(idx)}: max |dx,ds,dz,dy| {max(float(g.max()) for g in gap.values()):.3e}, "
-              f"relative to max(1, |v|) "
-              f"{max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max()) for n, g in gap.items()):.3e} "
+              f"{len(idx)}: max |dx,ds,dz,dy| {worst:.3e}, relative to max(1, |v|) {rel:.3e} "
               f"(printed: two correct roundings of the route)")
+        return worst, rel
 
-    thomas = {"K5b": pdipm.PdipmOptions(backend="tridiag_aug"),
-              "K5a": pdipm.PdipmOptions(backend="tridiag")}
+    roundoff("K2", ric, ric_plain64, ric_conv)
+    thomas = {"K5b": dataclasses.replace(opts, backend="tridiag_aug", foot_split=False),
+              "K5a": dataclasses.replace(opts, backend="tridiag", foot_split=False)}
     k5 = {}
     for tag, opts_ in thomas.items():
         kern64_, plain64_, cv_, worst_ = vs_plain64(tag, opts_,
@@ -772,9 +828,9 @@ def main() -> int:
     # the robust class (bounded in f32 as K1); the condensed pair is bounded
     # in f64 as K5a, with its roundoff witness, and its f32 lines are
     # printed, as K2's.
-    riccati = {"K5c": pdipm.PdipmOptions(backend="ric2"),
-               "K5d-c": pdipm.PdipmOptions(backend="ric", foot_split=False),
-               "K5d-a": pdipm.PdipmOptions(backend="ric_aug", foot_split=False)}
+    riccati = {"K5c": dataclasses.replace(opts, backend="ric2", foot_split=False),
+               "K5d-c": dataclasses.replace(opts, backend="ric", foot_split=False),
+               "K5d-a": dataclasses.replace(opts, backend="ric_aug", foot_split=False)}
     k5n = {}
     for tag, opts_ in riccati.items():
         condensed = tag != "K5d-a"
@@ -807,15 +863,177 @@ def main() -> int:
             check(differ == 0, f"{tag} {dt}: 4 warm 5-step launches differ from one 20-step launch")
     print(f"[warm chunks K5c/K5d] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
 
+    # 4n. K5e, the packed foot-split routes (foot_pack True: one paired
+    # elimination of each stage pair; "apply": each half inverted as the
+    # unpacked route does, stored packed), against K2 / K1 on this batch
+    # (largest difference, envs that differ in any bit: per foot the
+    # arithmetic is theirs, the Bd K^-1 Bd^T sum is the packed one) and
+    # against their plain packed versions at f64 on the converged envs,
+    # bounded as the route's class (K5e-a as K1, K5e-c relative as the
+    # condensed routes); then four warm 5-step launches vs one of 20.
+    unpacked = {"ric": (ric, {"f32": ric_kern32, "f64": ric_kern64}, "K2"),
+                "ric_aug": (opts, {"f32": kern32, "f64": kern64}, "K1")}
+    k5e, warm_line = {}, []
+    for backend, (base, twin_runs, twin) in unpacked.items():
+        for pack in (True, "apply"):
+            tag = f"K5e-{'c' if backend == 'ric' else 'a'} {'pair' if pack is True else 'apply'}"
+            o = dataclasses.replace(base, foot_pack=pack)
+            kern64_, plain64_, cv_, worst_ = vs_plain64(
+                tag, o, CONDENSED_F64_RTOL if backend == "ric" else None)
+            kern32_ = pdipm_cuda.solve(qp32, o)
+            f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=backend == "ric_aug")
+            runs = {"f32": kern32_, "f64": kern64_}
+            line = []
+            for dt in ("f32", "f64"):
+                worst, differ = bit_diff(runs[dt], twin_runs[dt])
+                line.append(f"{dt} max |d| {worst:.3e}, envs differing in any bit {differ}")
+                w_worst, w_differ = bit_diff(chunked(qp32 if dt == "f32" else qp64, o), runs[dt])
+                warm_line.append(f"{tag} {dt} max |d| {w_worst:.3e}, envs differing {w_differ}")
+                check(w_differ == 0, f"{tag} {dt}: 4 warm 5-step launches differ from one of 20")
+            print(f"[{tag} vs {twin}] b{B}, same batch: " + "; ".join(line))
+            k5e[tag] = {"opts": o, "f32": kern32_, "f64": kern64_, "err": worst_}
+    print(f"[warm chunks K5e] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
+
+    # 4o. K5f, the Gauss-Jordan form and pivot knobs. gj_form "inplace" (the
+    # default: the pivot row times the pivot's reciprocal) vs "tableau" (the
+    # pivot row divided) on every Riccati route, bits and largest difference;
+    # k_pivot on K5d-c and aug_pivot=False on K1, K5d-a and K5e-a against
+    # their plain versions at f64. Natural order gives NaN on the augmented
+    # blocks in f32 (BENCH.md:219-229) and, in f64, amplifies the rounding
+    # of each elimination step: the plain version in the two forms parts by
+    # 6.3e-3 after 20 steps on the converged envs (CPU, PERF.md, Findings).
+    # So aug_pivot=False is held after SHORT_STEPS steps on every env both
+    # sides keep finite, and its 20-step reading on the converged envs is
+    # printed beside that witness (`form_witness`).
+    forms = {"K1": opts, "K2": ric, "K5c": riccati["K5c"], "K5d-c": riccati["K5d-c"],
+             "K5d-a": riccati["K5d-a"], "K5e-c": dataclasses.replace(ric, foot_pack="apply"),
+             "K5e-a": dataclasses.replace(opts, foot_pack="apply")}
+    tableau, line = {}, []
+    for tag, o in forms.items():
+        for dt, qp in (("f32", qp32), ("f64", qp64)):
+            tableau[tag, dt] = pdipm_cuda.solve(qp, dataclasses.replace(o, gj_form="tableau"))
+            worst, differ = bit_diff(pdipm_cuda.solve(qp, o), tableau[tag, dt])
+            line.append(f"{tag} {dt} max |d| {worst:.3e}, envs differing {differ}")
+    print(f"[K5f gj_form] b{B}, inplace vs tableau: " + "; ".join(line))
+    kpiv = dataclasses.replace(riccati["K5d-c"], k_pivot=True)
+    _, _, _, kpiv_err = vs_plain64("K5f k_pivot K5d-c", kpiv, CONDENSED_F64_RTOL)
+    finite = lambda r: torch.isfinite(torch.cat(results(r), 1)).all(1)
+    nopivot = {"K1": dataclasses.replace(opts, aug_pivot=False),
+               "K5d-a": dataclasses.replace(riccati["K5d-a"], aug_pivot=False),
+               "K5e-a": dataclasses.replace(opts, foot_pack=True, aug_pivot=False)}
+    nopivot_err = {}
+
+    def max_gap(a, b, mask):
+        return max(float((getattr(a, n) - getattr(b, n)).abs().amax(1)[mask].max())
+                   for n in "xszy") if bool(mask.any()) else float("nan")
+
+    def rel_gap(a, b, mask):
+        """max_gap relative to max(1, |v|) of `b`."""
+        return max(float(((getattr(a, n) - getattr(b, n)).abs()
+                          / getattr(b, n).abs().clamp_min(1.0)).amax(1)[mask].max())
+                   for n in "xszy")
+
+    def form_witness(tag, opts_, plain, mask):
+        """The route's sensitivity to the rounding of its eliminations: its
+        plain f64 version in the other Gauss-Jordan form against `plain`.
+        Returns (absolute, relative) as `max_gap`, `rel_gap`."""
+        other = "tableau" if opts_.gj_form == "inplace" else "inplace"
+        alt = pdipm.solve(qp64, dataclasses.replace(opts_, gj_form=other))
+        mask = torch.as_tensor(mask, device=dev)
+        worst, rel = max_gap(alt, plain, mask), rel_gap(alt, plain, mask)
+        print(f"[{tag} form witness] plain f64 {other} vs {opts_.gj_form}, {opts_.iterations} "
+              f"steps, envs {int(mask.sum())}: max |dx,ds,dz,dy| {worst:.3e}, relative to max(1, "
+              f"|v|) {rel:.3e} (printed: two correct roundings of the route)")
+        return worst, rel
+
+    for tag, o in nopivot.items():
+        plain = pdipm.solve(qp64, o)
+        kern = pdipm_cuda.solve(qp64, o)
+        kern32_ = pdipm_cuda.solve(qp32, o)
+        short = dataclasses.replace(o, iterations=SHORT_STEPS)
+        plain_s, kern_s = pdipm.solve(qp64, short), pdipm_cuda.solve(qp64, short)
+        torch.cuda.synchronize()
+        cv = finite(kern) & finite(plain) & (plain.residuals[:, 3] <= MU_CONVERGED)
+        held = finite(kern_s) & finite(plain_s)
+        err20, err = max_gap(kern, plain, cv), max_gap(kern_s, plain_s, held)
+        nopivot_err[tag] = err
+        print(f"[K5f aug_pivot=False {tag}] b{B} {pdipm_cuda.route(o)}: finite envs at 20 steps "
+              f"kernel f64 {int(finite(kern).sum())}, plain f64 {int(finite(plain).sum())}, kernel "
+              f"f32 {int(finite(kern32_).sum())} of {B}; {SHORT_STEPS} steps, envs both finite "
+              f"{int(held.sum())}: max |dx,ds,dz,dy| {err:.3e} (bound {F64_ATOL:g}); 20 steps, "
+              f"converged envs both finite {int(cv.sum())}: {err20:.3e} (printed)")
+        form_witness(f"K5f aug_pivot=False {tag}", o, plain, cv)
+        check(int(held.sum()) >= B // 10 and err <= F64_ATOL,
+              f"f64 {tag} aug_pivot=False differs from plain")
+
+    # 4p. K5g, the step variants of the one Newton-step body: each corrector
+    # form, the refinement schedule and the sigma cap (the JAX package's
+    # diagnostic value), f64 kernel vs f64 plain on the converged envs, the
+    # f32 u0 tail printed, and how far each moves its route's default solve
+    # (the option acts). These variants leave a reduced solve unrefined or
+    # cap the barrier, and their paths part with rounding as the route's
+    # default does not: K1 combined read 3.263e-6 absolute where two
+    # roundings of its plain version part by 5.102e-6, aff_ref 4.856e-5
+    # (PERF.md, Findings). So each is bounded by the larger of its route's
+    # class bound and WITNESS_FACTOR times such a witness, measured here: its
+    # plain version in the other Gauss-Jordan form (K1, K2), or on the CPU
+    # (K5a, which has no Gauss-Jordan step). Under the cap the 20-step rule
+    # converges on no env (mu >= 1e-3 on 512 of these envs, CPU f64): the
+    # capped variants are held after SHORT_STEPS steps on every env the
+    # plain version keeps finite.
+    variants = {"K1 combined": dataclasses.replace(opts, corrector_form="combined"),
+                "K1 sum_refine": dataclasses.replace(opts, corrector_form="sum_refine"),
+                "K1 aff_ref": dataclasses.replace(opts, corrector_form="aff_ref"),
+                "K5a combined": dataclasses.replace(thomas["K5a"], corrector_form="combined"),
+                "K1 refine_skip_iters=10": dataclasses.replace(opts, refine_skip_iters=10),
+                "K1 sigma_cap=1e6": dataclasses.replace(opts, sigma_cap=1e6),
+                "K2 sigma_cap=1e6": dataclasses.replace(ric, sigma_cap=1e6)}
+    defaults = {"K1": opts, "K2": ric, "K5a": thomas["K5a"]}
+    k5g = {}
+    for tag, o in variants.items():
+        route_tag = tag.split()[0]
+        condensed = route_tag in ("K2", "K5a")
+        held = dataclasses.replace(o, iterations=SHORT_STEPS) if o.sigma_cap > 0 else o
+        pdipm_cuda.reset_counts()
+        kern64_, kern32_ = pdipm_cuda.solve(qp64, held), pdipm_cuda.solve(qp32, held)
+        torch.cuda.synchronize()
+        launched = sum(pdipm_cuda.launches.values())
+        plain64_ = pdipm.solve(qp64, held)
+        cv_ = finite(plain64_) if o.sigma_cap > 0 else plain64_.residuals[:, 3] <= MU_CONVERGED
+        check(int(cv_.sum()) >= B // 10, f"only {int(cv_.sum())} envs to hold K5g {tag} on")
+        worst_, worst_rel = max_gap(kern64_, plain64_, cv_), rel_gap(kern64_, plain64_, cv_)
+        res_rel = float(((kern64_.residuals - plain64_.residuals).abs()
+                         / plain64_.residuals.abs().clamp_min(1e-300)).amax(1)[cv_].max())
+        w_abs, w_rel = (roundoff(f"K5g {tag}", held, plain64_, cv_.cpu().numpy())
+                        if route_tag == "K5a" else form_witness(f"K5g {tag}", held, plain64_, cv_))
+        err, floor_, witness = ((worst_rel, CONDENSED_F64_RTOL, w_rel) if condensed
+                                else (worst_, F64_ATOL, w_abs))
+        bound_ = max(floor_, WITNESS_FACTOR * witness)
+        moved, acts = bit_diff(kern64_, pdipm_cuda.solve(
+            qp64, dataclasses.replace(defaults[route_tag], iterations=held.iterations)))
+        print(f"[K5g {tag} f64 vs plain f64] b{B} {pdipm_cuda.route(o)}, {held.iterations} steps, "
+              f"{'finite' if o.sigma_cap > 0 else 'converged'} envs {int(cv_.sum())}: max "
+              f"|dx,ds,dz,dy| {worst_:.3e}, relative to max(1, |v|) {worst_rel:.3e} (bound "
+              f"{bound_:.3e} {'relative' if condensed else 'absolute'}: the larger of {floor_:g} "
+              f"and {WITNESS_FACTOR} x the witness), residual rel {res_rel:.3e} (bound "
+              f"{RES_RTOL:g}); f32 vs plain f64: {f32_tail(kern32_, plain64_, cv_.cpu().numpy())[2]} "
+              f"(printed); f64 vs the default {route_tag} solve: max |d| {moved:.3e}, envs "
+              f"differing {acts}")
+        check(err <= bound_, f"f64 K5g {tag} differs from the plain version")
+        check(res_rel <= RES_RTOL, f"f64 K5g {tag} residuals differ")
+        check(acts > 0, f"K5g {tag}: the option did not reach the kernel")
+        k5g[tag] = {"opts": o, "err": worst_, "launches": launched}
+
     # 4m. The shared Newton step left K1, K2, K5a and K5b as they were: the
     # digest of each one's x, s, z, y and residuals on this batch against
     # the one the build before the move gave (PARENT_DIGESTS); printed with
     # the times in 7.
     inputs_same = all(digest(pdipm_cuda._inputs(qp)) == PARENT_DIGESTS["inputs", dt]
                       for dt, qp in (("f32", qp32), ("f64", qp64)))
+    # K1 and K2 in the form those builds had, gj_form "tableau" (4o).
     refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]
-                     for tag, runs in (("K1", {"f32": kern32, "f64": kern64}),
-                                       ("K2", {"f32": ric_kern32, "f64": ric_kern64}),
+                     for tag, runs in (("K1", {d: tableau["K1", d] for d in ("f32", "f64")}),
+                                       ("K2", {d: tableau["K2", d] for d in ("f32", "f64")}),
                                        ("K5a", k5["K5a"]), ("K5b", k5["K5b"]))
                      for dt in ("f32", "f64")}
 
@@ -969,20 +1187,29 @@ def main() -> int:
     # 6c. The main paths of the other routes, each with its launch counts
     # from 0 and its first solve against the CPU plain f64 controller on 8
     # envs: "pallas_aug" (K5b), "pallas" (K5a), "pallas_ric2" (K5c),
-    # "pallas_ric" unsplit (K5d-c), "pallas_ric_aug" unsplit (K5d-a) and
-    # "pallas_ric_aug" with Jacobi scaling (K1). The augmented paths and K5a
-    # are bounded as the default path (K5a is the condensed class: the plain
+    # "pallas_ric" unsplit (K5d-c), "pallas_ric_aug" unsplit (K5d-a),
+    # "pallas_ric_aug" with Jacobi scaling (K1), and the foot packing (K5e):
+    # "pallas_ric_aug" with solver_foot_pack=True (K5e-a), "pallas_hybrid"
+    # with it (K5e-c on every env, K5e-a on the re-solve, no K1 or K2) and
+    # "pallas_ric" with "apply" (K5e-c). The augmented paths and K5a are
+    # bounded as the default path (K5a is the condensed class: the plain
     # version's own f32 solve of this walk on the CPU is 0.83 N off the f64
     # one, K2's 0.27 N; the kernel's rounding reads 0.10 N on the H100); the
-    # first wrench of K5c and K5d-c is printed, as the hybrid's.
-    paths = (("pallas_aug", {}, "tridiag_aug", 2 * PATH_TICKS, True),
-             ("pallas", {}, "tridiag", PATH_TICKS, True),
-             ("pallas_ric2", {}, "ric2", PATH_TICKS, False),
-             ("pallas_ric", {"solver_foot_split": False}, "ric_dense", PATH_TICKS, False),
-             ("pallas_ric_aug", {"solver_foot_split": False}, "ric_aug_dense", PATH_TICKS, True),
-             ("pallas_ric_aug", {"solver_kkt_scale": "jacobi"}, "ric_aug", PATH_TICKS, True))
+    # first wrench of the other condensed paths is printed, as the hybrid's.
+    # Each path's launches per run_mpc, per route:
+    paths = (("pallas_aug", {}, {"tridiag_aug": 1}, 2 * PATH_TICKS, True),
+             ("pallas", {}, {"tridiag": 1}, PATH_TICKS, True),
+             ("pallas_ric2", {}, {"ric2": 1}, PATH_TICKS, False),
+             ("pallas_ric", {"solver_foot_split": False}, {"ric_dense": 1}, PATH_TICKS, False),
+             ("pallas_ric_aug", {"solver_foot_split": False}, {"ric_aug_dense": 1}, PATH_TICKS,
+              True),
+             ("pallas_ric_aug", {"solver_kkt_scale": "jacobi"}, {"ric_aug": 1}, PATH_TICKS, True),
+             ("pallas_ric_aug", {"solver_foot_pack": True}, {"ric_aug_pack": 1}, PATH_TICKS, True),
+             ("pallas_hybrid", {"solver_foot_pack": True}, {"ric_pack": 1, "ric_aug_pack": 1},
+              PATH_TICKS, False),
+             ("pallas_ric", {"solver_foot_pack": "apply"}, {"ric_pack": 1}, PATH_TICKS, False))
     path_ctrl, path_launches = {}, {}
-    for solver, knobs, route, ticks, bounded in paths:
+    for solver, knobs, per_mpc, ticks, bounded in paths:
         name = " ".join([solver] + [f"{k}={v!r}" for k, v in knobs.items()])
         conf = MPCConf(solver=solver, verbose=False, **knobs)
         tctrl = MPCController(ControllerConf(), conf, num_envs=B, gait_id=2, device=dev)
@@ -1005,8 +1232,8 @@ def main() -> int:
               f"{float(t_fz[:, 1].abs().max()):.3e} N; vs CPU plain f64 on 8 envs max |d| "
               f"{t_dw:.3e} N{f' (bound {F32_U0_ATOL})' if bounded else ' (printed)'}; vs default "
               f"first solve max |d| {float((t_first - first_wrench).abs().max()):.3e} N")
-        check(t_launches == route_counts(**{route: t_mpc}),
-              f"the {name} path did not launch its kernel once per run_mpc")
+        check(t_launches == route_counts(**{r: n * t_mpc for r, n in per_mpc.items()}),
+              f"the {name} path did not launch its kernels {per_mpc} per run_mpc")
         check(t_tau_ok, f"{name}: joint torques not finite or beyond the torque limits")
         check(bool((t_fz[:, 1].abs() < 1.0).all()), f"{name}: swinging right foot carries force")
         check(bool((t_first[:, 0, 2] < -50.0).all()), f"{name}: stance left foot not loaded")
@@ -1014,7 +1241,7 @@ def main() -> int:
               f"{name}: gait phase did not advance")
         if bounded:
             check(t_dw <= F32_U0_ATOL, f"{name}: first wrench differs from the CPU reference")
-        path_ctrl[name], path_launches[name] = tctrl, t_launches[route]
+        path_ctrl[name], path_launches[name] = tctrl, t_launches
 
     # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
@@ -1064,6 +1291,22 @@ def main() -> int:
     jac_opts = dataclasses.replace(opts, kkt_scale="jacobi")
     jac32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, jac_opts), 20)
     jac_mpc = cuda_ms(path_ctrl["pallas_ric_aug solver_kkt_scale='jacobi'"].run_mpc, 10)
+    # K5e, K5f and K5g: each new route and option value in f32 beside its
+    # bound, the plain versions of the JSON line's entries, the packed paths.
+    new_ms = {}
+    for tag, o in ([(t, v["opts"]) for t, v in k5e.items()]
+                   + [(f"{t} tableau", dataclasses.replace(forms[t], gj_form="tableau"))
+                      for t in ("K1", "K2")]
+                   + [("K5d-c k_pivot", kpiv)]
+                   + [(f"{t} aug_pivot=False", o) for t, o in nopivot.items()]
+                   + [(t, v["opts"]) for t, v in k5g.items()]):
+        new_ms[tag] = {"opts": o, "k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, o), 10),
+                       "bound": bound(qp32, o)}
+    for tag in ("K5e-c pair", "K5e-a pair", *k5g):
+        new_ms[tag]["p32"] = cuda_ms(lambda: pdipm.solve(qp32, new_ms[tag]["opts"]), 3)
+    pack_paths = ("pallas_ric_aug solver_foot_pack=True", "pallas_hybrid solver_foot_pack=True",
+                  "pallas_ric solver_foot_pack='apply'")
+    pack_mpc = {name: cuda_ms(path_ctrl[name].run_mpc, 5) for name in pack_paths}
     units = B * opts.iterations / 5
     print(f"[times] {label}: b{B} h10 {opts.iterations} iterations: kernel f32 {k32:.3f} ms "
           f"({units / k32 * 1e3:.0f} 5-iteration units/s), kernel f64 {k64:.3f} ms, "
@@ -1096,19 +1339,46 @@ def main() -> int:
               f"({units / t['k32'] * 1e3:.0f} 5-iteration units/s), kernel f64 {t['k64']:.3f} ms, "
               f"plain f32 {t['p32']:.3f} ms, plain f64 {t['p64']:.3f} ms; bound f32 {b32:.3f} ms, "
               f"f64 {b64:.3f} ms (by {by}); MPCController run_mpc {t['mpc']:.3f} ms")
+    twin_ms = {"K1": k32, "K2": r32, "K5a": k5_ms["K5a"]["k32"], "K5d-c": k5_ms["K5d-c"]["k32"],
+               "K5d-a": k5_ms["K5d-a"]["k32"], "K5e-c": r32, "K5e-a": k32}
+    for tag, t in new_ms.items():
+        twin = tag.split()[0]
+        plain = f", plain f32 {t['p32']:.3f} ms" if "p32" in t else ""
+        print(f"[times] {label}: b{B} h10 {tag} ({pdipm_cuda.route(t['opts'])}): kernel f32 "
+              f"{t['k32']:.3f} ms{plain}; bound f32 {t['bound'][0]:.3f} ms (by {t['bound'][1]}); "
+              f"{'K2' if twin == 'K5e-c' else 'K1' if twin == 'K5e-a' else twin} default "
+              f"{twin_ms[twin]:.3f} ms ({t['k32'] / twin_ms[twin] - 1:+.1%})")
+    print(f"[times] {label}: b{B} f32 K1 / K2 under gj_form inplace (the default now) {k32:.3f} / "
+          f"{r32:.3f} ms, under tableau (the former form) {new_ms['K1 tableau']['k32']:.3f} / "
+          f"{new_ms['K2 tableau']['k32']:.3f} ms in this run; the former build's K1 / K2 {TABLEAU_MS['K1']:.3f} / "
+          f"{TABLEAU_MS['K2']:.3f} ms ({k32 / TABLEAU_MS['K1'] - 1:+.1%} / {r32 / TABLEAU_MS['K2'] - 1:+.1%})")
+    print(f"[times] {label}: MPCController b{B} f32 run_mpc of the packed paths: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in pack_mpc.items())
+          + f" (default {mpc_ms:.3f} ms, hybrid {hmpc_ms:.3f} ms)")
+    bounds.update({tag: t["bound"] for tag, t in new_ms.items()})
+    bounds.update({pdipm_cuda.route(k5e[tag]["opts"]): new_ms[tag]["bound"]
+                   for tag in ("K5e-c pair", "K5e-a pair")})
     print(f"[times] {label}: bounds at b{B} f32 (ms, bound by): "
           + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in bounds.items()))
     steps = [("ric_aug", opts), ("ric", ric), ("ric_aug df", df_opts)] + [
-        (pdipm_cuda.route(t["opts"]), t["opts"]) for t in k5_ms.values()]
-    print(f"[flops] per env and Newton step at h{qp32.horizon}: what the kernel's loops do / "
-          f"the least (the bounds' count): " + ", ".join(
-              f"{k} {kernel_flops(pdipm_cuda.route(o), qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
-              f" / {needed_flops(qp32.horizon, o.refine_steps, o.refine_residual == 'df'):.4g}"
-              for k, o in steps))
-    now = {"K1": k32, "K2": r32, "K5a": k5_ms["K5a"]["k32"], "K5b": k5_ms["K5b"]["k32"]}
-    print(f"[refactor] {label}: K1, K2, K5a and K5b in the one Newton-step kernel, b{B} cold "
-          f"20 steps: inputs as recorded: {inputs_same}; x, s, z, y and residuals bitwise the "
-          f"build before the move (digest): {refactor_same}; f32 ms now / before the move: "
+        (pdipm_cuda.route(t["opts"]), t["opts"]) for t in k5_ms.values()] + [
+        (pdipm_cuda.route(k5e[t]["opts"]), k5e[t]["opts"]) for t in ("K5e-c pair", "K5e-a pair")] + [
+        (t, v["opts"]) for t, v in k5g.items()]
+    per_step = lambda o, fn: float(np.mean([fn(r) for r in step_refines(o)]))
+    flops = [(k, per_step(o, lambda r: kernel_flops(pdipm_cuda.route(o), qp32.horizon, r,
+                                                     o.refine_residual == "df", o.corrector_form)),
+              per_step(o, lambda r: needed_flops(qp32.horizon, r, o.refine_residual == "df",
+                                                 o.corrector_form)))
+             for k, o in steps]
+    print(f"[flops] per env and Newton step at h{qp32.horizon} (the mean over the solve's steps): "
+          f"what the kernel's loops do / the least (the bounds' count): "
+          + ", ".join(f"{k} {done:.4g} / {least:.4g}" for k, done, least in flops))
+    now = {"K1": new_ms["K1 tableau"]["k32"], "K2": new_ms["K2 tableau"]["k32"],
+           "K5a": k5_ms["K5a"]["k32"], "K5b": k5_ms["K5b"]["k32"]}
+    print(f"[refactor] {label}: K1 and K2 under gj_form tableau, K5a and K5b, in the one "
+          f"Newton-step kernel, b{B} cold 20 steps: inputs as recorded: {inputs_same}; x, s, z, y "
+          f"and residuals bitwise the build before the move (digest): {refactor_same}; f32 ms now "
+          f"/ before the move: "
           + ", ".join(f"{k} {v:.3f} / {PARENT_MS[k]:.3f} ({v / PARENT_MS[k] - 1:+.1%})"
                       for k, v in now.items()))
 
@@ -1118,7 +1388,7 @@ def main() -> int:
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("pdipm_ric_aug", "pdipm_ric_aug.cu", "308", launches["ric_aug"], worst64, k32, p32,
               "ric_aug"),
         entry("pdipm_ric", "pdipm_ric.cu", "308 (backend=ric, foot_split)", h_launches["ric"],
@@ -1130,25 +1400,50 @@ def main() -> int:
               df_launches, df_worst64, df_ms, df_plain_ms, "df"),
         entry("pdipm_tridiag_aug", "pdipm_tridiag_aug.cu",
               "308 (backend=tridiag_aug: factor_aug :1134, thomas_solve_aug :1183)",
-              path_launches["pallas_aug"], k5["K5b"]["err"], k5_ms["K5b"]["k32"],
+              path_launches["pallas_aug"]["tridiag_aug"], k5["K5b"]["err"], k5_ms["K5b"]["k32"],
               k5_ms["K5b"]["p32"], "tridiag_aug"),
         entry("pdipm_tridiag", "pdipm_tridiag.cu",
               "308 (backend=tridiag: factor :424, thomas_solve :478)",
-              path_launches["pallas"], k5["K5a"]["err"], k5_ms["K5a"]["k32"],
+              path_launches["pallas"]["tridiag"], k5["K5a"]["err"], k5_ms["K5a"]["k32"],
               k5_ms["K5a"]["p32"], "tridiag"),
         entry("pdipm_ric2", "pdipm_ric2.cu",
               "308 (backend=ric2: factor_ric2 :839, _kinv2_apply :885)",
-              path_launches["pallas_ric2"], k5n["K5c"]["err"], k5_ms["K5c"]["k32"],
+              path_launches["pallas_ric2"]["ric2"], k5n["K5c"]["err"], k5_ms["K5c"]["k32"],
               k5_ms["K5c"]["p32"], "ric2"),
         entry("pdipm_ric_dense", "pdipm_ric_dense.cu",
               "308 (backend=ric, foot_split=False: factor_ric :896)",
-              path_launches["pallas_ric solver_foot_split=False"], k5n["K5d-c"]["err"],
+              path_launches["pallas_ric solver_foot_split=False"]["ric_dense"], k5n["K5d-c"]["err"],
               k5_ms["K5d-c"]["k32"], k5_ms["K5d-c"]["p32"], "ric_dense"),
         entry("pdipm_ric_aug_dense", "pdipm_ric_aug_dense.cu",
               "308 (backend=ric_aug, foot_split=False: factor_ric_aug :1007)",
-              path_launches["pallas_ric_aug solver_foot_split=False"], k5n["K5d-a"]["err"],
+              path_launches["pallas_ric_aug solver_foot_split=False"]["ric_aug_dense"],
+              k5n["K5d-a"]["err"],
               k5_ms["K5d-a"]["k32"], k5_ms["K5d-a"]["p32"], "ric_aug_dense"),
-    ]}))
+        entry("pdipm_ric_pack", "pdipm_ric_pack.cu",
+              "308 (backend=ric, foot_split, foot_pack: _gj_pair_inplace :191, "
+              "_split_bkb_pack :630, factor_ric_split :675-709)",
+              sum(path_launches[p]["ric_pack"] for p in pack_paths), k5e["K5e-c pair"]["err"],
+              new_ms["K5e-c pair"]["k32"], new_ms["K5e-c pair"]["p32"], "ric_pack"),
+        entry("pdipm_ric_aug_pack", "pdipm_ric_aug_pack.cu",
+              "308 (backend=ric_aug, foot_split, foot_pack: _gj_pair_pivot :239, "
+              "_split_bkb_pack :630, factor_ric_aug_split :791-823)",
+              sum(path_launches[p]["ric_aug_pack"] for p in pack_paths), k5e["K5e-a pair"]["err"],
+              new_ms["K5e-a pair"]["k32"], new_ms["K5e-a pair"]["p32"], "ric_aug_pack"),
+        entry("pdipm_gj_form_and_pivots", "pdipm_common.cuh",
+              "149 (_gj_inverse_nopivot_inplace, gj_form=inplace, chosen at :327-331; "
+              "tableau :124; k_pivot :921; aug_pivot :800-825, :1037)",
+              launches["ric_aug"], worst64, k32, p32, "ric_aug"),
+        *[entry(f"pdipm_step {tag}", "pdipm_common.cuh",
+                "1237 (iteration_base: " + {"combined": "corrector_form :1420-1426",
+                                            "sum_refine": "corrector_form :1427-1451",
+                                            "aff_ref": "corrector_form :1452-1467",
+                                            "refine_skip_iters=10": "refine_skip_iters :1499-1517",
+                                            "sigma_cap=1e6": "sigma_cap :1248-1249"}[tag.split()[1]]
+                + ")", k5g[tag]["launches"], k5g[tag]["err"], new_ms[tag]["k32"],
+                new_ms[tag]["p32"], tag) for tag in k5g],
+    ]
+    check(all(type(k["launches"]) is int for k in kernels), "a kernel's launches is not a count")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

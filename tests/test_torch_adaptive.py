@@ -20,7 +20,7 @@ from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 
 from test_torch_controller import _obs
-from test_torch_pdipm import ATOL, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import ATOL, batch, port_opts  # noqa: F401 (fixture)
 from test_torch_pdipm_ric import RIC_RTOL
 
 torch.set_num_threads(1)
@@ -57,10 +57,10 @@ def test_plain_warm_chunks_bit_equal_fixed(batch, backend):  # noqa: F811
     """1 + 1 iterations, the second from the first's returned state, are the
     2-iteration solve bit for bit: the loop carries only (x, s, z, y)."""
     qp = _port_qp(batch)
-    one = tpdipm.PdipmOptions(backend=backend, iterations=1)
+    one = port_opts(backend=backend, iterations=1)
     r1 = tpdipm.solve(qp, one)
     r2 = tpdipm.solve(qp, one, tpdipm.PdipmState(r1.x, r1.s, r1.z, r1.y))
-    _assert_bit_equal(r2, tpdipm.solve(qp, tpdipm.PdipmOptions(backend=backend, iterations=2)))
+    _assert_bit_equal(r2, tpdipm.solve(qp, port_opts(backend=backend, iterations=2)))
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -68,9 +68,9 @@ def test_warm_solve_matches_jax(batch, backend):  # noqa: F811
     """Port `solve(state=)` vs JAX `pdipm.solve(q, opts, state)`, vmapped,
     from the state of a 3-iteration solve."""
     qp = _port_qp(batch)
-    start = tpdipm.solve(qp, tpdipm.PdipmOptions(backend=backend, iterations=3))
+    start = tpdipm.solve(qp, port_opts(backend=backend, iterations=3))
     st = tpdipm.PdipmState(start.x, start.s, start.z, start.y)
-    got = tpdipm.solve(qp, tpdipm.PdipmOptions(backend=backend, iterations=2), st)
+    got = tpdipm.solve(qp, port_opts(backend=backend, iterations=2), st)
     jst = jpdipm.PdipmState(*(jnp.asarray(getattr(st, n).numpy()) for n in "xszy"))
     opts = _jax_opts(backend, iterations=2)
     ref = jax.jit(jax.vmap(lambda q, s: jpdipm.solve(q, opts, s)))(batch, jst)
@@ -88,11 +88,11 @@ ADAPTIVE_CASES = [(4, 2, 0.0, 4), (4, 2, 1e12, 2), (3, 2, 0.0, 3)]
 def test_solve_adaptive_batch_matches_jax(batch, backend, iterations, per_launch, tol,  # noqa: F811
                                           steps):
     qp = _port_qp(batch)
-    opts = tpdipm.PdipmOptions(backend=backend, iterations=iterations,
+    opts = port_opts(backend=backend, iterations=iterations,
                                iterations_per_launch=per_launch)
     got = tpdipm.solve_adaptive_batch(qp, opts, tol)
     # The chunks are the fixed solve of as many steps, bit for bit.
-    _assert_bit_equal(got, tpdipm.solve(qp, tpdipm.PdipmOptions(backend=backend,
+    _assert_bit_equal(got, tpdipm.solve(qp, port_opts(backend=backend,
                                                                 iterations=steps)))
     ref = jpdipm.solve_adaptive_batch(
         batch, _jax_opts(backend, iterations=iterations, iterations_per_launch=per_launch), tol)
@@ -112,9 +112,9 @@ def test_nan_ends_the_loop_for_the_whole_batch(batch, backend):  # noqa: F811
     f[1, 0] = np.nan
     bad = batch._replace(f=jnp.asarray(f))
     qp = _port_qp(bad)
-    opts = tpdipm.PdipmOptions(backend=backend, iterations=4, iterations_per_launch=2)
+    opts = port_opts(backend=backend, iterations=4, iterations_per_launch=2)
     got = tpdipm.solve_adaptive_batch(qp, opts, 0.0)
-    first = tpdipm.solve(qp, tpdipm.PdipmOptions(backend=backend, iterations=2))
+    first = tpdipm.solve(qp, port_opts(backend=backend, iterations=2))
     assert torch.isnan(got.residuals[1]).all() and torch.isfinite(got.residuals[[0, 2, 3]]).all()
     _assert_bit_equal(got, first)
     jopts = _jax_opts(backend, iterations=4, iterations_per_launch=2)
@@ -130,18 +130,18 @@ def test_nan_ends_the_loop_for_the_whole_batch(batch, backend):  # noqa: F811
 
 def test_warm_state_on_the_cpu_dispatch(batch):  # noqa: F811
     qp = _port_qp(batch)
-    start = tpdipm.solve(qp, tpdipm.PdipmOptions(iterations=1))
+    start = tpdipm.solve(qp, port_opts(iterations=1))
     st = tpdipm.PdipmState(start.x, start.s, start.z, start.y)
-    opts = tpdipm.PdipmOptions(iterations=2)
+    opts = port_opts(iterations=2)
     _assert_bit_equal(pdipm_cuda.solve(qp, opts, st), tpdipm.solve(qp, opts, st))
 
 
 def test_adaptive_options_are_checked(batch):  # noqa: F811
     qp = _port_qp(batch)
     with pytest.raises(ValueError, match="iterations_per_launch"):
-        tpdipm.solve_adaptive_batch(qp, tpdipm.PdipmOptions(iterations_per_launch=0))
+        tpdipm.solve_adaptive_batch(qp, port_opts(iterations_per_launch=0))
     with pytest.raises(ValueError, match="unknown PDIPM backend"):
-        pdipm_cuda.solve_adaptive(qp, tpdipm.PdipmOptions(backend="dense"))
+        pdipm_cuda.solve_adaptive(qp, port_opts(backend="dense"))
 
 
 # --- MPCController with MPCConf.adaptive_tol, port vs JAX ---------------------
@@ -171,7 +171,7 @@ def _drive_adaptive(tol):
     plain_solve = tpdipm.solve
     chunk_max = []  # per port solve: max(res) after each chunk that ran
 
-    def recording_solve(qp, opts=tpdipm.PdipmOptions(), state=None):
+    def recording_solve(qp, opts=port_opts(), state=None):
         r = plain_solve(qp, opts, state)
         chunk_max[-1].append(float(r.residuals.amax()))
         return r

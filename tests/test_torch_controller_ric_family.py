@@ -8,6 +8,8 @@ does. The routes that run the augmented kernels are in
 `test_torch_controller_ric_family_hybrid.py` (the interpreted Pallas traces
 take most of each file's time)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 import biped_pympc_tpu as jpkg
 import biped_pympc_tpu_torch as tpkg
+from biped_pympc_tpu_torch.ops import pdipm_cuda
 
 from test_torch_controller import B, _obs
 from test_torch_controller_hybrid import _assert_trace_close
@@ -23,10 +26,10 @@ torch.set_num_threads(1)
 TICKS = 11  # two solves, every 10 ticks
 
 
-def _drive(kw):
+def _drive(kw, ticks=TICKS):
     """Walk the JAX and the port controller in lockstep from the same
-    perturbed standing pose and command; returns per tick [(tau, wrench,
-    hybrid_stats) x 2] and the port controller."""
+    perturbed standing pose and command for `ticks` ticks; returns per tick
+    [(tau, wrench, hybrid_stats) x 2] and the port controller."""
     kw = dict(kw, verbose=False)
     jc = jpkg.MPCController(jpkg.ControllerConf(), jpkg.MPCConf(**kw), num_envs=B, gait_id=2,
                             dtype=jnp.float64)
@@ -42,7 +45,7 @@ def _drive(kw):
         c.set_command(twist, np.full(B, 0.55))
         c.set_contact_parameters(mu=mu)
     trace = []
-    for step in range(TICKS):
+    for step in range(ticks):
         for c in (jc, tc):
             c.update_state(obs)
             if step % 10 == 0:
@@ -94,13 +97,19 @@ def test_options_map_as_the_jax_controller(kw, backend, split, scale):
 @pytest.mark.parametrize("solver, pack", [("pallas_ric_aug", True), ("pallas_ric", "apply"),
                                           ("pallas_hybrid", True)])
 def test_foot_pack_raises_where_jax_packs(solver, pack):
-    """Where the JAX controller would pack the feet, the port raises,
-    naming the ROADMAP item of the kernel (K5e), and never falls back."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 2, item 3 \(K5e"):
-        tpkg.MPCController(tpkg.ControllerConf(),
-                           tpkg.MPCConf(solver=solver, solver_foot_pack=pack, verbose=False),
-                           num_envs=1, device="cpu")
-    jc = jpkg.MPCController(jpkg.ControllerConf(),
-                            jpkg.MPCConf(solver=solver, solver_foot_pack=pack, verbose=False),
-                            num_envs=1)
-    assert jc.core.opts.foot_pack == pack
+    """Where the JAX controller packs the feet (ROADMAP Queue 2, item 3
+    (K5e)), the port maps every option as it does, the packing's value
+    included, onto the packed route, and runs it (its plain version here;
+    the wrench against JAX's is in test_torch_controller_foot_pack*.py)."""
+    conf = dict(solver=solver, solver_foot_pack=pack, verbose=False)
+    tc = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(**conf), num_envs=1,
+                            device="cpu")
+    jc = jpkg.MPCController(jpkg.ControllerConf(), jpkg.MPCConf(**conf), num_envs=1)
+    jopts = jc.core.opts._asdict()
+    assert jopts["foot_pack"] == pack
+    assert dataclasses.asdict(tc.core.opts) == {
+        k: v for k, v in jopts.items() if k not in ("interpret", "inv_impl")}
+    assert pdipm_cuda.route(tc.core.opts) == f"{tc.core.opts.backend}_pack"
+    tc.update_state(_obs(1, np.random.default_rng(0)))
+    tc.run_mpc()
+    assert np.isfinite(np.asarray(tc.ground_reaction_wrench)).all()

@@ -19,6 +19,7 @@ from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops import qp as tqp
 
 from test_pdipm import T, _make_qp
+from test_torch_pdipm import port_opts
 
 torch.set_num_threads(1)
 BETA = DELTA = 1e-8
@@ -97,7 +98,7 @@ def stress_batch():
 
 def test_plain_df_solve_matches_pure_jax_f64(stress_batch):
     qp = stage_qp_from_numpy(jax.tree.map(np.asarray, stress_batch))
-    got = tpdipm.solve(qp, tpdipm.PdipmOptions(iterations=6, refine_residual="df"))
+    got = tpdipm.solve(qp, port_opts(iterations=6, refine_residual="df"))
     jopts = jpdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1,
                                 iterations=6, refine_residual="df")
     ref = jax.jit(jax.vmap(lambda q: jpdipm.solve(q, jopts)))(stress_batch)
@@ -105,7 +106,7 @@ def test_plain_df_solve_matches_pure_jax_f64(stress_batch):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
                                    rtol=1e-9, atol=1e-9, err_msg=name)
     # At f64 the compensated residual changes the solve only at roundoff.
-    plain = tpdipm.solve(qp, tpdipm.PdipmOptions(iterations=6))
+    plain = tpdipm.solve(qp, port_opts(iterations=6))
     np.testing.assert_allclose(got.x.numpy(), plain.x.numpy(), rtol=1e-9, atol=1e-9)
 
 
@@ -113,8 +114,8 @@ def test_plain_df_solve_f32_tracks_the_f64_anchor(stress_batch):
     """As `test_pallas_df_refine_residual`: at f32 the df solve stays finite
     and is at least as close to the f64 anchor as the plain-residual one
     (within 2x)."""
-    opts = tpdipm.PdipmOptions(iterations=6)
-    df = tpdipm.PdipmOptions(iterations=6, refine_residual="df")
+    opts = port_opts(iterations=6)
+    df = port_opts(iterations=6, refine_residual="df")
     anchor = tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, stress_batch)), opts).x
     q32 = stage_qp_from_numpy(jax.tree.map(np.asarray, stress_batch), dtype=torch.float32)
     plain32, df32 = tpdipm.solve(q32, opts).x, tpdipm.solve(q32, df).x
@@ -126,10 +127,10 @@ def test_plain_df_solve_f32_tracks_the_f64_anchor(stress_batch):
 
 def test_df_on_the_condensed_route_raises(stress_batch):
     qp = stage_qp_from_numpy(jax.tree.map(np.asarray, stress_batch))
-    opts = tpdipm.PdipmOptions(backend="ric", refine_residual="df")
+    opts = port_opts(backend="ric", refine_residual="df")
     for solve in (tpdipm.solve, pdipm_cuda.solve, pdipm_cuda.solve_hybrid,
                   tpdipm.solve_adaptive_batch):
         with pytest.raises(ValueError, match="aug"):
             solve(qp, opts)
     with pytest.raises(ValueError, match="refine_residual"):
-        tpdipm.solve(qp, tpdipm.PdipmOptions(refine_residual="f64"))
+        tpdipm.solve(qp, port_opts(refine_residual="f64"))

@@ -21,12 +21,12 @@ from biped_pympc_tpu_torch.convert import stage_qp_from_numpy
 from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-from test_torch_pdipm import _assert_state_close, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import _assert_state_close, batch, port_opts  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 ITERS = 3
 JAX_OPTS = jpdipm.PdipmOptions(backend="ric", foot_split=True, refine_steps=1, iterations=ITERS)
-PORT_OPTS = tpdipm.PdipmOptions(backend="ric", iterations=ITERS)
+PORT_OPTS = port_opts(backend="ric", iterations=ITERS)
 AUG_OPTS = dataclasses.replace(PORT_OPTS, backend="ric_aug")
 STATS = ("flagged", "nonfinite", "resolved", "dropped_nonfinite")
 

@@ -24,6 +24,12 @@ JAX_OPTS = jpdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=
 ATOL = 1e-8
 
 
+def port_opts(**kw):
+    """The port's PdipmOptions on the controller's defaults (MPCConf: the
+    split "ric_aug" route, one refinement pass), `kw` over them."""
+    return tpdipm.PdipmOptions(**{"backend": "ric_aug", "refine_steps": 1, "foot_split": True, **kw})
+
+
 def _swing_contact():
     contact = np.ones((T, 2))
     contact[2:6, 0] = 0.0
@@ -41,7 +47,7 @@ def batch():
 
 @pytest.fixture(scope="module")
 def port_result(batch):
-    return tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)))
+    return tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)), port_opts())
 
 
 def _assert_state_close(res, ref, atol=ATOL):
@@ -91,14 +97,15 @@ def test_plain_float32_grf_tracks_golden(seed):
     gx, *_ = reference_pdipm.solve(
         H, f, A, b, G, d, *reference_pdipm.initialize_variables(G, d, A.shape[0]), iterations=20)
     qp32 = stage_qp_from_numpy(jax.tree.map(np.asarray, qp), dtype=torch.float32)
-    res = tpdipm.solve(qp32)
+    res = tpdipm.solve(qp32, port_opts())
     u0 = res.x[0, 12 * T:12 * T + 12].double().numpy()
     np.testing.assert_allclose(u0, gx[12 * T:12 * T + 12], rtol=0, atol=0.05)
 
 
 def test_cpu_solve_dispatches_to_plain_and_leaves_counter(batch, port_result):
     before = dict(pdipm_cuda.launches)
-    res = pdipm_cuda.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)))
+    res = pdipm_cuda.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)), port_opts())
     assert pdipm_cuda.launches == before == {"ric_aug": 0, "ric": 0, "tridiag_aug": 0, "tridiag": 0,
-                                              "ric2": 0, "ric_dense": 0, "ric_aug_dense": 0}
+                                              "ric2": 0, "ric_dense": 0, "ric_aug_dense": 0,
+                                              "ric_pack": 0, "ric_aug_pack": 0}
     _assert_state_close(res, port_result, atol=0.0)

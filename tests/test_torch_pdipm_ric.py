@@ -15,11 +15,11 @@ from biped_pympc_tpu_torch.convert import stage_qp_from_numpy
 from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-from test_torch_pdipm import ATOL, _assert_state_close, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import ATOL, _assert_state_close, batch, port_opts  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 JAX_RIC = jpdipm.PdipmOptions(backend="ric", foot_split=True, refine_steps=1)
-PORT_RIC = tpdipm.PdipmOptions(backend="ric")
+PORT_RIC = port_opts(backend="ric")
 # The interpreted Pallas kernel is slow on the CPU: a few Newton steps cover
 # every phase of the route.
 INTERP_ITERS = 3
@@ -60,7 +60,7 @@ def test_plain_ric_matches_pallas_kernel_interpreted(batch, port_qp, monkeypatch
 
     monkeypatch.setattr(pp.pl, "pallas_call", interpreted)
     ref = pp.solve(batch, JAX_RIC._replace(iterations=INTERP_ITERS), tile=4)
-    got = tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend="ric", iterations=INTERP_ITERS))
+    got = tpdipm.solve(port_qp, port_opts(backend="ric", iterations=INTERP_ITERS))
     _assert_state_close(got, ref)
     np.testing.assert_allclose(got.residuals.numpy(), np.asarray(ref.residuals),
                                rtol=1e-6, atol=1e-13)
@@ -68,7 +68,7 @@ def test_plain_ric_matches_pallas_kernel_interpreted(batch, port_qp, monkeypatch
 
 @pytest.mark.parametrize("backend", ["ric", "ric_aug"])
 def test_kkt_error_matches_jax(batch, port_qp, backend):  # noqa: F811
-    res = tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend=backend, iterations=5))
+    res = tpdipm.solve(port_qp, port_opts(backend=backend, iterations=5))
     jres = jpdipm.PdipmResult(*(jnp.asarray(getattr(res, n).numpy())
                                 for n in ("x", "s", "z", "y", "residuals")))
     want = jax.vmap(jpdipm.kkt_error)(batch, jres)
@@ -79,7 +79,7 @@ def test_kkt_error_matches_jax(batch, port_qp, backend):  # noqa: F811
 def test_routes_agree_where_converged(port_qp, port_ric):
     """Condensed and augmented routes are two factorizations of one Newton
     step: at f64 they reach the same solution."""
-    aug = tpdipm.solve(port_qp)
+    aug = tpdipm.solve(port_qp, port_opts())
     np.testing.assert_allclose(port_ric.x.numpy(), aug.x.numpy(), rtol=0, atol=1e-6)
 
 
@@ -92,4 +92,4 @@ def test_cpu_ric_solve_dispatches_to_plain(port_qp, port_ric):
 
 def test_unknown_backend_raises(port_qp):
     with pytest.raises(ValueError, match="unknown PDIPM backend"):
-        tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend="dense"))
+        tpdipm.solve(port_qp, port_opts(backend="dense"))

@@ -16,7 +16,7 @@ from biped_pympc_tpu.ops import pdipm as jpdipm
 from biped_pympc_tpu_torch.convert import stage_qp_from_numpy
 from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 
-from test_torch_pdipm import _assert_state_close, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import _assert_state_close, batch, port_opts  # noqa: F401 (fixture)
 from test_torch_pdipm_ric import INTERP_ITERS
 from test_torch_pdipm_tridiag_pallas import PALLAS_ATOL
 
@@ -39,7 +39,7 @@ def test_plain_matches_pallas_kernel_interpreted(batch, backend, foot_split, kkt
               iterations=INTERP_ITERS)
     ref = pp.solve(batch, jpdipm.PdipmOptions(refine_steps=1, **kw), tile=4)
     got = tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)),
-                       tpdipm.PdipmOptions(**kw))
+                       port_opts(**kw))
     _assert_state_close(got, ref, atol=PALLAS_ATOL)
     np.testing.assert_allclose(got.residuals.numpy(), np.asarray(ref.residuals),
                                rtol=1e-9, atol=1e-13)

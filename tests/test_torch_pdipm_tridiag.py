@@ -18,7 +18,7 @@ from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 
 from test_horizon20 import _qp20
-from test_torch_pdipm import ATOL, _assert_state_close, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import ATOL, _assert_state_close, batch, port_opts  # noqa: F401 (fixture)
 from test_torch_pdipm_ric import RIC_RTOL
 
 torch.set_num_threads(1)
@@ -49,7 +49,7 @@ def port_qp(batch):  # noqa: F811
 
 @pytest.fixture(scope="module")
 def port_results(port_qp):
-    return {b: tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend=b)) for b in ROUTES}
+    return {b: tpdipm.solve(port_qp, port_opts(backend=b)) for b in ROUTES}
 
 
 @pytest.mark.parametrize("backend", ROUTES)
@@ -62,7 +62,7 @@ def test_tridiag_aug_df_matches_pure_jax(batch, port_qp):  # noqa: F811
     """Six steps with the compensated residual, the bound of
     `test_torch_df.test_plain_df_solve_matches_pure_jax`: 1e-9 relative and
     absolute (the two sum the compensated terms in different orders)."""
-    got = tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend="tridiag_aug", iterations=6,
+    got = tpdipm.solve(port_qp, port_opts(backend="tridiag_aug", iterations=6,
                                                     refine_residual="df"))
     jopts = _jax_opts("tridiag_aug", iterations=6, refine_residual="df")
     ref = jax.jit(jax.vmap(lambda q: jpdipm.solve(q, jopts)))(batch)
@@ -70,7 +70,7 @@ def test_tridiag_aug_df_matches_pure_jax(batch, port_qp):  # noqa: F811
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
                                    rtol=1e-9, atol=1e-9, err_msg=name)
     # At f64 the compensated residual changes the solve only at roundoff.
-    plain = tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend="tridiag_aug", iterations=6))
+    plain = tpdipm.solve(port_qp, port_opts(backend="tridiag_aug", iterations=6))
     np.testing.assert_allclose(got.x.numpy(), plain.x.numpy(), rtol=1e-9, atol=1e-9)
 
 
@@ -78,7 +78,7 @@ def test_tridiag_refuses_df_with_the_jax_message(batch, port_qp):  # noqa: F811
     with pytest.raises(ValueError) as jax_err:
         jpdipm.solve(jax.tree.map(lambda a: a[0], batch),
                      _jax_opts("tridiag", refine_residual="df"))
-    opts = tpdipm.PdipmOptions(backend="tridiag", refine_residual="df")
+    opts = port_opts(backend="tridiag", refine_residual="df")
     for solve in (tpdipm.solve, pdipm_cuda.solve, pdipm_cuda.solve_adaptive,
                   tpdipm.solve_adaptive_batch):
         with pytest.raises(ValueError) as err:
@@ -91,7 +91,7 @@ def test_horizon20_matches_pure_jax(backend):
     qp = _qp20()
     ref = jax.jit(lambda q: jpdipm.solve(q, _jax_opts(backend)))(qp)
     qb = jax.tree.map(lambda a: np.asarray(a)[None], qp)
-    got = tpdipm.solve(stage_qp_from_numpy(qb), tpdipm.PdipmOptions(backend=backend))
+    got = tpdipm.solve(stage_qp_from_numpy(qb), port_opts(backend=backend))
     assert got.x.shape == (1, 480)
     ref_b = jpdipm.PdipmResult(*(np.asarray(v)[None] for v in ref))
     _assert_matches_pure_jax(backend, got, ref_b)
@@ -118,16 +118,16 @@ def test_plain_matches_golden(batch, port_results, backend):  # noqa: F811
 def test_thomas_and_riccati_routes_agree(port_qp, port_results, thomas, riccati):
     """Two factorizations of one Newton step reach the same solution at f64
     (the bound of `test_torch_pdipm_ric.test_routes_agree_where_converged`)."""
-    ric = tpdipm.solve(port_qp, tpdipm.PdipmOptions(backend=riccati))
+    ric = tpdipm.solve(port_qp, port_opts(backend=riccati))
     np.testing.assert_allclose(port_results[thomas].x.numpy(), ric.x.numpy(), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("backend", ROUTES)
 def test_cpu_dispatch_is_the_plain_version(port_qp, port_results, backend):
     before = dict(pdipm_cuda.launches)
-    res = pdipm_cuda.solve(port_qp, tpdipm.PdipmOptions(backend=backend))
+    res = pdipm_cuda.solve(port_qp, port_opts(backend=backend))
     assert pdipm_cuda.launches == before
     _assert_state_close(res, port_results[backend], atol=0.0)
-    adaptive = pdipm_cuda.solve_adaptive(port_qp, tpdipm.PdipmOptions(backend=backend), 0.0)
+    adaptive = pdipm_cuda.solve_adaptive(port_qp, port_opts(backend=backend), 0.0)
     assert pdipm_cuda.launches == before
     _assert_state_close(adaptive, port_results[backend], atol=0.0)

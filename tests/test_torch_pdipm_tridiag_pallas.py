@@ -14,7 +14,7 @@ from biped_pympc_tpu.ops import pdipm as jpdipm
 from biped_pympc_tpu_torch.convert import stage_qp_from_numpy
 from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 
-from test_torch_pdipm import _assert_state_close, batch  # noqa: F401 (fixture)
+from test_torch_pdipm import _assert_state_close, batch, port_opts  # noqa: F401 (fixture)
 from test_torch_pdipm_ric import INTERP_ITERS
 
 torch.set_num_threads(1)
@@ -36,7 +36,7 @@ def test_plain_matches_pallas_kernel_interpreted(batch, backend, monkeypatch):  
     jopts = jpdipm.PdipmOptions(backend=backend, refine_steps=1, iterations=INTERP_ITERS)
     ref = pp.solve(batch, jopts, tile=4)
     got = tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)),
-                       tpdipm.PdipmOptions(backend=backend, iterations=INTERP_ITERS))
+                       port_opts(backend=backend, iterations=INTERP_ITERS))
     _assert_state_close(got, ref, atol=PALLAS_ATOL)
     np.testing.assert_allclose(got.residuals.numpy(), np.asarray(ref.residuals),
                                rtol=1e-9, atol=1e-13)

@@ -80,7 +80,7 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     for name in names:
         assert getattr(lib, name).argtypes == _c_entry_params(extern_c, name), name
         assert getattr(lib, name).restype is ctypes.c_int
-    assert len(pdipm_cuda.ENTRY_ARGTYPES) == 27
+    assert len(pdipm_cuda.ENTRY_ARGTYPES) == 22
     assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
@@ -142,11 +142,12 @@ def test_failed_ric_build_raises_and_does_not_fall_back(monkeypatch, tmp_path):
     on_card = types.SimpleNamespace(f=types.SimpleNamespace(device=torch.device("cuda", 0)))
     before = dict(pdipm_cuda.launches)
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*pdipm_ric.cu: error"):
-        pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric"))
+        pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric", foot_split=True))
     assert pdipm_cuda.launches == before
     built = sorted(p.name.rsplit("_", 1)[0] for p in build_dir.iterdir())
     assert built == ["libpdipm_ric2", "libpdipm_ric_aug", "libpdipm_ric_aug_dense",
-                     "libpdipm_ric_dense", "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
+                     "libpdipm_ric_aug_pack", "libpdipm_ric_dense", "libpdipm_ric_pack",
+                     "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
 
 
 def test_kernel_sources_include_only_their_own_headers():
@@ -200,13 +201,21 @@ def test_unported_solvers_name_their_roadmap_item(solver, item):
 
 @pytest.mark.parametrize("pack", [True, "apply"])
 def test_foot_pack_names_its_roadmap_item(pack):
-    """The foot packing (K5e) is not ported: on a setting where the JAX
-    controller packs, building the controller raises, naming K5e."""
+    """The foot packing (ROADMAP Queue 2, item 3 (K5e)) is ported: where the
+    JAX controller packs, the port maps the value as it is onto the packed
+    route and runs it (here its plain version on the CPU)."""
     import biped_pympc_tpu_torch as tpkg
 
     conf = tpkg.MPCConf(solver="pallas_ric_aug", solver_foot_pack=pack, verbose=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 2, item 3 \(K5e"):
-        tpkg.MPCController(tpkg.ControllerConf(), conf, num_envs=1, device="cpu")
+    ctrl = tpkg.MPCController(tpkg.ControllerConf(), conf, num_envs=1, device="cpu")
+    assert ctrl.core.opts.foot_pack == pack
+    assert pdipm_cuda.route(ctrl.core.opts) == "ric_aug_pack"
+    obs = torch.zeros(1, 43)
+    obs[:, 2], obs[:, 3] = 0.55, 1.0
+    obs[:, 13:18] = obs[:, 18:23] = torch.tensor([0.0, 0.0, 0.45, -0.9, 0.45])
+    ctrl.update_state(obs)
+    ctrl.run_mpc()
+    assert bool(torch.isfinite(ctrl.ground_reaction_wrench).all())
 
 
 def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
@@ -226,12 +235,38 @@ def test_hash_covers_the_shared_header(monkeypatch, tmp_path):
 # full 20 steps, and f32, on converged envs. Residual norms of the equality
 # rows sit near roundoff (~1e-10), hence the absolute floor on them.
 # The options of each kernel (`pdipm_cuda.route`):
-OPTIONS = {"ric_aug": {}, "ric": dict(backend="ric"), "tridiag_aug": dict(backend="tridiag_aug"),
+OPTIONS = {"ric_aug": dict(backend="ric_aug", foot_split=True),
+           "ric": dict(backend="ric", foot_split=True), "tridiag_aug": dict(backend="tridiag_aug"),
            "tridiag": dict(backend="tridiag"), "ric2": dict(backend="ric2"),
            "ric_dense": dict(backend="ric", foot_split=False),
-           "ric_aug_dense": dict(backend="ric_aug", foot_split=False)}
+           "ric_aug_dense": dict(backend="ric_aug", foot_split=False),
+           "ric_pack": dict(backend="ric", foot_split=True, foot_pack=True),
+           "ric_aug_pack": dict(backend="ric_aug", foot_split=True, foot_pack=True)}
 ROUTES = list(OPTIONS)
 RICCATI = ["ric_aug", "ric", "ric2", "ric_dense", "ric_aug_dense"]  # take kkt_scale
+# The option values that are not a route of their own, each on a kernel
+# that reads it: the packing's other form, the Gauss-Jordan form and the
+# pivot knobs, the corrector forms, the refinement schedule, the sigma cap
+# and the step rule's constants.
+# Under gj_form "inplace" the "apply" form of ric_pack inverts each half as
+# the paired form does, bit for bit, so it is held under "tableau".
+FLAGS = {"ric_pack apply": ("ric_pack", dict(foot_pack="apply", gj_form="tableau")),
+         "ric_aug_pack apply": ("ric_aug_pack", dict(foot_pack="apply")),
+         "ric_aug_pack no pivot": ("ric_aug_pack", dict(aug_pivot=False)),
+         "ric tableau": ("ric", dict(gj_form="tableau")),
+         "ric2 tableau": ("ric2", dict(gj_form="tableau")),
+         "ric_dense k_pivot": ("ric_dense", dict(k_pivot=True)),
+         "ric_aug no pivot": ("ric_aug", dict(aug_pivot=False)),
+         "ric_aug_dense no pivot": ("ric_aug_dense", dict(aug_pivot=False)),
+         "ric_aug combined": ("ric_aug", dict(corrector_form="combined")),
+         "ric_aug sum_refine": ("ric_aug", dict(corrector_form="sum_refine")),
+         "ric_aug aff_ref": ("ric_aug", dict(corrector_form="aff_ref")),
+         "tridiag combined": ("tridiag", dict(corrector_form="combined")),
+         "ric sum_refine": ("ric", dict(corrector_form="sum_refine")),
+         "ric_aug skip 2": ("ric_aug", dict(refine_skip_iters=2)),
+         "ric_aug sigma_cap": ("ric_aug", dict(sigma_cap=1e2)),
+         "ric sigma_cap": ("ric", dict(sigma_cap=1e2)),
+         "ric_aug frac 0.95": ("ric_aug", dict(frac_to_boundary=0.95))}
 
 
 def test_options_cover_every_kernel():
@@ -269,6 +304,30 @@ def _card():
         pytest.skip("needs a CUDA device and nvcc")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", list(FLAGS))
+def test_flag_kernel_matches_plain_on_card(flag):
+    """Each option value on a kernel that reads it vs its plain version at
+    f64, eight steps, one refinement pass, the bounds of
+    test_kernel_matches_plain_on_card; the value reaches the kernel (the
+    solve is not the route's default solve bit for bit)."""
+    _card()
+    backend, kw = FLAGS[flag]
+    qp = _qp(64, torch.float64, "cuda")
+    base = pdipm.PdipmOptions(iterations=8, refine_steps=1, **OPTIONS[backend])
+    opts = dataclasses.replace(base, **kw)
+    assert pdipm_cuda.route(opts) == backend
+    before = dict(pdipm_cuda.launches)
+    got = pdipm_cuda.solve(qp, opts)
+    want = pdipm.solve(qp, opts)
+    torch.cuda.synchronize()
+    assert pdipm_cuda.launches == {**before, backend: before[backend] + 1}
+    for name in "xszy":
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-7)
+    torch.testing.assert_close(got.residuals, want.residuals, rtol=1e-6, atol=1e-10)
+    assert not _bit_equal(got, pdipm_cuda.solve(qp, base))
+
+
 def _bit_equal(a, b):
     return all(torch.equal(getattr(a, n), getattr(b, n)) for n in ("x", "s", "z", "y", "residuals"))
 
@@ -281,7 +340,7 @@ def test_warm_chunks_bit_equal_fixed_on_card(dtype, backend):
     adaptive solve at tol=0 is the same solve in 4 gated launches."""
     _card()
     qp = _qp(64, dtype, "cuda")
-    opts = pdipm.PdipmOptions(**OPTIONS[backend])
+    opts = pdipm.PdipmOptions(refine_steps=1, **OPTIONS[backend])
     fixed = pdipm_cuda.solve(qp, opts)
     five = dataclasses.replace(opts, iterations=5)
     res = pdipm_cuda.solve(qp, five)
@@ -306,7 +365,8 @@ def test_jacobi_kernel_matches_plain_on_card(backend):
     the kernel (the scaled solve is not the unscaled one bit for bit)."""
     _card()
     qp = _qp(64, torch.float64, "cuda")
-    opts = pdipm.PdipmOptions(iterations=8, kkt_scale="jacobi", **OPTIONS[backend])
+    opts = pdipm.PdipmOptions(iterations=8, refine_steps=1, kkt_scale="jacobi",
+                              **OPTIONS[backend])
     got = pdipm_cuda.solve(qp, opts)
     want = pdipm.solve(qp, opts)
     torch.cuda.synchronize()
@@ -353,7 +413,7 @@ def test_refine_residual_on_cpu_is_the_plain_version():
     qp = _qp(3, torch.float32)
     w, dirs, rhs = _cancellation_case(qp)
     for kind in pdipm.REFINE_RESIDUALS:
-        opts = pdipm.PdipmOptions(refine_residual=kind)
+        opts = pdipm.PdipmOptions(backend="ric_aug", refine_residual=kind)
         got = pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, opts)
         want = pdipm.refine_residual_aug(qp, qps.h_diag(qp), w, opts, *dirs, *rhs)
         assert all(torch.equal(g, v) for g, v in zip(got, want)), kind
@@ -374,13 +434,15 @@ def test_df_kernel_matches_plain_on_card(dtype):
     against the f64 plain df solve at chip_smoke.py's GRF bound, 0.5 N."""
     _card()
     qp = _qp(64, dtype, "cuda")
-    opts = pdipm.PdipmOptions(iterations=8, refine_residual="df")
+    opts = pdipm.PdipmOptions(iterations=8, refine_steps=1, refine_residual="df",
+                              **OPTIONS["ric_aug"])
     w, dirs, rhs = _cancellation_case(qp)
     plain = pdipm.refine_residual_aug(qp, qps.h_diag(qp), w, opts, *dirs, *rhs)
     rel = lambda got: max(float((g - p).abs().max() / p.abs().max()) for g, p in zip(got, plain))
     bound = 1e-6 if dtype == torch.float32 else 1e-9
     assert rel(pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, opts)) <= bound
-    control = pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, pdipm.PdipmOptions())
+    control = pdipm_cuda.refine_residual(qp, w, *dirs, *rhs, dataclasses.replace(
+        opts, refine_residual="f32"))
     assert rel(control) > bound
     got = pdipm_cuda.solve(qp, opts)
     want = pdipm.solve(_qp(64, torch.float64, "cuda"), opts)
@@ -401,7 +463,8 @@ def test_tridiag_aug_df_kernel_matches_plain_on_card(dtype):
     test_df_kernel_matches_plain_on_card; K5a refuses df before any launch."""
     _card()
     qp = _qp(64, dtype, "cuda")
-    opts = pdipm.PdipmOptions(iterations=8, refine_residual="df", backend="tridiag_aug")
+    opts = pdipm.PdipmOptions(iterations=8, refine_steps=1, refine_residual="df",
+                              backend="tridiag_aug")
     before = dict(pdipm_cuda.launches)
     got = pdipm_cuda.solve(qp, opts)
     want = pdipm.solve(_qp(64, torch.float64, "cuda"), opts)
