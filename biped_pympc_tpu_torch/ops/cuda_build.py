@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources into shared libraries with a plain C
+interface, loaded with ctypes.
+
+Every library is compiled with nvcc for sm_90a (`NVCC_FLAGS`; never with
+`--use_fast_math`) at first use into a git-ignored build directory. Its file
+name carries a hash of its source, the headers it includes and the flags
+(`library_path`), so an edit to any of them builds anew, and `build` starts
+one nvcc per library not built yet, all together.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under $CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "toolkit is needed to build the kernels")
+
+
+def library_path(name: str, source: str, headers, build_dir: str) -> str:
+    """Where library `name` of `source` is built: lib<name>_<hash>.so in
+    `build_dir`, the hash over the flags, the source and `headers`."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (source, *headers):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(build_dir, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc) -> dict:
+    """Compile every library of `sources` ({key: .cu path}) whose file in
+    `paths` ({key: .so path}) does not exist yet, one nvcc each, all started
+    together; return `paths`. `nvcc` is called for the compiler's path only
+    when something is to be built. Raises RuntimeError with the compiler's
+    output if any nvcc fails; a library is moved into place only once whole."""
+    todo = [key for key, path in paths.items() if not os.path.exists(path)]
+    if not todo:
+        return paths
+    compiler = nvcc()
+    os.makedirs(build_dir, exist_ok=True)
+    jobs, failed = [], []
+    try:
+        for key in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+            os.close(fd)
+            cmd = [compiler, *NVCC_FLAGS, "-o", tmp, sources[key]]
+            jobs.append((key, cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for key, cmd, tmp, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            else:
+                os.replace(tmp, paths[key])  # atomic: a concurrent build never loads a partial file
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths

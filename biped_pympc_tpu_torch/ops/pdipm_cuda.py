@@ -25,26 +25,23 @@ worst-criterion envs with the augmented route, pivoted
 (`pdipm_pallas.solve_hybrid`).
 
 The kernels are compiled with nvcc for sm_90a at first use into `_build/`
-beside this package, one library per source, and loaded with ctypes. Every
-source instantiates the one Newton-step kernel of `csrc/pdipm_common.cuh`
-with its route's factorization.
+beside this package, one library per source (`ops/cuda_build.py`), and
+loaded with ctypes. Every source instantiates the one Newton-step kernel of
+`csrc/pdipm_common.cuh` with its route's factorization.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from dataclasses import dataclass
 
 import torch
 
-from biped_pympc_tpu_torch.ops import pdipm
+from biped_pympc_tpu_torch.ops import cuda_build, pdipm
 from biped_pympc_tpu_torch.ops import qp as qps
+from biped_pympc_tpu_torch.ops.cuda_build import find_nvcc
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions, PdipmResult
 from biped_pympc_tpu_torch.ops.qp import StageQP
 
@@ -67,8 +64,6 @@ HEADERS = tuple(os.path.join(_CSRC, name) for name in
                 ("pdipm_common.cuh", "pdipm_riccati.cuh", "pdipm_split.cuh",
                  "pdipm_tridiag.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
 # Kernel launches issued in this process: solves per route (`route`), and
@@ -125,19 +120,6 @@ RESIDUAL_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_dou
 _libs: dict = {}
 
 
-def find_nvcc() -> str:
-    """Path of nvcc: on PATH, else under $CUDA_HOME or /usr/local/cuda."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
-        "toolkit is needed to build the PDIPM kernels")
-
-
 def route(opts: PdipmOptions) -> str:
     """The kernel (key of `SOURCES`) that runs `opts`: `opts.backend`, with
     "_dense" for "ric" / "ric_aug" when `opts.foot_split` is off (the unsplit
@@ -156,47 +138,15 @@ def library_path(backend: str) -> str:
     """Where the library of a route is built. The name carries a hash of its
     source, the shared headers and the flags, so an edit to any of them
     builds anew."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (SOURCES[backend], *HEADERS):
-        with open(path, "rb") as fh:
-            digest.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libpdipm_{backend}_{digest.hexdigest()[:16]}.so")
+    return cuda_build.library_path(f"pdipm_{backend}", SOURCES[backend], HEADERS, BUILD_DIR)
 
 
 def build() -> dict:
     """Compile every kernel library not built yet, one nvcc per source, all
     started together; return {backend: .so path}. Raises RuntimeError with
     the compiler's output if any nvcc fails."""
-    paths = {backend: library_path(backend) for backend in SOURCES}
-    todo = [backend for backend, path in paths.items() if not os.path.exists(path)]
-    if not todo:
-        return paths
-    nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs, failed = [], []
-    try:
-        for backend in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[backend]]
-            jobs.append((backend, cmd, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        for backend, cmd, tmp, proc in jobs:
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
-            else:
-                os.replace(tmp, paths[backend])  # atomic: a concurrent build never loads a partial file
-    finally:
-        for _, _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
+    return cuda_build.build(SOURCES, {backend: library_path(backend) for backend in SOURCES},
+                            BUILD_DIR, nvcc=find_nvcc)
 
 
 def load_library(path: str, backend: str) -> ctypes.CDLL:

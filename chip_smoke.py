@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It builds the nine PDIPM kernels with nvcc,
-one process per source, all at once, each one route's factorization in the
+Run from the repository root. It builds the nine PDIPM kernels and the
+bench twins' two (the roofline probes K6 / K7, `csrc/roofline.cu`, and the
+synthetic tape K8, `csrc/tape.cu`) with nvcc, one process per source, all
+at once, the PDIPM kernels each one route's factorization in the
 one Newton-step kernel of `biped_pympc_tpu_torch/csrc/pdipm_common.cuh`: the
 augmented Riccati route K1 (`csrc/pdipm_ric_aug.cu`), the condensed Riccati
 route K2 (`csrc/pdipm_ric.cu`), the condensed block-Thomas route K5a
@@ -37,7 +39,13 @@ foot packing: `"pallas_ric_aug"` and `"pallas_hybrid"` with
 `solver_foot_pack=True` and `"pallas_ric"` with `"apply"` (K5e). It checks
 that every solve went through the kernels and that the outputs are sane, and
 times the kernels, the plain versions, the hybrid and adaptive solves,
-`run_mpc` and one 1 kHz tick, each kernel beside its bound. Each phase prints
+`run_mpc` and one 1 kHz tick, each kernel beside its bound. It checks in
+the SASS that the roofline kernels' loops are multiply-adds and passes
+through shared memory, holds K6 (every nacc and knob of the sweep, 100,000
+steps), K7 (20,000 passes) and K8 (1e1..1e5 ops) against their plain
+versions in float32 and float64, and drives the two bench paths that
+launch them, `ab_roofline.main` (the ceilings and six PDIPM routes at
+b4096) and `bench_synthetic.main` (the tape sweep). Each phase prints
 one line of findings; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA device is visible. The last line
 is a JSON object naming the device.
@@ -138,16 +146,41 @@ def card_label() -> str:
     return out.stdout.strip()
 
 
+def kernel_sources() -> dict:
+    """Every kernel source: the nine PDIPM routes, the roofline probes and
+    the synthetic tape."""
+    from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    return {**pdipm_cuda.SOURCES, "roofline": ab_roofline.SOURCE, "tape": bench_synthetic.SOURCE}
+
+
 def start_ptxas_report(tmp: str) -> list:
     """Start one `nvcc -Xptxas -v` compile per kernel source (object files in
     `tmp`), to run beside the build; `ptxas_report` reads them."""
-    from biped_pympc_tpu_torch.ops import pdipm_cuda
+    from biped_pympc_tpu_torch.ops import cuda_build
 
-    flags = [f for f in pdipm_cuda.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    return [subprocess.Popen([pdipm_cuda.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return [subprocess.Popen([cuda_build.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
                               f"{tmp}/{route}.o", src], stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
-            for route, src in pdipm_cuda.SOURCES.items()]
+            for route, src in kernel_sources().items()]
+
+
+def build_all() -> list:
+    """Build the nine PDIPM libraries, the roofline probes' and the tape's
+    at once (each build function starts its nvcc processes together); return the
+    libraries' paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(fn) for fn in (pdipm_cuda.build, ab_roofline.build,
+                                              bench_synthetic.build)]
+        pdipm_paths, roofline, tape = (f.result() for f in futures)
+    return sorted(pdipm_paths.values()) + [roofline, tape]
 
 
 def ptxas_report(procs) -> str:
@@ -167,7 +200,9 @@ def ptxas_report(procs) -> str:
                 if n:  # a route policy's mangled name: its length, then the name
                     end = n.end() + int(n.group())
                     policy, args = args[n.end():end] + ", ", args[end:]
-                name = f"{m.group(1)}<{policy}{'f32' if args[0] == 'f' else 'f64'}>"
+                chains = re.match(r"[fd]Li(\d+)E", args)  # fma_peak_kernel<T, CHAINS>
+                name = (f"{m.group(1)}<{policy}{'f32' if args[0] == 'f' else 'f64'}"
+                        f"{', ' + chains.group(1) if chains else ''}>")
             spill = re.search(r"(\d+) bytes spill stores", line)
             if spill and name:
                 stores = spill.group(1)
@@ -178,17 +213,12 @@ def ptxas_report(procs) -> str:
     return "; ".join(out)
 
 
-def make_qp_batch(batch, seed, dtype, device):
-    """Randomized HECTOR walking QPs through the port's `build_qp`: small
-    random attitude, position, twist; forward command in [-0.2, 0.4] m/s;
-    contact tables of the 5-step walking gait at random phase (swing stages
-    in every env); per-env friction in [0.4, 1.0]."""
-    import torch
-    from biped_pympc_tpu_torch.models import hector
-    from biped_pympc_tpu_torch.models.srbd import SrbdLin
-    from biped_pympc_tpu_torch.ops import qp as qps
-    from biped_pympc_tpu_torch.utils.maths import rot_x, rot_y, rot_z
-
+def walking_draws(batch, seed):
+    """The numpy draws of `make_qp_batch`: small random attitude, position,
+    twist; forward command in [-0.2, 0.4] m/s; contact tables of the 5-step
+    walking gait at random phase (swing stages in every env); per-env
+    friction in [0.4, 1.0]. Returns (x0 (B, 12), x_ref (B, T, 12), contact
+    (B, T, 2), feet (B, 2, 3), mu (B,)), float64, T = 10."""
     rng = np.random.default_rng(seed)
     T = 10
     x0 = np.zeros((batch, 12))
@@ -204,17 +234,28 @@ def make_qp_batch(batch, seed, dtype, device):
     pos = x0[:, 3:6]
     feet = np.stack([pos + [0.0, 0.1, 0.0], pos + [0.0, -0.1, 0.0]], axis=1)
     feet[:, :, 2] = 0.0
-    mu = rng.uniform(0.4, 1.0, batch)
+    return x0, x_ref, contact, feet, rng.uniform(0.4, 1.0, batch)
 
+
+def make_qp_batch(batch, seed, dtype, device):
+    """Randomized HECTOR walking QPs (`walking_draws`) through the port's
+    `build_qp`."""
+    import torch
+    from biped_pympc_tpu_torch.models import hector
+    from biped_pympc_tpu_torch.models.srbd import SrbdLin
+    from biped_pympc_tpu_torch.ops import qp as qps
+    from biped_pympc_tpu_torch.utils.maths import rot_x, rot_y, rot_z
+
+    x0, x_ref, contact, feet, mu = walking_draws(batch, seed)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     rot = rot_z(t(x0[:, 2])) @ rot_y(t(x0[:, 1])) @ rot_x(t(x0[:, 0]))
     lin = SrbdLin(
         rot_body=rot, inertia_world=rot @ t(hector.I_BODY) @ rot.transpose(-1, -2),
-        body_pos=t(pos), foot_pos=t(feet), mass=t(np.full(batch, hector.MASS)),
+        body_pos=t(x0[:, 3:6]), foot_pos=t(feet), mass=t(np.full(batch, hector.MASS)),
         residual_lin_accel=t(np.zeros((batch, 3))), residual_ang_accel=t(np.zeros((batch, 3))))
     q = t([150.0, 150, 250, 100, 100, 250, 1, 1, 5, 10, 10, 1])
     r = t([1e-5] * 6 + [1e-4] * 6)
-    return qps.build_qp(lin, t(x0), t(x_ref), t(contact), 0.025, t(mu), q, r, T)
+    return qps.build_qp(lin, t(x0), t(x_ref), t(contact), 0.025, t(mu), q, r, x_ref.shape[1])
 
 
 def refined_solves(corrector_form: str) -> int:
@@ -443,6 +484,227 @@ def walk(ctrl, obs, ticks, limit, on_solve=None):
     return n_mpc, first_wrench, tau_ok
 
 
+def sass_report(roofline_lib: str) -> str:
+    """FFMA / DFMA, LDS and STS in the SASS of each roofline kernel, read
+    with cuobjdump: the peak kernel's loop must be multiply-adds (CHAINS per
+    step, the loop unrolled 16 times), the stream kernel's must load x, a
+    and b from shared memory and store x back on every pass (4 entries a
+    thread, unrolled). Raises if a kernel falls short."""
+    import os
+
+    from biped_pympc_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", roofline_lib], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out = []
+    for chunk in text.split("Function : ")[1:]:
+        m = re.match(r"_Z\d+(\w+?_kernel)I([fd])(?:Li(\d+)E)?", chunk.split()[0])
+        if not m:
+            continue
+        kernel, fma_op = m.group(1), "FFMA" if m.group(2) == "f" else "DFMA"
+        n = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in (fma_op, "LDS", "STS")}
+        name = (f"{kernel}<{'f32' if m.group(2) == 'f' else 'f64'}"
+                f"{', ' + m.group(3) if m.group(3) else ''}>")
+        if kernel == "fma_peak_kernel":
+            check(n[fma_op] >= 16 * int(m.group(3)), f"{name}: {n[fma_op]} {fma_op} in its SASS")
+        else:
+            check(n["LDS"] >= 12 and n["STS"] >= 4 and n[fma_op] >= 4,
+                  f"{name}: {n} in its SASS, not a pass through shared memory")
+        out.append(f"{name} {n[fma_op]} {fma_op}, {n['LDS']} LDS, {n['STS']} STS")
+    check(len(out) == 10, f"cuobjdump found {len(out)} of the 10 roofline kernels")
+    return "; ".join(out)
+
+
+# The bench twins' kernels against their plain versions (K6, K7, K8).
+# K6 in float32 against the float64 plain version: where that is below
+# K6_F32_FINITE in magnitude the float32 kernel must be finite and within
+# K6_F32_RTOL relative (100,000 roundings of up to 6e-8 each: the chains
+# grow up to e^100), above K6_F32_INF it must be inf (float32's largest is
+# 3.4e38); between the two nothing is compared. Float64 within K6_F64_RTOL:
+# the plain version rounds product and sum apart, 1e5 steps of 1.1e-16.
+K6_F32_FINITE, K6_F32_INF, K6_F32_RTOL, K6_F64_RTOL = 3.0e38, 3.5e38, 1e-2, 1e-9
+K7_F32_RTOL = 1e-5
+# K8: absolute bounds against the plain version in the same dtype (the
+# kernel fuses x y + c; the state contracts to ~1e-3 after 1e3 ops), at
+# B = 4096 for n_ops 1e1..1e4, and 1e5 ops at B = 32768 held on a slice of
+# the first 256 envs.
+K8_ATOL = {"float32": 1e-6, "float64": 1e-12}
+K8_OPS, K8_BATCH = (10, 100, 1000, 10000), 4096
+K8_LONG = (100_000, 32768, 256)
+
+
+def timed_once(fn):
+    """(fn(), its device ms) of one call, CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bench_twins(label: str) -> list:
+    """The phases of the bench twins: K6 and K7 against their plain versions
+    at the script's shapes and step counts, K8 over the tape lengths, then
+    the two bench paths (`ab_roofline.main` at b4096, `bench_synthetic.main`)
+    with every count at 0 before them; returns the three kernels' entries of
+    the kernels line."""
+    import torch
+    from biped_pympc_tpu_torch.bench import ab_roofline as ar
+    from biped_pympc_tpu_torch.bench import bench_synthetic as bs
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    dev = torch.device("cuda")
+    peak_in, stream_in = ar.roofline_inputs()
+    knobs = [(c, t) for c in ar.CHAINS for t in ar.THREADS]
+
+    # K6: every nacc, every knob of the sweep, float32 and float64, against
+    # the float64 plain version of all naccs at once (one chain per entry).
+    a_cat = torch.cat([torch.from_numpy(a).repeat(nacc, 1) for nacc, (a, _) in peak_in.items()])
+    x_cat = torch.cat([torch.from_numpy(x) for _, x in peak_in.values()])
+    c64 = torch.tensor(ar.FMA_C, dtype=torch.float64, device=dev)
+    plain64 = ar.fma_steps(x_cat.to(dev, torch.float64), a_cat.to(dev, torch.float64), c64,
+                           ar.PEAK_ITERS)
+    worst = {"float32": 0.0, "float64": 0.0}
+    compared, infs, row = 0, 0, 0
+    for nacc, (a, x) in peak_in.items():
+        want = plain64[row:row + 8 * nacc]
+        row += 8 * nacc
+        small, big = want.abs() < K6_F32_FINITE, want.abs() > K6_F32_INF
+        for dtype in (torch.float32, torch.float64):
+            a_t, x_t = (torch.from_numpy(v).to(dev, dtype) for v in (a, x))
+            for chains, threads in knobs:
+                got = ar.fma_peak(a_t, x_t, ar.PEAK_ITERS, chains, threads).double()
+                rel = ((got - want).abs() / want.abs())
+                tag = f"K6 nacc {nacc} {dtype} chains {chains} threads {threads}"
+                if dtype == torch.float32:
+                    check(bool(torch.isfinite(got[small]).all()), f"{tag}: non-finite below 3e38")
+                    check(bool(torch.isinf(got[big]).all()), f"{tag}: finite above 3.5e38")
+                    worst["float32"] = max(worst["float32"], float(rel[small].max()))
+                    compared, infs = compared + int(small.sum()), infs + int(big.sum())
+                else:
+                    worst["float64"] = max(worst["float64"], float(rel.max()))
+    print(f"[K6 vs plain f64] {ar.PEAK_ITERS} steps, nacc {list(peak_in)}, chains x threads "
+          f"{knobs}: f32 max rel {worst['float32']:.3e} over {compared} finite entries (bound "
+          f"{K6_F32_RTOL:g}), {infs} inf where the f64 value passes {K6_F32_INF:g}; f64 max rel "
+          f"{worst['float64']:.3e} (bound {K6_F64_RTOL:g})")
+    check(worst["float32"] <= K6_F32_RTOL, "K6 f32 differs from the plain version")
+    check(worst["float64"] <= K6_F64_RTOL, "K6 f64 differs from the plain version")
+    a128, x128 = (torch.from_numpy(v).to(dev) for v in peak_in[128])
+    k6_ms = cuda_ms(lambda: ar.fma_peak(a128, x128, ar.PEAK_ITERS), 10)
+    plain32, k6_plain_ms = timed_once(lambda: ar.fma_peak_plain(a128, x128, ar.PEAK_ITERS))
+    got32 = ar.fma_peak(a128, x128, ar.PEAK_ITERS)
+    both = torch.isfinite(got32) & torch.isfinite(plain32)
+    k6_err = float((got32 - plain32)[both].abs().max())
+    print(f"[K6 vs plain f32] nacc 128: max |d| {k6_err:.3e} over entries up to "
+          f"{float(plain32[both].abs().max()):.3e}, max rel "
+          f"{float(((got32 - plain32) / plain32)[both].abs().max()):.3e}, entries differing "
+          f"{int((got32 != plain32)[both].sum())} of {int(both.sum())} finite "
+          f"(the plain float64 detour rounds twice on a float32 midpoint)")
+    check(bool((torch.isinf(got32) == torch.isinf(plain32)).all()), "K6 f32 infinities differ")
+
+    # K7: the (256, 512) float32 array, 20,000 passes.
+    a2, b2, x2 = (torch.from_numpy(v).to(dev) for v in stream_in)
+    got = ar.stream(a2, b2, x2, ar.STREAM_ITERS)
+    want, k7_plain_ms = timed_once(lambda: ar.stream_plain(a2, b2, x2, ar.STREAM_ITERS))
+    k7_rel = float(((got - want).abs() / want.abs()).max())
+    k7_err = float((got - want).abs().max())
+    k7_ms = cuda_ms(lambda: ar.stream(a2, b2, x2, ar.STREAM_ITERS), 10)
+    print(f"[K7 vs plain f32] {tuple(x2.shape)}, {ar.STREAM_ITERS} passes: max rel {k7_rel:.3e} "
+          f"(bound {K7_F32_RTOL:g}), max abs {k7_err:.3e}")
+    check(k7_rel <= K7_F32_RTOL, "K7 differs from the plain version")
+
+    # K8: the tape at each length, float32 and float64, then 1e5 ops.
+    rng = np.random.default_rng(1)
+    state = rng.uniform(0.5, 1.5, (bs.N_STATE, K8_LONG[1])).astype(np.float32)
+    k8 = {"float32": [], "float64": []}
+    for n_ops in K8_OPS:
+        tape = bs.make_tape(n_ops)
+        for dtype in (torch.float32, torch.float64):
+            s = torch.from_numpy(state[:, :K8_BATCH]).to(dev, dtype)
+            got = bs.run_tape(tape, s)
+            want, plain_ms = timed_once(lambda: bs.apply_tape_rows(tape, s))
+            k8[str(dtype).removeprefix("torch.")].append(float((got - want).abs().max()))
+            if n_ops == K8_OPS[-1] and dtype == torch.float32:
+                enc = bs.encode_tape(tape, dtype, dev)
+                k8_ms, k8_plain_ms = cuda_ms(lambda: bs.run_tape(enc, s), 10), plain_ms
+                k8_flops, k8_tape_bytes = bs.tape_flops(tape), n_ops * (16 + 4)
+    n_long, b_long, b_slice = K8_LONG
+    tape = bs.make_tape(n_long)
+    s = torch.from_numpy(state).to(dev)
+    got = bs.run_tape(tape, s)
+    want = bs.apply_tape_rows(tape, s[:, :b_slice])
+    long_err = float((got[:, :b_slice] - want).abs().max())
+    print(f"[K8 vs plain] b{K8_BATCH}, n_ops {list(K8_OPS)}: max |d| f32 "
+          + ", ".join(f"{e:.3e}" for e in k8["float32"]) + f" (bound {K8_ATOL['float32']:g}), f64 "
+          + ", ".join(f"{e:.3e}" for e in k8["float64"]) + f" (bound {K8_ATOL['float64']:g}); "
+          f"{n_long} ops at b{b_long}, f32, first {b_slice} envs {long_err:.3e}; all finite "
+          f"{bool(torch.isfinite(got).all())}")
+    for dt, errs in k8.items():
+        check(max(errs) <= K8_ATOL[dt], f"K8 {dt} differs from the plain version")
+    check(long_err <= K8_ATOL["float32"] and bool(torch.isfinite(got).all()),
+          "K8 at 1e5 ops differs from the plain version")
+
+    # The two bench paths, every count at 0 just before them.
+    for counts in (ar.launches, bs.launches):
+        for key in counts:
+            counts[key] = 0
+    pdipm_cuda.reset_counts()
+    t0 = time.perf_counter()
+    roof = ar.main(["--reps", "2"])
+    roof_s = time.perf_counter() - t0
+    bs.main(["--reps", "2"])
+    path_counts = {**ar.launches, **bs.launches}
+    pdipm_counts = {k: v for k, v in pdipm_cuda.launches.items() if v}
+    print(f"[bench paths] ab_roofline.main b4096 ({roof_s:.1f} s) and bench_synthetic.main: "
+          f"kernel launches {path_counts}, PDIPM {pdipm_counts}")
+    check(all(v > 0 for v in path_counts.values()), "a bench path did not launch its kernel")
+    check(set(pdipm_counts) == {pdipm_cuda.route(o) for o in ar.VARIANTS.values()},
+          "ab_roofline.main did not run every route through its kernel")
+    for dtype, ceil in roof["ceil"].items():
+        peak = PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+        print(f"[roofline] {label}: {dtype} FMA peak {ceil['fma_peak'] / 1e12:.3f} TFLOP/s at "
+              f"{ceil['best']} ({ceil['fma_peak'] / peak:.1%} of the published {peak / 1e12:g}), "
+              f"shared-memory stream {ceil['stream'] / 1e12:.3f} TFLOP/s")
+    for rec in roof["variants"]:
+        print(f"[roofline route] {label}: {rec['variant']} ({rec['route']}): "
+              f"{rec['ms_per_20iter_b4096']:.3f} ms per 20-step b{rec['batch']} solve, "
+              f"{rec['sustained_tflops']:.4f} TFLOP/s of the flop model, "
+              f"{rec['util_vs_fma_peak']:.3%} of the measured f32 FMA peak, "
+              f"{rec['util_vs_stream']:.3%} of the stream ceiling")
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+        return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    n6, n7 = x128.numel(), x2.numel()
+    print(f"[times] {label}: K6 f32 nacc 128 (1 chain per thread, 128 threads) {k6_ms:.3f} ms vs "
+          f"plain {k6_plain_ms:.3f} ms; K7 f32 {k7_ms:.3f} ms vs plain {k7_plain_ms:.3f} ms; K8 "
+          f"f32 {K8_OPS[-1]} ops b{K8_BATCH} {k8_ms:.3f} ms vs plain {k8_plain_ms:.3f} ms")
+
+    def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_):
+        return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches_, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, **bound_, "library_ms": None}
+
+    return [
+        entry("roofline_fma_peak", "roofline.cu", "bench/ab_roofline.py:77",
+              path_counts["fma_peak"], k6_err, k6_ms, k6_plain_ms,
+              bound(2.0 * n6 * ar.PEAK_ITERS, (1024 + 2 * n6) * 4)),
+        entry("roofline_stream", "roofline.cu", "bench/ab_roofline.py:107",
+              path_counts["stream"], k7_err, k7_ms, k7_plain_ms,
+              bound(2.0 * n7 * ar.STREAM_ITERS, 4 * n7 * 4)),
+        entry("synthetic_tape", "tape.cu", "bench/bench_synthetic.py:154", path_counts["tape"],
+              k8["float32"][-1], k8_ms, k8_plain_ms,
+              bound(k8_flops * K8_BATCH, 2 * bs.N_STATE * K8_BATCH * 4 + k8_tape_bytes)),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -452,7 +714,7 @@ def main() -> int:
     from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
     from biped_pympc_tpu_torch.control import mpc
     from biped_pympc_tpu_torch.models.hector import TORQUE_LIMIT
-    from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+    from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
@@ -471,10 +733,11 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ptxas = start_ptxas_report(tmp)
-        lib_paths = pdipm_cuda.build()
-        print(f"[build] nvcc {' '.join(pdipm_cuda.NVCC_FLAGS)} -> {sorted(lib_paths.values())} "
+        lib_paths = build_all()
+        print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} "
               f"in {time.perf_counter() - t0:.1f} s")
         print(f"[registers] ptxas -v, sm_90a: {ptxas_report(ptxas)}")
+    print(f"[sass] {sass_report(lib_paths[-2])}")
 
     # 3. K1 (augmented route) vs its plain version on the card, with the
     # controller's options (MPCConf defaults: the split "ric_aug" route, one
@@ -1382,6 +1645,8 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} / {PARENT_MS[k]:.3f} ({v / PARENT_MS[k] - 1:+.1%})"
                       for k, v in now.items()))
 
+    bench_kernels = bench_twins(label)
+
     def entry(name, source, replaces, launches_, err, ms, plain_ms, key):
         return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/csrc/{source}",
                 "replaces": f"biped_pympc_tpu/ops/pdipm_pallas.py:{replaces}",
@@ -1441,6 +1706,7 @@ def main() -> int:
                                             "sigma_cap=1e6": "sigma_cap :1248-1249"}[tag.split()[1]]
                 + ")", k5g[tag]["launches"], k5g[tag]["err"], new_ms[tag]["k32"],
                 new_ms[tag]["p32"], tag) for tag in k5g],
+        *bench_kernels,
     ]
     check(all(type(k["launches"]) is int for k in kernels), "a kernel's launches is not a count")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
-"""Rules of the torch port that hold without the card: no jax imports, the
-CPU / CUDA dispatch of the PDIPM, the build helper's errors, the kernels' C
-interface. The tests marked `cuda` hold each kernel against the plain
-version on the card: cold and warm starts, chunked launches, the adaptive
-gate and the compensated residual (`python -m pytest
+"""Rules of the torch port that hold without the card: no jax imports (and
+nothing of the JAX package or its `bench/` scripts), the CPU / CUDA dispatch
+of the PDIPM, the build helper's errors, the kernels' C interface. The tests
+marked `cuda` hold each kernel against the plain version on the card: cold
+and warm starts, chunked launches, the adaptive gate and the compensated
+residual of the PDIPM kernels, and the roofline probes and the synthetic
+tape of the bench twins (`python -m pytest
 tests/test_torch_port_rules.py -m cuda --noconftest` on a GPU machine, which
 has no jax for `tests/conftest.py`)."""
 
@@ -17,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
 from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.models.srbd import SrbdLin
 
@@ -42,10 +45,26 @@ def test_port_file_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "biped_pympc_tpu"), (path, mod)
 
 
+# The JAX package's measurement scripts, importable by their bare names
+# from bench/ (`import bench_common`) as well as through the package name.
+BENCH_MODULES = {"bench"} | {p.stem for p in (REPO / "bench").glob("*.py")}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_nothing_of_bench(path):
+    """The port's twins of bench/ keep their own copies of what they need."""
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in BENCH_MODULES, (path, mod)
+
+
 def test_port_file_scan_covers_the_new_modules():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"biped_pympc_tpu_torch/ops/df.py", "biped_pympc_tpu_torch/ops/pdipm_cuda.py",
-            "chip_smoke.py"} <= names
+            "biped_pympc_tpu_torch/ops/cuda_build.py",
+            "biped_pympc_tpu_torch/bench/bench_common.py",
+            "biped_pympc_tpu_torch/bench/ab_roofline.py",
+            "biped_pympc_tpu_torch/bench/bench_synthetic.py", "chip_smoke.py"} <= names
+    assert {"bench_common", "ab_roofline", "bench_synthetic"} <= BENCH_MODULES
 
 
 _C_TYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "double": ctypes.c_double}
@@ -84,6 +103,25 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
+@pytest.mark.parametrize("module, entries", [
+    (ab_roofline, [f"roofline_{k}_{s}" for k in ("fma_peak", "stream") for s in ("f32", "f64")]),
+    (bench_synthetic, ["tape_run_f32", "tape_run_f64"])], ids=["roofline", "tape"])
+def test_bench_kernels_declare_their_c_interface(monkeypatch, module, entries):
+    """The bench twins declare each entry of their source with its types."""
+    source = pathlib.Path(module.SOURCE).read_text()
+    extern_c = source[source.index('extern "C" {'):]
+    prefix = entries[0].split("_")[0]
+    fake = types.SimpleNamespace(**{name: types.SimpleNamespace()
+                                    for name in entries + [f"{prefix}_error_string"]})
+    monkeypatch.setattr(module, "build", lambda: "unused.so")
+    monkeypatch.setattr(module.ctypes, "CDLL", lambda path: fake)
+    monkeypatch.setattr(module, "_lib", [])
+    lib = module._library()
+    for name in entries:
+        assert getattr(lib, name).argtypes == _c_entry_params(extern_c, name), name
+        assert getattr(lib, name).restype is ctypes.c_int
+
+
 def _qp(batch, dtype, device="cpu", horizon=10):
     """A small standing QP batch through the port's `build_qp`."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -117,9 +155,9 @@ def test_kernel_wrapper_refuses_unsupported_dtype():
 
 def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
     monkeypatch.setattr(pdipm_cuda, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(pdipm_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    monkeypatch.setattr(pdipm_cuda.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         pdipm_cuda.build()
     assert not list(tmp_path.iterdir())
@@ -157,7 +195,8 @@ def test_kernel_sources_include_only_their_own_headers():
     for path in sorted(csrc.iterdir()):
         for inc in re.findall(r'^#include\s+(\S+)', path.read_text(), flags=re.M):
             assert inc.startswith("<") or (csrc / inc.strip('"')).is_file(), (path.name, inc)
-    assert {pathlib.Path(p).name for p in (*pdipm_cuda.SOURCES.values(), *pdipm_cuda.HEADERS)} \
+    assert {pathlib.Path(p).name for p in (*pdipm_cuda.SOURCES.values(), *pdipm_cuda.HEADERS,
+                                           ab_roofline.SOURCE, bench_synthetic.SOURCE)} \
         == {p.name for p in csrc.iterdir()}
 
 
@@ -477,3 +516,75 @@ def test_tridiag_aug_df_kernel_matches_plain_on_card(dtype):
     with pytest.raises(ValueError, match="aug"):
         pdipm_cuda.solve(qp, dataclasses.replace(opts, backend="tridiag"))
     assert pdipm_cuda.launches["tridiag"] == before["tridiag"]
+
+
+# The bench twins' kernels (K6, K7, K8) on the card.
+def _roofline_peak(dtype, rows=32):
+    a, x = ab_roofline.roofline_inputs()[0][16]
+    return torch.from_numpy(a).to("cuda", dtype), torch.from_numpy(x[:rows]).to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains, threads", [(1, 128), (2, 256), (4, 96), (8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fma_peak_kernel_matches_plain_on_card(dtype, chains, threads):
+    """K6, 2,000 steps: float32 within a rounding of the plain version (both
+    round once per step; the plain version's float64 detour rounds twice,
+    which parts from one rounding only on a float32 midpoint), float64
+    within 2,000 roundings (the plain version rounds product and sum)."""
+    _card()
+    a, x = _roofline_peak(dtype)
+    before = ab_roofline.launches["fma_peak"]
+    got = ab_roofline.fma_peak(a, x, 2000, chains, threads)
+    want = ab_roofline.fma_peak_plain(a, x, 2000)
+    torch.cuda.synchronize()
+    assert ab_roofline.launches["fma_peak"] == before + 1
+    rtol = 1e-6 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+def test_fma_peak_kernel_refuses_bad_knobs_on_card():
+    _card()
+    a, x = _roofline_peak(torch.float32)
+    before = ab_roofline.launches["fma_peak"]
+    for chains, threads in ((3, 128), (1, 100), (1, 2048)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ab_roofline.fma_peak(a, x, 10, chains, threads)
+    assert ab_roofline.launches["fma_peak"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 3])
+def test_stream_kernel_matches_plain_on_card(rows):
+    """K7 in float32, 2,000 passes, rtol 1e-5 (chip_smoke's bound at 20,000),
+    also over a ragged last tile."""
+    _card()
+    a, b, x = (torch.from_numpy(v[:rows]).cuda() for v in ab_roofline.roofline_inputs()[1])
+    before = ab_roofline.launches["stream"]
+    got = ab_roofline.stream(a, b, x, 2000)
+    want = ab_roofline.stream_plain(a, b, x, 2000)
+    torch.cuda.synchronize()
+    assert ab_roofline.launches["stream"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ops, batch", [(10, 256), (1000, 4096), (100, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tape_kernel_matches_plain_on_card(dtype, n_ops, batch):
+    """K8 against the plain version, a batch that is no multiple of the
+    block included: atol 1e-6 in float32, 1e-12 in float64 (the kernel
+    fuses x y + c)."""
+    _card()
+    tape = bench_synthetic.make_tape(n_ops)
+    rng = np.random.default_rng(1)
+    s = torch.tensor(rng.uniform(0.5, 1.5, (bench_synthetic.N_STATE, batch)), dtype=dtype,
+                     device="cuda")
+    before = bench_synthetic.launches["tape"]
+    got = bench_synthetic.run_tape(tape, s)
+    want = bench_synthetic.apply_tape_rows(tape, s)
+    torch.cuda.synchronize()
+    assert bench_synthetic.launches["tape"] == before + 1
+    atol = 1e-6 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
