@@ -3,7 +3,7 @@
 // of the augmented system, the warm / cold load and the gate, the in-place
 // n-wide Jordan inverse with its Jacobi equilibration, the dual-Riccati
 // y-chain and its sweeps, the fraction-to-boundary rule, and the one
-// Newton-step kernel `pdipm_kernel<P, S>` with its two reduced-solve forms,
+// Newton-step kernel `pdipm_kernel<P, S, G>` with its two reduced-solve forms,
 // its four corrector forms and its host `launch`. A route is a policy P (the
 // end of this file says what it supplies): through pdipm_split.cuh,
 // pdipm_ric_aug.cu (K1), pdipm_ric.cu (K2) and their packed twins
@@ -13,8 +13,16 @@
 // (K5a) and pdipm_tridiag_aug.cu (K5b). Each route owns its shared-memory
 // `Layout`; the operators read only its fields T, gu, ad and bd.
 //
-// Every function here is called by all threads of a block; the ones that
-// end in __syncthreads leave the block synchronized.
+// The threads that work on one env are its group G, a compile-time parameter
+// of the kernel: `BlockGroup`, the whole 128-thread block (one env per
+// block; every route), or `WarpGroup<NW>`, NW warps, several envs per block
+// (K1 and K2 in their lean layouts, pdipm_split.cuh). Every function here
+// is called by all threads of the group `g` and spreads its items over
+// g.rank() / g.size(); the ones that end in g.sync() leave the group
+// synchronized. A warp group synchronizes with __syncwarp (NW = 1) or its
+// own named barrier (bar.sync), never with __syncthreads, exchanges values
+// through shared memory behind those barriers or through __shfl_sync, and
+// reduces with shuffle trees.
 
 #pragma once
 
@@ -22,7 +30,108 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 #define PDIPM_THREADS 128
+#define PDIPM_WARP_BLOCK_THREADS 256  // threads of a warp group's block at most
+
+// Phases of the clock64() breakdown (`PDIPM_PROFILE` builds only): a mark
+// PDIPM_MARK(g, ph) books the cycles since the group's previous mark to ph.
+enum {
+  PH_LOAD = 0,   // load_env and the route's setup, once per launch
+  PH_RESID,      // the KKT residual pass at the iterate
+  PH_REDUCE,     // group reductions: mu, mu_aff, the four step-length minima
+  PH_FOOT,       // the stage blocks: build and invert (the foot blocks)
+  PH_PT,         // P_t = Bd K^-1 and Y'_t
+  PH_YCHAIN,     // the dual-Riccati y-chain's inverses
+  PH_STAGE,      // a reduced solve's stage applies (all but the sweeps)
+  PH_SWEEP,      // a reduced solve's y sweeps
+  PH_REFINE,     // the refinement residuals and corrections
+  PH_UPDATE,     // right-hand sides, direction sums, ds and the step update
+  PH_STORE,      // the residual norms and the output
+  PH_COUNT
+};
+
+#ifdef PDIPM_PROFILE
+#define PDIPM_PROF_MAX_ENVS 4096
+// Cycles per env (< PDIPM_PROF_MAX_ENVS) and phase of the last launch,
+// written by each group's rank 0 at its end; read with `prof_read`.
+__device__ unsigned long long pdipm_prof[PDIPM_PROF_MAX_ENVS * PH_COUNT];
+struct ProfState {
+  mutable long long last = 0;
+  mutable unsigned long long acc[PH_COUNT] = {};
+};
+#define PDIPM_MARK(g, ph) (g).mark(ph)
+#else
+struct ProfState {};
+#define PDIPM_MARK(g, ph) ((void)0)
+#endif
+
+// bar.sync 1, N: named barrier 1 over N threads (a multiple of 32). The id
+// is an immediate, so that ptxas reserves 2 of an SM's barriers per block
+// and not all 16 (a register id held the 64-thread group to 4 blocks per
+// SM). Built for the host (`ops/host_build.py`), the shim's barrier.
+template <int N>
+__device__ __forceinline__ void named_barrier_1() {
+#ifdef PDIPM_HOST_SHIM
+  shim_named_barrier(1, N);
+#else
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+#endif
+}
+
+// One env per 128-thread block: today's configuration of every route.
+struct BlockGroup : ProfState {
+  static constexpr bool WARP = false;
+  static constexpr int THREADS = PDIPM_THREADS;
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ int slot() const { return 0; }
+  __device__ __forceinline__ long env() const { return blockIdx.x; }
+#ifdef PDIPM_PROFILE
+  __device__ __forceinline__ void mark(int ph) const {
+    if (rank() == 0) {
+      const long long t = clock64();
+      acc[ph] += t - last;
+      last = t;
+    }
+  }
+#endif
+};
+
+// NW warps per env, blockDim.x / (32 NW) envs per block (one for NW > 1,
+// which syncs on named barrier 1; 0 is __syncthreads'); env
+// blockIdx.x * envs_per_block + slot.
+template <int NW>
+struct WarpGroup : ProfState {
+  static constexpr bool WARP = true;
+  static constexpr int THREADS = 32 * NW;
+  int r, s;
+  __device__ __forceinline__ WarpGroup() : r(threadIdx.x % THREADS), s(threadIdx.x / THREADS) {}
+  __device__ __forceinline__ int rank() const { return r; }
+  __device__ __forceinline__ int size() const { return THREADS; }
+  __device__ __forceinline__ void sync() const {
+    if constexpr (NW == 1) {
+      __syncwarp();
+    } else {
+      named_barrier_1<THREADS>();
+    }
+  }
+  __device__ __forceinline__ int slot() const { return s; }
+  __device__ __forceinline__ long env() const {
+    return (long)blockIdx.x * (blockDim.x / THREADS) + s;
+  }
+#ifdef PDIPM_PROFILE
+  __device__ __forceinline__ void mark(int ph) const {
+    if (r == 0) {
+      const long long t = clock64();
+      acc[ph] += t - last;
+      last = t;
+    }
+  }
+#endif
+};
 
 // Register cap of each kernel (`__maxnreg__`). In f32 shared memory admits 4
 // blocks of K1 and 5 of K2 on an H100, so registers decide the blocks per SM:
@@ -31,9 +140,47 @@
 // solve time moved by a third. `__maxnreg__` ran K1 1.0% and K2 0.2% faster
 // than the same cap set as `__launch_bounds__(128, 4)` (PERF.md, PR 3). In
 // f64 shared memory admits 2 blocks of either, and 255 leaves nvcc free.
-template <typename S>
+// A warp takes its registers from one of an SM's four 16,384-register
+// files. A one-warp group is held to its envs per SM by shared memory (8
+// warps of K2 in f32: 2 a file), so 255 registers never bind; a two-warp
+// group in f32 gets 168, so that 3 of its warps share a file and the 6 envs
+// K1's lean layout fits at h10 (12 warps) reside: above 170, 2 warps a file
+// hold it to 4 (PERF.md, Findings).
+template <typename S, typename G = BlockGroup>
 struct MaxRegs {
-  static constexpr int value = sizeof(S) == 4 ? 128 : 255;
+  static constexpr int value =
+      !G::WARP ? (sizeof(S) == 4 ? 128 : 255) : (G::THREADS == 32 || sizeof(S) == 8 ? 255 : 168);
+};
+
+
+// Threads of one block at most: 128 for the block group, 256 (envs_per_block
+// warp groups) otherwise; with 255 registers a thread, 256 threads still fit
+// an SM's register file.
+template <typename G>
+struct MaxThreads {
+  static constexpr int value = G::WARP ? PDIPM_WARP_BLOCK_THREADS : PDIPM_THREADS;
+};
+
+// The kernel's configuration as one type, so that a macro argument holds no
+// comma (`__maxnreg__(Config<S, G>::regs)` would be two).
+template <typename S, typename G>
+struct KernelConfig {
+  static constexpr int regs = MaxRegs<S, G>::value;
+  static constexpr int threads = MaxThreads<G>::value;
+};
+
+// A lean route policy (pdipm_split.cuh) keeps f, b and d out of its layout
+// and reads them from device memory; K1's lean one also keeps no KKT
+// residual buffers (rx, rs, re) and forms each entry where it is read.
+// Every other policy has neither member and keeps both in shared memory.
+template <typename P, typename = void>
+struct LeanPolicy {
+  static constexpr bool inputs_in_global = false, residuals_formed = false;
+};
+template <typename P>
+struct LeanPolicy<P, std::void_t<decltype(P::INPUTS_IN_GLOBAL)>> {
+  static constexpr bool inputs_in_global = P::INPUTS_IN_GLOBAL;
+  static constexpr bool residuals_formed = P::RESIDUALS_FORMED;
 };
 
 static constexpr int NX_ = 12;   // states per knot
@@ -129,6 +276,42 @@ __device__ S block_min(S v, S* red) {
   S r = red[0];
   __syncthreads();
   return r;
+}
+
+// Reductions over one value per thread of the group: the block tree above
+// for the block group; for a warp group a butterfly of __shfl_xor_sync in
+// each warp (every lane adds the same two values, so every lane holds the
+// same bits), then the NW warp values in order through `red` (NW values).
+template <bool MIN, typename S, typename G>
+__device__ __forceinline__ S group_reduce(const G& g, S v, S* red) {
+  if constexpr (!G::WARP) {
+    return MIN ? block_min(v, red) : block_sum(v, red);
+  } else {
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) {
+      const S o = __shfl_xor_sync(0xffffffffu, v, h);
+      v = MIN ? nan_min(v, o) : v + o;
+    }
+    if constexpr (G::THREADS > 32) {
+      if ((g.rank() & 31) == 0) red[g.rank() >> 5] = v;
+      g.sync();
+      v = red[0];
+#pragma unroll
+      for (int w = 1; w < G::THREADS / 32; ++w) v = MIN ? nan_min(v, red[w]) : v + red[w];
+      g.sync();
+    }
+    return v;
+  }
+}
+
+template <typename S, typename G>
+__device__ __forceinline__ S group_sum(const G& g, S v, S* red) {
+  return group_reduce<false>(g, v, red);
+}
+
+template <typename S, typename G>
+__device__ __forceinline__ S group_min(const G& g, S v, S* red) {
+  return group_reduce<true>(g, v, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,10 +523,10 @@ __device__ S df_e4_entry(const S* sm, const Layout& L, int e, S r, S delta, cons
 // refine_df, as one compensated (sum, error) pair per component. Ends
 // synchronized. K1's residual entry (pdipm_ric_aug_residual_*) runs it alone;
 // the augmented solves of K1 and K5b call it.
-template <typename S, typename Layout>
-__device__ void refine_residual(S* sm, const Layout& L, bool refine_df, S beta, S delta,
-                                const S* dx, const S* dz, const S* dy) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+template <typename S, typename Layout, typename G>
+__device__ void refine_residual(const G& g, S* sm, const Layout& L, bool refine_df, S beta,
+                                S delta, const S* dx, const S* dz, const S* dy) {
+  const int tid = g.rank(), nt = g.size();
   const S* r1 = sm + L.r1;
   const S* rz = sm + L.rz;
   const S* r4 = sm + L.r4;
@@ -372,7 +555,7 @@ __device__ void refine_residual(S* sm, const Layout& L, bool refine_df, S beta, 
       e4[e] = r4[e] - mv;
     }
   }
-  __syncthreads();
+  g.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -383,16 +566,17 @@ __device__ void refine_residual(S* sm, const Layout& L, bool refine_df, S beta, 
 // its own env's rows: the kernels rely on this to let the outputs alias the
 // warm state (in-place continuation across launches).
 // ---------------------------------------------------------------------------
-template <typename S, typename Layout>
-__device__ void load_env(S* sm, const Layout& L, long env, const S* hd_in, const S* f_in,
+template <bool FBD_IN_SMEM = true, typename S, typename Layout, typename G>
+__device__ void load_env(const G& g, S* sm, const Layout& L, long env, const S* hd_in,
+                         const S* f_in,
                          const S* ad_in, const S* bd_in, const S* b_in, const S* gu_in,
                          const S* d_in, const S* x0, const S* s0, const S* z0, const S* y0) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = g.rank(), nt = g.size();
   const int nz = L.nz, ni = L.ni, ne = L.ne;
   const bool warm = x0 != nullptr;
   for (int i = tid; i < nz; i += nt) {
     sm[L.hd + i] = hd_in[env * nz + i];
-    sm[L.f + i] = f_in[env * nz + i];
+    if constexpr (FBD_IN_SMEM) sm[L.f + i] = f_in[env * nz + i];
     sm[L.x + i] = warm ? x0[env * nz + i] : S(0);
   }
   for (int i = tid; i < 144; i += nt) {
@@ -401,16 +585,16 @@ __device__ void load_env(S* sm, const Layout& L, long env, const S* hd_in, const
   }
   for (int i = tid; i < NI_ * NU_; i += nt) sm[L.gu + i] = gu_in[env * NI_ * NU_ + i];
   for (int i = tid; i < ne; i += nt) {
-    sm[L.b + i] = b_in[env * ne + i];
+    if constexpr (FBD_IN_SMEM) sm[L.b + i] = b_in[env * ne + i];
     sm[L.y + i] = warm ? y0[env * ne + i] : S(1);
   }
   for (int i = tid; i < ni; i += nt) {
     const S dv = d_in[env * ni + i];
-    sm[L.d + i] = dv;
+    if constexpr (FBD_IN_SMEM) sm[L.d + i] = dv;
     sm[L.s + i] = warm ? s0[env * ni + i] : (dv > S(1) ? dv : S(1));
     sm[L.z + i] = warm ? z0[env * ni + i] : S(1);
   }
-  __syncthreads();
+  g.sync();
 }
 
 // Gate of the adaptive solve: a kernel whose flag `go` (device memory) is 0
@@ -441,11 +625,11 @@ __device__ __forceinline__ int gj_block(int mi) {
   else return (mi >> 1) * N * LD + (mi & 1) * N;
 }
 
-template <int N, typename S, int LD = N>
-__device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S* colk, S* prow,
-                                   int* piv) {
+template <int N, typename S, int LD = N, typename G>
+__device__ void gj_inverse_inplace(const G& g, S* mats, int count, bool pivot, bool recip,
+                                   S* colk, S* prow, int* piv) {
   constexpr int NN = N * N;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = g.rank(), nt = g.size();
   for (int k = 0; k < N; ++k) {
     // Pivot choice, row swap, and the step's column / scaled pivot row.
     for (int mi = tid; mi < count; mi += nt) {
@@ -477,7 +661,7 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S
         for (int j = 0; j < N; ++j) prow[mi * N + j] = j == k ? ipv : a[k * LD + j] / pv;
       }
     }
-    __syncthreads();
+    g.sync();
     // Jordan step: row k <- scaled row; column k <- -col / pivot; rest rank-1.
     for (int it = tid; it < count * NN; it += nt) {
       const int mi = it / NN, i = (it % NN) / N, j = it % N;
@@ -491,7 +675,7 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S
         a[i * LD + j] -= colk[mi * N + i] * pr;
       }
     }
-    __syncthreads();
+    g.sync();
   }
   if (!pivot) return;
   // inv(A) = inv(P A) P: undo the row swaps as column swaps, last first.
@@ -507,7 +691,7 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S
       }
     }
   }
-  __syncthreads();
+  g.sync();
 }
 
 // The paired elimination of the packed routes (`_gj_pair_inplace`,
@@ -516,9 +700,82 @@ __device__ void gj_inverse_inplace(S* mats, int count, bool pivot, bool recip, S
 // barrier steps, each half with its own pivot search and row swaps (a swap
 // moves only its half's columns). Both JAX forms scale the pivot row by the
 // reciprocal. colk and prow hold 2T * N values, piv 2T * N.
-template <int N, typename S>
-__device__ void gj_pair(S* pairs, int T, bool pivot, S* colk, S* prow, int* piv) {
-  gj_inverse_inplace<N, S, 2 * N>(pairs, 2 * T, pivot, true, colk, prow, piv);
+template <int N, typename S, typename G>
+__device__ void gj_pair(const G& g, S* pairs, int T, bool pivot, S* colk, S* prow, int* piv) {
+  gj_inverse_inplace<N, S, 2 * N>(g, pairs, 2 * T, pivot, true, colk, prow, piv);
+}
+
+// The elimination of gj_inverse_inplace in a warp group (K1's lean layout,
+// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats` (stride 144): the
+// same pivot rule and arithmetic entry for entry, spread over the group by
+// blocks, entries and rows, and no row moved in memory. Step k finds each
+// block's pivot row p (one lane per block); forms its scaled pivot row (old
+// row p) and saves old row k (one lane per entry); then updates every row
+// (one lane per row), row p from old row k, each row's column-k entry read
+// before the row is written. A last pass undoes the swaps as column swaps.
+// prow and rowk hold count * 12 values, piv count * 12 ints.
+template <typename S, typename G>
+__device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool recip, S* prow,
+                                S* rowk, int* piv) {
+  constexpr int N = NX_;
+  const int tid = g.rank(), nt = g.size();
+  for (int k = 0; k < N; ++k) {
+    if (pivot) {
+      for (int mi = tid; mi < count; mi += nt) {
+        const S* a = mats + mi * N * N + k;
+        int p = k;
+        S best = a[k * N] < S(0) ? -a[k * N] : a[k * N];
+#pragma unroll
+        for (int i = 1; i < N; ++i) {  // rows k + 1 .. 11, every load issued up front
+          S v = a[i * N];
+          v = v < S(0) ? -v : v;
+          if (i > k && (v > best || (v != v && best == best))) { best = v; p = i; }
+        }
+        piv[mi * N + k] = p;
+      }
+      g.sync();
+    }
+    for (int it = tid; it < count * N; it += nt) {
+      const int mi = it / N, j = it % N;
+      const S* a = mats + mi * N * N;
+      const int p = pivot ? piv[mi * N + k] : k;
+      const S pv = a[p * N + k];
+      const S ipv = S(1) / pv;
+      const S apj = a[p * N + j];
+      prow[it] = j == k ? ipv : (recip ? ipv * apj : apj / pv);
+      rowk[it] = a[k * N + j];
+    }
+    g.sync();
+    for (int it = tid; it < count * N; it += nt) {
+      const int mi = it / N, i = it % N;
+      S* ai = mats + mi * N * N + i * N;
+      const S* pr = prow + mi * N;
+      if (i == k) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) ai[j] = pr[j];
+      } else {
+        const S* src = pivot && i == piv[mi * N + k] ? rowk + mi * N : ai;
+        const S ck = src[k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) ai[j] = j == k ? -ck * pr[k] : src[j] - ck * pr[j];
+      }
+    }
+    g.sync();
+  }
+  if (!pivot) return;
+  for (int it = tid; it < count * N; it += nt) {
+    S* row = mats + it * N;
+    const int* pv = piv + (it / N) * N;
+    for (int k = N - 1; k >= 0; --k) {
+      const int p = pv[k];
+      if (p != k) {
+        const S tmp = row[k];
+        row[k] = row[p];
+        row[p] = tmp;
+      }
+    }
+  }
+  g.sync();
 }
 
 // Jacobi equilibration (`kkt_scale="jacobi"`, `pdipm_pallas.py:333`):
@@ -532,37 +789,37 @@ __device__ __forceinline__ S jacobi_d(S a) {
   return S(1) / sqrt(a > S(1e-30) || a != a ? a : S(1e-30));
 }
 
-template <int N, typename S>
-__device__ void jacobi_factor(const S* mats, int count, S* dsc) {
-  for (int it = threadIdx.x; it < count * N; it += blockDim.x) {
+template <int N, typename S, typename G>
+__device__ void jacobi_factor(const G& g, const S* mats, int count, S* dsc) {
+  for (int it = g.rank(); it < count * N; it += g.size()) {
     const int mi = it / N, i = it % N;
     dsc[it] = jacobi_d(mats[mi * N * N + i * N + i]);
   }
-  __syncthreads();
+  g.sync();
 }
 
-template <int N, typename S>
-__device__ void jacobi_apply(S* mats, int count, const S* dsc) {
-  for (int it = threadIdx.x; it < count * N * N; it += blockDim.x) {
+template <int N, typename S, typename G>
+__device__ void jacobi_apply(const G& g, S* mats, int count, const S* dsc) {
+  for (int it = g.rank(); it < count * N * N; it += g.size()) {
     const int mi = it / (N * N), i = (it / N) % N, j = it % N;
     mats[it] = mats[it] * dsc[mi * N + i] * dsc[mi * N + j];
   }
-  __syncthreads();
+  g.sync();
 }
 
 // The stage inverses of a route: `count` independent N x N blocks inverted
 // in place, equilibrated first when `jacobi` (dsc: count * N scratch values).
 // Pivoted, they divide by the pivot (`_gj_inverse`); without pivoting they
 // take the no-pivot form of `gj_inplace` (`pdipm_pallas.py:327-331`).
-template <int N, typename S>
-__device__ void stage_inverse(S* mats, int count, bool pivot, bool gj_inplace, bool jacobi,
-                              S* colk, S* prow, int* piv, S* dsc) {
+template <int N, typename S, typename G>
+__device__ void stage_inverse(const G& g, S* mats, int count, bool pivot, bool gj_inplace,
+                              bool jacobi, S* colk, S* prow, int* piv, S* dsc) {
   if (jacobi) {
-    jacobi_factor<N>(mats, count, dsc);
-    jacobi_apply<N>(mats, count, dsc);
+    jacobi_factor<N>(g, mats, count, dsc);
+    jacobi_apply<N>(g, mats, count, dsc);
   }
-  gj_inverse_inplace<N>(mats, count, pivot, !pivot && gj_inplace, colk, prow, piv);
-  if (jacobi) jacobi_apply<N>(mats, count, dsc);
+  gj_inverse_inplace<N>(g, mats, count, pivot, !pivot && gj_inplace, colk, prow, piv);
+  if (jacobi) jacobi_apply<N>(g, mats, count, dsc);
 }
 
 // ---------------------------------------------------------------------------
@@ -572,10 +829,10 @@ __device__ void stage_inverse(S* mats, int count, bool pivot, bool gj_inplace, b
 // at `sc`. The blocks are negative definite: inverted without pivoting, in
 // the no-pivot form of `gj_inplace` (`pdipm_pallas.py:562`).
 // ---------------------------------------------------------------------------
-template <typename S>
-__device__ void dual_riccati_chain(S* m, const S* sc, int T, bool gj_inplace, S* q1, S* colk,
-                                   S* prow, int* piv) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+template <typename S, typename G>
+__device__ void dual_riccati_chain(const G& g, S* m, const S* sc, int T, bool gj_inplace, S* q1,
+                                   S* colk, S* prow, int* piv) {
+  const int tid = g.rank(), nt = g.size();
   for (int t = 0; t < T; ++t) {
     S* mt = m + t * 144;
     if (t >= 1) {
@@ -586,24 +843,24 @@ __device__ void dual_riccati_chain(S* m, const S* sc, int T, bool gj_inplace, S*
         for (int l = 0; l < NX_; ++l) acc += mp[i * NX_ + l] * sc[l * NX_ + j];
         q1[it] = acc;
       }
-      __syncthreads();
+      g.sync();
       for (int it = tid; it < 144; it += nt) {
         const int i = it / NX_, j = it % NX_;
         S acc = S(0);
         for (int l = 0; l < NX_; ++l) acc += sc[l * NX_ + i] * q1[l * NX_ + j];
         mt[it] -= acc;
       }
-      __syncthreads();
+      g.sync();
     }
-    gj_inverse_inplace<NX_>(mt, 1, false, gj_inplace, colk, prow, piv);
+    gj_inverse_inplace<NX_>(g, mt, 1, false, gj_inplace, colk, prow, piv);
   }
 }
 
 // Forward and backward sweeps of the y-chain: g (T x 12) holds the folded
 // y rows r'_t on entry; wy (T x 12) gets y. g is overwritten.
-template <typename S>
-__device__ void y_sweeps(const S* m, const S* sc, int T, S* g, S* wy, S* v12) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+template <typename S, typename G>
+__device__ void y_sweeps(const G& grp, const S* m, const S* sc, int T, S* g, S* wy, S* v12) {
+  const int tid = grp.rank(), nt = grp.size();
   // Forward sweep: g_t = r'_t - S^T (Yhat_{t-1}^-1 g_{t-1}).
   for (int t = 1; t < T; ++t) {
     for (int i = tid; i < NX_; i += nt) {
@@ -612,13 +869,13 @@ __device__ void y_sweeps(const S* m, const S* sc, int T, S* g, S* wy, S* v12) {
       for (int l = 0; l < NX_; ++l) acc += mp[l] * g[(t - 1) * NX_ + l];
       v12[i] = acc;
     }
-    __syncthreads();
+    grp.sync();
     for (int i = tid; i < NX_; i += nt) {
       S acc = S(0);
       for (int l = 0; l < NX_; ++l) acc += sc[l * NX_ + i] * v12[l];
       g[t * NX_ + i] -= acc;
     }
-    __syncthreads();
+    grp.sync();
   }
   // Backward sweep: y_t = Yhat_t^-1 (g_t - S y_{t+1}).
   for (int t = T - 1; t >= 0; --t) {
@@ -631,27 +888,158 @@ __device__ void y_sweeps(const S* m, const S* sc, int T, S* g, S* wy, S* v12) {
       }
       v12[i] = v;
     }
-    __syncthreads();
+    grp.sync();
     for (int i = tid; i < NX_; i += nt) {
       const S* mt = m + t * 144 + i * NX_;
       S acc = S(0);
       for (int l = 0; l < NX_; ++l) acc += mt[l] * v12[l];
       wy[t * NX_ + i] = acc;
     }
-    __syncthreads();
+    grp.sync();
   }
+}
+
+// ---------------------------------------------------------------------------
+// The y-chain and its sweeps in one warp (the lean layouts of K1 and K2,
+// pdipm_split.cuh): lane i < 12 holds row i of a stage's 12 x 12 block, or
+// entry i of a 12-vector, in registers; a pivot row or a vector is
+// broadcast by __shfl_sync, so a step of the chain or of a sweep costs no
+// barrier. The other lanes mirror lane 11 and store nothing.
+// ---------------------------------------------------------------------------
+
+template <typename S>
+__device__ __forceinline__ S lane_bcast(S v, int lane) {
+  return __shfl_sync(0xffffffffu, v, lane);
+}
+
+// In-place Jordan inverse of the 12 x 12 block whose row i this lane holds
+// in `a`, natural pivot order, the pivot row scaled by 1 / pivot (`recip`,
+// gj_form "inplace") or divided by the pivot ("tableau"), the pivot entry
+// written as 1 / pivot: `gj_inverse_inplace`'s arithmetic, entry for entry.
+template <typename S>
+__device__ __forceinline__ void gj_regs(S (&a)[NX_], int i, bool recip) {
+#pragma unroll
+  for (int k = 0; k < NX_; ++k) {
+    S pr[NX_];
+#pragma unroll
+    for (int j = 0; j < NX_; ++j) pr[j] = lane_bcast(a[j], k);
+    const S pv = pr[k];
+    const S ipv = S(1) / pv;
+    if (recip) {
+#pragma unroll
+      for (int j = 0; j < NX_; ++j) pr[j] = j == k ? ipv : ipv * pr[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < NX_; ++j) pr[j] = j == k ? ipv : pr[j] / pv;
+    }
+    const S ck = a[k];
+#pragma unroll
+    for (int j = 0; j < NX_; ++j)
+      a[j] = i == k ? pr[j] : (j == k ? -ck * pr[k] : a[j] - ck * pr[j]);
+  }
+}
+
+// `dual_riccati_chain` in the group's first warp: Y'_t from `yp` (T x 144),
+// Yhat_t^-1 into `m` (T x 144); q1 (144 values) carries Yhat_{t-1}^-1 S
+// between the lanes. Ends synchronized.
+template <typename S, typename G>
+__device__ void dual_riccati_chain_regs(const G& g, const S* yp, S* m, const S* sc, int T,
+                                        bool gj_inplace, S* q1) {
+  if (g.rank() < 32) {
+    const int lane = g.rank(), i = lane < NX_ ? lane : NX_ - 1;
+    S prev[NX_];
+#pragma unroll
+    for (int j = 0; j < NX_; ++j) prev[j] = S(0);
+    for (int t = 0; t < T; ++t) {
+      S a[NX_];
+#pragma unroll
+      for (int j = 0; j < NX_; ++j) a[j] = yp[t * 144 + i * NX_ + j];
+      if (t >= 1) {
+        // q1 = Yhat_{t-1}^-1 S (row i from this lane's registers), then
+        // Y'_t - S^T q1.
+        S q[NX_];
+#pragma unroll
+        for (int j = 0; j < NX_; ++j) q[j] = S(0);
+#pragma unroll
+        for (int l = 0; l < NX_; ++l)
+#pragma unroll
+          for (int j = 0; j < NX_; ++j) q[j] += prev[l] * sc[l * NX_ + j];
+        if (lane < NX_)
+#pragma unroll
+          for (int j = 0; j < NX_; ++j) q1[i * NX_ + j] = q[j];
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < NX_; ++j) {
+          S acc = S(0);
+#pragma unroll
+          for (int l = 0; l < NX_; ++l) acc += sc[l * NX_ + i] * q1[l * NX_ + j];
+          a[j] -= acc;
+        }
+        __syncwarp();
+      }
+      gj_regs(a, i, gj_inplace);
+      if (lane < NX_)
+#pragma unroll
+        for (int j = 0; j < NX_; ++j) m[t * 144 + i * NX_ + j] = a[j];
+#pragma unroll
+      for (int j = 0; j < NX_; ++j) prev[j] = a[j];
+    }
+  }
+  g.sync();
+}
+
+// `y_sweeps` in the group's first warp, through Yhat_t^-1 (`m`, T x 144):
+// g (T x 12) holds r'_t on entry and is overwritten; wy gets y.
+// Ends synchronized.
+template <typename S, typename G>
+__device__ void y_sweeps_regs(const G& grp, const S* m, const S* sc, int T, S* g, S* wy) {
+  if (grp.rank() < 32) {
+    const int lane = grp.rank(), i = lane < NX_ ? lane : NX_ - 1;
+    // Forward sweep: g_t = r'_t - S^T (Yhat_{t-1}^-1 g_{t-1}).
+    S gp = g[i];
+    for (int t = 1; t < T; ++t) {
+      const S* mp = m + (t - 1) * 144 + i * NX_;
+      S v = S(0);
+#pragma unroll
+      for (int l = 0; l < NX_; ++l) v += mp[l] * lane_bcast(gp, l);
+      S acc = S(0);
+#pragma unroll
+      for (int l = 0; l < NX_; ++l) acc += sc[l * NX_ + i] * lane_bcast(v, l);
+      gp = g[t * NX_ + i] - acc;
+      if (lane < NX_) g[t * NX_ + i] = gp;
+    }
+    // Backward sweep: y_t = Yhat_t^-1 (g_t - S y_{t+1}).
+    S yn = S(0);
+    for (int t = T - 1; t >= 0; --t) {
+      S v = g[t * NX_ + i];
+      if (t + 1 < T) {
+        S acc = S(0);
+#pragma unroll
+        for (int l = 0; l < NX_; ++l) acc += sc[i * NX_ + l] * lane_bcast(yn, l);
+        v -= acc;
+      }
+      const S* mt = m + t * 144 + i * NX_;
+      S y = S(0);
+#pragma unroll
+      for (int l = 0; l < NX_; ++l) y += mt[l] * lane_bcast(v, l);
+      if (lane < NX_) wy[t * NX_ + i] = y;
+      yn = y;
+    }
+  }
+  grp.sync();
 }
 
 // alpha = max(min(1, frac min_i(dv_i < 0 ? -v_i / dv_i : 1)), alpha_min);
 // NaN propagates, as jnp.minimum / jnp.maximum do.
-template <typename S>
-__device__ S frac_to_boundary(const S* v, const S* dv, int n, S* red, S frac, S alpha_min) {
+template <typename S, typename G>
+__device__ S frac_to_boundary(const G& g, const S* v, const S* dv, int n, S* red, S frac,
+                              S alpha_min) {
   S mn = S(INFINITY);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+  for (int k = g.rank(); k < n; k += g.size()) {
     const S c = dv[k] < S(0) ? -v[k] / dv[k] : S(1);
     mn = nan_min(mn, c);
   }
-  mn = block_min(mn, red);
+  mn = group_min(g, mn, red);
   S a = frac * mn;
   a = (a != a) ? a : (a < S(1) ? a : S(1));
   return (a != a) ? a : (a > alpha_min ? a : alpha_min);
@@ -666,10 +1054,10 @@ __device__ S frac_to_boundary(const S* v, const S* dv, int n, S* red, S frac, S 
 
 // Augmented: rz = r3 - r2 / Sigma already formed; the refinement residual of
 // the [x, z, y] system (`refine_residual`, working precision or df).
-template <typename P, typename S, typename Layout>
-__device__ void reduced_solve_aug(S* sm, const Layout& L, int refine_steps, bool refine_df,
-                                  S beta, S delta, S* dx, S* ds, S* dz, S* dy) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+template <typename P, typename S, typename Layout, typename G>
+__device__ void reduced_solve_aug(const G& g, S* sm, const Layout& L, int refine_steps,
+                                  bool refine_df, S beta, S delta, S* dx, S* ds, S* dz, S* dy) {
+  const int tid = g.rank(), nt = g.size();
   const S* r2 = sm + L.r2;
   const S* sig = sm + L.sig;
   S* ex = sm + L.ex;
@@ -677,26 +1065,30 @@ __device__ void reduced_solve_aug(S* sm, const Layout& L, int refine_steps, bool
   S* ey = sm + L.ey;
   const int nz = L.nz, ni = L.ni, ne = L.ne;
 
-  P::solve(sm, L, sm + L.r1, sm + L.rz, sm + L.r4, dx, dz, dy);
+  PDIPM_MARK(g, PH_UPDATE);
+  P::solve(g, sm, L, sm + L.r1, sm + L.rz, sm + L.r4, dx, dz, dy);
   for (int rs = 0; rs < refine_steps; ++rs) {
-    refine_residual(sm, L, refine_df, beta, delta, dx, dz, dy);
-    P::solve(sm, L, sm + L.e1, sm + L.ez, sm + L.e4, ex, ezz, ey);
+    refine_residual(g, sm, L, refine_df, beta, delta, dx, dz, dy);
+    PDIPM_MARK(g, PH_REFINE);
+    P::solve(g, sm, L, sm + L.e1, sm + L.ez, sm + L.e4, ex, ezz, ey);
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) dx[it] += ex[it];
       else if (it < nz + ni) dz[it - nz] += ezz[it - nz];
       else dy[it - nz - ni] += ey[it - nz - ni];
     }
-    __syncthreads();
+    g.sync();
+    PDIPM_MARK(g, PH_REFINE);
   }
   for (int k = tid; k < ni; k += nt) ds[k] = (r2[k] - dz[k]) / sig[k];
-  __syncthreads();
+  g.sync();
+  PDIPM_MARK(g, PH_UPDATE);
 }
 
 // Condensed: tmp = W^-1 (r3 - r2 / Sigma) already formed, z eliminated.
-template <typename P, typename S, typename Layout>
-__device__ void reduced_solve_condensed(S* sm, const Layout& L, int refine_steps, S beta,
-                                        S delta, S* dx, S* ds, S* dz, S* dy) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+template <typename P, typename S, typename Layout, typename G>
+__device__ void reduced_solve_condensed(const G& g, S* sm, const Layout& L, int refine_steps,
+                                        S beta, S delta, S* dx, S* ds, S* dz, S* dy) {
+  const int tid = g.rank(), nt = g.size();
   const S* r1 = sm + L.r1;
   const S* r2 = sm + L.r2;
   const S* r3 = sm + L.r3;
@@ -714,11 +1106,12 @@ __device__ void reduced_solve_condensed(S* sm, const Layout& L, int refine_steps
 
   // r1_hat = r1 + G^T (W^-1 (r3 - r2 / Sigma))
   for (int i = tid; i < nz; i += nt) r1h[i] = r1[i] + gT_entry(sm, L, i, tmp);
-  __syncthreads();
-  P::solve(sm, L, r1h, (const S*)nullptr, r4, dx, (S*)nullptr, dy);
+  g.sync();
+  PDIPM_MARK(g, PH_UPDATE);
+  P::solve(g, sm, L, r1h, (const S*)nullptr, r4, dx, (S*)nullptr, dy);
   for (int rs = 0; rs < refine_steps; ++rs) {
     for (int k = tid; k < ni; k += nt) tmp[k] = w[k] * g_entry(sm, L, k, dx);
-    __syncthreads();
+    g.sync();
     for (int it = tid; it < nz + ne; it += nt) {
       if (it < nz) {
         const int i = it;
@@ -730,13 +1123,15 @@ __device__ void reduced_solve_condensed(S* sm, const Layout& L, int refine_steps
         e4[e] = r4[e] - mv;
       }
     }
-    __syncthreads();
-    P::solve(sm, L, e1, (const S*)nullptr, e4, ex, (S*)nullptr, ey);
+    g.sync();
+    PDIPM_MARK(g, PH_REFINE);
+    P::solve(g, sm, L, e1, (const S*)nullptr, e4, ex, (S*)nullptr, ey);
     for (int it = tid; it < nz + ne; it += nt) {
       if (it < nz) dx[it] += ex[it];
       else dy[it - nz] += ey[it - nz];
     }
-    __syncthreads();
+    g.sync();
+    PDIPM_MARK(g, PH_REFINE);
   }
   // dz = W^-1 (G dx + r2 / Sigma - r3), ds = (r2 - dz) / Sigma
   for (int k = tid; k < ni; k += nt) {
@@ -744,18 +1139,19 @@ __device__ void reduced_solve_condensed(S* sm, const Layout& L, int refine_steps
     dz[k] = v;
     ds[k] = (r2[k] - v) / sig[k];
   }
-  __syncthreads();
+  g.sync();
+  PDIPM_MARK(g, PH_UPDATE);
 }
 
 // The route's reduced solve: the augmented or the condensed form.
-template <typename P, typename S, typename Layout>
-__device__ __forceinline__ void reduced_solve(S* sm, const Layout& L, int refine_steps,
-                                              bool refine_df, S beta, S delta, S* dx, S* ds,
-                                              S* dz, S* dy) {
+template <typename P, typename S, typename Layout, typename G>
+__device__ __forceinline__ void reduced_solve(const G& g, S* sm, const Layout& L,
+                                              int refine_steps, bool refine_df, S beta, S delta,
+                                              S* dx, S* ds, S* dz, S* dy) {
   if constexpr (P::AUG) {
-    reduced_solve_aug<P>(sm, L, refine_steps, refine_df, beta, delta, dx, ds, dz, dy);
+    reduced_solve_aug<P>(g, sm, L, refine_steps, refine_df, beta, delta, dx, ds, dz, dy);
   } else {
-    reduced_solve_condensed<P>(sm, L, refine_steps, beta, delta, dx, ds, dz, dy);
+    reduced_solve_condensed<P>(g, sm, L, refine_steps, beta, delta, dx, ds, dz, dy);
   }
 }
 
@@ -774,10 +1170,10 @@ __device__ __forceinline__ void set_rhs_ineq(S* sm, const Layout& L, int k, S v2
 }
 
 // d += e over the four parts of a direction (nz, ni, ni, ne values).
-template <typename S, typename Layout>
-__device__ void add_direction(const Layout& L, S* dx, S* ds, S* dz, S* dy, const S* ex,
-                              const S* es, const S* ez, const S* ey) {
-  const int tid = threadIdx.x, nt = blockDim.x, nz = L.nz, ni = L.ni, ne = L.ne;
+template <typename S, typename Layout, typename G>
+__device__ void add_direction(const G& g, const Layout& L, S* dx, S* ds, S* dz, S* dy,
+                              const S* ex, const S* es, const S* ez, const S* ey) {
+  const int tid = g.rank(), nt = g.size(), nz = L.nz, ni = L.ni, ne = L.ne;
   for (int it = tid; it < nz + ni + ne; it += nt) {
     if (it < nz) {
       dx[it] += ex[it];
@@ -789,12 +1185,13 @@ __device__ void add_direction(const Layout& L, S* dx, S* ds, S* dz, S* dy, const
       dy[it - nz - ni] += ey[it - nz - ni];
     }
   }
-  __syncthreads();
+  g.sync();
 }
 
 // ---------------------------------------------------------------------------
 // The Newton-step kernel of every route: `iterations` Mehrotra steps of one
-// env per block, from the cold start or the warm state, in the corrector
+// env per group G (a block, or NW warps of a block with several envs), from
+// the cold start or the warm state, in the corrector
 // form of `A.corrector_form` (`iteration_base`, `pdipm_pallas.py:1237-1485`):
 //   delta       refined affine solve, refined corrector solve, added;
 //   combined    unrefined affine solve, then one refined solve of the summed
@@ -808,16 +1205,17 @@ __device__ void add_direction(const Layout& L, S* dx, S* ds, S* dz, S* dy, const
 // A route policy P supplies:
 //   Layout, make_layout(T, size_of_s)  its shared-memory layout (host and
 //        device); besides the fields read above and below, `piv` (byte
-//        offset of its int pivot table) and `bytes`;
+//        offset of its int pivot table) and `bytes` (one env's; a block of
+//        a warp group holds envs_per_block of them, one after another);
 //   AUG  true: z stays in the stage blocks, W = Sigma^-1 + delta, the
 //        augmented reduced solve, refine_df accepted; false: z eliminated
 //        with W^-1 = Sigma / (1 + delta Sigma), the condensed reduced solve,
 //        refine_df refused by `launch`;
-//   setup(sm, L, beta, delta)  the solve's constants, after load_env;
-//   factor(sm, L, piv, beta, delta, ff)  the factorization at the current W
-//        (W^-1), with the options it reads (`FactorFlags`; routes ignore
+//   setup(g, sm, L, beta, delta)  the solve's constants, after load_env;
+//   factor(g, sm, L, piv, beta, delta, ff)  the factorization at the current
+//        W (W^-1), with the options it reads (`FactorFlags`; routes ignore
 //        those that do not apply to them);
-//   solve(sm, L, r1, rz, r4, dx, dz, dy)  one reduced solve through it.
+//   solve(g, sm, L, r1, rz, r4, dx, dz, dy)  one reduced solve through it.
 //
 // The corrector forms reuse the corrector's buffers (dxc ... dyc) for the
 // sum_refine correction and e1 (read only by a refinement pass, which the
@@ -825,27 +1223,44 @@ __device__ void add_direction(const Layout& L, S* dx, S* ds, S* dz, S* dy, const
 // The outputs may alias the warm state x0, s0, z0, y0 (load_env), so none of
 // those pointers is __restrict__.
 // ---------------------------------------------------------------------------
-template <typename P, typename S>
-__global__ void __launch_bounds__(PDIPM_THREADS) __maxnreg__(MaxRegs<S>::value)
+template <typename P, typename S, typename G = BlockGroup, typename C = KernelConfig<S, G>>
+__global__ void __launch_bounds__(C::threads) __maxnreg__(C::regs)
 pdipm_kernel(
     const S* __restrict__ hd_in, const S* __restrict__ f_in, const S* __restrict__ ad_in,
     const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
     const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
     S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran, int T,
-    const StepArgs<S> A) {
+    const StepArgs<S> A, int batch) {
   if (!gate_open(go, ran)) return;
+  const G g{};
+  const long env = g.env();
+  if constexpr (G::WARP) {
+    if (env >= batch) return;  // the last block's spare groups
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* sm = reinterpret_cast<S*>(smem_raw);
   const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
-  int* piv = reinterpret_cast<int*>(smem_raw + L.piv);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long env = blockIdx.x;
+  unsigned char* base = smem_raw + (size_t)g.slot() * L.bytes;
+  S* sm = reinterpret_cast<S*>(base);
+  int* piv = reinterpret_cast<int*>(base + L.piv);
+  const int tid = g.rank(), nt = g.size();
   const int nz = L.nz, ni = L.ni, ne = L.ne;
   S* red = sm + L.red;
   const S beta = A.beta, delta = A.delta;
+#ifdef PDIPM_PROFILE
+  g.last = clock64();
+#endif
 
-  load_env(sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0, y0);
-  P::setup(sm, L, beta, delta);
+  // f, b and d: in the layout, or (a lean layout that leaves them out) read
+  // from device memory through the read-only path once per Newton step.
+  constexpr bool fbd_global = LeanPolicy<P>::inputs_in_global;
+  constexpr bool formed = LeanPolicy<P>::residuals_formed;
+  load_env<!fbd_global>(g, sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0,
+                        y0);
+  P::setup(g, sm, L, beta, delta);
+  PDIPM_MARK(g, PH_LOAD);
+  const S* fv = fbd_global ? f_in + env * nz : sm + L.f;
+  const S* dv = fbd_global ? d_in + env * ni : sm + L.d;
+  const S* bv = fbd_global ? b_in + env * ne : sm + L.b;
 
   S* x = sm + L.x;
   S* s = sm + L.s;
@@ -864,19 +1279,40 @@ pdipm_kernel(
   const S nif = S(ni);
   const bool df = A.refine_df;
   const int form = A.corrector_form;
+  // The KKT residuals at the iterate, entry by entry: rx, rs, re.
+  auto rx_at = [&](int i) -> S {
+    return sm[L.hd + i] * x[i] + fv[i] + gT_entry(sm, L, i, z) + aT_entry(sm, L, i, y);
+  };
+  auto rs_at = [&](int k) -> S { return g_entry(sm, L, k, x) + s[k] - dv[k]; };
+  auto re_at = [&](int e) -> S { return a_entry(sm, L, e, x) - bv[e]; };
+  // ... as the step reads them: stored by the residual pass, or (`formed`)
+  // formed again, from the same iterate, where read.
+  auto rx_v = [&](int i) -> S { if constexpr (formed) return rx_at(i); else return rx[i]; };
+  auto rs_v = [&](int k) -> S { if constexpr (formed) return rs_at(k); else return rsb[k]; };
+  auto re_v = [&](int e) -> S { if constexpr (formed) return re_at(e); else return re[e]; };
+  S p0 = S(0), p1 = S(0), p2 = S(0);  // residual norms' partial sums (`formed`)
 
   for (int iter = 0; iter < A.iterations; ++iter) {
     const int refine = iter < A.refine_skip ? 0 : A.refine_steps;
+    const bool last = iter + 1 == A.iterations;
     // KKT residuals at the current iterate, Sigma, and W = 1 / Sigma + delta
     // (augmented) or W^-1 = Sigma / (1 + delta Sigma) (condensed).
     S part = S(0);
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
         const int i = it;
-        rx[i] = sm[L.hd + i] * x[i] + sm[L.f + i] + gT_entry(sm, L, i, z) + aT_entry(sm, L, i, y);
+        if constexpr (formed) {
+          if (last) { const S v = rx_at(i); p0 += v * v; }
+        } else {
+          rx[i] = rx_at(i);
+        }
       } else if (it < nz + ni) {
         const int k = it - nz;
-        rsb[k] = g_entry(sm, L, k, x) + s[k] - sm[L.d + k];
+        if constexpr (formed) {
+          if (last) { const S v = rs_at(k); p1 += v * v; }
+        } else {
+          rsb[k] = rs_at(k);
+        }
         S sg = z[k] / s[k] + delta;
         if (A.sigma_cap > S(0) && sg > A.sigma_cap) sg = A.sigma_cap;
         sig[k] = sg;
@@ -884,62 +1320,69 @@ pdipm_kernel(
         part += s[k] * z[k];
       } else {
         const int e = it - nz - ni;
-        re[e] = a_entry(sm, L, e, x) - sm[L.b + e];
+        if constexpr (formed) {
+          if (last) { const S v = re_at(e); p2 += v * v; }
+        } else {
+          re[e] = re_at(e);
+        }
       }
     }
-    const S mu = block_sum(part, red) / nif;  // syncs
+    PDIPM_MARK(g, PH_RESID);
+    const S mu = group_sum(g, part, red) / nif;  // syncs
+    PDIPM_MARK(g, PH_REDUCE);
 
-    P::factor(sm, L, piv, beta, delta, A.ff);
+    P::factor(g, sm, L, piv, beta, delta, A.ff);
 
     // Affine direction: rhs (-rx, -(s z)/s, -rs, -re); unrefined in the
     // combined and sum_refine forms.
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
-        r1[it] = -rx[it];
+        r1[it] = -rx_v(it);
       } else if (it < nz + ni) {
         const int k = it - nz;
-        set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k]) / s[k], -rsb[k]);
+        set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k]) / s[k], -rs_v(k));
       } else {
-        r4[it - nz - ni] = -re[it - nz - ni];
+        r4[it - nz - ni] = -re_v(it - nz - ni);
       }
     }
-    __syncthreads();
+    g.sync();
     const bool cheap_affine = form == CORRECTOR_COMBINED || form == CORRECTOR_SUM_REFINE;
-    reduced_solve<P>(sm, L, cheap_affine ? 0 : refine, df, beta, delta, dxa, dsa, dza, dya);
-    const S ap = frac_to_boundary(s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
-    const S adl = frac_to_boundary(z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
+    reduced_solve<P>(g, sm, L, cheap_affine ? 0 : refine, df, beta, delta, dxa, dsa, dza, dya);
+    const S ap = frac_to_boundary(g, s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
+    const S adl = frac_to_boundary(g, z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
     part = S(0);
     for (int k = tid; k < ni; k += nt) part += (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]);
-    const S mu_aff = block_sum(part, red) / nif;
+    const S mu_aff = group_sum(g, part, red) / nif;
     const S ratio = mu_aff / mu;
     const S sigma = ratio * ratio * ratio;
+    PDIPM_MARK(g, PH_REDUCE);
 
     // Corrector, rc = s z + ds_a dz_a - sigma mu: rhs (0, -rc/s, 0, 0), or
     // the summed rhs (-rx, -(s z + rc)/s, -rs, -re) in the combined form.
     const bool combined = form == CORRECTOR_COMBINED;
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
-        r1[it] = combined ? -rx[it] : S(0);
+        r1[it] = combined ? -rx_v(it) : S(0);
       } else if (it < nz + ni) {
         const int k = it - nz;
         const S rc = s[k] * z[k] + dsa[k] * dza[k] - sigma * mu;
         if (combined) {
-          set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k] + rc) / s[k], -rsb[k]);
+          set_rhs_ineq<P>(sm, L, k, -(s[k] * z[k] + rc) / s[k], -rs_v(k));
         } else {
           set_rhs_ineq<P>(sm, L, k, -rc / s[k], S(0));
           if (form == CORRECTOR_SUM_REFINE) r2s[k] = -(s[k] * z[k] + rc) / s[k];
         }
       } else {
-        r4[it - nz - ni] = combined ? -re[it - nz - ni] : S(0);
+        r4[it - nz - ni] = combined ? -re_v(it - nz - ni) : S(0);
       }
     }
-    __syncthreads();
+    g.sync();
     if (combined) {
-      reduced_solve<P>(sm, L, refine, df, beta, delta, dxa, dsa, dza, dya);
+      reduced_solve<P>(g, sm, L, refine, df, beta, delta, dxa, dsa, dza, dya);
     } else {
-      reduced_solve<P>(sm, L, form == CORRECTOR_DELTA ? refine : 0, df, beta, delta, dxc, dsc,
-                       dzc, dyc);
-      add_direction(L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
+      reduced_solve<P>(g, sm, L, form == CORRECTOR_DELTA ? refine : 0, df, beta, delta, dxc,
+                       dsc, dzc, dyc);
+      add_direction(g, L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
     }
     if (form == CORRECTOR_SUM_REFINE) {
       // Refine the summed direction against the full 4-row KKT residual:
@@ -951,24 +1394,27 @@ pdipm_kernel(
             const int i = it;
             const S m1 = sm[L.hd + i] * dxa[i] + beta * dxa[i] + gT_entry(sm, L, i, dza)
                        + aT_entry(sm, L, i, dya);
-            r1[i] = -rx[i] - m1;
+            r1[i] = -rx_v(i) - m1;
           } else if (it < nz + ni) {
             const int k = it - nz;
             const S m2 = sig[k] * dsa[k] + dza[k];
             const S m3 = g_entry(sm, L, k, dxa) + dsa[k] - delta * dza[k];
-            set_rhs_ineq<P>(sm, L, k, r2s[k] - m2, -rsb[k] - m3);
+            set_rhs_ineq<P>(sm, L, k, r2s[k] - m2, -rs_v(k) - m3);
           } else {
             const int e = it - nz - ni;
-            r4[e] = -re[e] - (a_entry(sm, L, e, dxa) - delta * dya[e]);
+            r4[e] = -re_v(e) - (a_entry(sm, L, e, dxa) - delta * dya[e]);
           }
         }
-        __syncthreads();
-        reduced_solve<P>(sm, L, 0, df, beta, delta, dxc, dsc, dzc, dyc);
-        add_direction(L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
+        g.sync();
+        PDIPM_MARK(g, PH_REFINE);
+        reduced_solve<P>(g, sm, L, 0, df, beta, delta, dxc, dsc, dzc, dyc);
+        add_direction(g, L, dxa, dsa, dza, dya, dxc, dsc, dzc, dyc);
       }
     }
-    const S alp = frac_to_boundary(s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
-    const S ald = frac_to_boundary(z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
+    PDIPM_MARK(g, PH_UPDATE);
+    const S alp = frac_to_boundary(g, s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
+    const S ald = frac_to_boundary(g, z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
+    PDIPM_MARK(g, PH_REDUCE);
     const S floor_ = A.sz_floor;
     for (int it = tid; it < nz + ni + ne; it += nt) {
       if (it < nz) {
@@ -983,23 +1429,27 @@ pdipm_kernel(
         y[it - nz - ni] += ald * dya[it - nz - ni];
       }
     }
-    __syncthreads();
+    g.sync();
+    PDIPM_MARK(g, PH_UPDATE);
   }
 
-  // Residual norms of the last step's start, and mu after it.
-  S p0 = S(0), p1 = S(0), p2 = S(0), p3 = S(0);
+  // Residual norms of the last step's start (summed by its residual pass
+  // when `formed`), and mu after it.
+  S p3 = S(0);
   if (A.iterations > 0) {
-    for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
+    if constexpr (!formed)
+      for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
     for (int k = tid; k < ni; k += nt) {
-      p1 += rsb[k] * rsb[k];
+      if constexpr (!formed) p1 += rsb[k] * rsb[k];
       p3 += s[k] * z[k];
     }
-    for (int e = tid; e < ne; e += nt) p2 += re[e] * re[e];
+    if constexpr (!formed)
+      for (int e = tid; e < ne; e += nt) p2 += re[e] * re[e];
   }
-  p0 = block_sum(p0, red);
-  p1 = block_sum(p1, red);
-  p2 = block_sum(p2, red);
-  p3 = block_sum(p3, red);
+  p0 = group_sum(g, p0, red);
+  p1 = group_sum(g, p1, red);
+  p2 = group_sum(g, p2, red);
+  p3 = group_sum(g, p3, red);
   for (int i = tid; i < nz; i += nt) x_out[env * nz + i] = x[i];
   for (int k = tid; k < ni; k += nt) {
     s_out[env * ni + k] = s[k];
@@ -1012,20 +1462,24 @@ pdipm_kernel(
     res_out[env * 4 + 2] = sqrt(p2);
     res_out[env * 4 + 3] = p3 / nif;
   }
+#ifdef PDIPM_PROFILE
+  PDIPM_MARK(g, PH_STORE);
+  if (tid == 0 && env < PDIPM_PROF_MAX_ENVS)
+    for (int ph = 0; ph < PH_COUNT; ++ph) pdipm_prof[env * PH_COUNT + ph] = g.acc[ph];
+#endif
 }
 
-// Host side of every route's `pdipm_<route>_f32` / `_f64` entry: sets the
-// kernel's shared memory, launches `batch` blocks on `stream` with the
-// options `*args` and returns a cudaError_t (0 = success). The compensated
-// residual refines the augmented system; a condensed route keeps the common
-// argument list, and `pdipm.check_options` refuses df there before any
-// launch, so the guard below fires only for a direct C caller.
-template <typename P, typename S>
-static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
-                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
-                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
-                  void* ran, int batch, int T, const PdipmArgs* args, void* stream) {
-  if (args == nullptr || (!P::AUG && args->refine_df != 0)) return (int)cudaErrorInvalidValue;
+// A launch geometry: the block group (128 threads, one env per block) or a
+// warp group of `threads` threads per env: 32 with `envs` envs per block (at
+// most PDIPM_WARP_BLOCK_THREADS threads), or 64 with one. False for anything
+// else.
+static inline bool group_geometry(int threads, int envs) {
+  if (threads == PDIPM_THREADS || threads == 64) return envs == 1;
+  return threads == 32 && envs >= 1 && threads * envs <= PDIPM_WARP_BLOCK_THREADS;
+}
+
+template <typename S>
+static StepArgs<S> step_args(const PdipmArgs* args) {
   StepArgs<S> a;
   a.iterations = args->iterations;
   a.refine_steps = args->refine_steps;
@@ -1040,21 +1494,120 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
   a.frac_to_boundary = (S)args->frac_to_boundary;
   a.alpha_min = (S)args->alpha_min;
   a.sz_floor = (S)args->sz_floor;
+  return a;
+}
+
+// Host side of one kernel instantiation: sets its shared memory (`envs`
+// layouts of one env), launches ceil(batch / envs) blocks of `threads`
+// threads on `stream`, and returns a cudaError_t (0 = success).
+template <typename P, typename S, typename G>
+static int launch_group(const void* hd, const void* f, const void* ad, const void* bd,
+                        const void* b, const void* gu, const void* d, const void* x0,
+                        const void* s0, const void* z0, const void* y0, void* x, void* s,
+                        void* z, void* y, void* res, const void* go, void* ran, int batch,
+                        int T, const StepArgs<S>& a, int threads, int envs, void* stream) {
   const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
-  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
+  const size_t bytes = L.bytes * (size_t)envs;
+  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
+  if constexpr (G::WARP) {
+    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (batch == 0) return 0;
-  pdipm_kernel<P, S><<<batch, PDIPM_THREADS, L.bytes, (cudaStream_t)stream>>>(
+  pdipm_kernel<P, S, G><<<(batch + envs - 1) / envs, threads, bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
       (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
-      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a);
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a, batch);
   return (int)cudaGetLastError();
 }
+
+// Host side of every route's `pdipm_<route>_f32` / `_f64` entry (the block
+// group of route P, one env per 128-thread block) and of K1's and K2's
+// `pdipm_<route>_warp_f32` / `_f64` (the warp group of `threads` threads per
+// env, `envs` envs per block, with P's lean twin PL): launches `batch` envs
+// on `stream` with the options `*args` and returns a cudaError_t (0 =
+// success). The compensated residual refines the augmented system; a
+// condensed route keeps the common argument list, and `pdipm.check_options`
+// refuses df there before any launch, so the guard below fires only for a
+// direct C caller, as does a geometry the route does not have.
+struct NoLean {};
+
+template <typename P, typename S, typename PL = NoLean>
+static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
+                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
+                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
+                  void* ran, int batch, int T, const PdipmArgs* args, void* stream,
+                  int threads = PDIPM_THREADS, int envs = 1) {
+  if (args == nullptr || (!P::AUG && args->refine_df != 0) || !group_geometry(threads, envs))
+    return (int)cudaErrorInvalidValue;
+  const StepArgs<S> a = step_args<S>(args);
+  if (threads == PDIPM_THREADS)
+    return launch_group<P, S, BlockGroup>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
+                                          res, go, ran, batch, T, a, threads, envs, stream);
+  if constexpr (std::is_same<PL, NoLean>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else if (threads == 32) {
+    return launch_group<PL, S, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z,
+                                             y, res, go, ran, batch, T, a, threads * envs, envs,
+                                             stream);
+  } else {
+    return launch_group<PL, S, WarpGroup<2>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z,
+                                             y, res, go, ran, batch, T, a, threads * envs, envs,
+                                             stream);
+  }
+}
+
+// Resident envs per SM of route P's block group, or of its lean twin PL in
+// the warp group of `threads` threads with `envs` envs per block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times envs); a negative
+// cudaError_t on failure.
+template <typename P, typename PL, typename S>
+static int envs_per_sm(int T, int threads, int envs) {
+  int blocks = 0;
+  cudaError_t err;
+  if (threads == PDIPM_THREADS) {
+    const size_t bytes = P::make_layout(T, (int)sizeof(S)).bytes;
+    err = cudaFuncSetAttribute(pdipm_kernel<P, S, BlockGroup>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, BlockGroup>,
+                                                          threads, bytes);
+    envs = 1;
+  } else {
+    const size_t bytes = PL::make_layout(T, (int)sizeof(S)).bytes * (size_t)envs;
+    auto kern = threads == 32 ? pdipm_kernel<PL, S, WarpGroup<1>> : pdipm_kernel<PL, S, WarpGroup<2>>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads * envs, bytes);
+  }
+  return err == cudaSuccess ? blocks * envs : -(int)err;
+}
+
+#ifdef PDIPM_PROFILE
+// Copies the breakdown of the last launch, n envs x PH_COUNT cycles, to the
+// host buffer `out` and clears the device table; a cudaError_t.
+static int prof_read(void* out, int n) {
+  if (n > PDIPM_PROF_MAX_ENVS) n = PDIPM_PROF_MAX_ENVS;
+  const size_t bytes = sizeof(unsigned long long) * PH_COUNT * (size_t)n;
+  cudaError_t err = cudaMemcpyFromSymbol(out, pdipm_prof, bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* dev = nullptr;
+  err = cudaGetSymbolAddress(&dev, pdipm_prof);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(dev, 0, sizeof(unsigned long long) * PH_COUNT * PDIPM_PROF_MAX_ENVS);
+}
+#endif
 
 // One route's extern "C" entries take these arguments: the QP inputs hd, f,
 // Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (all null: cold start);
 // the outputs x, s, z, y, res (they may be the warm buffers); the gate go and
-// the counter ran (null: always run, no count); batch, T, the options and the
-// stream (`pdipm_cuda.ENTRY_ARGTYPES`).
+// the counter ran (null: always run, no count); batch, T, the options and
+// the stream (`pdipm_cuda.ENTRY_ARGTYPES`); K1's and K2's warp entries also
+// threads per env and envs per block (`pdipm_cuda.WARP_ARGTYPES`).

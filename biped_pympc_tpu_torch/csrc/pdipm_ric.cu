@@ -1,5 +1,6 @@
 // Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP on the condensed
-// route, one thread block per env.
+// route, one env per warp in the route's lean layout, or, for comparison,
+// per 128-thread block in its block layout.
 //
 // Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` on its
 // backend="ric", foot_split=True route (`factor_ric_split`, `ric_solve`, the
@@ -24,11 +25,16 @@
 // barriers of small dependent eliminations, not by bandwidth. Its stage work
 // is 2T 4x4 inverses per step in place of 2T pivoted 12x12 ones.
 //
-// What the design does about that: every value of an env lives in the
-// block's dynamic shared memory for the whole solve (40,240 B f32 / 80,480 B
-// f64 at T = 10). The 2T foot blocks are built and inverted one per thread,
-// in registers; the y-chain, the sweeps and the operator applies spread
-// their entries over the block's threads as in the augmented kernel.
+// What the design does about that: every value of an env lives in shared
+// memory for the whole solve, but f, b and d, which a Newton step reads once
+// and the lean layout (`RicLean`, 27,584 B f32 / 55,168 B f64 at T = 10,
+// against the block layout's 40,240 / 80,480 B) leaves in device memory; a
+// one-warp group per env lets 8 envs (f32) share an SM, against 4 blocks.
+// The 2T foot blocks are built and inverted one per lane, in registers; the
+// y-chain and the sweeps run in the warp with a 12 x 12 block in registers
+// (pdipm_ric_aug.cu says how); the operator applies spread their entries
+// over the 32 lanes, synchronized by __syncwarp. The block group (`Ric`) is
+// the configuration before, kept bit for bit.
 //
 // Numerics: the foot blocks hold G^T W^-1 G with W^-1 up to ~1e8. They are
 // SPD, so natural-order elimination needs no pivot (the JAX kernel's
@@ -39,13 +45,16 @@
 // equilibrates each foot block in the thread's registers around its
 // inverse. Build without --use_fast_math: division and sqrt stay IEEE.
 //
-// The route's policy is `RicSplit<false>` of pdipm_split.cuh, for the
-// Newton-step kernel of pdipm_common.cuh.
+// The route's policies are `RicSplit<false>` (block layout) and
+// `RicSplit<false, true>` (lean) of pdipm_split.cuh, for the Newton-step
+// kernel of pdipm_common.cuh.
 
 #include "pdipm_split.cuh"
 
-// The route's policy for the shared Newton-step kernel (pdipm_common.cuh).
+// The route's policies for the shared Newton-step kernel (pdipm_common.cuh):
+// the block layout (block group) and the lean one (warp groups).
 struct Ric : RicSplit<false> {};
+struct RicLean : RicSplit<false, true> {};
 
 extern "C" {
 
@@ -55,6 +64,28 @@ size_t pdipm_ric_smem_bytes(int T, int value_size) {
   return Ric::make_layout(T, value_size).bytes;
 }
 
+// Dynamic shared memory of one env in the lean layout of the warp groups
+// (a block holds envs_per_block of them), in bytes.
+size_t pdipm_ric_lean_bytes(int T, int value_size) {
+  return RicLean::make_layout(T, value_size).bytes;
+}
+
+// Resident envs per SM of the block group (threads_per_env 128) or of a
+// warp group (32 or 64) with envs_per_block envs per block, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+int pdipm_ric_envs_per_sm(int T, int value_size, int threads_per_env, int envs_per_block) {
+  return value_size == 4
+      ? envs_per_sm<Ric, RicLean, float>(T, threads_per_env, envs_per_block)
+      : envs_per_sm<Ric, RicLean, double>(T, threads_per_env, envs_per_block);
+}
+
+#ifdef PDIPM_PROFILE
+// The clock64() breakdown of the last launch (a PDIPM_PROFILE build): n envs
+// x PH_COUNT cycles into `out`, then cleared; a cudaError_t.
+int pdipm_ric_profile_read(void* out, int n) { return prof_read(out, n); }
+#endif
+
 // Solve `batch` QPs on `stream`; the interface of pdipm_ric_aug_f32 /
 // pdipm_ric_aug_f64 (pdipm_ric_aug.cu), except that refine_df must be 0:
 // any other value returns cudaErrorInvalidValue and launches nothing.
@@ -63,7 +94,7 @@ int pdipm_ric_f32(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
                   const PdipmArgs* args, void* stream) {
-  return launch<Ric, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<Ric, float, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                             ran, batch, T, args, stream);
 }
 
@@ -72,8 +103,32 @@ int pdipm_ric_f64(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
                   const PdipmArgs* args, void* stream) {
-  return launch<Ric, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<Ric, double, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                              ran, batch, T, args, stream);
+}
+
+// The same solve in a warp group of `threads_per_env` (32 or 64) threads
+// per env, `envs_per_block` envs per block, in the route's lean layout
+// (`pdipm_ric_lean_bytes`); any other geometry returns
+// cudaErrorInvalidValue and launches nothing.
+int pdipm_ric_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
+  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
+  return launch<Ric, float, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+}
+
+int pdipm_ric_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
+  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
+  return launch<Ric, double, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
 }
 
 const char* pdipm_ric_error_string(int err) {

@@ -50,9 +50,9 @@ struct Ric2 {
     return make_ric_layout(T, size_of_s, NU_, false, true, false);
   }
 
-  template <typename S>
-  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
-    riccati_setup<false, false>(sm, L, beta, delta);
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(g, sm, L, beta, delta);
   }
 
   // Row o (< 14) of K_t^-1 r, r = [u (12), nu (2)], by the block formula
@@ -76,10 +76,10 @@ struct Ric2 {
     return t1 - (ri[6 * NU_ + o] * eta0 + ri[9 * NU_ + o] * eta1);
   }
 
-  template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags ff) {
-    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const int tid = g.rank(), nt = g.size(), T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
     const S* w = sm + L.w;
@@ -94,8 +94,8 @@ struct Ric2 {
       for (int q = 0; q < NI_; ++q) acc += gu[q * NU_ + r] * gu[q * NU_ + c] * wt[q];
       ka[it] = r == c ? acc + (hd[NX_ * T + r] + beta) : acc;
     }
-    __syncthreads();
-    stage_inverse<NU_>(ka, T, false, ff.gj_inplace, ff.jacobi, sm + L.colk, sm + L.prow, piv,
+    g.sync();
+    stage_inverse<NU_>(g, ka, T, false, ff.gj_inplace, ff.jacobi, sm + L.colk, sm + L.prow, piv,
                        sm + L.run);
     // S^-1 in closed form, S = [[sa, sb], [sb, sc]].
     for (int t = tid; t < T; t += nt) {
@@ -109,7 +109,7 @@ struct Ric2 {
       sn[t * 4 + 2] = -sb / det;
       sn[t * 4 + 3] = sa / det;
     }
-    __syncthreads();
+    g.sync();
     // kuu = Ru^-1 + (E Ru^-1)^T S^-1 (E Ru^-1); E Ru^-1 is rows 6 and 9 of Ru^-1.
     for (int it = tid; it < T * 144; it += nt) {
       const int t = it / 144, i = (it % 144) / NU_, j = it % NU_;
@@ -120,14 +120,15 @@ struct Ric2 {
       const S si1 = s4[2] * e6j + s4[3] * e9j;
       kuu[it] = ri[i * NU_ + j] + (ri[6 * NU_ + i] * si0 + ri[9 * NU_ + i] * si1);
     }
-    __syncthreads();
-    y_chain_from_kuu(sm, L, kuu, 144, NU_, delta, ff.gj_inplace, piv);
+    g.sync();
+    PDIPM_MARK(g, PH_FOOT);
+    y_chain_from_kuu(g, sm, L, kuu, 144, NU_, delta, ff.gj_inplace, piv);
   }
 
-  template <typename S>
-  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                               S* dx, S* dz, S* dy) {
-    riccati_solve<Ric2>(sm, L, r1, rz, r4, dx, dz, dy);
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<Ric2>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };
 

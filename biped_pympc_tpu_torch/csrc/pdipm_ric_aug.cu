@@ -1,4 +1,6 @@
-// Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP, one thread block per env.
+// Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP, one env per group of
+// 64 threads (two warps) in the route's lean layout, or, for comparison, per
+// 128-thread block in its block layout.
 //
 // Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` on its
 // backend="ric_aug", foot_split=True route (delta corrector), with its warm
@@ -10,22 +12,27 @@
 //
 // What bounds it on an H100: at T = 10 an env reads 1,260 values and writes
 // 704, so a b4096 solve moves ~32 MB (f32) to and from device memory, ~10 us
-// at 3.35 TB/s, against 43 ms measured for the whole solve (H100 80GB HBM3,
-// 700 W). The work is 20 Newton steps of small dependent eliminations (twenty
-// 12-wide pivoted Gauss-Jordan inverses, a T-long chain of 12-wide inverses,
-// and four forward/backward 12-wide sweeps per step), so the kernel is bound
-// by instruction latency and barriers, not by bandwidth.
+// at 3.35 TB/s, against tens of ms for the whole solve (PERF.md). The work is
+// 20 Newton steps of small dependent eliminations (twenty 12-wide pivoted
+// Gauss-Jordan inverses, a T-long chain of 12-wide inverses, and four
+// forward/backward 12-wide sweeps per step): the kernel is bound by the
+// latency of one env's chain of phases and by how many envs an SM holds,
+// not by bandwidth or arithmetic.
 //
 // What the design does about that: every value of an env (QP data, iterates,
-// residuals, factors, directions) lives in the block's dynamic shared memory
-// for the whole solve; device memory is read once and written once. The
-// block's threads share each phase's independent items: the 2T foot blocks'
-// entries during the factorization, the 144 entries of each y-chain step, the
-// T x 30 rows of the block-diagonal applies, the entries of every matvec.
-// Sequential recurrences (the y-chain, the sweeps) parallelize only over the
-// entries of one 12-wide step. mu, the residual norms and the
-// fraction-to-boundary minima are block reductions in a fixed order, so the
-// result does not depend on scheduling.
+// residuals, factors, directions) lives in shared memory for the whole solve;
+// device memory is read once and written once. In the warp group
+// (`RicAugLean`, pdipm_split.cuh) the lean layout (31-36 KB in f32 at T = 10
+// against the block layout's 54,928 B) lets 6 envs share an SM, against 4
+// blocks; the y-chain's inverses and the sweeps run in one warp with a
+// stage's 12 x 12 block in registers, a lane per row, the pivot row or the
+// vector passed by __shfl_sync, so a chain step costs no barrier; the foot
+// blocks are eliminated one row per lane, no row moved in memory; the
+// phases' independent items spread over the group's 64 lanes, synchronized
+// by named barrier 1; the reductions are shuffle trees. The block group
+// (`RicAug`) is the configuration before, kept bit for bit. mu, the residual
+// norms and the fraction-to-boundary minima are reductions in a fixed
+// order, so the result does not depend on scheduling.
 //
 // Numerics (ROADMAP Queue 3): the 12-wide augmented foot blocks are inverted
 // with a per-block partial-pivot search (natural order overflows to NaN on
@@ -37,14 +44,18 @@
 // around their inverse; the 2x2 pairs and the M_z scalars are not. Build
 // without --use_fast_math: division and sqrt stay IEEE.
 //
-// The route's policy (layout, factor, stage-inverse apply) is
-// `RicAugSplit<false>` of pdipm_split.cuh, for the Newton-step kernel of
-// pdipm_common.cuh; this file adds the refinement residual's own entry.
+// The route's policies (layout, factor, stage-inverse apply) are
+// `RicAugSplit<false>` (block layout) and `RicAugSplit<false, true>` (lean)
+// of pdipm_split.cuh, for the Newton-step kernel of pdipm_common.cuh; this
+// file adds the refinement residual's own entry (block layout) and the
+// entries of the warp group, its layout and its occupancy.
 
 #include "pdipm_split.cuh"
 
-// The route's policy for the shared Newton-step kernel (pdipm_common.cuh).
+// The route's policies for the shared Newton-step kernel (pdipm_common.cuh):
+// the block layout (block group) and the lean one (warp groups).
 struct RicAug : RicAugSplit<false> {};
+struct RicAugLean : RicAugSplit<false, true> {};
 
 using Layout = RicAug::Layout;
 
@@ -86,7 +97,8 @@ __global__ void __launch_bounds__(PDIPM_THREADS) pdipm_ric_aug_residual_kernel(
     sm[L.r4 + i] = r4_in[env * ne + i];
   }
   __syncthreads();
-  refine_residual(sm, L, refine_df != 0, beta, delta, sm + L.dxa, sm + L.dza, sm + L.dya);
+  refine_residual(BlockGroup{}, sm, L, refine_df != 0, beta, delta, sm + L.dxa, sm + L.dza,
+                  sm + L.dya);
   for (int i = tid; i < nz; i += nt) e1_out[env * nz + i] = sm[L.e1 + i];
   for (int i = tid; i < ni; i += nt) ez_out[env * ni + i] = sm[L.ez + i];
   for (int i = tid; i < ne; i += nt) e4_out[env * ne + i] = sm[L.e4 + i];
@@ -119,6 +131,28 @@ size_t pdipm_ric_aug_smem_bytes(int T, int value_size) {
   return RicAug::make_layout(T, value_size).bytes;
 }
 
+// Dynamic shared memory of one env in the lean layout of the warp groups
+// (a block holds envs_per_block of them), in bytes.
+size_t pdipm_ric_aug_lean_bytes(int T, int value_size) {
+  return RicAugLean::make_layout(T, value_size).bytes;
+}
+
+// Resident envs per SM of the block group (threads_per_env 128) or of a
+// warp group (32 or 64) with envs_per_block envs per block, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+int pdipm_ric_aug_envs_per_sm(int T, int value_size, int threads_per_env, int envs_per_block) {
+  return value_size == 4
+      ? envs_per_sm<RicAug, RicAugLean, float>(T, threads_per_env, envs_per_block)
+      : envs_per_sm<RicAug, RicAugLean, double>(T, threads_per_env, envs_per_block);
+}
+
+#ifdef PDIPM_PROFILE
+// The clock64() breakdown of the last launch (a PDIPM_PROFILE build): n envs
+// x PH_COUNT cycles into `out`, then cleared; a cudaError_t.
+int pdipm_ric_aug_profile_read(void* out, int n) { return prof_read(out, n); }
+#endif
+
 // Solve `batch` QPs on `stream`. All arrays are batch-first and contiguous:
 // hd, f, x0, x (B, 24T); ad, bd (B, 12, 12); b, y0, y (B, 14T); gu (B, 16, 12);
 // d, s0, z0, s, z (B, 16T); res (B, 4). x0, s0, z0, y0 are the warm start, or
@@ -131,7 +165,7 @@ int pdipm_ric_aug_f32(const void* hd, const void* f, const void* ad, const void*
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
                       const PdipmArgs* args, void* stream) {
-  return launch<RicAug, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<RicAug, float, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                                ran, batch, T, args, stream);
 }
 
@@ -140,7 +174,7 @@ int pdipm_ric_aug_f64(const void* hd, const void* f, const void* ad, const void*
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
                       const PdipmArgs* args, void* stream) {
-  return launch<RicAug, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<RicAug, double, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                                 ran, batch, T, args, stream);
 }
 
@@ -164,6 +198,30 @@ int pdipm_ric_aug_residual_f64(const void* hd, const void* ad, const void* bd, c
                                double delta, void* stream) {
   return launch_residual<double>(hd, ad, bd, gu, w, dx, dz, dy, r1, rz, r4, e1, ez, e4, batch, T,
                                  refine_df, beta, delta, stream);
+}
+
+// The same solve in a warp group of `threads_per_env` (32 or 64) threads
+// per env, `envs_per_block` envs per block, in the route's lean layout
+// (`pdipm_ric_aug_lean_bytes`); any other geometry returns
+// cudaErrorInvalidValue and launches nothing.
+int pdipm_ric_aug_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
+  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
+  return launch<RicAug, float, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+}
+
+int pdipm_ric_aug_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
+  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
+  return launch<RicAug, double, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
 }
 
 const char* pdipm_ric_aug_error_string(int err) {

@@ -21,13 +21,34 @@
 static constexpr int NUN_ = NU_ + NMX_;        // 14: [u, nu] per stage
 static constexpr int NKA_ = NU_ + NI_ + NMX_;  // 30: [u, z, nu] per stage
 
+// Entry (i, j) of Ad Q~^-1 Ad^T, and of the W-independent
+// yc = -delta I - Q~^-1 - sum_j c_j Bd_j Bd_j^T over the columns 6, 8, 9, 11.
+template <typename S, typename Layout>
+__device__ __forceinline__ S adqad_entry(const S* sm, const Layout& L, int i, int j) {
+  const S* ad = sm + L.ad;
+  const S* qinv = sm + L.qinv;
+  S acc = S(0);
+  for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * qinv[l] * ad[j * NX_ + l];
+  return acc;
+}
+
+template <typename S, typename Layout>
+__device__ __forceinline__ S yc_entry(const S* sm, const Layout& L, int i, int j, S delta) {
+  const S* bd = sm + L.bd;
+  const S* cf = sm + L.cf;
+  const S couter = cf[0] * bd[i * NU_ + 6] * bd[j * NU_ + 6]
+                 + cf[6] * bd[i * NU_ + 8] * bd[j * NU_ + 8]
+                 + cf[3] * bd[i * NU_ + 9] * bd[j * NU_ + 9]
+                 + cf[7] * bd[i * NU_ + 11] * bd[j * NU_ + 11];
+  return (i == j ? -delta - sm[L.qinv + i] : S(0)) - couter;
+}
+
 // q_inv = 1 / (Q + beta), S = Q~^-1 Ad^T and Ad Q~^-1 Ad^T; with PAIRS
 // (foot split) also the [M_x, nu] = [[r + beta, 1], [1, -delta]]^-1 and
-// M_z = 1 / (r + beta) coefficients cf, and with YC (K2) the W-independent
-// yc = -delta I - Q~^-1 - sum_j c_j Bd_j Bd_j^T over the columns 6, 8, 9, 11.
-template <bool PAIRS, bool YC, typename S, typename Layout>
-__device__ void riccati_setup(S* sm, const Layout& L, S beta, S delta) {
-  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+// M_z = 1 / (r + beta) coefficients cf, and with YC (K2) yc (`yc_entry`).
+template <bool PAIRS, bool YC, typename S, typename Layout, typename G>
+__device__ void riccati_setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+  const int tid = g.rank(), nt = g.size(), T = L.T;
   for (int i = tid; i < NX_; i += nt) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
   if constexpr (PAIRS) {
     if (tid == 0) {
@@ -44,39 +65,30 @@ __device__ void riccati_setup(S* sm, const Layout& L, S beta, S delta) {
       cf[7] = S(1) / (rr[11] + beta);
     }
   }
-  __syncthreads();
+  g.sync();
   for (int it = tid; it < (YC ? 3 : 2) * 144; it += nt) {
     const int k = it % 144, i = k / NX_, j = k % NX_;
-    const S* ad = sm + L.ad;
-    const S* qinv = sm + L.qinv;
     if (it < 144) {
-      sm[L.sc + k] = qinv[i] * ad[j * NX_ + i];
+      sm[L.sc + k] = sm[L.qinv + i] * sm[L.ad + j * NX_ + i];
     } else if (it < 288) {
-      S acc = S(0);
-      for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * qinv[l] * ad[j * NX_ + l];
-      sm[L.adqad + k] = acc;
+      sm[L.adqad + k] = adqad_entry(sm, L, i, j);
     } else if constexpr (YC) {
-      const S* bd = sm + L.bd;
-      const S* cf = sm + L.cf;
-      const S couter = cf[0] * bd[i * NU_ + 6] * bd[j * NU_ + 6]
-                     + cf[6] * bd[i * NU_ + 8] * bd[j * NU_ + 8]
-                     + cf[3] * bd[i * NU_ + 9] * bd[j * NU_ + 9]
-                     + cf[7] * bd[i * NU_ + 11] * bd[j * NU_ + 11];
-      sm[L.yc + k] = (i == j ? -delta - qinv[i] : S(0)) - couter;
+      sm[L.yc + k] = yc_entry(sm, L, i, j, delta);
     }
   }
-  __syncthreads();
+  g.sync();
 }
 
 // Y'_t from P_t = Bd (K_t^-1)_uu at L.p (T x 144), then the dual-Riccati
 // chain in the no-pivot form of `gj_inplace`: L.m holds Yhat_t^-1 on exit.
-template <typename S, typename Layout>
-__device__ void y_chain_from_p(S* sm, const Layout& L, S delta, bool gj_inplace, int* piv) {
-  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+template <typename S, typename Layout, typename G>
+__device__ void y_chain_from_p(const G& g, S* sm, const Layout& L, S delta, bool gj_inplace,
+                               int* piv) {
+  const int tid = g.rank(), nt = g.size(), T = L.T;
   const S* bd = sm + L.bd;
   const S* qinv = sm + L.qinv;
   const S* p = sm + L.p;
-  S* m = sm + L.m;
+  S* m = sm + L.yp;  // the block layouts' yp is their m
   for (int it = tid; it < T * 144; it += nt) {
     const int t = it / 144, i = (it % 144) / NX_, l = it % NX_;
     const S* pt = p + t * 144 + i * NX_;
@@ -87,16 +99,23 @@ __device__ void y_chain_from_p(S* sm, const Layout& L, S delta, bool gj_inplace,
     if (t >= 1) v -= sm[L.adqad + i * NX_ + l];
     m[it] = v;
   }
-  __syncthreads();
-  dual_riccati_chain(m, sm + L.sc, T, gj_inplace, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+  g.sync();
+  PDIPM_MARK(g, PH_PT);
+  if constexpr (G::WARP) {
+    dual_riccati_chain_regs(g, m, sm + L.m, sm + L.sc, T, gj_inplace, sm + L.q1);
+  } else {
+    dual_riccati_chain(g, m, sm + L.sc, T, gj_inplace, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+  }
+  PDIPM_MARK(g, PH_YCHAIN);
 }
 
 // P_t = Bd kuu_t for a dense (K_t^-1)_uu, entry (j, c) of stage t at
 // kuu[t * stage_stride + j * row_stride + c]; then `y_chain_from_p`.
-template <typename S, typename Layout>
-__device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage_stride,
-                                 int row_stride, S delta, bool gj_inplace, int* piv) {
-  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+template <typename S, typename Layout, typename G>
+__device__ void y_chain_from_kuu(const G& g, S* sm, const Layout& L, const S* kuu,
+                                 int stage_stride, int row_stride, S delta, bool gj_inplace,
+                                 int* piv) {
+  const int tid = g.rank(), nt = g.size(), T = L.T;
   const S* bd = sm + L.bd;
   S* p = sm + L.p;
   for (int it = tid; it < T * 144; it += nt) {
@@ -106,8 +125,8 @@ __device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage
     for (int j = 0; j < NU_; ++j) v += bd[i * NU_ + j] * k[j * row_stride];
     p[it] = v;
   }
-  __syncthreads();
-  y_chain_from_p(sm, L, delta, gj_inplace, piv);
+  g.sync();
+  y_chain_from_p(g, sm, L, delta, gj_inplace, piv);
 }
 
 // ---------------------------------------------------------------------------
@@ -115,12 +134,12 @@ __device__ void y_chain_from_kuu(S* sm, const Layout& L, const S* kuu, int stage
 // the y-chain: (r1, r4) -> (dx, dy) condensed, (r1, rz, r4) -> (dx, dz, dy)
 // augmented (`ric_solve:929`, `ric_solve_aug:1061`).
 // ---------------------------------------------------------------------------
-template <typename P, typename S, typename Layout>
-__device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                              S* dx, S* dz, S* dy) {
+template <typename P, typename S, typename Layout, typename G>
+__device__ void riccati_solve(const G& grp, S* sm, const Layout& L, const S* r1, const S* rz,
+                              const S* r4, S* dx, S* dz, S* dy) {
   constexpr int NZS = P::AUG ? NI_ : 0;  // z rows of the stage rhs
   constexpr int NR = NU_ + NZS + NMX_;   // stage rhs width: 30 or 14
-  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+  const int tid = grp.rank(), nt = grp.size(), T = L.T;
   const S* ad = sm + L.ad;
   const S* bd = sm + L.bd;
   const S* qinv = sm + L.qinv;
@@ -151,13 +170,13 @@ __device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, 
       g[k] = v;
     }
   }
-  __syncthreads();
+  grp.sync();
   // u rows of K^-1 r_un
   for (int it = tid; it < T * NU_; it += nt) {
     const int t = it / NU_, o = it % NU_;
     kr[it] = P::kinv_row(sm, L, t, o, run + t * NR);
   }
-  __syncthreads();
+  grp.sync();
   // r'_y = ry + Bd (K^-1 r_un)_u
   for (int it = tid; it < T * NX_; it += nt) {
     const int t = it / NX_, i = it % NX_;
@@ -165,8 +184,14 @@ __device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, 
     for (int j = 0; j < NU_; ++j) acc += bd[i * NU_ + j] * kr[t * NU_ + j];
     g[it] += acc;
   }
-  __syncthreads();
-  y_sweeps(m, sc, T, g, wy, v12);
+  grp.sync();
+  PDIPM_MARK(grp, PH_STAGE);
+  if constexpr (G::WARP) {
+    y_sweeps_regs(grp, m, sc, T, g, wy);
+  } else {
+    y_sweeps(grp, m, sc, T, g, wy, v12);
+  }
+  PDIPM_MARK(grp, PH_SWEEP);
   // u rhs += Bd^T y_t
   for (int it = tid; it < T * NU_; it += nt) {
     const int t = it / NU_, r = it % NU_;
@@ -174,7 +199,7 @@ __device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, 
     for (int l = 0; l < NX_; ++l) acc += wy[t * NX_ + l] * bd[l * NU_ + r];
     run[t * NR + r] += acc;
   }
-  __syncthreads();
+  grp.sync();
   // [u, (z,) nu] = K^-1 rhs; x_{t+1} = Q~^-1 (c_t - y_t + Ad^T y_{t+1}); y.
   for (int it = tid; it < T * NR + T * NX_; it += nt) {
     if (it < T * NR) {
@@ -195,7 +220,8 @@ __device__ void riccati_solve(S* sm, const Layout& L, const S* r1, const S* rz, 
       dy[k] = wy[k];
     }
   }
-  __syncthreads();
+  grp.sync();
+  PDIPM_MARK(grp, PH_STAGE);
 }
 
 // ---------------------------------------------------------------------------
@@ -212,9 +238,10 @@ struct RicLayout {
   int x, s, z, y, rx, rs, re, sig, w;
   // constants of the solve: q_inv, S = Q~^-1 Ad^T, Ad Q~^-1 Ad^T
   int qinv, sc, adqad;
-  // factors: T stage inverses, ric2's kuu and S^-1, T y-chain inverses,
-  // P_t = Bd (K_t^-1)_uu, elimination scratch
-  int ka, kuu, sn, m, p, colk, prow, q1;
+  // factors: T stage inverses, ric2's kuu and S^-1, T y-chain inverses
+  // (yp: where Y'_t is formed, here m itself), P_t = Bd (K_t^-1)_uu,
+  // elimination scratch
+  int ka, kuu, sn, m, yp, p, colk, prow, q1;
   // reduced-solve rhs (rz augmented; r3, tmp, r1h condensed), refinement,
   // directions
   int r1, r2, r3, r4, rz, tmp, r1h, e1, ez, e4, ex, ezz, ey;
@@ -245,6 +272,7 @@ static __host__ __device__ RicLayout make_ric_layout(int T, int size_of_s, int n
   L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, 144);
   L.ka = take(o, T * n * n); L.kuu = take(o, ric2 ? T * 144 : 0); L.sn = take(o, ric2 ? T * 4 : 0);
   L.m = take(o, T * 144); L.p = take(o, T * 144);
+  L.yp = L.m;
   L.colk = take(o, T * n); L.prow = take(o, T * n); L.q1 = take(o, 144);
   L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r3 = take(o, nic); L.r4 = take(o, L.ne);
   L.rz = take(o, nia); L.tmp = take(o, nic); L.r1h = take(o, aug ? 0 : L.nz);
@@ -282,9 +310,9 @@ struct RicDenseRoute {
     return make_ric_layout(T, size_of_s, N, AUG, false, true);
   }
 
-  template <typename S>
-  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
-    riccati_setup<false, false>(sm, L, beta, delta);
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(g, sm, L, beta, delta);
   }
 
   // Row o of K_t^-1 r, the stored inverse's row.
@@ -297,10 +325,10 @@ struct RicDenseRoute {
     return acc;
   }
 
-  template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags ff) {
-    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const int tid = g.rank(), nt = g.size(), T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
     const S* w = sm + L.w;
@@ -330,15 +358,16 @@ struct RicDenseRoute {
       }
       ka[it] = v;
     }
-    __syncthreads();
-    stage_inverse<N>(ka, T, AUG ? ff.aug_pivot : ff.k_pivot, ff.gj_inplace, ff.jacobi,
+    g.sync();
+    stage_inverse<N>(g, ka, T, AUG ? ff.aug_pivot : ff.k_pivot, ff.gj_inplace, ff.jacobi,
                      sm + L.colk, sm + L.prow, piv, sm + L.run);
-    y_chain_from_kuu(sm, L, ka, N * N, N, delta, ff.gj_inplace, piv);
+    PDIPM_MARK(g, PH_FOOT);
+    y_chain_from_kuu(g, sm, L, ka, N * N, N, delta, ff.gj_inplace, piv);
   }
 
-  template <typename S>
-  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                               S* dx, S* dz, S* dy) {
-    riccati_solve<RicDenseRoute>(sm, L, r1, rz, r4, dx, dz, dy);
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<RicDenseRoute>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };

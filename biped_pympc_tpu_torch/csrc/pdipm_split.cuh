@@ -2,7 +2,11 @@
 // K2 (`Ric`, pdipm_ric.cu) and K1 (`RicAug`, pdipm_ric_aug.cu), and of their
 // packed twins K5e-c (`RicPack`, pdipm_ric_pack.cu) and K5e-a (`RicAugPack`,
 // pdipm_ric_aug_pack.cu), one template each with the packing a compile-time
-// flag, so that K1's and K2's builds hold none of the packed code.
+// flag, so that K1's and K2's builds hold none of the packed code. A second
+// flag, LEAN, gives K1 and K2 the layout of their warp groups (`RicLean`,
+// `RicAugLean`; pdipm_common.cuh's `WarpGroup`): the same factor and solve,
+// with the buffers one step does not need at once sharing memory
+// (`make_layout` says which).
 //
 // Split (`foot_split=True`, `factor_ric_split:647`, `factor_ric_aug_split:735`):
 // per stage the [u, nu] (condensed) or [u, z, nu] (augmented) block splits
@@ -76,12 +80,12 @@ __device__ __forceinline__ void scale4(S* a, const S* dj) {
 // Y'_t = yc - P_t [Bd_L | Bd_R]^T - [t >= 1] Ad Q~^-1 Ad^T (yc holds -delta I
 // - Q~^-1 and the W-independent columns, `riccati_setup`), then the y-chain.
 // Row r of foot f's inverse at stage t starts at L.ka + P::krow(T, f, t, r).
-template <typename P, typename S, typename Layout>
-__device__ void y_chain_packed(S* sm, const Layout& L, bool gj_inplace, int* piv) {
-  const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+template <typename P, typename S, typename Layout, typename G>
+__device__ void y_chain_packed(const G& g, S* sm, const Layout& L, bool gj_inplace, int* piv) {
+  const int tid = g.rank(), nt = g.size(), T = L.T;
   const S* bd = sm + L.bd;
   const S* k = sm + L.ka;
-  S* m = sm + L.m;
+  S* m = sm + L.yp;  // Y'_t: m itself in the block layouts
   S* p = sm + L.p;
   for (int it = tid; it < T * NX_ * 8; it += nt) {
     const int t = it / (NX_ * 8), i = (it / 8) % NX_, a = it % 8, foot = a / 4;
@@ -90,7 +94,7 @@ __device__ void y_chain_packed(S* sm, const Layout& L, bool gj_inplace, int* piv
       v += bd[i * NU_ + foot_col(foot, bb)] * k[P::krow(T, foot, t, bb) + a % 4];
     p[it] = v;
   }
-  __syncthreads();
+  g.sync();
   for (int it = tid; it < T * 144; it += nt) {
     const int t = it / 144, i = (it % 144) / NX_, l = it % NX_;
     const S* pt = p + (t * NX_ + i) * 8;
@@ -100,8 +104,14 @@ __device__ void y_chain_packed(S* sm, const Layout& L, bool gj_inplace, int* piv
     if (t >= 1) v -= sm[L.adqad + i * NX_ + l];
     m[it] = v;
   }
-  __syncthreads();
-  dual_riccati_chain(m, sm + L.sc, T, gj_inplace, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+  g.sync();
+  PDIPM_MARK(g, PH_PT);
+  if constexpr (G::WARP) {
+    dual_riccati_chain_regs(g, m, sm + L.m, sm + L.sc, T, gj_inplace, sm + L.q1);
+  } else {
+    dual_riccati_chain(g, m, sm + L.sc, T, gj_inplace, sm + L.q1, sm + L.colk, sm + L.prow, piv);
+  }
+  PDIPM_MARK(g, PH_YCHAIN);
 }
 
 // ---------------------------------------------------------------------------
@@ -109,9 +119,12 @@ __device__ void y_chain_packed(S* sm, const Layout& L, bool gj_inplace, int* piv
 // SPD block G_f^T diag(W^-1_f) G_f + diag(r_f + beta), inverted without
 // pivoting (k_pivot does not apply to the split).
 // ---------------------------------------------------------------------------
-template <bool PACK>
+template <bool PACK, bool LEAN = false>
 struct RicSplit {
+  static_assert(!(PACK && LEAN), "the packed route has no lean layout");
   static constexpr bool AUG = false;
+  // pdipm_common.cuh's LeanPolicy: f, b, d in device memory when lean
+  static constexpr bool INPUTS_IN_GLOBAL = LEAN, RESIDUALS_FORMED = false;
 
   // Index layout of all per-env buffers in shared memory (in values of S).
   struct Layout {
@@ -125,8 +138,9 @@ struct RicSplit {
     // the 2x2 / 1x1 inverse coefficients
     int qinv, sc, adqad, yc, cf;
     // factors: 2T foot-block inverses (4x4; packed, T pairs of 4 x 8), T
-    // y-chain inverses, P_t = Bd_f K_f^-1, elimination scratch
-    int ka, m, p, colk, prow, q1;
+    // y-chain inverses, Y'_t (m itself but in the lean layout), P_t =
+    // Bd_f K_f^-1, elimination scratch
+    int ka, m, yp, p, colk, prow, q1;
     // reduced-solve rhs, refinement, directions
     int r1, r2, r3, r4, r1h, tmp, e1, e4, ex, ey;
     int dxa, dsa, dza, dya, dxc, dsc, dzc, dyc;
@@ -142,6 +156,13 @@ struct RicSplit {
     return PACK ? t * 32 + r * 8 + foot * 4 : (foot * T + t) * 16 + r * 4;
   }
 
+  // The block layout (every buffer its own), or with LEAN the warp group's:
+  // f, b and d left in device memory, the refinement solved in place
+  // (ex = e1, ey = e4), r2, r3 and r1_hat in dsc, dzc and r1 (each read
+  // entry by entry where the solve writes the entry that replaces it), and
+  // one union region for what a Newton step needs only
+  // inside the factor (P_t, Y'_t, Ad Q~^-1 Ad^T, yc and the chain's q1) and
+  // only after it (the rhs, refinement, directions and sweep buffers).
   static __host__ __device__ Layout make_layout(int T, int size_of_s) {
     Layout L;
     L.T = T;
@@ -150,33 +171,58 @@ struct RicSplit {
     L.ne = 14 * T;
     // the paired elimination's scratch: one column and one row per half
     const int nk = PACK && 8 * T > NX_ ? 8 * T : NX_;
+    const int fbd = LEAN ? 0 : 1;
     int o = 0;
-    L.hd = take(o, L.nz); L.f = take(o, L.nz); L.ad = take(o, 144); L.bd = take(o, 144);
-    L.b = take(o, L.ne); L.gu = take(o, NI_ * NU_); L.d = take(o, L.ni);
+    L.hd = take(o, L.nz); L.f = take(o, fbd * L.nz); L.ad = take(o, 144); L.bd = take(o, 144);
+    L.b = take(o, fbd * L.ne); L.gu = take(o, NI_ * NU_); L.d = take(o, fbd * L.ni);
     L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
     L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
     L.sig = take(o, L.ni); L.w = take(o, L.ni);
-    L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, 144); L.yc = take(o, 144);
+    L.qinv = take(o, NX_); L.sc = take(o, 144);
+    L.adqad = take(o, LEAN ? 0 : 144); L.yc = take(o, LEAN ? 0 : 144);
     L.cf = take(o, 8);
-    L.ka = take(o, 2 * T * 16); L.m = take(o, T * 144); L.p = take(o, T * NX_ * 8);
-    L.colk = take(o, nk); L.prow = take(o, nk); L.q1 = take(o, 144);
-    L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r3 = take(o, L.ni); L.r4 = take(o, L.ne);
-    L.r1h = take(o, L.nz); L.tmp = take(o, L.ni);
-    L.e1 = take(o, L.nz); L.e4 = take(o, L.ne); L.ex = take(o, L.nz); L.ey = take(o, L.ne);
-    L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
-    L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
-    L.run = take(o, T * NUN_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
-    L.wy = take(o, T * NX_); L.v12 = take(o, NX_); L.red = take(o, PDIPM_THREADS);
-    L.total = o;
-    L.piv = o * size_of_s;
-    L.bytes = (size_t)L.piv;
+    if constexpr (LEAN) {
+      L.ka = take(o, 2 * T * 16); L.m = take(o, T * 144); L.red = take(o, 4);
+      const int u = o;
+      L.r1 = take(o, L.nz); L.r4 = take(o, L.ne);
+      L.r1h = L.r1;  // r1 is read once, entry by entry, where r1_hat is formed
+      L.tmp = take(o, L.ni);
+      L.e1 = take(o, L.nz); L.e4 = take(o, L.ne); L.ex = L.e1; L.ey = L.e4;
+      L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+      L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+      L.r2 = L.dsc; L.r3 = L.dzc;
+      L.run = take(o, T * NUN_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+      L.wy = take(o, T * NX_); L.v12 = take(o, 0);
+      int f = u;  // with Ad Q~^-1 Ad^T and yc formed anew each factor
+      L.p = take(f, T * NX_ * 8); L.yp = take(f, T * 144); L.q1 = take(f, 144);
+      L.adqad = take(f, 144); L.yc = take(f, 144);
+      L.colk = L.prow = f;  // unused
+      o = o > f ? o : f;
+      L.total = o;
+      L.piv = o * size_of_s;
+      L.bytes = ((size_t)L.piv + 15) / 16 * 16;
+    } else {
+      L.ka = take(o, 2 * T * 16); L.m = take(o, T * 144); L.p = take(o, T * NX_ * 8);
+      L.yp = L.m;
+      L.colk = take(o, nk); L.prow = take(o, nk); L.q1 = take(o, 144);
+      L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r3 = take(o, L.ni); L.r4 = take(o, L.ne);
+      L.r1h = take(o, L.nz); L.tmp = take(o, L.ni);
+      L.e1 = take(o, L.nz); L.e4 = take(o, L.ne); L.ex = take(o, L.nz); L.ey = take(o, L.ne);
+      L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+      L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+      L.run = take(o, T * NUN_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+      L.wy = take(o, T * NX_); L.v12 = take(o, NX_); L.red = take(o, PDIPM_THREADS);
+      L.total = o;
+      L.piv = o * size_of_s;
+      L.bytes = (size_t)L.piv;
+    }
     return L;
   }
 
   // q_inv, S, Ad Q~^-1 Ad^T, the [M_x, nu] pair / M_z coefficients and yc.
-  template <typename S>
-  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
-    riccati_setup<true, true>(sm, L, beta, delta);
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<true, true>(g, sm, L, beta, delta);
   }
 
   // Row o (< 14) of K_t^-1 r, r = [u(12), nu(2)].
@@ -204,10 +250,10 @@ struct RicSplit {
   }
 
   // Factorization of the condensed KKT at the current W^-1.
-  template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags ff) {
-    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const int tid = g.rank(), nt = g.size(), T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
     const S* w = sm + L.w;
@@ -251,15 +297,24 @@ struct RicSplit {
 #pragma unroll
         for (int j = 0; j < 4; ++j) ka[krow(T, foot, t, i) + j] = a[i * 4 + j];
     }
-    __syncthreads();
-    if (!in_regs) gj_pair<4>(ka, T, false, sm + L.colk, sm + L.prow, piv);
-    y_chain_packed<RicSplit>(sm, L, ff.gj_inplace, piv);
+    if constexpr (LEAN) {
+      // Ad Q~^-1 Ad^T and yc into the union, as riccati_setup forms them.
+      for (int it = tid; it < 288; it += nt) {
+        const int k = it % 144, i = k / NX_, j = k % NX_;
+        sm[(it < 144 ? L.adqad : L.yc) + k] =
+            it < 144 ? adqad_entry(sm, L, i, j) : yc_entry(sm, L, i, j, delta);
+      }
+    }
+    g.sync();
+    if (!in_regs) gj_pair<4>(g, ka, T, false, sm + L.colk, sm + L.prow, piv);
+    PDIPM_MARK(g, PH_FOOT);
+    y_chain_packed<RicSplit>(g, sm, L, ff.gj_inplace, piv);
   }
 
-  template <typename S>
-  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                               S* dx, S* dz, S* dy) {
-    riccati_solve<RicSplit>(sm, L, r1, rz, r4, dx, dz, dy);
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<RicSplit>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };
 
@@ -271,9 +326,13 @@ struct RicSplit {
 // ---------------------------------------------------------------------------
 static constexpr int NF_ = 12;  // width of a foot block [F (3), M_y (1), z_f (8)]
 
-template <bool PACK>
+template <bool PACK, bool LEAN = false>
 struct RicAugSplit {
+  static_assert(!(PACK && LEAN), "the packed route has no lean layout");
   static constexpr bool AUG = true;
+  // pdipm_common.cuh's LeanPolicy: f, b, d in device memory and the KKT
+  // residuals formed where read, when lean
+  static constexpr bool INPUTS_IN_GLOBAL = LEAN, RESIDUALS_FORMED = LEAN;
 
   // Index layout of all per-env buffers in shared memory (in values of S).
   struct Layout {
@@ -286,12 +345,14 @@ struct RicAugSplit {
     // packed route's yc (`RicSplit`), 2x2 / 1x1 coefficients
     int qinv, sc, adqad, yc, cf;
     // factors: 2T foot-block inverses (packed, T pairs of 12 x 24), T y-chain
-    // inverses, P_t, elimination scratch
-    int ka, m, p, colk, prow, q1;
+    // inverses, Y'_t (yp: m itself in the block layouts), P_t, elimination
+    // scratch (rowk: the lean layout's only; colk: the block layouts') and
+    // Jacobi's D (dj)
+    int ka, m, yp, p, colk, prow, rowk, q1, dj;
     // reduced-solve rhs / directions
     int r1, rz, r4, r2, e1, ez, e4, ex, ezz, ey;
     int dxa, dsa, dza, dya, dxc, dsc, dzc, dyc;
-    // sweep scratch; `run` also holds Jacobi's D during the factor
+    // sweep scratch
     int run, kr, g, wy, v12, red;
     int total;      // values of S
     int piv;        // byte offset of the int pivot table
@@ -303,40 +364,80 @@ struct RicAugSplit {
     return PACK ? t * 2 * 144 + r * 2 * NF_ + foot * NF_ : (foot * T + t) * 144 + r * NF_;
   }
 
+  // The block layout (every buffer its own), or with LEAN the warp group's:
+  // f, b and d left in device memory and no KKT residual buffers (the step
+  // forms rx, rs, re where it reads them), the refinement solved in place
+  // (ex = e1, ezz = ez, ey = e4), r2 in dsc (ds = (r2 - dz) / Sigma reads it
+  // entry by entry where it writes the solve's ds, dsa or dsc), and one union
+  // region for what a Newton step needs only inside the factor (P_t, Y'_t,
+  // Ad Q~^-1 Ad^T and the chain's q1) and only after it (the rhs,
+  // refinement, directions and sweep buffers). The foot blocks' elimination
+  // scratch (prow, rowk, Jacobi's D and the pivot table) lies in m, which the
+  // factor rewrites after it. The inverses stay whole: the unrefined solves of
+  // the corrector forms carry the rounding of whichever triangle a half
+  // would keep (PERF.md, Findings).
   static __host__ __device__ Layout make_layout(int T, int size_of_s) {
     Layout L;
     L.T = T;
     L.nz = 24 * T;
     L.ni = 16 * T;
     L.ne = 14 * T;
+    const int kept = LEAN ? 0 : 1;  // f, b, d, rx, rs, re, Ad Q~^-1 Ad^T
     int o = 0;
-    L.hd = take(o, L.nz); L.f = take(o, L.nz); L.ad = take(o, 144); L.bd = take(o, 144);
-    L.b = take(o, L.ne); L.gu = take(o, NI_ * NU_); L.d = take(o, L.ni);
+    L.hd = take(o, L.nz); L.f = take(o, kept * L.nz); L.ad = take(o, 144); L.bd = take(o, 144);
+    L.b = take(o, kept * L.ne); L.gu = take(o, NI_ * NU_); L.d = take(o, kept * L.ni);
     L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
-    L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
+    L.rx = take(o, kept * L.nz); L.rs = take(o, kept * L.ni); L.re = take(o, kept * L.ne);
     L.sig = take(o, L.ni); L.w = take(o, L.ni);
-    L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, 144);
+    L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, kept * 144);
     L.yc = take(o, PACK ? 144 : 0); L.cf = take(o, 8);
-    L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.p = take(o, T * 144);
-    L.colk = take(o, 2 * T * NF_); L.prow = take(o, 2 * T * NF_); L.q1 = take(o, 144);
-    L.r1 = take(o, L.nz); L.rz = take(o, L.ni); L.r4 = take(o, L.ne); L.r2 = take(o, L.ni);
-    L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
-    L.ex = take(o, L.nz); L.ezz = take(o, L.ni); L.ey = take(o, L.ne);
-    L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
-    L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
-    L.run = take(o, T * NKA_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
-    L.wy = take(o, T * NX_); L.v12 = take(o, NX_); L.red = take(o, PDIPM_THREADS);
-    L.total = o;
-    L.piv = o * size_of_s;
-    L.bytes = (size_t)L.piv + sizeof(int) * 2 * T * NF_;
+    if constexpr (LEAN) {
+      L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.red = take(o, 4);
+      const int u = o;
+      L.r1 = take(o, L.nz); L.rz = take(o, L.ni); L.r4 = take(o, L.ne);
+      L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
+      L.ex = L.e1; L.ezz = L.ez; L.ey = L.e4;
+      L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+      L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+      L.r2 = L.dsc;
+      L.run = take(o, T * NKA_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+      L.wy = take(o, T * NX_); L.v12 = take(o, 0);
+      int fm = L.m;  // 72 T of m's 144 T, then the pivot table
+      L.prow = take(fm, 2 * T * NF_); L.rowk = take(fm, 2 * T * NF_); L.dj = take(fm, 2 * T * NF_);
+      L.colk = L.prow;
+      const int piv_at = fm;
+      int fb = u;  // the y-chain's factor, with Ad Q~^-1 Ad^T formed anew
+      L.p = take(fb, T * 144); L.yp = take(fb, T * 144); L.q1 = take(fb, 144);
+      L.adqad = take(fb, 144);
+      o = o > fb ? o : fb;
+      L.total = o;
+      L.piv = piv_at * size_of_s;
+      L.bytes = ((size_t)o * size_of_s + 15) / 16 * 16;
+    } else {
+      L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.p = take(o, T * 144);
+      L.yp = L.m;
+      L.colk = take(o, 2 * T * NF_); L.prow = take(o, 2 * T * NF_); L.q1 = take(o, 144);
+      L.rowk = L.colk;  // unused
+      L.r1 = take(o, L.nz); L.rz = take(o, L.ni); L.r4 = take(o, L.ne); L.r2 = take(o, L.ni);
+      L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
+      L.ex = take(o, L.nz); L.ezz = take(o, L.ni); L.ey = take(o, L.ne);
+      L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+      L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+      L.run = take(o, T * NKA_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+      L.wy = take(o, T * NX_); L.v12 = take(o, NX_); L.red = take(o, PDIPM_THREADS);
+      L.dj = L.run;  // `run` holds Jacobi's D during the factor
+      L.total = o;
+      L.piv = o * size_of_s;
+      L.bytes = (size_t)L.piv + sizeof(int) * 2 * T * NF_;
+    }
     return L;
   }
 
   // q_inv, S, Ad Q~^-1 Ad^T, the [M_x, nu] pair / M_z coefficients (and the
   // packed route's yc).
-  template <typename S>
-  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
-    riccati_setup<true, PACK>(sm, L, beta, delta);
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<true, PACK>(g, sm, L, beta, delta);
   }
 
   // -------------------------------------------------------------------------
@@ -380,49 +481,87 @@ struct RicAugSplit {
   // -------------------------------------------------------------------------
   // Factorization of the reduced KKT at the current W.
   // -------------------------------------------------------------------------
-  template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta,
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags ff) {
-    const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
+    const int tid = g.rank(), nt = g.size(), T = L.T;
     const S* hd = sm + L.hd;
     const S* gu = sm + L.gu;
     const S* w = sm + L.w;
     S* ka = sm + L.ka;
 
-    // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block foot*T + t.
-    for (int it = tid; it < 2 * T * 144; it += nt) {
-      const int blk = it / 144, foot = blk / T, t = blk % T;
-      const int r = (it % 144) / NF_, c = it % NF_;
-      S v;
-      if (r < 4 && c < 4) {
-        v = r == c ? hd[NX_ * T + foot_col(foot, r)] + beta : S(0);
-      } else if (r < 4) {
-        v = gu[(8 * foot + c - 4) * NU_ + foot_col(foot, r)];
-      } else if (c < 4) {
-        v = gu[(8 * foot + r - 4) * NU_ + foot_col(foot, c)];
-      } else {
-        v = r == c ? -w[t * NI_ + 8 * foot + r - 4] : S(0);
+    if constexpr (LEAN) {
+      // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block
+      // foot*T + t, one row per item; then their elimination by rows.
+      for (int it = tid; it < 2 * T * NF_; it += nt) {
+        const int blk = it / NF_, r = it % NF_;
+        const int foot = blk >= T ? 1 : 0, t = blk - foot * T;
+        S* row = ka + blk * 144 + r * NF_;
+        if (r < 4) {
+          const int ur = foot_col(foot, r);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) row[c] = r == c ? hd[NX_ * T + ur] + beta : S(0);
+#pragma unroll
+          for (int c = 4; c < NF_; ++c) row[c] = gu[(8 * foot + c - 4) * NU_ + ur];
+        } else {
+          const S* gr = gu + (8 * foot + r - 4) * NU_;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) row[c] = gr[foot_col(foot, c)];
+          const S wr = -w[t * NI_ + 8 * foot + r - 4];
+#pragma unroll
+          for (int c = 4; c < NF_; ++c) row[c] = r == c ? wr : S(0);
+        }
       }
-      ka[krow(T, foot, t, r) + c] = v;
+      g.sync();
+      if (ff.jacobi) {
+        jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);
+        jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+      }
+      gj_inverse_rows(g, ka, 2 * T, ff.aug_pivot, !ff.aug_pivot && ff.gj_inplace, sm + L.prow,
+                      sm + L.rowk, piv);
+      if (ff.jacobi) jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+    } else {
+      // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block foot*T + t.
+      for (int it = tid; it < 2 * T * 144; it += nt) {
+        const int blk = it / 144, foot = blk / T, t = blk % T;
+        const int r = (it % 144) / NF_, c = it % NF_;
+        S v;
+        if (r < 4 && c < 4) {
+          v = r == c ? hd[NX_ * T + foot_col(foot, r)] + beta : S(0);
+        } else if (r < 4) {
+          v = gu[(8 * foot + c - 4) * NU_ + foot_col(foot, r)];
+        } else if (c < 4) {
+          v = gu[(8 * foot + r - 4) * NU_ + foot_col(foot, c)];
+        } else {
+          v = r == c ? -w[t * NI_ + 8 * foot + r - 4] : S(0);
+        }
+        ka[krow(T, foot, t, r) + c] = v;
+      }
+      g.sync();
     }
-    __syncthreads();
     if constexpr (PACK) {
       // The pair (True) or each half as the unpacked route inverts it
       // ("apply"); no Jacobi scaling, as in the JAX kernel (`:800-812`).
       if (ff.foot_pack == FOOT_PACK_PAIR)
-        gj_pair<NF_>(ka, T, ff.aug_pivot, sm + L.colk, sm + L.prow, piv);
+        gj_pair<NF_>(g, ka, T, ff.aug_pivot, sm + L.colk, sm + L.prow, piv);
       else
-        gj_inverse_inplace<NF_, S, 2 * NF_>(ka, 2 * T, ff.aug_pivot,
+        gj_inverse_inplace<NF_, S, 2 * NF_>(g, ka, 2 * T, ff.aug_pivot,
                                             !ff.aug_pivot && ff.gj_inplace, sm + L.colk,
                                             sm + L.prow, piv);
-      y_chain_packed<RicAugSplit>(sm, L, ff.gj_inplace, piv);
+      PDIPM_MARK(g, PH_FOOT);
+      y_chain_packed<RicAugSplit>(g, sm, L, ff.gj_inplace, piv);
     } else {
-      stage_inverse<NF_>(ka, 2 * T, ff.aug_pivot, ff.gj_inplace, ff.jacobi, sm + L.colk,
-                         sm + L.prow, piv, sm + L.run);
-      // P_t = Bd (K_t^-1)_uu, using the sparsity of (K^-1)_uu.
+      if constexpr (!LEAN)
+        stage_inverse<NF_>(g, ka, 2 * T, ff.aug_pivot, ff.gj_inplace, ff.jacobi, sm + L.colk,
+                           sm + L.prow, piv, sm + L.dj);
+      PDIPM_MARK(g, PH_FOOT);
+      // P_t = Bd (K_t^-1)_uu, using the sparsity of (K^-1)_uu; the lean
+      // layout forms Ad Q~^-1 Ad^T in the union here, as riccati_setup does.
       const S* bd = sm + L.bd;
       const S* cf = sm + L.cf;
       S* p = sm + L.p;
+      if constexpr (LEAN)
+        for (int k = tid; k < 144; k += nt) sm[L.adqad + k] = adqad_entry(sm, L, k / NX_, k % NX_);
       for (int it = tid; it < T * 144; it += nt) {
         const int t = it / 144, i = (it % 144) / NX_, j = it % NX_;
         S v;
@@ -439,15 +578,15 @@ struct RicAugSplit {
         }
         p[it] = v;
       }
-      __syncthreads();
+      g.sync();
       // Y'_t and the dual-Riccati chain: Yhat_t = Y'_t - S^T Yhat_{t-1}^-1 S, inverted in place.
-      y_chain_from_p(sm, L, delta, ff.gj_inplace, piv);
+      y_chain_from_p(g, sm, L, delta, ff.gj_inplace, piv);
     }
   }
 
-  template <typename S>
-  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                               S* dx, S* dz, S* dy) {
-    riccati_solve<RicAugSplit>(sm, L, r1, rz, r4, dx, dz, dy);
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<RicAugSplit>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };

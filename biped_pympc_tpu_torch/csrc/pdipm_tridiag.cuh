@@ -314,21 +314,26 @@ struct ThomasRoute {
     return make_tridiag_layout<AUG>(T, size_of_s);
   }
 
-  template <typename S>
-  static __device__ void setup(S* sm, const Layout& L, S beta, S delta) {
+  // The block group only (its device functions spread over the block).
+  template <typename S, typename G>
+  static __device__ void setup(const G&, S* sm, const Layout& L, S beta, S delta) {
+    static_assert(!G::WARP, "the block-Thomas routes run in the block group");
     for (int i = threadIdx.x; i < NX_; i += blockDim.x) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
     __syncthreads();
   }
 
-  template <typename S>
-  static __device__ void factor(S* sm, const Layout& L, int* piv, S beta, S delta, FactorFlags) {
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags) {
     thomas_factor<S, AUG>(sm, L, piv, beta, delta);
+    PDIPM_MARK(g, PH_FOOT);
   }
 
-  template <typename S>
-  static __device__ void solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                               S* dx, S* dz, S* dy) {
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
     thomas_solve<S, AUG>(sm, L, r1, rz, r4, dx, dz, dy);
+    PDIPM_MARK(g, PH_STAGE);
   }
 };
 

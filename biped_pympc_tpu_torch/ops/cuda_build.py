@@ -16,8 +16,14 @@ import shutil
 import subprocess
 import tempfile
 
+# -Xptxas -v: ptxas reports each kernel's registers and spills into the
+# compiler output that `LOGS` keeps; it does not change the code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+# {library path: the compiler's output} of every library this process built.
+LOGS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -33,22 +39,25 @@ def find_nvcc() -> str:
         "toolkit is needed to build the kernels")
 
 
-def library_path(name: str, source: str, headers, build_dir: str) -> str:
+def library_path(name: str, source: str, headers, build_dir: str, flags=()) -> str:
     """Where library `name` of `source` is built: lib<name>_<hash>.so in
-    `build_dir`, the hash over the flags, the source and `headers`."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    `build_dir`, the hash over the flags (NVCC_FLAGS and the extra `flags`),
+    the source and `headers`."""
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for path in (source, *headers):
         with open(path, "rb") as fh:
             digest.update(fh.read())
     return os.path.join(build_dir, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc) -> dict:
+def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) -> dict:
     """Compile every library of `sources` ({key: .cu path}) whose file in
-    `paths` ({key: .so path}) does not exist yet, one nvcc each, all started
-    together; return `paths`. `nvcc` is called for the compiler's path only
-    when something is to be built. Raises RuntimeError with the compiler's
-    output if any nvcc fails; a library is moved into place only once whole."""
+    `paths` ({key: .so path}) does not exist yet, one nvcc each with
+    NVCC_FLAGS and the extra `flags`, all started together; return `paths`.
+    `nvcc` is called for the compiler's path only when something is to be
+    built. Raises RuntimeError with the compiler's output if any nvcc fails;
+    a library is moved into place only once whole, and its compiler output
+    kept in `LOGS`."""
     todo = [key for key, path in paths.items() if not os.path.exists(path)]
     if not todo:
         return paths
@@ -59,7 +68,7 @@ def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc) -> dict:
         for key in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
-            cmd = [compiler, *NVCC_FLAGS, "-o", tmp, sources[key]]
+            cmd = [compiler, *NVCC_FLAGS, *flags, "-o", tmp, sources[key]]
             jobs.append((key, cmd, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         for key, cmd, tmp, proc in jobs:
@@ -67,6 +76,7 @@ def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc) -> dict:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
             else:
+                LOGS[paths[key]] = out + err
                 os.replace(tmp, paths[key])  # atomic: a concurrent build never loads a partial file
     finally:
         for _, _, tmp, proc in jobs:

@@ -28,7 +28,14 @@ the fixed solve bit for bit, that the adaptive solve stops where the JAX
 loop does without waiting for the device, that a layout over a block's
 shared memory raises before any launch, and prints whether K1 and K2 (in
 their former Gauss-Jordan form), K5a and K5b still give the bits their
-builds gave before the Newton step was shared. It drives `MPCController`
+builds gave before the Newton step was shared. K1 and K2 run in warp groups
+(`pdipm_cuda.geometry`: one or two warps per env, their lean layouts); the
+script checks every route's bits, K1 and K2 in the block group, against the
+build before the warp groups (BEFORE_WARP_DIGESTS), holds the block group
+against the plain version too, and times both geometries in turns beside a
+clock64() breakdown of a Newton step and the resident envs per SM (`geometry_phase`;
+`python3 chip_smoke.py --geometry` runs that phase alone with the other
+candidates, `--digests` prints the digests). It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
 ticks, with the adaptive solve for 100 ticks, with `solver="pallas_aug"`
@@ -60,7 +67,6 @@ import json
 import re
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -125,6 +131,37 @@ PARENT_MS = {"K1": 43.063, "K2": 29.921, "K5a": 79.702, "K5b": 347.991}
 TABLEAU_MS = {"K1": 43.180, "K2": 28.864}
 # HECTOR's standing pose, walking command (tests/test_controller.py:12-19).
 Q0 = (0.0, 0.0, 0.45, -0.9, 0.45)
+# `digest` of every route's b4096 solve of this script's batch (cold, 20
+# steps, the controller's options; `digest_routes`), f32 and f64, from the
+# build before K1 and K2 had warp groups (`python3 chip_smoke.py --digests`
+# in a checkout of it on the H100; PERF.md, Findings). K1 and K2 are held to
+# them in the block group.
+BEFORE_WARP_DIGESTS = {
+    "K1 f32": "c6646c560e92a670",
+    "K1 f64": "0501b912b699e5a2",
+    "K2 f32": "5d0a0509a4086592",
+    "K2 f64": "0fcb2a1099c1833e",
+    "K5a f32": "e67af260dc43ddee",
+    "K5a f64": "33349eaf5fa2d05a",
+    "K5b f32": "35fefd1d16af3dbf",
+    "K5b f64": "d96756e2a481a2dc",
+    "K5c f32": "eb94c45789da2787",
+    "K5c f64": "eca3a3ae29d3e6ec",
+    "K5d-c f32": "1741c38284af148a",
+    "K5d-c f64": "ad366165fbc8f28b",
+    "K5d-a f32": "097336486f495192",
+    "K5d-a f64": "de22b9d0649609bb",
+    "K5e-c pair f32": "5d0a0509a4086592",
+    "K5e-c pair f64": "0fcb2a1099c1833e",
+    "K5e-c apply f32": "5d0a0509a4086592",
+    "K5e-c apply f64": "0fcb2a1099c1833e",
+    "K5e-a pair f32": "f1dbcef938fc1c32",
+    "K5e-a pair f64": "f0e5ea6d87e8a5bd",
+    "K5e-a apply f32": "e6cc71621c5b6437",
+    "K5e-a apply f64": "8d9709ad5b18f328",
+}
+# The hybrid's re-solve batch at b4096, max(64, B // 32).
+RESOLVE_BATCH = 128
 
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
@@ -146,51 +183,34 @@ def card_label() -> str:
     return out.stdout.strip()
 
 
-def kernel_sources() -> dict:
-    """Every kernel source: the nine PDIPM routes, the roofline probes and
-    the synthetic tape."""
-    from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
-    from biped_pympc_tpu_torch.ops import pdipm_cuda
-
-    return {**pdipm_cuda.SOURCES, "roofline": ab_roofline.SOURCE, "tape": bench_synthetic.SOURCE}
-
-
-def start_ptxas_report(tmp: str) -> list:
-    """Start one `nvcc -Xptxas -v` compile per kernel source (object files in
-    `tmp`), to run beside the build; `ptxas_report` reads them."""
-    from biped_pympc_tpu_torch.ops import cuda_build
-
-    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    return [subprocess.Popen([cuda_build.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
-                              f"{tmp}/{route}.o", src], stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for route, src in kernel_sources().items()]
-
-
 def build_all() -> list:
-    """Build the nine PDIPM libraries, the roofline probes' and the tape's
-    at once (each build function starts its nvcc processes together); return the
-    libraries' paths."""
+    """Build the nine PDIPM libraries, K1's and K2's profile builds
+    (`pdipm_geometry.build_profile`), the roofline probes' and the tape's at
+    once (each build function starts its nvcc processes together); return
+    the production libraries' paths, the roofline's and the tape's last."""
     from concurrent.futures import ThreadPoolExecutor
 
     from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(fn) for fn in (pdipm_cuda.build, ab_roofline.build,
-                                              bench_synthetic.build)]
-        pdipm_paths, roofline, tape = (f.result() for f in futures)
+                                              bench_synthetic.build, pg.build_profile)]
+        pdipm_paths, roofline, tape, _ = (f.result() for f in futures)
     return sorted(pdipm_paths.values()) + [roofline, tape]
 
 
-def ptxas_report(procs) -> str:
-    """Registers and spill stores of every kernel entry, as ptxas reports
-    them; raises if a compile failed. The Newton-step kernel is named by its
-    route policy, `pdipm_kernel<RicAug, f32>`."""
+def ptxas_report(lib_paths) -> str:
+    """Registers and spill stores of every kernel entry, as ptxas reported
+    them while this process built the libraries (`cuda_build.LOGS`). The
+    Newton-step kernel is named by its route policy and group,
+    `pdipm_kernel<RicAugLean, f32, WarpGroup<2>>`."""
+    from biped_pympc_tpu_torch.ops import cuda_build
+
     out = []
-    for proc in procs:
-        text, _ = proc.communicate()
-        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    for path in lib_paths:
+        text = cuda_build.LOGS.get(path, "")
         name = None
         for line in text.splitlines():
             m = re.search(r"entry function '_Z\d+(\w+?_kernel)I(\w+)'", line)
@@ -201,8 +221,13 @@ def ptxas_report(procs) -> str:
                     end = n.end() + int(n.group())
                     policy, args = args[n.end():end] + ", ", args[end:]
                 chains = re.match(r"[fd]Li(\d+)E", args)  # fma_peak_kernel<T, CHAINS>
+                group = re.match(r"(\d+)", args[1:])  # pdipm_kernel<P, S, G>
+                if group:
+                    gname = args[1 + group.end():1 + group.end() + int(group.group())]
+                    warps = re.match(r"ILi(\d+)EE", args[1 + group.end() + len(gname):])
+                    group = f", {gname}{f'<{warps.group(1)}>' if warps else ''}"
                 name = (f"{m.group(1)}<{policy}{'f32' if args[0] == 'f' else 'f64'}"
-                        f"{', ' + chains.group(1) if chains else ''}>")
+                        f"{', ' + chains.group(1) if chains else ''}{group or ''}>")
             spill = re.search(r"(\d+) bytes spill stores", line)
             if spill and name:
                 stores = spill.group(1)
@@ -210,7 +235,9 @@ def ptxas_report(procs) -> str:
             if regs and name:
                 out.append(f"{name} {regs.group(1)} registers, {stores} B spill stores")
                 name = None
-    return "; ".join(out)
+    unreported = [p for p in lib_paths if p not in cuda_build.LOGS]
+    return "; ".join(out) + (f"; built before this run, no report: {unreported}" if unreported
+                             else "")
 
 
 def walking_draws(batch, seed):
@@ -439,6 +466,32 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def digest_routes(opts) -> dict:
+    """{tag: options} of every route whose bits `BEFORE_WARP_DIGESTS` records: K1
+    (`opts`), K2, K5a-K5d and both packings of K5e."""
+    rep = dataclasses.replace
+    ric = rep(opts, backend="ric")
+    return {"K1": opts, "K2": ric,
+            "K5a": rep(opts, backend="tridiag", foot_split=False),
+            "K5b": rep(opts, backend="tridiag_aug", foot_split=False),
+            "K5c": rep(opts, backend="ric2", foot_split=False),
+            "K5d-c": rep(opts, backend="ric", foot_split=False),
+            "K5d-a": rep(opts, backend="ric_aug", foot_split=False),
+            "K5e-c pair": rep(ric, foot_pack=True), "K5e-c apply": rep(ric, foot_pack="apply"),
+            "K5e-a pair": rep(opts, foot_pack=True), "K5e-a apply": rep(opts, foot_pack="apply")}
+
+
+def route_digests(qp32, qp64, opts) -> dict:
+    """{"<tag> f32|f64": digest} of every route of `digest_routes` on the two
+    batches, K1 and K2 in the block group."""
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    kw = {"geom": pdipm_cuda.BLOCK} if hasattr(pdipm_cuda, "BLOCK") else {}
+    return {f"{tag} {dt}": digest(results(pdipm_cuda.solve(qp, o, **kw)))
+            for tag, o in digest_routes(opts).items()
+            for dt, qp in (("f32", qp32), ("f64", qp64))}
+
+
 def results(res) -> list:
     """x, s, z, y and the residuals of a PdipmResult."""
     return [res.x, res.s, res.z, res.y, res.residuals]
@@ -514,6 +567,96 @@ def sass_report(roofline_lib: str) -> str:
         out.append(f"{name} {n[fma_op]} {fma_op}, {n['LDS']} LDS, {n['STS']} STS")
     check(len(out) == 10, f"cuobjdump found {len(out)} of the 10 roofline kernels")
     return "; ".join(out)
+
+
+def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
+    """K1 and K2 in their launch geometries: the layouts' byte counts of
+    `pdipm_cuda.env_bytes` against the libraries' for every horizon up to 64
+    (both layouts and dtypes); the largest horizon each route and dtype runs
+    in its geometry and in the block group; the geometry `pdipm_cuda.geometry`
+    picks and the resident envs per SM of it and of the block group; the
+    clock64() breakdown of a Newton step in both (`pdipm_geometry`); and the
+    solve times of the block group (the build before the warp groups) and the
+    picked geometry in turns (block, new, new, block), f32 and f64, at b4096
+    and at the hybrid's re-solve batch, each required faster in every turn.
+    With `explore`, also the other warp-group candidates and a sweep of batch
+    sizes. Returns {"geo", "occ", "turns", "breakdown"}."""
+    import torch
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+    from biped_pympc_tpu_torch.ops import qp as qps
+
+    dts = {"f32": torch.float32, "f64": torch.float64}
+    bad, fits = [], {}
+    for route in pdipm_cuda.LEAN_ROUTES:
+        lib = pdipm_cuda._library(route)
+        for dt, dtype in dts.items():
+            size = torch.empty((), dtype=dtype).element_size()
+            for T in range(1, 65):
+                for kind, lean in (("smem", False), ("lean", True)):
+                    got = getattr(lib, f"pdipm_{route}_{kind}_bytes")(T, size)
+                    if got != pdipm_cuda.env_bytes(route, T, size, lean):
+                        bad.append((route, dt, T, kind, got))
+            for tag, lean in (("picked", True), ("block group", False)):
+                fits[f"{route} {dt} {tag}"] = max(
+                    T for T in range(1, 65)
+                    if pdipm_cuda.env_bytes(route, T, size, lean) <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
+    check(not bad, f"env_bytes differs from the libraries' layouts: {bad[:5]}")
+    qps_ = {"f32": qp32, "f64": qp64}
+    T = qp32.horizon
+    geo = {(r, dt): pdipm_cuda.geometry(r, T, dts[dt])
+           for r in pdipm_cuda.LEAN_ROUTES for dt in dts}
+    occ = {(r, dt, tag): pg.envs_per_sm(r, T, dts[dt], g)
+           for r in pdipm_cuda.LEAN_ROUTES for dt in dts
+           for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r, dt]))}
+    print(f"[geometry] {label}: env_bytes equals the libraries' layouts for T 1..64; largest "
+          f"horizon per route and dtype: {fits}; picked at h{T}: "
+          + ", ".join(f"{r} {dt} {g.threads_per_env} threads x {g.envs_per_block} envs, "
+                      f"{g.smem_per_block} B per block" for (r, dt), g in geo.items())
+          + "; resident envs per SM (occupancy calculator): "
+          + ", ".join(f"{r} {dt} {tag} {n}" for (r, dt, tag), n in occ.items()))
+    for r in pdipm_cuda.LEAN_ROUTES:
+        check(occ[r, "f32", "new"] > 4, f"{r} f32 holds {occ[r, 'f32', 'new']} envs per SM")
+    base = {"ric_aug": opts, "ric": dataclasses.replace(opts, backend="ric")}
+    out = {"geo": geo, "occ": occ, "turns": {}, "breakdown": {}}
+    for r, o in base.items():
+        for dt in dts:
+            cands = [("block", pdipm_cuda.BLOCK), ("new", geo[r, dt])]
+            if explore and dt == "f32":
+                cands += [(f"warp {t}x{e}", pg.warp(t, e, r, T, dts[dt])) for t, e in pg.CANDIDATES]
+            for tag, g in cands:
+                res = pg.breakdown(qps_[dt], o, g)
+                out["breakdown"][r, dt, tag] = res
+                print(pg.breakdown_line(f"[breakdown] {label}: {r} {dt} b{B} {tag} "
+                                        f"({g.threads_per_env} x {g.envs_per_block})", res))
+    for r, o in base.items():
+        for dt in dts:
+            qp = qps_[dt]
+            sub = qps.take(qp, torch.arange(RESOLVE_BATCH, device=qp.f.device))
+            for nb, q in ((B, qp), (RESOLVE_BATCH, sub)):
+                out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r, dt])
+    print(f"[geometry times] {label}: block group / picked warp group / warp group / block "
+          f"group, ms: " + "; ".join(f"{r} {dt} b{nb} " + " / ".join(f"{v:.3f}" for v in t)
+                                     for (r, dt, nb), t in out["turns"].items()))
+    for (r, dt, nb), t in out["turns"].items():
+        check(max(t[1], t[2]) < min(t[0], t[3]),
+              f"{r} {dt} b{nb}: the warp group is not faster than the block group in every "
+              f"turn: {t}")
+    if explore:
+        for r, o in base.items():
+            qp = qps_["f32"]
+            line = []
+            for t, e in pg.CANDIDATES:
+                g = pg.warp(t, e, r, T, torch.float32)
+                line.append(f"{t}x{e} {pg.envs_per_sm(r, T, torch.float32, g)} envs/SM "
+                            f"{pg.turns(qp, o, pdipm_cuda.BLOCK, g)[1]:.3f} ms")
+            for nb in (256, 512, 1024, 2048):
+                q = qps.take(qp, torch.arange(nb, device=qp.f.device))
+                tt = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r, "f32"])
+                line.append(f"b{nb} block {tt[0]:.3f} / warp {tt[1]:.3f} ms")
+            print(f"[geometry explore] {label}: {r} f32: " + "; ".join(line)
+                  + f"; SASS instructions {pg.sass_sizes(pdipm_cuda.library_path(r))}")
+    return out
 
 
 # The bench twins' kernels against their plain versions (K6, K7, K8).
@@ -705,12 +848,57 @@ def bench_twins(label: str) -> list:
     ]
 
 
+def quick(mode: str) -> int:
+    """`--digests`: build the PDIPM kernels and print `route_digests` of
+    this script's batch as one JSON line (it runs in a checkout of an
+    earlier build too). `--geometry`: build, print the digests and their
+    agreement with BEFORE_WARP_DIGESTS, run `geometry_phase` with its exploration,
+    and hold K1 and K2 in the picked geometry against their plain versions
+    at f64 on the converged envs."""
+    import torch
+    from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+
+    dev = torch.device("cuda:0")
+    label = card_label()
+    print(label)
+    pdipm_cuda.build()
+    opts = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
+    qp32, qp64 = (make_qp_batch(B, 0, dt, dev) for dt in (torch.float32, torch.float64))
+    dig = route_digests(qp32, qp64, opts)
+    print(json.dumps({"digests": dig}))
+    if mode == "--digests":
+        return 0
+    same = {k: v == BEFORE_WARP_DIGESTS.get(k) for k, v in dig.items()}
+    print(f"[digests] as recorded: {same}")
+    geometry_phase(label, qp32, qp64, opts, explore=True)
+    for r in pdipm_cuda.LEAN_ROUTES:
+        o = dataclasses.replace(opts, backend=r)
+        plain = pdipm.solve(qp64, o)
+        kern = pdipm_cuda.solve(qp64, o)
+        k32 = pdipm_cuda.solve(qp32, o)
+        cv = plain.residuals[:, 3] <= MU_CONVERGED
+        err = max(float((getattr(kern, n) - getattr(plain, n)).abs().amax(1)[cv].max())
+                  for n in "xszy")
+        rel = max(float(((getattr(kern, n) - getattr(plain, n)).abs()
+                         / getattr(plain, n).abs().clamp_min(1.0)).amax(1)[cv].max())
+                  for n in "xszy")
+        fin = torch.isfinite(k32.x).all(1)
+        du0 = (k32.x[:, 120:132].double() - plain.x[:, 120:132]).abs().amax(1)
+        print(f"[geometry check] {r} {pdipm_cuda.geometry(r, 10, torch.float64)}: f64 vs "
+              f"plain f64 on {int(cv.sum())} converged envs max {err:.3e} abs, {rel:.3e} rel; "
+              f"f32 finite {int(fin.sum())}/{B}, u0 |dGRF| converged finite max "
+              f"{float(du0[cv & fin].max()):.3e} N, above 0.5 N {int((du0[fin] > 0.5).sum())}")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:
+        return quick(sys.argv[1])
     from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
     from biped_pympc_tpu_torch.control import mpc
     from biped_pympc_tpu_torch.models.hector import TORQUE_LIMIT
@@ -731,12 +919,10 @@ def main() -> int:
     # 2. Build: one nvcc per kernel source, started together, beside one
     # `-Xptxas -v` compile per source for the register report.
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ptxas = start_ptxas_report(tmp)
-        lib_paths = build_all()
-        print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} "
-              f"in {time.perf_counter() - t0:.1f} s")
-        print(f"[registers] ptxas -v, sm_90a: {ptxas_report(ptxas)}")
+    lib_paths = build_all()
+    print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"[registers] ptxas -v, sm_90a: {ptxas_report(lib_paths)}")
     print(f"[sass] {sass_report(lib_paths[-2])}")
 
     # 3. K1 (augmented route) vs its plain version on the card, with the
@@ -815,6 +1001,25 @@ def main() -> int:
           f"({int((ric_conv & ric_finite).sum())}): {quantiles(ric_du0[ric_conv & ric_finite])}; "
           f"all finite envs: {quantiles(ric_du0[ric_finite])}, above {F32_U0_ATOL} N: "
           f"{int((ric_du0[ric_finite] > F32_U0_ATOL).sum())}")
+
+    # 4a. K1 and K2 in the block group, the configuration before the warp
+    # groups (BEFORE_WARP_DIGESTS holds its bits in 4m): against the same plain f64
+    # solves, with the same bounds.
+    blk64 = pdipm_cuda.solve(qp64, opts, geom=pdipm_cuda.BLOCK)
+    ric_blk64 = pdipm_cuda.solve(qp64, ric, geom=pdipm_cuda.BLOCK)
+    blk_err = max(float((getattr(blk64, n) - getattr(plain64, n)).abs().amax(1)[conv].max())
+                  for n in "xszy")
+    ric_blk_rel = max(float(((getattr(ric_blk64, n) - getattr(ric_plain64, n)).abs()
+                             / getattr(ric_plain64, n).abs().clamp_min(1.0))
+                            .amax(1)[ric_conv].max()) for n in "xszy")
+    print(f"[block group f64 vs plain f64] b{B}: K1 converged envs max |dx,ds,dz,dy| "
+          f"{blk_err:.3e} (bound {F64_ATOL:g}); K2 {ric_blk_rel:.3e} relative to max(1, |v|) "
+          f"(bound {CONDENSED_F64_RTOL:g}); the picked geometry: K1 "
+          f"{pdipm_cuda.geometry('ric_aug', qp64.horizon, torch.float64)}, K2 "
+          f"{pdipm_cuda.geometry('ric', qp64.horizon, torch.float64)}")
+    check(blk_err <= F64_ATOL, "f64 K1 in the block group differs from the plain version")
+    check(ric_blk_rel <= CONDENSED_F64_RTOL,
+          "f64 K2 in the block group differs from the plain version")
 
     # 4b. K3: four warm 5-step launches vs one 20-step launch, both routes and
     # dtypes. The loop carries only (x, s, z, y) and the kernels compute
@@ -1293,10 +1498,15 @@ def main() -> int:
     # the times in 7.
     inputs_same = all(digest(pdipm_cuda._inputs(qp)) == PARENT_DIGESTS["inputs", dt]
                       for dt, qp in (("f32", qp32), ("f64", qp64)))
-    # K1 and K2 in the form those builds had, gj_form "tableau" (4o).
+    # K1 and K2 in the form and geometry those builds had: gj_form
+    # "tableau", the block group.
+    block_tableau = {(tag, dt): pdipm_cuda.solve(qp, dataclasses.replace(o, gj_form="tableau"),
+                                                  geom=pdipm_cuda.BLOCK)
+                     for tag, o in (("K1", opts), ("K2", ric))
+                     for dt, qp in (("f32", qp32), ("f64", qp64))}
     refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]
-                     for tag, runs in (("K1", {d: tableau["K1", d] for d in ("f32", "f64")}),
-                                       ("K2", {d: tableau["K2", d] for d in ("f32", "f64")}),
+                     for tag, runs in (("K1", {d: block_tableau["K1", d] for d in ("f32", "f64")}),
+                                       ("K2", {d: block_tableau["K2", d] for d in ("f32", "f64")}),
                                        ("K5a", k5["K5a"]), ("K5b", k5["K5b"]))
                      for dt in ("f32", "f64")}
 
@@ -1338,14 +1548,17 @@ def main() -> int:
     n_mpc, first_wrench, tau_ok = walk(ctrl, obs, TICKS, limit)
     torch.cuda.synchronize()
     launches = dict(pdipm_cuda.launches)
+    warp_launches = dict(pdipm_cuda.warp_launches)
     fz = -first_wrench[:, :, 2]
     phase_adv = float((ctrl.state.gait_phase - phase0).min())
     print(f"[main path] MPCController b{B} HECTOR gait 2, {TICKS} ticks: run_mpc {n_mpc}, "
-          f"kernel launches {launches}; tau finite and within limits: {tau_ok}; first solve "
+          f"kernel launches {launches} (in a warp group {warp_launches}); tau finite and within "
+          f"limits: {tau_ok}; first solve "
           f"fz left [{float(fz[:, 0].min()):.2f}, {float(fz[:, 0].max()):.2f}] N, right swing "
           f"max |fz| {float(fz[:, 1].abs().max()):.3e} N; gait phase advanced by {phase_adv:.4f}")
     check(launches == route_counts(ric_aug=n_mpc),
           "the main path did not launch K1 once per run_mpc")
+    check(warp_launches["ric_aug"] == n_mpc, "the main path's K1 did not run in its warp group")
     check(tau_ok, "joint torques not finite or beyond the torque limits")
     check(bool((fz[:, 1].abs() < 1.0).all()), "swinging right foot carries force")
     check(bool((first_wrench[:, 0, 2] < -50.0).all()), "stance left foot not loaded")
@@ -1372,9 +1585,11 @@ def main() -> int:
                                     on_solve=lambda: stats.append(hctrl.hybrid_stats))
     torch.cuda.synchronize()
     h_launches = dict(pdipm_cuda.launches)
+    h_warp = dict(pdipm_cuda.warp_launches)
     h_fz = -h_first[:, :, 2]
     print(f"[hybrid path] MPCController solver=pallas_hybrid b{B}, {HYBRID_TICKS} ticks: "
-          f"run_mpc {h_mpc}, kernel launches {h_launches}; hybrid_stats first "
+          f"run_mpc {h_mpc}, kernel launches {h_launches} (in a warp group {h_warp}); "
+          f"hybrid_stats first "
           f"{stats[0]}, max dropped_nonfinite {max(st['dropped_nonfinite'] for st in stats)}, "
           f"resolved per solve {[st['resolved'] for st in stats]}; tau finite and within "
           f"limits: {h_tau_ok}; first solve fz left [{float(h_fz[:, 0].min()):.2f}, "
@@ -1382,6 +1597,8 @@ def main() -> int:
           f"{float(h_fz[:, 1].abs().max()):.3e} N")
     check(h_launches == route_counts(ric_aug=h_mpc, ric=h_mpc),
           "the hybrid path did not launch K2 and K1 once each per run_mpc")
+    check(h_warp == {"ric_aug": h_mpc, "ric": h_mpc},
+          f"the hybrid path's K1 and K2 did not run in their warp groups: {h_warp}")
     check(all(st["dropped_nonfinite"] == 0 for st in stats), "hybrid dropped non-finite envs")
     check(h_tau_ok, "hybrid joint torques not finite or beyond the torque limits")
     check(bool((h_fz[:, 1].abs() < 1.0).all()), "hybrid: swinging right foot carries force")
@@ -1638,12 +1855,23 @@ def main() -> int:
           + ", ".join(f"{k} {done:.4g} / {least:.4g}" for k, done, least in flops))
     now = {"K1": new_ms["K1 tableau"]["k32"], "K2": new_ms["K2 tableau"]["k32"],
            "K5a": k5_ms["K5a"]["k32"], "K5b": k5_ms["K5b"]["k32"]}
-    print(f"[refactor] {label}: K1 and K2 under gj_form tableau, K5a and K5b, in the one "
-          f"Newton-step kernel, b{B} cold 20 steps: inputs as recorded: {inputs_same}; x, s, z, y "
+    print(f"[refactor] {label}: K1 and K2 under gj_form tableau in the block group, K5a and "
+          f"K5b, in the one Newton-step kernel, b{B} cold 20 steps: inputs as recorded: "
+          f"{inputs_same}; x, s, z, y "
           f"and residuals bitwise the build before the move (digest): {refactor_same}; f32 ms now "
           f"/ before the move: "
           + ", ".join(f"{k} {v:.3f} / {PARENT_MS[k]:.3f} ({v / PARENT_MS[k] - 1:+.1%})"
                       for k, v in now.items()))
+
+    # 7b. K1 and K2 in their geometries (`geometry_phase`), and every route's
+    # bits against the build before the warp groups (K1, K2 in the block
+    # group).
+    before = {k: v == BEFORE_WARP_DIGESTS[k]
+              for k, v in route_digests(qp32, qp64, opts).items()}
+    print(f"[refactor] {label}: every route's b{B} solve, K1 and K2 in the block group, bitwise "
+          f"the build before the warp groups (BEFORE_WARP_DIGESTS): {before}")
+    check(all(before.values()), "a route's bits differ from the build before the warp groups")
+    geometry_phase(label, qp32, qp64, opts)
 
     bench_kernels = bench_twins(label)
 
