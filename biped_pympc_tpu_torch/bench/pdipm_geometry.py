@@ -32,9 +32,6 @@ PHASES = ("load", "resid", "reduce", "foot", "pt", "ychain", "stage", "sweep", "
           "update", "store")
 PER_LAUNCH = ("load", "store")  # booked once per launch; the rest per Newton step
 PROFILE_FLAGS = ("-DPDIPM_PROFILE",)
-# The warp-group geometries measured against each other (threads per env,
-# envs per block); `pdipm_cuda.geometry` picks WARP_THREADS and the envs.
-CANDIDATES = ((32, 1), (32, 2), (64, 1))
 
 _prof_libs: dict = {}
 
@@ -109,29 +106,29 @@ def breakdown_line(tag: str, res: dict) -> str:
 
 
 def envs_per_sm(route: str, horizon: int, dtype, geom) -> int:
-    """Resident envs per SM of `route` in `geom`, from the CUDA occupancy
-    calculator (`pdipm_<route>_envs_per_sm`)."""
+    """Resident envs per SM of `route` in `geom` (the block group or the
+    route's warp group), from the CUDA occupancy calculator
+    (`pdipm_<route>_envs_per_sm`)."""
     lib = pdipm_cuda._library(route)
     size = torch.empty((), dtype=dtype).element_size()
-    n = getattr(lib, f"pdipm_{route}_envs_per_sm")(horizon, size, geom.threads_per_env,
-                                                    geom.envs_per_block)
+    n = getattr(lib, f"pdipm_{route}_envs_per_sm")(horizon, size, int(geom.lean))
     if n < 0:
         raise RuntimeError(f"occupancy query failed ({-n})")
     return n
 
 
-def warp(threads: int, envs: int, route: str, horizon: int, dtype) -> pdipm_cuda.Geometry:
-    """A warp-group geometry with its shared memory per block."""
-    size = torch.empty((), dtype=dtype).element_size()
-    return pdipm_cuda.Geometry(threads, envs,
-                               envs * pdipm_cuda.env_bytes(route, horizon, size, lean=True))
+def solve_in(qp, opts, geom):
+    """One solve of `opts` on `qp` (CUDA tensors) in `geom`: the block group
+    (`pdipm_cuda.BLOCK`) or the route's own geometry."""
+    lib = pdipm_cuda._library(pdipm_cuda.route(opts))
+    return pdipm_cuda.run_kernel(lib, qp, opts, torch.cuda.current_stream().cuda_stream,
+                                 geom=geom)
 
 
 def turns(qp, opts, old, new, calls: int = 10) -> list:
     """Device ms of one solve in geometry `old` and `new`, in turns: old,
     new, new, old (`bench_common.device_ms`, median of 3)."""
-    run = lambda g: bench_common.device_ms(lambda: pdipm_cuda.solve(qp, opts, geom=g),
-                                           calls, 3)
+    run = lambda g: bench_common.device_ms(lambda: solve_in(qp, opts, g), calls, 3)
     return [run(old), run(new), run(new), run(old)]
 
 
@@ -143,7 +140,7 @@ def main() -> int:
         qp = bench_common.make_qp_batch(4096, dtype=dtype)
         for route in pdipm_cuda.LEAN_ROUTES:
             opts = dataclasses.replace(base, backend=route)
-            new = pdipm_cuda.geometry(route, qp.horizon, dtype)
+            new = pdipm_cuda.geometry(route)
             for tag, geom in (("block", pdipm_cuda.BLOCK), ("new", new)):
                 print(breakdown_line(f"[breakdown] {route} {dtype} b4096 {tag} {geom}",
                                      breakdown(qp, opts, geom)))

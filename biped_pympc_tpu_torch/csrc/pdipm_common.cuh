@@ -15,8 +15,9 @@
 //
 // The threads that work on one env are its group G, a compile-time parameter
 // of the kernel: `BlockGroup`, the whole 128-thread block (one env per
-// block; every route), or `WarpGroup<NW>`, NW warps, several envs per block
-// (K1 and K2 in their lean layouts, pdipm_split.cuh). Every function here
+// block; every route), or `WarpGroup<NW>`, NW warps, one env per block of
+// 32 NW threads (K1 two warps and K2 one, in their lean layouts,
+// pdipm_split.cuh). Every function here
 // is called by all threads of the group `g` and spreads its items over
 // g.rank() / g.size(); the ones that end in g.sync() leave the group
 // synchronized. A warp group synchronizes with __syncwarp (NW = 1) or its
@@ -33,7 +34,6 @@
 #include <type_traits>
 
 #define PDIPM_THREADS 128
-#define PDIPM_WARP_BLOCK_THREADS 256  // threads of a warp group's block at most
 
 // Phases of the clock64() breakdown (`PDIPM_PROFILE` builds only): a mark
 // PDIPM_MARK(g, ph) books the cycles since the group's previous mark to ph.
@@ -81,13 +81,17 @@ __device__ __forceinline__ void named_barrier_1() {
 }
 
 // One env per 128-thread block: today's configuration of every route.
+// size() is unsigned, as blockDim.x is: the loops that stride by it (the
+// Jacobi passes, the fraction-to-boundary minimum) keep the unsigned step
+// of the code before the groups, whose trip count nvcc does not derive. As
+// an int it did, unrolled each of them four times, and the block kernels
+// grew 7-17%: K5d-c 13% slower in f32 (PERF.md, Findings).
 struct BlockGroup : ProfState {
   static constexpr bool WARP = false;
   static constexpr int THREADS = PDIPM_THREADS;
   __device__ __forceinline__ int rank() const { return threadIdx.x; }
-  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ unsigned size() const { return blockDim.x; }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
-  __device__ __forceinline__ int slot() const { return 0; }
   __device__ __forceinline__ long env() const { return blockIdx.x; }
 #ifdef PDIPM_PROFILE
   __device__ __forceinline__ void mark(int ph) const {
@@ -100,16 +104,15 @@ struct BlockGroup : ProfState {
 #endif
 };
 
-// NW warps per env, blockDim.x / (32 NW) envs per block (one for NW > 1,
-// which syncs on named barrier 1; 0 is __syncthreads'); env
-// blockIdx.x * envs_per_block + slot.
+// NW warps per env, one env per block of 32 NW threads (NW > 1 syncs on
+// named barrier 1; 0 is __syncthreads'). rank() is threadIdx.x % THREADS,
+// which is threadIdx.x, but tells nvcc that it is below THREADS: without
+// that bound K2's kernel came out larger and slower (PERF.md, Findings).
 template <int NW>
 struct WarpGroup : ProfState {
   static constexpr bool WARP = true;
   static constexpr int THREADS = 32 * NW;
-  int r, s;
-  __device__ __forceinline__ WarpGroup() : r(threadIdx.x % THREADS), s(threadIdx.x / THREADS) {}
-  __device__ __forceinline__ int rank() const { return r; }
+  __device__ __forceinline__ int rank() const { return threadIdx.x % THREADS; }
   __device__ __forceinline__ int size() const { return THREADS; }
   __device__ __forceinline__ void sync() const {
     if constexpr (NW == 1) {
@@ -118,13 +121,10 @@ struct WarpGroup : ProfState {
       named_barrier_1<THREADS>();
     }
   }
-  __device__ __forceinline__ int slot() const { return s; }
-  __device__ __forceinline__ long env() const {
-    return (long)blockIdx.x * (blockDim.x / THREADS) + s;
-  }
+  __device__ __forceinline__ long env() const { return blockIdx.x; }
 #ifdef PDIPM_PROFILE
   __device__ __forceinline__ void mark(int ph) const {
-    if (r == 0) {
+    if (threadIdx.x == 0) {
       const long long t = clock64();
       acc[ph] += t - last;
       last = t;
@@ -152,21 +152,12 @@ struct MaxRegs {
       !G::WARP ? (sizeof(S) == 4 ? 128 : 255) : (G::THREADS == 32 || sizeof(S) == 8 ? 255 : 168);
 };
 
-
-// Threads of one block at most: 128 for the block group, 256 (envs_per_block
-// warp groups) otherwise; with 255 registers a thread, 256 threads still fit
-// an SM's register file.
-template <typename G>
-struct MaxThreads {
-  static constexpr int value = G::WARP ? PDIPM_WARP_BLOCK_THREADS : PDIPM_THREADS;
-};
-
 // The kernel's configuration as one type, so that a macro argument holds no
 // comma (`__maxnreg__(Config<S, G>::regs)` would be two).
 template <typename S, typename G>
 struct KernelConfig {
   static constexpr int regs = MaxRegs<S, G>::value;
-  static constexpr int threads = MaxThreads<G>::value;
+  static constexpr int threads = G::THREADS;
 };
 
 // A lean route policy (pdipm_split.cuh) keeps f, b and d out of its layout
@@ -1205,8 +1196,8 @@ __device__ void add_direction(const G& g, const Layout& L, S* dx, S* ds, S* dz, 
 // A route policy P supplies:
 //   Layout, make_layout(T, size_of_s)  its shared-memory layout (host and
 //        device); besides the fields read above and below, `piv` (byte
-//        offset of its int pivot table) and `bytes` (one env's; a block of
-//        a warp group holds envs_per_block of them, one after another);
+//        offset of its int pivot table) and `bytes` (one env's, and so
+//        one block's);
 //   AUG  true: z stays in the stage blocks, W = Sigma^-1 + delta, the
 //        augmented reduced solve, refine_df accepted; false: z eliminated
 //        with W^-1 = Sigma / (1 + delta Sigma), the condensed reduced solve,
@@ -1230,18 +1221,14 @@ pdipm_kernel(
     const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
     const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
     S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran, int T,
-    const StepArgs<S> A, int batch) {
+    const StepArgs<S> A) {
   if (!gate_open(go, ran)) return;
   const G g{};
   const long env = g.env();
-  if constexpr (G::WARP) {
-    if (env >= batch) return;  // the last block's spare groups
-  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
-  unsigned char* base = smem_raw + (size_t)g.slot() * L.bytes;
-  S* sm = reinterpret_cast<S*>(base);
-  int* piv = reinterpret_cast<int*>(base + L.piv);
+  S* sm = reinterpret_cast<S*>(smem_raw);
+  int* piv = reinterpret_cast<int*>(smem_raw + L.piv);
   const int tid = g.rank(), nt = g.size();
   const int nz = L.nz, ni = L.ni, ne = L.ne;
   S* red = sm + L.red;
@@ -1469,15 +1456,6 @@ pdipm_kernel(
 #endif
 }
 
-// A launch geometry: the block group (128 threads, one env per block) or a
-// warp group of `threads` threads per env: 32 with `envs` envs per block (at
-// most PDIPM_WARP_BLOCK_THREADS threads), or 64 with one. False for anything
-// else.
-static inline bool group_geometry(int threads, int envs) {
-  if (threads == PDIPM_THREADS || threads == 64) return envs == 1;
-  return threads == 32 && envs >= 1 && threads * envs <= PDIPM_WARP_BLOCK_THREADS;
-}
-
 template <typename S>
 static StepArgs<S> step_args(const PdipmArgs* args) {
   StepArgs<S> a;
@@ -1497,19 +1475,26 @@ static StepArgs<S> step_args(const PdipmArgs* args) {
   return a;
 }
 
-// Host side of one kernel instantiation: sets its shared memory (`envs`
-// layouts of one env), launches ceil(batch / envs) blocks of `threads`
-// threads on `stream`, and returns a cudaError_t (0 = success).
-template <typename P, typename S, typename G>
-static int launch_group(const void* hd, const void* f, const void* ad, const void* bd,
-                        const void* b, const void* gu, const void* d, const void* x0,
-                        const void* s0, const void* z0, const void* y0, void* x, void* s,
-                        void* z, void* y, void* res, const void* go, void* ran, int batch,
-                        int T, const StepArgs<S>& a, int threads, int envs, void* stream) {
+// Host side of every route's `pdipm_<route>_f32` / `_f64` entry (route
+// policy P in the block group, one env per 128-thread block) and of K1's and
+// K2's `pdipm_<route>_warp_f32` / `_f64` (their lean policies in their warp
+// group G, one env per block of G::THREADS threads): sets the kernel's shared
+// memory (one env's layout), launches `batch` blocks on `stream` with the
+// options `*args` and returns a cudaError_t (0 = success). The compensated
+// residual refines the augmented system; a condensed route keeps the common
+// argument list, and `pdipm.check_options` refuses df there before any
+// launch, so the guard below fires only for a direct C caller.
+template <typename P, typename S, typename G = BlockGroup>
+static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
+                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
+                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
+                  void* ran, int batch, int T, const PdipmArgs* args, void* stream) {
+  if (args == nullptr || (!P::AUG && args->refine_df != 0)) return (int)cudaErrorInvalidValue;
+  const StepArgs<S> a = step_args<S>(args);
   const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
-  const size_t bytes = L.bytes * (size_t)envs;
   cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
   if constexpr (G::WARP) {
     err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
@@ -1518,76 +1503,30 @@ static int launch_group(const void* hd, const void* f, const void* ad, const voi
     if (err != cudaSuccess) return (int)err;
   }
   if (batch == 0) return 0;
-  pdipm_kernel<P, S, G><<<(batch + envs - 1) / envs, threads, bytes, (cudaStream_t)stream>>>(
+  pdipm_kernel<P, S, G><<<batch, G::THREADS, L.bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
       (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
-      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a, batch);
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a);
   return (int)cudaGetLastError();
 }
 
-// Host side of every route's `pdipm_<route>_f32` / `_f64` entry (the block
-// group of route P, one env per 128-thread block) and of K1's and K2's
-// `pdipm_<route>_warp_f32` / `_f64` (the warp group of `threads` threads per
-// env, `envs` envs per block, with P's lean twin PL): launches `batch` envs
-// on `stream` with the options `*args` and returns a cudaError_t (0 =
-// success). The compensated residual refines the augmented system; a
-// condensed route keeps the common argument list, and `pdipm.check_options`
-// refuses df there before any launch, so the guard below fires only for a
-// direct C caller, as does a geometry the route does not have.
-struct NoLean {};
-
-template <typename P, typename S, typename PL = NoLean>
-static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
-                  const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
-                  const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
-                  void* ran, int batch, int T, const PdipmArgs* args, void* stream,
-                  int threads = PDIPM_THREADS, int envs = 1) {
-  if (args == nullptr || (!P::AUG && args->refine_df != 0) || !group_geometry(threads, envs))
-    return (int)cudaErrorInvalidValue;
-  const StepArgs<S> a = step_args<S>(args);
-  if (threads == PDIPM_THREADS)
-    return launch_group<P, S, BlockGroup>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
-                                          res, go, ran, batch, T, a, threads, envs, stream);
-  if constexpr (std::is_same<PL, NoLean>::value) {
-    return (int)cudaErrorInvalidValue;
-  } else if (threads == 32) {
-    return launch_group<PL, S, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z,
-                                             y, res, go, ran, batch, T, a, threads * envs, envs,
-                                             stream);
-  } else {
-    return launch_group<PL, S, WarpGroup<2>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z,
-                                             y, res, go, ran, batch, T, a, threads * envs, envs,
-                                             stream);
-  }
-}
-
-// Resident envs per SM of route P's block group, or of its lean twin PL in
-// the warp group of `threads` threads with `envs` envs per block
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times envs); a negative
-// cudaError_t on failure.
-template <typename P, typename PL, typename S>
-static int envs_per_sm(int T, int threads, int envs) {
+// Resident envs per SM of route P in group G (one env per block), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+template <typename P, typename S, typename G>
+static int envs_per_sm(int T) {
+  const size_t bytes = P::make_layout(T, (int)sizeof(S)).bytes;
   int blocks = 0;
-  cudaError_t err;
-  if (threads == PDIPM_THREADS) {
-    const size_t bytes = P::make_layout(T, (int)sizeof(S)).bytes;
-    err = cudaFuncSetAttribute(pdipm_kernel<P, S, BlockGroup>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, BlockGroup>,
-                                                          threads, bytes);
-    envs = 1;
-  } else {
-    const size_t bytes = PL::make_layout(T, (int)sizeof(S)).bytes * (size_t)envs;
-    auto kern = threads == 32 ? pdipm_kernel<PL, S, WarpGroup<1>> : pdipm_kernel<PL, S, WarpGroup<2>>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads * envs, bytes);
-  }
-  return err == cudaSuccess ? blocks * envs : -(int)err;
+  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && G::WARP)
+    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, G>,
+                                                        G::THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 #ifdef PDIPM_PROFILE
@@ -1609,5 +1548,5 @@ static int prof_read(void* out, int n) {
 // Ad, Bd, b, G_u, d; the warm start x0, s0, z0, y0 (all null: cold start);
 // the outputs x, s, z, y, res (they may be the warm buffers); the gate go and
 // the counter ran (null: always run, no count); batch, T, the options and
-// the stream (`pdipm_cuda.ENTRY_ARGTYPES`); K1's and K2's warp entries also
-// threads per env and envs per block (`pdipm_cuda.WARP_ARGTYPES`).
+// the stream (`pdipm_cuda.ENTRY_ARGTYPES`); K1's and K2's warp entries
+// take the same.

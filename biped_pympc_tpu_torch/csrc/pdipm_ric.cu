@@ -27,7 +27,7 @@
 //
 // What the design does about that: every value of an env lives in shared
 // memory for the whole solve, but f, b and d, which a Newton step reads once
-// and the lean layout (`RicLean`, 27,584 B f32 / 55,168 B f64 at T = 10,
+// and the lean layout (`RicLean`, 28,160 B f32 / 56,320 B f64 at T = 10,
 // against the block layout's 40,240 / 80,480 B) leaves in device memory; a
 // one-warp group per env lets 8 envs (f32) share an SM, against 4 blocks.
 // The 2T foot blocks are built and inverted one per lane, in registers; the
@@ -52,7 +52,7 @@
 #include "pdipm_split.cuh"
 
 // The route's policies for the shared Newton-step kernel (pdipm_common.cuh):
-// the block layout (block group) and the lean one (warp groups).
+// the block layout (block group) and the lean one (the warp group).
 struct Ric : RicSplit<false> {};
 struct RicLean : RicSplit<false, true> {};
 
@@ -64,20 +64,21 @@ size_t pdipm_ric_smem_bytes(int T, int value_size) {
   return Ric::make_layout(T, value_size).bytes;
 }
 
-// Dynamic shared memory of one env in the lean layout of the warp groups
-// (a block holds envs_per_block of them), in bytes.
+// Dynamic shared memory of one env (one block) in the lean layout of the
+// warp group, in bytes.
 size_t pdipm_ric_lean_bytes(int T, int value_size) {
   return RicLean::make_layout(T, value_size).bytes;
 }
 
-// Resident envs per SM of the block group (threads_per_env 128) or of a
-// warp group (32 or 64) with envs_per_block envs per block, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
-// failure.
-int pdipm_ric_envs_per_sm(int T, int value_size, int threads_per_env, int envs_per_block) {
-  return value_size == 4
-      ? envs_per_sm<Ric, RicLean, float>(T, threads_per_env, envs_per_block)
-      : envs_per_sm<Ric, RicLean, double>(T, threads_per_env, envs_per_block);
+// Resident envs per SM of the block group (lean 0) or of the warp group
+// (lean 1), from cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative
+// cudaError_t on failure.
+int pdipm_ric_envs_per_sm(int T, int value_size, int lean) {
+  if (lean)
+    return value_size == 4 ? envs_per_sm<RicLean, float, WarpGroup<1>>(T)
+                           : envs_per_sm<RicLean, double, WarpGroup<1>>(T);
+  return value_size == 4 ? envs_per_sm<Ric, float, BlockGroup>(T)
+                         : envs_per_sm<Ric, double, BlockGroup>(T);
 }
 
 #ifdef PDIPM_PROFILE
@@ -94,7 +95,7 @@ int pdipm_ric_f32(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
                   const PdipmArgs* args, void* stream) {
-  return launch<Ric, float, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<Ric, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                             ran, batch, T, args, stream);
 }
 
@@ -103,32 +104,28 @@ int pdipm_ric_f64(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
                   const PdipmArgs* args, void* stream) {
-  return launch<Ric, double, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<Ric, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                              ran, batch, T, args, stream);
 }
 
-// The same solve in a warp group of `threads_per_env` (32 or 64) threads
-// per env, `envs_per_block` envs per block, in the route's lean layout
-// (`pdipm_ric_lean_bytes`); any other geometry returns
-// cudaErrorInvalidValue and launches nothing.
+// The same solve in the route's warp group, one warp per env, one env per
+// block, in its lean layout (`pdipm_ric_lean_bytes`).
 int pdipm_ric_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* b, const void* gu, const void* d, const void* x0,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
-                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
-  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
-  return launch<Ric, float, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
-                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+                  const PdipmArgs* args, void* stream) {
+  return launch<RicLean, float, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0,
+                                         x, s, z, y, res, go, ran, batch, T, args, stream);
 }
 
 int pdipm_ric_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* b, const void* gu, const void* d, const void* x0,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
-                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
-  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
-  return launch<Ric, double, RicLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
-                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+                  const PdipmArgs* args, void* stream) {
+  return launch<RicLean, double, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0,
+                                          x, s, z, y, res, go, ran, batch, T, args, stream);
 }
 
 const char* pdipm_ric_error_string(int err) {

@@ -22,7 +22,7 @@
 // What the design does about that: every value of an env (QP data, iterates,
 // residuals, factors, directions) lives in shared memory for the whole solve;
 // device memory is read once and written once. In the warp group
-// (`RicAugLean`, pdipm_split.cuh) the lean layout (31-36 KB in f32 at T = 10
+// (`RicAugLean`, pdipm_split.cuh) the lean layout (37,584 B in f32 at T = 10
 // against the block layout's 54,928 B) lets 6 envs share an SM, against 4
 // blocks; the y-chain's inverses and the sweeps run in one warp with a
 // stage's 12 x 12 block in registers, a lane per row, the pivot row or the
@@ -53,7 +53,7 @@
 #include "pdipm_split.cuh"
 
 // The route's policies for the shared Newton-step kernel (pdipm_common.cuh):
-// the block layout (block group) and the lean one (warp groups).
+// the block layout (block group) and the lean one (the warp group).
 struct RicAug : RicAugSplit<false> {};
 struct RicAugLean : RicAugSplit<false, true> {};
 
@@ -131,20 +131,21 @@ size_t pdipm_ric_aug_smem_bytes(int T, int value_size) {
   return RicAug::make_layout(T, value_size).bytes;
 }
 
-// Dynamic shared memory of one env in the lean layout of the warp groups
-// (a block holds envs_per_block of them), in bytes.
+// Dynamic shared memory of one env (one block) in the lean layout of the
+// warp group, in bytes.
 size_t pdipm_ric_aug_lean_bytes(int T, int value_size) {
   return RicAugLean::make_layout(T, value_size).bytes;
 }
 
-// Resident envs per SM of the block group (threads_per_env 128) or of a
-// warp group (32 or 64) with envs_per_block envs per block, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
-// failure.
-int pdipm_ric_aug_envs_per_sm(int T, int value_size, int threads_per_env, int envs_per_block) {
-  return value_size == 4
-      ? envs_per_sm<RicAug, RicAugLean, float>(T, threads_per_env, envs_per_block)
-      : envs_per_sm<RicAug, RicAugLean, double>(T, threads_per_env, envs_per_block);
+// Resident envs per SM of the block group (lean 0) or of the warp group
+// (lean 1), from cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative
+// cudaError_t on failure.
+int pdipm_ric_aug_envs_per_sm(int T, int value_size, int lean) {
+  if (lean)
+    return value_size == 4 ? envs_per_sm<RicAugLean, float, WarpGroup<2>>(T)
+                           : envs_per_sm<RicAugLean, double, WarpGroup<2>>(T);
+  return value_size == 4 ? envs_per_sm<RicAug, float, BlockGroup>(T)
+                         : envs_per_sm<RicAug, double, BlockGroup>(T);
 }
 
 #ifdef PDIPM_PROFILE
@@ -165,7 +166,7 @@ int pdipm_ric_aug_f32(const void* hd, const void* f, const void* ad, const void*
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
                       const PdipmArgs* args, void* stream) {
-  return launch<RicAug, float, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<RicAug, float>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                                ran, batch, T, args, stream);
 }
 
@@ -174,7 +175,7 @@ int pdipm_ric_aug_f64(const void* hd, const void* f, const void* ad, const void*
                       const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                       void* y, void* res, const void* go, void* ran, int batch, int T,
                       const PdipmArgs* args, void* stream) {
-  return launch<RicAug, double, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
+  return launch<RicAug, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                                 ran, batch, T, args, stream);
 }
 
@@ -200,28 +201,24 @@ int pdipm_ric_aug_residual_f64(const void* hd, const void* ad, const void* bd, c
                                  refine_df, beta, delta, stream);
 }
 
-// The same solve in a warp group of `threads_per_env` (32 or 64) threads
-// per env, `envs_per_block` envs per block, in the route's lean layout
-// (`pdipm_ric_aug_lean_bytes`); any other geometry returns
-// cudaErrorInvalidValue and launches nothing.
+// The same solve in the route's warp group, two warps per env, one env per
+// block, in its lean layout (`pdipm_ric_aug_lean_bytes`).
 int pdipm_ric_aug_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* b, const void* gu, const void* d, const void* x0,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
-                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
-  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
-  return launch<RicAug, float, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
-                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+                  const PdipmArgs* args, void* stream) {
+  return launch<RicAugLean, float, WarpGroup<2>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0,
+                                            x, s, z, y, res, go, ran, batch, T, args, stream);
 }
 
 int pdipm_ric_aug_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
                   const void* b, const void* gu, const void* d, const void* x0,
                   const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
                   void* y, void* res, const void* go, void* ran, int batch, int T,
-                  const PdipmArgs* args, void* stream, int threads_per_env, int envs_per_block) {
-  if (threads_per_env == PDIPM_THREADS) return (int)cudaErrorInvalidValue;
-  return launch<RicAug, double, RicAugLean>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
-                               ran, batch, T, args, stream, threads_per_env, envs_per_block);
+                  const PdipmArgs* args, void* stream) {
+  return launch<RicAugLean, double, WarpGroup<2>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0,
+                                             x, s, z, y, res, go, ran, batch, T, args, stream);
 }
 
 const char* pdipm_ric_aug_error_string(int err) {

@@ -200,7 +200,7 @@ struct RicSplit {
       o = o > f ? o : f;
       L.total = o;
       L.piv = o * size_of_s;
-      L.bytes = ((size_t)L.piv + 15) / 16 * 16;
+      L.bytes = (size_t)L.piv;
     } else {
       L.ka = take(o, 2 * T * 16); L.m = take(o, T * 144); L.p = take(o, T * NX_ * 8);
       L.yp = L.m;
@@ -412,7 +412,7 @@ struct RicAugSplit {
       o = o > fb ? o : fb;
       L.total = o;
       L.piv = piv_at * size_of_s;
-      L.bytes = ((size_t)o * size_of_s + 15) / 16 * 16;
+      L.bytes = (size_t)o * size_of_s;
     } else {
       L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.p = take(o, T * 144);
       L.yp = L.m;

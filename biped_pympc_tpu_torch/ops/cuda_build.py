@@ -17,13 +17,10 @@ import subprocess
 import tempfile
 
 # -Xptxas -v: ptxas reports each kernel's registers and spills into the
-# compiler output that `LOGS` keeps; it does not change the code.
+# compiler output, which `build` keeps beside the library (`build_log`); it
+# does not change the code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-# {library path: the compiler's output} of every library this process built.
-LOGS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -50,14 +47,24 @@ def library_path(name: str, source: str, headers, build_dir: str, flags=()) -> s
     return os.path.join(build_dir, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
+def build_log(path: str) -> str | None:
+    """The compiler's output of the build of the library at `path`, kept
+    beside it as lib<name>_<hash>.log; None when there is none."""
+    log = os.path.splitext(path)[0] + ".log"
+    if not os.path.exists(log):
+        return None
+    with open(log) as fh:
+        return fh.read()
+
+
 def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) -> dict:
     """Compile every library of `sources` ({key: .cu path}) whose file in
     `paths` ({key: .so path}) does not exist yet, one nvcc each with
     NVCC_FLAGS and the extra `flags`, all started together; return `paths`.
     `nvcc` is called for the compiler's path only when something is to be
     built. Raises RuntimeError with the compiler's output if any nvcc fails;
-    a library is moved into place only once whole, and its compiler output
-    kept in `LOGS`."""
+    a library is moved into place only once whole, its compiler output
+    written beside it first (`build_log`)."""
     todo = [key for key, path in paths.items() if not os.path.exists(path)]
     if not todo:
         return paths
@@ -76,7 +83,8 @@ def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) 
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
             else:
-                LOGS[paths[key]] = out + err
+                with open(os.path.splitext(paths[key])[0] + ".log", "w") as fh:
+                    fh.write(out + err)
                 os.replace(tmp, paths[key])  # atomic: a concurrent build never loads a partial file
     finally:
         for _, _, tmp, proc in jobs:

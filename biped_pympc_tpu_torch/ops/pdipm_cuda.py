@@ -5,8 +5,8 @@
 `solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
 the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
 "ric_aug" also `opts.foot_split` and `opts.foot_pack`; one library per source
-in `SOURCES`) in the launch geometry of `geometry` (one 128-thread block per
-env, or for K1 and K2 one or two warps per env in their lean layouts), CPU
+in `SOURCES`) in the launch geometry of `geometry` (one env per 128-thread
+block, or for K1 two warps and K2 one per env in their lean layouts), CPU
 tensors run the plain version `ops/pdipm.py`. There is no fallback between
 the two: a failed build or
 launch raises, and so does a horizon and dtype whose layout does not fit in a
@@ -67,24 +67,16 @@ HEADERS = tuple(os.path.join(_CSRC, name) for name in
                  "pdipm_tridiag.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
-SM_SMEM = 233472  # bytes of shared memory of one H100 SM
-BLOCK_RESERVED_SMEM = 1024  # bytes of an SM's shared memory the runtime keeps per block
-SMEM_ALLOC_UNIT = 128  # a block's shared memory is allocated in units of this many bytes
-MAX_THREADS_PER_SM, MAX_BLOCKS_PER_SM = 2048, 32
 
 # Launch geometry (`geometry`). Every route runs in the block group: one env
 # per block of BLOCK_THREADS threads (`BlockGroup`, csrc/pdipm_common.cuh),
-# but K1 and K2 (LEAN_ROUTES), which run in a warp group (`WarpGroup`), each
-# env in its lean layout (`env_bytes`), so that more envs fit on an SM:
-# WARP_THREADS[route] threads per env, with up to MAX_ENVS_PER_BLOCK envs per
-# block of one-warp groups and one env per block of two-warp ones. The warp
-# groups finish first at every batch measured, from b128 (one env per SM,
-# where one env's latency decides) to b4096 (PERF.md, Findings), so the choice
-# does not depend on the batch.
+# but K1 and K2 (LEAN_ROUTES), which run in their warp group (`WarpGroup`),
+# WARP_THREADS[route] threads per env and one env per block, in their lean
+# layouts. The warp groups finish first at every batch measured, from b128
+# (one env per SM, where one env's latency decides) to b4096 (PERF.md,
+# Findings), so the choice does not depend on the batch.
 BLOCK_THREADS = 128
 WARP_THREADS = {"ric_aug": 64, "ric": 32}
-MAX_ENVS_PER_BLOCK = 8
-MAX_WARP_BLOCK_THREADS = 256  # PDIPM_WARP_BLOCK_THREADS of csrc/pdipm_common.cuh
 LEAN_ROUTES = ("ric_aug", "ric")
 
 # Kernel launches issued in this process: solves per route (`route`), and
@@ -114,13 +106,11 @@ class PdipmArgs(ctypes.Structure):
 @dataclass(frozen=True)
 class Geometry:
     """How one launch lays envs on the card: threads per env (BLOCK_THREADS
-    for the block group, WARP_THREADS for a warp group), envs per block, and
-    the shared memory of one block in bytes (None: the route's own layout,
-    `smem_bytes`, for a route whose layout this module does not mirror)."""
+    for the block group, WARP_THREADS for a warp group) and envs per block
+    (one in either)."""
 
     threads_per_env: int
     envs_per_block: int
-    smem_per_block: int | None
 
     @property
     def lean(self) -> bool:
@@ -128,82 +118,16 @@ class Geometry:
         return self.threads_per_env != BLOCK_THREADS
 
 
-BLOCK = Geometry(BLOCK_THREADS, 1, None)
+BLOCK = Geometry(BLOCK_THREADS, 1)
 
 
-def env_bytes(backend: str, horizon: int, itemsize: int, lean: bool) -> int:
-    """Shared memory of one env of K1 ("ric_aug") or K2 ("ric") in bytes,
-    in the block layout or the lean one: `RicAugSplit` / `RicSplit::
-    make_layout` of csrc/pdipm_split.cuh, buffer for buffer (chip_smoke.py
-    holds the two against each other for every horizon up to 64)."""
-    if backend not in LEAN_ROUTES:
-        raise ValueError(f"no layout mirror for route {backend!r}")
-    T = horizon
-    nz, ni, ne = 24 * T, 16 * T, 14 * T
-    aug = backend == "ric_aug"
-    dirs = 2 * (nz + 2 * ni + ne)  # dxa..dya, dxc..dyc
-    sweep = T * (30 if aug else 14) + 3 * T * 12  # run, kr, g, wy
-    values = (2 * nz + 288 + ne + 192 + ni  # hd, f, Ad, Bd, b, G_u, d
-              + 2 * nz + 5 * ni + 2 * ne  # x, s, z, y, rx, rs, re, Sigma, W
-              + 12 + 288 + (0 if aug else 144) + 8)  # q_inv, S, Ad Q~^-1 Ad^T, yc, cf
-    if aug:
-        ints = 2 * T * 12
-        if lean:  # f, b, d in device memory, rx, rs, re formed where read, r2
-            # in dsc, the elimination scratch and pivot table in m, Ad Q~^-1 Ad^T
-            # in the union
-            solve = (2 * nz + 2 * ni + 2 * ne) + dirs + sweep
-            values += (3 * T * 144 + 4 - 2 * (nz + ne + ni) - 144
-                       + max(solve, 2 * T * 144 + 288))
-            ints = 0
-        else:
-            values += (4 * T * 144 + 2 * 2 * T * 12 + 144 + (3 * nz + 4 * ni + 3 * ne) + dirs
-                       + sweep + 12 + 128)
-    else:
-        ints = 0
-        if lean:  # f, b, d in device memory, r2 / r3 / r1_hat in dsc / dzc / r1,
-            # Ad Q~^-1 Ad^T and yc in the union
-            solve = (2 * nz + ni + 2 * ne) + dirs + sweep
-            values += (2 * T * 16 + T * 144 + 4 - (nz + ne + ni) - 288
-                       + max(solve, T * 96 + T * 144 + 432))
-        else:
-            values += (2 * T * 16 + T * 144 + T * 96 + 24 + 144 + (4 * nz + 3 * ni + 3 * ne)
-                       + dirs + sweep + 12 + 128)
-    nbytes = values * itemsize + 4 * ints
-    return (nbytes + 15) // 16 * 16 if lean else nbytes
-
-
-def block_smem(nbytes: int) -> int:
-    """An SM's shared memory taken by a block of `nbytes` dynamic shared
-    memory: with the runtime's reserve, in whole allocation units."""
-    return -(-(nbytes + BLOCK_RESERVED_SMEM) // SMEM_ALLOC_UNIT) * SMEM_ALLOC_UNIT
-
-
-def geometry(backend: str, horizon: int, dtype: torch.dtype) -> Geometry:
-    """The launch geometry of route `backend` at `horizon` in `dtype`: the
-    block group, but for K1 and K2 a warp group of WARP_THREADS[backend]
-    threads per env, with the envs per
-    block (one-warp groups: at most MAX_ENVS_PER_BLOCK, their lean layouts
-    within MAX_SMEM_PER_BLOCK; two-warp groups: one) that let the most envs
-    reside on an SM (SM_SMEM in `block_smem` per block, at most
-    MAX_BLOCKS_PER_SM blocks and MAX_THREADS_PER_SM threads), the fewest on
-    a tie."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+def geometry(backend: str) -> Geometry:
+    """The launch geometry of route `backend`: the block group, but for K1
+    and K2 their warp group of WARP_THREADS[backend] threads, one env per
+    block. Whether the route's layout fits a block at the launch's horizon
+    and dtype, `_launch` asks the library."""
     if backend in LEAN_ROUTES:
-        threads = WARP_THREADS[backend]
-        per_env = env_bytes(backend, horizon, itemsize, lean=True)
-        best = None
-        for envs in range(1, (MAX_ENVS_PER_BLOCK if threads == 32 else 1) + 1):
-            block = envs * per_env
-            if block > MAX_SMEM_PER_BLOCK or envs * threads > MAX_WARP_BLOCK_THREADS:
-                break
-            blocks = min(SM_SMEM // block_smem(block), MAX_BLOCKS_PER_SM,
-                         MAX_THREADS_PER_SM // (envs * threads))
-            if best is None or envs * blocks > best[0]:
-                best = (envs * blocks, envs)
-        if best is not None:
-            return Geometry(threads, best[1], best[1] * per_env)
-    if backend in LEAN_ROUTES:
-        return Geometry(BLOCK_THREADS, 1, env_bytes(backend, horizon, itemsize, lean=False))
+        return Geometry(WARP_THREADS[backend], 1)
     return BLOCK
 
 
@@ -231,9 +155,6 @@ def args(opts: PdipmOptions) -> PdipmArgs:
 # must be 0, which `pdipm.check_options` ensures before any launch. Each
 # route reads the options that apply to it, as the JAX kernel does.
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-# C interface of K1's and K2's `pdipm_<route>_warp_<f32|f64>`: the entry's,
-# then threads per env and envs per block (`Geometry`).
-WARP_ARGTYPES = ENTRY_ARGTYPES + [ctypes.c_int] * 2
 # C interface of `pdipm_ric_aug_residual_<f32|f64>`: hd, Ad, Bd, G_u, W, dx,
 # dz, dy, r1, rz, r4; the outputs e1, ez, e4; then batch, T, refine_df, beta,
 # delta and the stream.
@@ -277,6 +198,8 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     for suffix in ("f32", "f64"):
         entries = [(f"pdipm_{backend}_{suffix}", ENTRY_ARGTYPES)]
+        if backend in LEAN_ROUTES:
+            entries.append((f"pdipm_{backend}_warp_{suffix}", ENTRY_ARGTYPES))
         if backend == "ric_aug":
             entries.append((f"pdipm_ric_aug_residual_{suffix}", RESIDUAL_ARGTYPES))
         for name, argtypes in entries:
@@ -286,14 +209,15 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     smem = getattr(lib, f"pdipm_{backend}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_size_t
-    # K1's and K2's warp entries, lean layouts and occupancy; a profile
-    # build's breakdown (`bench/pdipm_geometry.py`).
-    extras = [(f"pdipm_{backend}_warp_{s}", WARP_ARGTYPES, ctypes.c_int) for s in ("f32", "f64")]
-    extras += [(f"pdipm_{backend}_lean_bytes", [ctypes.c_int] * 2, ctypes.c_size_t),
-               (f"pdipm_{backend}_envs_per_sm", [ctypes.c_int] * 4, ctypes.c_int),
-               (f"pdipm_{backend}_profile_read", [ctypes.c_void_p, ctypes.c_int], ctypes.c_int)]
-    for name, argtypes, restype in extras:
-        if backend in LEAN_ROUTES and hasattr(lib, name):
+    if backend in LEAN_ROUTES:
+        # K1's and K2's lean layout and occupancy; a profile build's
+        # breakdown (`bench/pdipm_geometry.py`).
+        extras = [(f"pdipm_{backend}_lean_bytes", [ctypes.c_int] * 2, ctypes.c_size_t),
+                  (f"pdipm_{backend}_envs_per_sm", [ctypes.c_int] * 3, ctypes.c_int)]
+        if hasattr(lib, f"pdipm_{backend}_profile_read"):
+            extras.append((f"pdipm_{backend}_profile_read", [ctypes.c_void_p, ctypes.c_int],
+                           ctypes.c_int))
+        for name, argtypes, restype in extras:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
@@ -354,7 +278,8 @@ def _state_tensors(qp: StageQP, state: pdipm.PdipmState) -> list:
 def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=None, ran=None,
             geom: Geometry | None = None):
     """One launch of route `route(opts)` from `lib` in `geom` (None: the
-    route's `geometry`): warm (x0, s0, z0, y0) or None for the
+    route's `geometry`; `BLOCK` runs K1 and K2 in the block group, as
+    chip_smoke.py does to compare): warm (x0, s0, z0, y0) or None for the
     cold start; outs (x, s, z, y, res), which may be the warm tensors
     themselves; go / ran the gate flag and chunk counter (int32 device
     tensors) or None."""
@@ -364,12 +289,11 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     key = route(opts)
     name = f"pdipm_{key}"
     if geom is None:
-        geom = geometry(key, T, qp.f.dtype)
-    if geom.lean and key not in LEAN_ROUTES:
-        raise ValueError(f"route {key!r} runs in the block group only, not in {geom}")
-    per_env = getattr(lib, f"{name}_{'lean' if geom.lean else 'smem'}_bytes")(
+        geom = geometry(key)
+    if geom not in (BLOCK, geometry(key)):
+        raise ValueError(f"route {key!r} runs in {BLOCK} or {geometry(key)}, not in {geom}")
+    smem = getattr(lib, f"{name}_{'lean' if geom.lean else 'smem'}_bytes")(
         T, qp.f.element_size())
-    smem = per_env * geom.envs_per_block
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"route {key!r} at horizon {T} in {qp.f.dtype} needs {smem} B "
                          f"of shared memory per block ({geom}); an H100 block has at most "
@@ -378,10 +302,9 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     entry = f"{name}_warp" if geom.lean else name
     fn = getattr(lib, f"{entry}_f32" if qp.f.dtype == torch.float32 else f"{entry}_f64")
     options = args(opts)
-    extra = (geom.threads_per_env, geom.envs_per_block) if geom.lean else ()
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
              *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
-             ctypes.addressof(options), stream, *extra)
+             ctypes.addressof(options), stream)
     if err != 0:
         raise RuntimeError(f"PDIPM kernel {name} launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
@@ -415,18 +338,16 @@ def _device(qp: StageQP, opts: PdipmOptions) -> torch.device:
 
 
 def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
-          state: pdipm.PdipmState | None = None, geom: Geometry | None = None) -> PdipmResult:
+          state: pdipm.PdipmState | None = None) -> PdipmResult:
     """Batched PDIPM on route `route(opts)`, from `state` (a batch-first
     PdipmState, the warm start) or the cold start: its CUDA kernel for CUDA
-    tensors, in `geom` (None: `geometry`), the plain version for CPU
-    tensors."""
+    tensors, in `geometry`, the plain version for CPU tensors."""
     dev = _device(qp, opts)
     if dev.type == "cpu":
         return pdipm.solve(qp, opts, state)
     lib = _library(route(opts))
     with torch.cuda.device(dev):
-        return run_kernel(lib, qp, opts, torch.cuda.current_stream(dev).cuda_stream, state,
-                          geom)
+        return run_kernel(lib, qp, opts, torch.cuda.current_stream(dev).cuda_stream, state)
 
 
 def refine_residual(qp: StageQP, w_diag, dx, dz, dy, r1, r_z, r4,

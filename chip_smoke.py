@@ -29,13 +29,15 @@ loop does without waiting for the device, that a layout over a block's
 shared memory raises before any launch, and prints whether K1 and K2 (in
 their former Gauss-Jordan form), K5a and K5b still give the bits their
 builds gave before the Newton step was shared. K1 and K2 run in warp groups
-(`pdipm_cuda.geometry`: one or two warps per env, their lean layouts); the
+(`pdipm_cuda.geometry`: K1 two warps per env, K2 one, in their lean
+layouts); the
 script checks every route's bits, K1 and K2 in the block group, against the
 build before the warp groups (BEFORE_WARP_DIGESTS), holds the block group
 against the plain version too, and times both geometries in turns beside a
 clock64() breakdown of a Newton step and the resident envs per SM (`geometry_phase`;
-`python3 chip_smoke.py --geometry` runs that phase alone with the other
-candidates, `--digests` prints the digests). It drives `MPCController`
+`python3 chip_smoke.py --geometry` runs that phase alone with a sweep of
+batch sizes, `--digests` prints the digests; no other argument is taken).
+It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
 ticks, with the adaptive solve for 100 ticks, with `solver="pallas_aug"`
@@ -203,14 +205,16 @@ def build_all() -> list:
 
 def ptxas_report(lib_paths) -> str:
     """Registers and spill stores of every kernel entry, as ptxas reported
-    them while this process built the libraries (`cuda_build.LOGS`). The
-    Newton-step kernel is named by its route policy and group,
-    `pdipm_kernel<RicAugLean, f32, WarpGroup<2>>`."""
+    them when each library was built (`cuda_build.build_log`, kept beside
+    the library, so a library built before this run reports too); raises if
+    a library has no report. The Newton-step kernel is named by its route
+    policy and group, `pdipm_kernel<RicAugLean, f32, WarpGroup<2>>`."""
     from biped_pympc_tpu_torch.ops import cuda_build
 
     out = []
     for path in lib_paths:
-        text = cuda_build.LOGS.get(path, "")
+        text = cuda_build.build_log(path)
+        check(text is not None and "Used" in text, f"no ptxas report for {path}")
         name = None
         for line in text.splitlines():
             m = re.search(r"entry function '_Z\d+(\w+?_kernel)I(\w+)'", line)
@@ -235,9 +239,7 @@ def ptxas_report(lib_paths) -> str:
             if regs and name:
                 out.append(f"{name} {regs.group(1)} registers, {stores} B spill stores")
                 name = None
-    unreported = [p for p in lib_paths if p not in cuda_build.LOGS]
-    return "; ".join(out) + (f"; built before this run, no report: {unreported}" if unreported
-                             else "")
+    return "; ".join(out)
 
 
 def walking_draws(batch, seed):
@@ -484,10 +486,10 @@ def digest_routes(opts) -> dict:
 def route_digests(qp32, qp64, opts) -> dict:
     """{"<tag> f32|f64": digest} of every route of `digest_routes` on the two
     batches, K1 and K2 in the block group."""
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-    kw = {"geom": pdipm_cuda.BLOCK} if hasattr(pdipm_cuda, "BLOCK") else {}
-    return {f"{tag} {dt}": digest(results(pdipm_cuda.solve(qp, o, **kw)))
+    return {f"{tag} {dt}": digest(results(pg.solve_in(qp, o, pdipm_cuda.BLOCK)))
             for tag, o in digest_routes(opts).items()
             for dt, qp in (("f32", qp32), ("f64", qp64))}
 
@@ -570,16 +572,15 @@ def sass_report(roofline_lib: str) -> str:
 
 
 def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
-    """K1 and K2 in their launch geometries: the layouts' byte counts of
-    `pdipm_cuda.env_bytes` against the libraries' for every horizon up to 64
-    (both layouts and dtypes); the largest horizon each route and dtype runs
-    in its geometry and in the block group; the geometry `pdipm_cuda.geometry`
-    picks and the resident envs per SM of it and of the block group; the
-    clock64() breakdown of a Newton step in both (`pdipm_geometry`); and the
-    solve times of the block group (the build before the warp groups) and the
-    picked geometry in turns (block, new, new, block), f32 and f64, at b4096
-    and at the hybrid's re-solve batch, each required faster in every turn.
-    With `explore`, also the other warp-group candidates and a sweep of batch
+    """K1 and K2 in their launch geometries: the largest horizon each route
+    and dtype runs in its warp group and in the block group (the libraries'
+    `lean_bytes` / `smem_bytes` within a block's shared memory); the
+    geometry `pdipm_cuda.geometry` picks and the resident envs per SM of it
+    and of the block group; the clock64() breakdown of a Newton step in both
+    (`pdipm_geometry`); and the solve times of the block group (the build
+    before the warp groups) and the warp group in turns (block, new, new,
+    block), f32 and f64, at b4096 and at the hybrid's re-solve batch, each
+    required faster in every turn. With `explore`, also a sweep of batch
     sizes. Returns {"geo", "occ", "turns", "breakdown"}."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
@@ -587,32 +588,30 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
     from biped_pympc_tpu_torch.ops import qp as qps
 
     dts = {"f32": torch.float32, "f64": torch.float64}
-    bad, fits = [], {}
+    fits = {}
     for route in pdipm_cuda.LEAN_ROUTES:
         lib = pdipm_cuda._library(route)
         for dt, dtype in dts.items():
             size = torch.empty((), dtype=dtype).element_size()
-            for T in range(1, 65):
-                for kind, lean in (("smem", False), ("lean", True)):
-                    got = getattr(lib, f"pdipm_{route}_{kind}_bytes")(T, size)
-                    if got != pdipm_cuda.env_bytes(route, T, size, lean):
-                        bad.append((route, dt, T, kind, got))
-            for tag, lean in (("picked", True), ("block group", False)):
+            for tag, kind in (("warp group", "lean"), ("block group", "smem")):
                 fits[f"{route} {dt} {tag}"] = max(
                     T for T in range(1, 65)
-                    if pdipm_cuda.env_bytes(route, T, size, lean) <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
-    check(not bad, f"env_bytes differs from the libraries' layouts: {bad[:5]}")
+                    if getattr(lib, f"pdipm_{route}_{kind}_bytes")(T, size)
+                    <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
     qps_ = {"f32": qp32, "f64": qp64}
     T = qp32.horizon
-    geo = {(r, dt): pdipm_cuda.geometry(r, T, dts[dt])
-           for r in pdipm_cuda.LEAN_ROUTES for dt in dts}
+    geo = {r: pdipm_cuda.geometry(r) for r in pdipm_cuda.LEAN_ROUTES}
+    env_b = {(r, dt): getattr(pdipm_cuda._library(r), f"pdipm_{r}_lean_bytes")(
+        T, torch.empty((), dtype=dts[dt]).element_size())
+        for r in pdipm_cuda.LEAN_ROUTES for dt in dts}
     occ = {(r, dt, tag): pg.envs_per_sm(r, T, dts[dt], g)
            for r in pdipm_cuda.LEAN_ROUTES for dt in dts
-           for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r, dt]))}
-    print(f"[geometry] {label}: env_bytes equals the libraries' layouts for T 1..64; largest "
-          f"horizon per route and dtype: {fits}; picked at h{T}: "
-          + ", ".join(f"{r} {dt} {g.threads_per_env} threads x {g.envs_per_block} envs, "
-                      f"{g.smem_per_block} B per block" for (r, dt), g in geo.items())
+           for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r]))}
+    print(f"[geometry] {label}: largest horizon per route and dtype: {fits}; picked: "
+          + ", ".join(f"{r} {g.threads_per_env} threads x {g.envs_per_block} env per block"
+                      for r, g in geo.items())
+          + f"; lean bytes per env at h{T}: "
+          + ", ".join(f"{r} {dt} {n}" for (r, dt), n in env_b.items())
           + "; resident envs per SM (occupancy calculator): "
           + ", ".join(f"{r} {dt} {tag} {n}" for (r, dt, tag), n in occ.items()))
     for r in pdipm_cuda.LEAN_ROUTES:
@@ -621,10 +620,7 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
     out = {"geo": geo, "occ": occ, "turns": {}, "breakdown": {}}
     for r, o in base.items():
         for dt in dts:
-            cands = [("block", pdipm_cuda.BLOCK), ("new", geo[r, dt])]
-            if explore and dt == "f32":
-                cands += [(f"warp {t}x{e}", pg.warp(t, e, r, T, dts[dt])) for t, e in pg.CANDIDATES]
-            for tag, g in cands:
+            for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r])):
                 res = pg.breakdown(qps_[dt], o, g)
                 out["breakdown"][r, dt, tag] = res
                 print(pg.breakdown_line(f"[breakdown] {label}: {r} {dt} b{B} {tag} "
@@ -634,8 +630,8 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
             qp = qps_[dt]
             sub = qps.take(qp, torch.arange(RESOLVE_BATCH, device=qp.f.device))
             for nb, q in ((B, qp), (RESOLVE_BATCH, sub)):
-                out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r, dt])
-    print(f"[geometry times] {label}: block group / picked warp group / warp group / block "
+                out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r])
+    print(f"[geometry times] {label}: block group / warp group / warp group / block "
           f"group, ms: " + "; ".join(f"{r} {dt} b{nb} " + " / ".join(f"{v:.3f}" for v in t)
                                      for (r, dt, nb), t in out["turns"].items()))
     for (r, dt, nb), t in out["turns"].items():
@@ -646,13 +642,9 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
         for r, o in base.items():
             qp = qps_["f32"]
             line = []
-            for t, e in pg.CANDIDATES:
-                g = pg.warp(t, e, r, T, torch.float32)
-                line.append(f"{t}x{e} {pg.envs_per_sm(r, T, torch.float32, g)} envs/SM "
-                            f"{pg.turns(qp, o, pdipm_cuda.BLOCK, g)[1]:.3f} ms")
             for nb in (256, 512, 1024, 2048):
                 q = qps.take(qp, torch.arange(nb, device=qp.f.device))
-                tt = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r, "f32"])
+                tt = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r])
                 line.append(f"b{nb} block {tt[0]:.3f} / warp {tt[1]:.3f} ms")
             print(f"[geometry explore] {label}: {r} f32: " + "; ".join(line)
                   + f"; SASS instructions {pg.sass_sizes(pdipm_cuda.library_path(r))}")
@@ -884,7 +876,7 @@ def quick(mode: str) -> int:
                   for n in "xszy")
         fin = torch.isfinite(k32.x).all(1)
         du0 = (k32.x[:, 120:132].double() - plain.x[:, 120:132]).abs().amax(1)
-        print(f"[geometry check] {r} {pdipm_cuda.geometry(r, 10, torch.float64)}: f64 vs "
+        print(f"[geometry check] {r} {pdipm_cuda.geometry(r)}: f64 vs "
               f"plain f64 on {int(cv.sum())} converged envs max {err:.3e} abs, {rel:.3e} rel; "
               f"f32 finite {int(fin.sum())}/{B}, u0 |dGRF| converged finite max "
               f"{float(du0[cv & fin].max()):.3e} N, above 0.5 N {int((du0[fin] > 0.5).sum())}")
@@ -897,11 +889,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"]):
+        print(f"chip_smoke: takes no argument, --digests or --geometry; got {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     if len(sys.argv) > 1:
         return quick(sys.argv[1])
     from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
     from biped_pympc_tpu_torch.control import mpc
     from biped_pympc_tpu_torch.models.hector import TORQUE_LIMIT
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
 
@@ -916,8 +913,8 @@ def main() -> int:
           f"devices visible {torch.cuda.device_count()}")
     print(label)
 
-    # 2. Build: one nvcc per kernel source, started together, beside one
-    # `-Xptxas -v` compile per source for the register report.
+    # 2. Build: one nvcc per kernel source, started together, each with
+    # `-Xptxas -v` for the register report kept beside its library.
     t0 = time.perf_counter()
     lib_paths = build_all()
     print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} "
@@ -1005,8 +1002,8 @@ def main() -> int:
     # 4a. K1 and K2 in the block group, the configuration before the warp
     # groups (BEFORE_WARP_DIGESTS holds its bits in 4m): against the same plain f64
     # solves, with the same bounds.
-    blk64 = pdipm_cuda.solve(qp64, opts, geom=pdipm_cuda.BLOCK)
-    ric_blk64 = pdipm_cuda.solve(qp64, ric, geom=pdipm_cuda.BLOCK)
+    blk64 = pg.solve_in(qp64, opts, pdipm_cuda.BLOCK)
+    ric_blk64 = pg.solve_in(qp64, ric, pdipm_cuda.BLOCK)
     blk_err = max(float((getattr(blk64, n) - getattr(plain64, n)).abs().amax(1)[conv].max())
                   for n in "xszy")
     ric_blk_rel = max(float(((getattr(ric_blk64, n) - getattr(ric_plain64, n)).abs()
@@ -1015,8 +1012,7 @@ def main() -> int:
     print(f"[block group f64 vs plain f64] b{B}: K1 converged envs max |dx,ds,dz,dy| "
           f"{blk_err:.3e} (bound {F64_ATOL:g}); K2 {ric_blk_rel:.3e} relative to max(1, |v|) "
           f"(bound {CONDENSED_F64_RTOL:g}); the picked geometry: K1 "
-          f"{pdipm_cuda.geometry('ric_aug', qp64.horizon, torch.float64)}, K2 "
-          f"{pdipm_cuda.geometry('ric', qp64.horizon, torch.float64)}")
+          f"{pdipm_cuda.geometry('ric_aug')}, K2 {pdipm_cuda.geometry('ric')}")
     check(blk_err <= F64_ATOL, "f64 K1 in the block group differs from the plain version")
     check(ric_blk_rel <= CONDENSED_F64_RTOL,
           "f64 K2 in the block group differs from the plain version")
@@ -1500,8 +1496,8 @@ def main() -> int:
                       for dt, qp in (("f32", qp32), ("f64", qp64)))
     # K1 and K2 in the form and geometry those builds had: gj_form
     # "tableau", the block group.
-    block_tableau = {(tag, dt): pdipm_cuda.solve(qp, dataclasses.replace(o, gj_form="tableau"),
-                                                  geom=pdipm_cuda.BLOCK)
+    block_tableau = {(tag, dt): pg.solve_in(qp, dataclasses.replace(o, gj_form="tableau"),
+                                             pdipm_cuda.BLOCK)
                      for tag, o in (("K1", opts), ("K2", ric))
                      for dt, qp in (("f32", qp32), ("f64", qp64))}
     refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]

@@ -1,9 +1,9 @@
 """The launch geometry of the port's PDIPM kernels (`pdipm_cuda.geometry`):
-K1 ("ric_aug") and K2 ("ric") run in a warp group, in their lean layouts;
-every other route keeps the block group. Pure Python: the layouts' byte
-counts are `pdipm_cuda.env_bytes`, which chip_smoke.py (and
-test_torch_pdipm_host_shim.py, through the host build) holds against the
-kernels' own `make_layout`."""
+K1 ("ric_aug") runs two warps per env and K2 ("ric") one, one env per block,
+in their lean layouts; every other route keeps the block group. The layouts'
+byte counts come from the kernels' own `make_layout`, read from a g++ build
+of K1 and K2 against the host shim (`ops/host_build.py`; the tests that need
+it skip, deciding inside the test, where g++ is absent)."""
 
 import contextlib
 import types
@@ -11,101 +11,148 @@ import types
 import pytest
 import torch
 
-from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+from biped_pympc_tpu_torch.ops import host_build, pdipm, pdipm_cuda
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # The largest horizon each route ran before the warp groups, per dtype: the
 # block layout within 232,448 B (ROADMAP Queue 3, item 5).
 BLOCK_MAX_T = {("ric_aug", "f32"): 45, ("ric_aug", "f64"): 22, ("ric", "f32"): 64,
                ("ric", "f64"): 31}
+# One H100 SM: shared memory, the runtime's reserve per block and the
+# allocation unit, in bytes; threads and blocks at most.
+SM_SMEM, BLOCK_RESERVED_SMEM, SMEM_ALLOC_UNIT = 233472, 1024, 128
+MAX_THREADS_PER_SM, MAX_BLOCKS_PER_SM = 2048, 32
+
+
 def _size(dt):
     return torch.empty((), dtype=DTYPES[dt]).element_size()
 
 
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """{route: the host build of K1 / K2}, or a skip without g++."""
+    if host_build.find_gxx() is None:
+        pytest.skip("g++ is not installed: the host build of the kernels needs it")
+    out = tmp_path_factory.mktemp("host_build")
+    return {r: pdipm_cuda.load_library(
+        host_build.build(pdipm_cuda.SOURCES[r], str(out / f"lib{r}.so")), r)
+        for r in pdipm_cuda.LEAN_ROUTES}
+
+
+def _bytes(libs, route, T, dt, lean):
+    kind = "lean" if lean else "smem"
+    return getattr(libs[route], f"pdipm_{route}_{kind}_bytes")(T, _size(dt))
+
+
 @pytest.mark.parametrize("route, dt", sorted(BLOCK_MAX_T))
-def test_block_layout_fits_the_horizons_of_before(route, dt):
+def test_block_layout_fits_the_horizons_of_before(libs, route, dt):
     """The block layout, unchanged, fits exactly the horizons it fit before."""
     fits = [T for T in range(1, 80)
-            if pdipm_cuda.env_bytes(route, T, _size(dt), lean=False)
-            <= pdipm_cuda.MAX_SMEM_PER_BLOCK]
-    assert max(fits) == BLOCK_MAX_T[route, dt]
+            if _bytes(libs, route, T, dt, lean=False) <= pdipm_cuda.MAX_SMEM_PER_BLOCK]
     assert fits == list(range(1, BLOCK_MAX_T[route, dt] + 1))
 
 
 @pytest.mark.parametrize("route, dt", sorted(BLOCK_MAX_T))
-def test_every_horizon_that_ran_still_runs(route, dt):
-    """Each horizon up to the largest one of before gets a geometry whose
-    block fits an H100 block's shared memory, and the lean layout runs at
-    least as far as the block layout did."""
+def test_every_horizon_that_ran_still_runs(libs, route, dt):
+    """Each horizon up to the largest one of before fits the route's warp
+    group: its lean layout within an H100 block's shared memory."""
+    g = pdipm_cuda.geometry(route)
+    assert g.lean and g.envs_per_block == 1
     for T in range(1, BLOCK_MAX_T[route, dt] + 1):
-        g = pdipm_cuda.geometry(route, T, DTYPES[dt])
-        assert g.lean and g.smem_per_block <= pdipm_cuda.MAX_SMEM_PER_BLOCK, (T, g)
+        assert _bytes(libs, route, T, dt, lean=True) <= pdipm_cuda.MAX_SMEM_PER_BLOCK, T
 
 
 @pytest.mark.parametrize("T", [1, 2, 5, 10, 20, 30, 45, 64])
 @pytest.mark.parametrize("route, dt", sorted(BLOCK_MAX_T))
-def test_block_bytes_are_envs_times_the_env_layout(route, dt, T):
-    """A block's shared memory is envs_per_block lean layouts of one env,
-    within 232,448 B (else the block layout, which launch refuses); a warp
-    group's block has at most 256 threads, a two-warp group one env."""
-    g = pdipm_cuda.geometry(route, T, DTYPES[dt])
-    if not g.lean:  # the lean layout does not fit: the block layout, refused at launch
-        assert pdipm_cuda.env_bytes(route, T, _size(dt), lean=True) > \
-            pdipm_cuda.MAX_SMEM_PER_BLOCK and T > BLOCK_MAX_T[route, dt]
-        assert g.smem_per_block > pdipm_cuda.MAX_SMEM_PER_BLOCK
-        return
-    assert g.smem_per_block == g.envs_per_block * pdipm_cuda.env_bytes(route, T, _size(dt), True)
-    assert g.smem_per_block <= pdipm_cuda.MAX_SMEM_PER_BLOCK
-    assert g.threads_per_env == pdipm_cuda.WARP_THREADS[route]
-    assert 1 <= g.envs_per_block <= pdipm_cuda.MAX_ENVS_PER_BLOCK
-    assert g.envs_per_block * g.threads_per_env <= pdipm_cuda.MAX_WARP_BLOCK_THREADS
-    if g.threads_per_env == 64:  # two warps: one env per block (named barrier 1)
-        assert g.envs_per_block == 1
+def test_block_bytes_are_envs_times_the_env_layout(monkeypatch, libs, route, dt, T):
+    """A warp group's block holds one env: the launch asks the library for
+    the lean layout of one env and calls the warp entry when that is within
+    232,448 B (always, up to the horizons of before), else raises before any
+    launch. Through a stand-in library that answers the host build's bytes."""
+    from biped_pympc_tpu_torch.bench import bench_common
+
+    g = pdipm_cuda.geometry(route)
+    assert (g.threads_per_env, g.envs_per_block) == (pdipm_cuda.WARP_THREADS[route], 1)
+    lean = _bytes(libs, route, T, dt, lean=True)
+    if T <= BLOCK_MAX_T[route, dt]:
+        assert lean <= pdipm_cuda.MAX_SMEM_PER_BLOCK
+    qp = bench_common.make_qp_batch(2, horizon=T, dtype=DTYPES[dt], device="cpu")
+    opts = pdipm.PdipmOptions(backend=route, foot_split=True, iterations=1)
+    monkeypatch.setattr(pdipm_cuda, "launches", dict(pdipm_cuda.launches))
+    monkeypatch.setattr(pdipm_cuda, "warp_launches", dict(pdipm_cuda.warp_launches))
+    lib = _FakeLib(lean)
+    if lean > pdipm_cuda.MAX_SMEM_PER_BLOCK:
+        with pytest.raises(ValueError, match="shared memory per block"):
+            pdipm_cuda.run_kernel(lib, qp, opts, None)
+        assert lib.calls == [(f"pdipm_{route}_lean_bytes", (T, _size(dt)))]
+    else:
+        pdipm_cuda.run_kernel(lib, qp, opts, None)
+        assert lib.calls == [(f"pdipm_{route}_lean_bytes", (T, _size(dt))),
+                             (f"pdipm_{route}_warp_{dt}", None)]
 
 
 @pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
 @pytest.mark.parametrize("dt", DTYPES)
-def test_lean_layout_is_smaller_and_16_byte_aligned(route, dt):
-    """The lean layout needs less than the block layout at every horizon and
-    keeps each env of a block on a 16-byte boundary."""
+def test_lean_layout_is_smaller(libs, route, dt):
+    """The lean layout needs less than the block layout at every horizon."""
     for T in range(1, 65):
-        lean = pdipm_cuda.env_bytes(route, T, _size(dt), lean=True)
-        assert lean < pdipm_cuda.env_bytes(route, T, _size(dt), lean=False)
-        assert lean % 16 == 0
+        assert _bytes(libs, route, T, dt, lean=True) < _bytes(libs, route, T, dt, lean=False)
 
 
-def _resident(g):
-    """Envs per SM by shared memory, blocks and threads (no registers)."""
-    blocks = min(pdipm_cuda.SM_SMEM // pdipm_cuda.block_smem(g.smem_per_block),
-                 pdipm_cuda.MAX_BLOCKS_PER_SM,
-                 pdipm_cuda.MAX_THREADS_PER_SM // (g.envs_per_block * g.threads_per_env))
-    return blocks * g.envs_per_block
+def _resident(nbytes, threads):
+    """Envs per SM of one-env blocks of `nbytes` shared memory and `threads`
+    threads, by shared memory (with the runtime's reserve, in whole units),
+    blocks and threads; registers not counted."""
+    per_block = -(-(nbytes + BLOCK_RESERVED_SMEM) // SMEM_ALLOC_UNIT) * SMEM_ALLOC_UNIT
+    return min(SM_SMEM // per_block, MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads)
 
 
 @pytest.mark.parametrize("route, dt, want, block_want", [
     ("ric_aug", "f32", 6, 4), ("ric", "f32", 8, 5), ("ric_aug", "f64", 3, 2), ("ric", "f64", 4, 2)])
-def test_h10_geometry_puts_more_envs_on_an_sm(route, dt, want, block_want):
+def test_h10_geometry_puts_more_envs_on_an_sm(libs, route, dt, want, block_want):
     """At h10 the warp group's lean layouts let more envs reside on an SM by
     shared memory than the block group's (K2's block group in f32 is held to
     4 by its register cap besides)."""
-    g = pdipm_cuda.geometry(route, 10, DTYPES[dt])
-    assert g.lean and g.threads_per_env == pdipm_cuda.WARP_THREADS[route]
-    assert _resident(g) == want
-    block = pdipm_cuda.Geometry(128, 1, pdipm_cuda.env_bytes(route, 10, _size(dt), lean=False))
-    assert _resident(block) == block_want
+    g = pdipm_cuda.geometry(route)
+    assert _resident(_bytes(libs, route, 10, dt, lean=True), g.threads_per_env) == want
+    assert _resident(_bytes(libs, route, 10, dt, lean=False), 128) == block_want
+
+
+class _FakeLib:
+    """Stands in for a route's library: records the layout queried and the
+    entry called, and launches nothing."""
+
+    def __init__(self, nbytes):
+        self.calls, self.nbytes = [], nbytes
+
+    def __getattr__(self, name):
+        def fn(*a):
+            self.calls.append((name, a[:2] if name.endswith("_bytes") else None))
+            return self.nbytes if name.endswith("_bytes") else 0
+        return fn
 
 
 @pytest.mark.parametrize("route", sorted(set(pdipm_cuda.SOURCES) - set(pdipm_cuda.LEAN_ROUTES)))
 @pytest.mark.parametrize("T", [1, 10, 20])
-def test_other_routes_keep_the_block_group(route, T):
+def test_other_routes_keep_the_block_group(monkeypatch, route, T):
     """Every route but K1 and K2 runs one env per 128-thread block, its own
-    layout (the library's `smem_bytes`), at any horizon and dtype."""
-    for dt in DTYPES.values():
-        assert pdipm_cuda.geometry(route, T, dt) == pdipm_cuda.BLOCK
-    assert pdipm_cuda.BLOCK == pdipm_cuda.Geometry(128, 1, None)
+    layout (the library's `smem_bytes`) and its block entry, at any horizon
+    and dtype."""
+    from biped_pympc_tpu_torch.bench import bench_common
+
+    assert pdipm_cuda.geometry(route) == pdipm_cuda.BLOCK == pdipm_cuda.Geometry(128, 1)
     assert not pdipm_cuda.BLOCK.lean
-    with pytest.raises(ValueError, match="no layout mirror"):
-        pdipm_cuda.env_bytes(route, 10, 4, lean=False)
+    backend, split = route.split("_dense")[0].split("_pack")[0], "_dense" not in route
+    opts = pdipm.PdipmOptions(backend=backend, foot_split=split,
+                              foot_pack="_pack" in route, iterations=1)
+    assert pdipm_cuda.route(opts) == route
+    monkeypatch.setattr(pdipm_cuda, "launches", dict(pdipm_cuda.launches))
+    for dt, dtype in DTYPES.items():
+        qp = bench_common.make_qp_batch(2, horizon=T, dtype=dtype, device="cpu")
+        lib = _FakeLib(1024)
+        pdipm_cuda.run_kernel(lib, qp, opts, None)
+        assert lib.calls == [(f"pdipm_{route}_smem_bytes", (T, _size(dt))),
+                             (f"pdipm_{route}_{dt}", None)]
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -120,7 +167,7 @@ def test_hybrid_solves_both_take_their_warp_groups(monkeypatch, dt):
 
     def fake_run_kernel(lib, qp, opts, stream, state=None, geom=None):
         key = pdipm_cuda.route(opts)
-        seen.append((key, qp.f.shape[0], geom or pdipm_cuda.geometry(key, qp.horizon, qp.f.dtype)))
+        seen.append((key, qp.f.shape[0], geom or pdipm_cuda.geometry(key)))
         return pdipm.solve(qp, opts, state)
 
     qp = bench_common.make_qp_batch(8, horizon=2, dtype=DTYPES[dt], device="cpu")
@@ -138,21 +185,55 @@ def test_hybrid_solves_both_take_their_warp_groups(monkeypatch, dt):
 
 
 def test_block_geometry_rejected_for_other_routes_in_a_warp_group():
-    """A warp-group geometry for a route that has none raises before any
-    launch."""
+    """A warp-group geometry for a route that has none, or another warp
+    group than the route's, raises before any launch."""
     from biped_pympc_tpu_torch.bench import bench_common
 
     qp = bench_common.make_qp_batch(2, horizon=2, dtype=torch.float64, device="cpu")
     before = dict(pdipm_cuda.launches)
-    with pytest.raises(ValueError, match="block group only"):
-        pdipm_cuda.run_kernel(object(), qp, pdipm.PdipmOptions(backend="tridiag"), None,
-                              geom=pdipm_cuda.Geometry(32, 1, 1024))
+    for backend, geom in (("tridiag", pdipm_cuda.Geometry(32, 1)),
+                          ("ric", pdipm_cuda.Geometry(64, 1)),
+                          ("ric_aug", pdipm_cuda.Geometry(32, 2))):
+        lib = _FakeLib(1024)
+        with pytest.raises(ValueError, match="runs in"):
+            pdipm_cuda.run_kernel(lib, qp, pdipm.PdipmOptions(backend=backend), None, geom=geom)
+        assert lib.calls == []
     assert pdipm_cuda.launches == before
 
 
-def test_block_smem_counts_the_reserve_in_whole_units():
-    """A block's share of an SM: its bytes and the runtime's 1 KB, rounded up
-    to the 128-byte allocation unit."""
-    assert pdipm_cuda.block_smem(0) == 1024
-    assert pdipm_cuda.block_smem(31824) == 32896
-    assert pdipm_cuda.block_smem(32768) == 33792
+def test_build_keeps_the_compiler_output_beside_each_library(tmp_path):
+    """`cuda_build.build` writes each library's compiler output (ptxas's
+    registers and spills) beside it, so a library built by an earlier run
+    still reports; a library with no log reports None."""
+    from biped_pympc_tpu_torch.ops import cuda_build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "ptxas info    : Used 42 registers"\n'
+                    'for a; do case "$a" in *.so) : > "$a";; esac; done\n')
+    nvcc.chmod(0o755)
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    path = cuda_build.library_path("k", str(src), (), str(tmp_path / "b"))
+    assert cuda_build.build_log(path) is None
+    cuda_build.build({"k": str(src)}, {"k": path}, str(tmp_path / "b"), nvcc=lambda: str(nvcc))
+    assert "Used 42 registers" in cuda_build.build_log(path)
+    cuda_build.build({"k": str(src)}, {"k": path}, str(tmp_path / "b"),
+                     nvcc=lambda: pytest.fail("rebuilt a library that was there"))
+    assert "Used 42 registers" in cuda_build.build_log(path)
+
+
+def test_occupancy_query_names_the_group(monkeypatch):
+    """`pdipm_geometry.envs_per_sm` asks the library for the block group
+    (lean 0) or the route's warp group (lean 1) at the horizon and value
+    size, and raises on the library's negative error."""
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
+
+    lib = _FakeLib(0)
+    answers = iter([6, 4, -2])
+    lib.pdipm_ric_aug_envs_per_sm = lambda *a: (lib.calls.append(a), next(answers))[1]
+    monkeypatch.setattr(pdipm_cuda, "_library", lambda route: lib)
+    assert pg.envs_per_sm("ric_aug", 10, torch.float32, pdipm_cuda.geometry("ric_aug")) == 6
+    assert pg.envs_per_sm("ric_aug", 10, torch.float64, pdipm_cuda.BLOCK) == 4
+    with pytest.raises(RuntimeError, match="occupancy query failed"):
+        pg.envs_per_sm("ric_aug", 10, torch.float32, pdipm_cuda.BLOCK)
+    assert lib.calls == [(10, 4, 1), (10, 8, 0), (10, 4, 0)]

@@ -2,7 +2,7 @@
 `ops/host_shim.h` (`ops/host_build.py`: one host thread per CUDA thread,
 barriers and shuffles as the shim's), launched through the port's own
 wrapper (`pdipm_cuda.run_kernel`) on CPU tensors, in the block group and in
-the warp groups, and held against the plain version in f64 at a small size
+the route's warp group, and held against the plain version in f64 at a small size
 (B = 2, T = 2, 2 Newton steps). Skips, deciding inside each test, where
 g++ is absent. The build has no FMA contraction, so its agreement is that
 of the arithmetic, not the card's rounding."""
@@ -16,9 +16,11 @@ from biped_pympc_tpu_torch.bench import bench_common
 from biped_pympc_tpu_torch.ops import host_build, pdipm, pdipm_cuda
 
 ATOL = 1e-10
-GEOMETRIES = {"block": pdipm_cuda.BLOCK, "warp 32x1": pdipm_cuda.Geometry(32, 1, None),
-              "warp 32x2": pdipm_cuda.Geometry(32, 2, None),
-              "warp 64x1": pdipm_cuda.Geometry(64, 1, None)}
+GEOMETRIES = ("block", "warp")
+
+
+def _geom(route, name):
+    return pdipm_cuda.BLOCK if name == "block" else pdipm_cuda.geometry(route)
 
 
 @pytest.fixture(scope="module")
@@ -47,14 +49,15 @@ def _assert_close(got, want, atol=ATOL):
                                    msg=name)
 
 
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=list(GEOMETRIES))
+@pytest.mark.parametrize("horizon", [1, 2, 3])
+@pytest.mark.parametrize("geom", GEOMETRIES)
 @pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
-def test_kernel_matches_the_plain_version(libs, route, geom):
-    """B = 2, T = 2, 2 steps, f64: every geometry within 1e-10 of the plain
-    version."""
-    qp = _qp(2)
+def test_kernel_matches_the_plain_version(libs, route, geom, horizon):
+    """B = 2, 2 steps, f64, T = 1 (a y-chain of one stage), 2 and 3 (an odd
+    batch): both geometries within 1e-10 of the plain version."""
+    qp = _qp(2 if horizon < 3 else 3, horizon)
     opts = _opts(route)
-    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=GEOMETRIES[geom])
+    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, geom))
     _assert_close(got, pdipm.solve(qp, opts))
 
 
@@ -74,17 +77,7 @@ def test_warp_group_options_match_the_plain_version(libs, route, name, kw):
     group's."""
     qp = _qp(2)
     opts = _opts(route, **kw)
-    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=GEOMETRIES["warp 32x1"])
-    _assert_close(got, pdipm.solve(qp, opts))
-
-
-@pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
-def test_spare_group_of_the_last_block_writes_nothing(libs, route):
-    """B = 3 in blocks of two envs: the last block's second group has no env
-    and returns; the three envs match the plain version."""
-    qp = _qp(3)
-    opts = _opts(route)
-    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=GEOMETRIES["warp 32x2"])
+    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, "warp"))
     _assert_close(got, pdipm.solve(qp, opts))
 
 
@@ -94,7 +87,7 @@ def test_warm_chunks_equal_one_launch_in_the_warp_group(libs, route):
     2-step launch."""
     qp = _qp(2)
     opts = _opts(route)
-    geom = GEOMETRIES["warp 32x1"]
+    geom = _geom(route, "warp")
     one = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=geom)
     step = dataclasses.replace(opts, iterations=1)
     r = pdipm_cuda.run_kernel(libs[route], qp, step, None, geom=geom)
@@ -104,33 +97,37 @@ def test_warm_chunks_equal_one_launch_in_the_warp_group(libs, route):
         assert torch.equal(getattr(r, name), getattr(one, name)), name
 
 
-@pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
-def test_layout_mirror_equals_the_kernels_layouts(libs, route):
-    """`pdipm_cuda.env_bytes` is the kernels' `make_layout`, both layouts,
-    f32 and f64, every horizon up to 64."""
-    lib = libs[route]
-    for size in (4, 8):
-        for T in range(1, 65):
-            assert getattr(lib, f"pdipm_{route}_smem_bytes")(T, size) == \
-                pdipm_cuda.env_bytes(route, T, size, lean=False), (size, T)
-            assert getattr(lib, f"pdipm_{route}_lean_bytes")(T, size) == \
-                pdipm_cuda.env_bytes(route, T, size, lean=True), (size, T)
-
-
-@pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
-def test_warp_entry_refuses_the_block_geometry_and_bad_shapes(libs, route):
-    """The warp entry launches only a warp group: 128 threads per env, 48,
-    or more than 256 threads per block return an error and write nothing."""
-    qp = _qp(2)
-    for geom in (pdipm_cuda.Geometry(128, 1, None), pdipm_cuda.Geometry(48, 1, None),
-                 pdipm_cuda.Geometry(64, 5, None)):
-        fn = getattr(libs[route], f"pdipm_{route}_warp_f64")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_warp_entry_refuses_df_on_the_condensed_route(libs, dtype):
+    """K2's warp entry, like its block entry, refuses the compensated
+    residual (an augmented-route option): it returns an error and writes
+    nothing."""
+    qp = bench_common.make_qp_batch(2, horizon=2, dtype=dtype, device="cpu")
+    opts = dataclasses.replace(_opts("ric"), refine_residual="df")
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    for entry in (f"pdipm_ric_warp_{suffix}", f"pdipm_ric_{suffix}"):
         ins = pdipm_cuda._inputs(qp)
-        outs = [torch.full((2, n), 7.0, dtype=torch.float64) for n in
+        outs = [torch.full((2, n), 7.0, dtype=dtype) for n in
                 (qp.nz, qp.n_ineq, qp.n_ineq, qp.n_eq, 4)]
-        err = fn(*[t.data_ptr() for t in ins], None, None, None, None,
-                 *[t.data_ptr() for t in outs], None, None, 2, qp.horizon,
-                 pdipm_cuda.ctypes.addressof(pdipm_cuda.args(_opts(route))), None,
-                 geom.threads_per_env, geom.envs_per_block)
-        assert err != 0
-        assert all(bool((t == 7.0).all()) for t in outs)
+        err = getattr(libs["ric"], entry)(
+            *[t.data_ptr() for t in ins], None, None, None, None, *[t.data_ptr() for t in outs],
+            None, None, 2, qp.horizon, pdipm_cuda.ctypes.addressof(pdipm_cuda.args(opts)), None)
+        assert err != 0, entry
+        assert all(bool((t == 7.0).all()) for t in outs), entry
+
+
+def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
+    """`bench/pdipm_ab.load_block` declares only the block-group entries
+    that every build shares; through it the host build of K2 gives the bits
+    of the full loader's, and the plain version's values."""
+    from biped_pympc_tpu_torch.bench import pdipm_ab
+
+    path = host_build.build(pdipm_cuda.SOURCES["ric"], str(tmp_path / "libric.so"))
+    qp = _qp(2)
+    opts = _opts("ric")
+    got = pdipm_cuda.run_kernel(pdipm_ab.load_block(path, "ric"), qp, opts, None,
+                                geom=pdipm_cuda.BLOCK)
+    want = pdipm_cuda.run_kernel(libs["ric"], qp, opts, None, geom=pdipm_cuda.BLOCK)
+    assert pdipm_ab.digest(got) == pdipm_ab.digest(want)
+    _assert_close(got, pdipm.solve(qp, opts))
+    assert pdipm_ab.KEYS == ["ric", "ric2", "ric_aug", "ric_dense"]

@@ -91,9 +91,13 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     names = [f"pdipm_{backend}_{suffix}" for suffix in ("f32", "f64")]
     if backend == "ric_aug":
         names += [f"pdipm_ric_aug_residual_{suffix}" for suffix in ("f32", "f64")]
+    extras = [f"pdipm_{backend}_smem_bytes", f"pdipm_{backend}_error_string"]
+    if backend in pdipm_cuda.LEAN_ROUTES:  # K1's and K2's warp entries and occupancy
+        names += [f"pdipm_{backend}_warp_{suffix}" for suffix in ("f32", "f64")]
+        names.append(f"pdipm_{backend}_envs_per_sm")
+        extras.append(f"pdipm_{backend}_lean_bytes")
     fake = types.SimpleNamespace(**{
-        name: types.SimpleNamespace()
-        for name in names + [f"pdipm_{backend}_smem_bytes", f"pdipm_{backend}_error_string"]})
+        name: types.SimpleNamespace() for name in names + extras})
     monkeypatch.setattr(pdipm_cuda.ctypes, "CDLL", lambda path: fake)
     lib = pdipm_cuda.load_library("unused.so", backend)
     for name in names:
@@ -182,7 +186,9 @@ def test_failed_ric_build_raises_and_does_not_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*pdipm_ric.cu: error"):
         pdipm_cuda.solve(on_card, pdipm.PdipmOptions(backend="ric", foot_split=True))
     assert pdipm_cuda.launches == before
-    built = sorted(p.name.rsplit("_", 1)[0] for p in build_dir.iterdir())
+    built = sorted(p.name.rsplit("_", 1)[0] for p in build_dir.glob("*.so"))
+    assert sorted(p.stem for p in build_dir.glob("*.log")) == \
+        sorted(p.stem for p in build_dir.glob("*.so"))  # each library's compiler output
     assert built == ["libpdipm_ric2", "libpdipm_ric_aug", "libpdipm_ric_aug_dense",
                      "libpdipm_ric_aug_pack", "libpdipm_ric_dense", "libpdipm_ric_pack",
                      "libpdipm_tridiag", "libpdipm_tridiag_aug"], built
