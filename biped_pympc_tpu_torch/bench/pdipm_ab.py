@@ -4,16 +4,16 @@
 
 Each DIR is the root of another checkout of this repo (for instance the
 parent commit, `git archive <commit> | tar -x -C DIR`). Its libraries of the
-Riccati routes in `ROUTES` are built by its own `ops/pdipm_cuda.py`, and
-loaded here through their block-group entries, whose C interface every
-build shares (`pdipm_<route>_f32` / `_f64`, `_smem_bytes`, `_error_string`).
-The script prints, per build, the SASS instructions, registers and stack of
+routes in `ROUTES` are built by its own `ops/pdipm_cuda.py`, and loaded
+here through their block-group entries, whose C interface every build
+shares (`pdipm_<route>_f32` / `_f64`, `_smem_bytes`, `_error_string`). The
+script prints, per build, the SASS instructions, registers and stack of
 each Newton-step kernel (cuobjdump); then each block-group route's b4096
 solve (`bench_common.make_qp_batch`, cold, 20 steps, one refinement step)
 in f32 and f64, timed in turns (this build, the others, the others in
 reverse, this build; `bench_common.device_ms`, median of 3), with whether
-every build gives the same bits; then this build's K1 and K2 in their warp
-groups.
+every build gives the same bits; then this build's warp groups (K1, K2,
+K5b, K5d-a), each in turns with the first other build's block group.
 """
 
 from __future__ import annotations
@@ -31,13 +31,17 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from biped_pympc_tpu_torch.bench import bench_common
+from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
 from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
 
-BASE = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
+BASE = pg.BASE
 # The block-group routes compared: tag -> options.
 ROUTES = {"K1": BASE, "K2": dataclasses.replace(BASE, backend="ric"),
+          "K5a": dataclasses.replace(BASE, backend="tridiag", foot_split=False),
+          "K5b": pg.route_opts("tridiag_aug"),
           "K5c": dataclasses.replace(BASE, backend="ric2", foot_split=False),
-          "K5d-c": dataclasses.replace(BASE, backend="ric", foot_split=False)}
+          "K5d-c": dataclasses.replace(BASE, backend="ric", foot_split=False),
+          "K5d-a": pg.route_opts("ric_aug_dense")}
 KEYS = sorted({pdipm_cuda.route(o) for o in ROUTES.values()})
 
 
@@ -137,12 +141,16 @@ def main(argv) -> int:
             print(f"[ab block] {label}: {name} {dt} b4096 ms: "
                   + " / ".join(f"{t} {v:.3f}" for t, v in ms) + f"; same bits: {same}")
         for key in pdipm_cuda.LEAN_ROUTES:
-            o = dataclasses.replace(BASE, backend=key)
+            o = pg.route_opts(key)
             geom = pdipm_cuda.geometry(key)
             lib = pdipm_cuda.load_library(this[key], key)
-            ms = bench_common.device_ms(
-                lambda: pdipm_cuda.run_kernel(lib, qp, o, stream(), geom=geom), 5, 3)
-            print(f"[ab warp] {label}: {key} {dt} b4096 this build, {geom}: {ms:.3f} ms")
+            warp = lambda: pdipm_cuda.run_kernel(lib, qp, o, stream(), geom=geom)
+            old = lambda: pdipm_cuda.run_kernel(libs[tags[1]][key], qp, o, stream(),
+                                                geom=pdipm_cuda.BLOCK)
+            ms = [bench_common.device_ms(fn, 5, 3) for fn in (old, warp, warp, old)]
+            print(f"[ab warp] {label}: {key} {dt} b4096, {tags[1]} block group / this build's "
+                  f"{geom} / the same / {tags[1]} block group: "
+                  + " / ".join(f"{v:.3f}" for v in ms) + " ms")
     return 0
 
 

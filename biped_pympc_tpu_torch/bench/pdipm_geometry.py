@@ -1,18 +1,20 @@
-"""K1 and K2 in their launch geometries on the card: where a Newton step's
-cycles go, how many envs reside on an SM, and the solve times of the block
-group and the warp group in turns.
+"""The PDIPM routes that have a warp group (K1, K2, K5b, K5d-a: `ROUTES`) in
+their launch geometries on the card: where a Newton step's cycles go, how
+many envs reside on an SM, and the solve times of the block group and the
+warp group in turns.
 
-The breakdown runs a build of K1 / K2 with `-DPDIPM_PROFILE`
+The breakdown runs a build of the route with `-DPDIPM_PROFILE`
 (`build_profile`): each group's first thread reads clock64() at the
 phase marks of csrc/pdipm_common.cuh (`PH_*`, `PHASES` here) and books the
 cycles since the previous mark to that phase; the kernel writes each env's
 totals at its end. The production libraries have no marks. `chip_smoke.py`
 runs these functions on its b4096 batch; run alone,
 
-    python -m biped_pympc_tpu_torch.bench.pdipm_geometry
+    python -m biped_pympc_tpu_torch.bench.pdipm_geometry [ROUTE ...]
 
 prints the same lines for the 8 stress QPs of `bench_common.make_qp_batch`
-tiled to b4096 (needs the card).
+tiled to b4096, for the named routes (keys of `ROUTES`) or all of them
+(needs the card).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 import os
 import re
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -32,20 +35,31 @@ PHASES = ("load", "resid", "reduce", "foot", "pt", "ychain", "stage", "sweep", "
           "update", "store")
 PER_LAUNCH = ("load", "store")  # booked once per launch; the rest per Newton step
 PROFILE_FLAGS = ("-DPDIPM_PROFILE",)
+# The routes with a breakdown and a warp group, and their options on top of
+# the controller's (`BASE`): K1, K2, K5b, K5d-a.
+BASE = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
+ROUTES = {"ric_aug": {}, "ric": {"backend": "ric"},
+          "tridiag_aug": {"backend": "tridiag_aug", "foot_split": False},
+          "ric_aug_dense": {"foot_split": False}}
+
+
+def route_opts(route: str, base: pdipm.PdipmOptions = BASE) -> pdipm.PdipmOptions:
+    """`base` on route `route` (a key of ROUTES)."""
+    return dataclasses.replace(base, **ROUTES[route])
 
 _prof_libs: dict = {}
 
 
 def profile_paths() -> dict:
-    """{route: .so path} of the PDIPM_PROFILE builds of K1 and K2."""
+    """{route: .so path} of the PDIPM_PROFILE builds of the ROUTES."""
     return {r: cuda_build.library_path(f"pdipm_{r}_profile", pdipm_cuda.SOURCES[r],
                                        pdipm_cuda.HEADERS, pdipm_cuda.BUILD_DIR, PROFILE_FLAGS)
-            for r in pdipm_cuda.LEAN_ROUTES}
+            for r in ROUTES}
 
 
 def build_profile() -> dict:
-    """Build the profile libraries of K1 and K2 (one nvcc each, together)."""
-    return cuda_build.build({r: pdipm_cuda.SOURCES[r] for r in pdipm_cuda.LEAN_ROUTES},
+    """Build the profile libraries of the ROUTES (one nvcc each, together)."""
+    return cuda_build.build({r: pdipm_cuda.SOURCES[r] for r in ROUTES},
                             profile_paths(), pdipm_cuda.BUILD_DIR, flags=PROFILE_FLAGS)
 
 
@@ -105,24 +119,27 @@ def breakdown_line(tag: str, res: dict) -> str:
             f"{res['load']:.0f}, store {res['store']:.0f}")
 
 
-def envs_per_sm(route: str, horizon: int, dtype, geom) -> int:
+def envs_per_sm(route: str, horizon: int, dtype, geom, workspace: bool = False) -> int:
     """Resident envs per SM of `route` in `geom` (the block group or the
-    route's warp group), from the CUDA occupancy calculator
-    (`pdipm_<route>_envs_per_sm`)."""
+    route's warp group as it launches; with `workspace`, K5b's or K5d-a's
+    warp group with its stored inverses in the workspace), from the CUDA
+    occupancy calculator (`pdipm_<route>_envs_per_sm`)."""
     lib = pdipm_cuda._library(route)
     size = torch.empty((), dtype=dtype).element_size()
-    n = getattr(lib, f"pdipm_{route}_envs_per_sm")(horizon, size, int(geom.lean))
+    mode = 2 if workspace else int(geom.lean)
+    n = getattr(lib, f"pdipm_{route}_envs_per_sm")(horizon, size, mode)
     if n < 0:
         raise RuntimeError(f"occupancy query failed ({-n})")
     return n
 
 
-def solve_in(qp, opts, geom):
+def solve_in(qp, opts, geom, force_workspace: bool | None = None):
     """One solve of `opts` on `qp` (CUDA tensors) in `geom`: the block group
-    (`pdipm_cuda.BLOCK`) or the route's own geometry."""
+    (`pdipm_cuda.BLOCK`) or the route's own geometry (`force_workspace` as
+    in `pdipm_cuda.run_kernel`)."""
     lib = pdipm_cuda._library(pdipm_cuda.route(opts))
     return pdipm_cuda.run_kernel(lib, qp, opts, torch.cuda.current_stream().cuda_stream,
-                                 geom=geom)
+                                 geom=geom, force_workspace=force_workspace)
 
 
 def turns(qp, opts, old, new, calls: int = 10) -> list:
@@ -132,14 +149,27 @@ def turns(qp, opts, old, new, calls: int = 10) -> list:
     return [run(old), run(new), run(new), run(old)]
 
 
-def main() -> int:
+def workspace_turns(qp, opts, calls: int = 3) -> list:
+    """K5b's or K5d-a's warp group with its stored inverses in shared memory
+    and in the workspace, in turns: shared, workspace, workspace, shared
+    (device ms as `turns`). The shared-memory layout must fit."""
+    geom = pdipm_cuda.geometry(pdipm_cuda.route(opts))
+    run = lambda w: bench_common.device_ms(lambda: solve_in(qp, opts, geom, w), calls, 3)
+    return [run(False), run(True), run(True), run(False)]
+
+
+def main(argv=()) -> int:
+    routes = list(argv) or list(ROUTES)
+    unknown = set(routes) - set(ROUTES)
+    if unknown:
+        print(f"unknown routes {sorted(unknown)}; known: {list(ROUTES)}", file=sys.stderr)
+        return 2
     bench_common.require_card()
     pdipm_cuda.build()
-    base = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
     for dtype in (torch.float32, torch.float64):
         qp = bench_common.make_qp_batch(4096, dtype=dtype)
-        for route in pdipm_cuda.LEAN_ROUTES:
-            opts = dataclasses.replace(base, backend=route)
+        for route in routes:
+            opts = route_opts(route)
             new = pdipm_cuda.geometry(route)
             for tag, geom in (("block", pdipm_cuda.BLOCK), ("new", new)):
                 print(breakdown_line(f"[breakdown] {route} {dtype} b4096 {tag} {geom}",
@@ -147,9 +177,14 @@ def main() -> int:
                 print(f"[occupancy] {route} {dtype} {tag}: "
                       f"{envs_per_sm(route, qp.horizon, dtype, geom)} envs per SM")
             print(f"[turns] {route} {dtype} b4096 block / new / new / block ms: "
-                  f"{turns(qp, opts, pdipm_cuda.BLOCK, new)}")
+                  f"{turns(qp, opts, pdipm_cuda.BLOCK, new, 3)}")
+            if route in pdipm_cuda.WORK_ROUTES:
+                print(f"[workspace] {route} {dtype} b4096 shared / workspace / workspace / "
+                      f"shared ms: {workspace_turns(qp, opts)}; envs per SM "
+                      f"{envs_per_sm(route, qp.horizon, dtype, new)} as it launches, "
+                      f"{envs_per_sm(route, qp.horizon, dtype, new, True)} with the workspace")
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

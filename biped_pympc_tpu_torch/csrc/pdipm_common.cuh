@@ -174,6 +174,37 @@ struct LeanPolicy<P, std::void_t<decltype(P::INPUTS_IN_GLOBAL)>> {
   static constexpr bool residuals_formed = P::RESIDUALS_FORMED;
 };
 
+// Shared memory an H100 gives one block, in bytes.
+#define PDIPM_MAX_SMEM 232448
+
+// A policy with WORKSPACE (the warp groups of K5b and K5d-a) keeps its T
+// stored stage inverses in shared memory or in a per-env workspace in
+// device memory that the caller allocates (`uses_workspace` decides):
+// `make_layout(T, size_of_s, work)` lays the env out without them when
+// `work`, and gives their bytes per env in `work_bytes`; the kernel points
+// the layout's `wk` at its env's slice (null: in shared memory). Every other
+// policy has no such member.
+template <typename P, typename = void>
+struct WorkPolicy {
+  static constexpr bool value = false;
+};
+template <typename P>
+struct WorkPolicy<P, std::void_t<decltype(P::WORKSPACE)>> {
+  static constexpr bool value = P::WORKSPACE;
+};
+
+// The layout of route P for horizon T and value size `size_of_s`, its
+// stored inverses in the workspace when `work` (WORKSPACE policies only).
+template <typename P>
+static __host__ __device__ __forceinline__ typename P::Layout route_layout(int T, int size_of_s,
+                                                                           bool work) {
+  if constexpr (WorkPolicy<P>::value) {
+    return P::make_layout(T, size_of_s, work);
+  } else {
+    return P::make_layout(T, size_of_s);
+  }
+}
+
 static constexpr int NX_ = 12;   // states per knot
 static constexpr int NU_ = 12;   // inputs per stage
 static constexpr int NI_ = 16;   // inequality rows per stage
@@ -595,6 +626,17 @@ __device__ __forceinline__ bool gate_open(const int* go, int* ran) {
   if (go != nullptr && *go == 0) return false;
   if (ran != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(ran, 1);
   return true;
+}
+
+// (v, i) ranks before (best, p) in the pivot search: the largest |entry|,
+// NaN above every number, the lower row on ties (what argmax picks, in
+// torch and jnp); p = N means no candidate yet.
+template <typename S, int N>
+__device__ __forceinline__ bool pivot_before(S v, int i, S best, int p) {
+  if (p == N) return i < N;
+  if (best != best) return v != v && i < p;
+  if (v != v) return true;
+  return v > best || (v == best && i < p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1020,6 +1062,127 @@ __device__ void y_sweeps_regs(const G& grp, const S* m, const S* sc, int T, S* g
   grp.sync();
 }
 
+// ---------------------------------------------------------------------------
+// One N x N block's Jordan inverse in one warp (the warp groups of K5b and
+// K5d-a), N <= 32 R: lane l holds rows l and, with R = 2, l + 32 (slot s)
+// in registers, `a[s]`; slots whose row is >= N are idle. No row moves:
+// `pos[s]` is the logical row of slot s in the swapped block. Step k takes
+// the column-k entry of each row (and clears it), finds the pivot among the
+// rows at logical positions >= k by a shuffle argmax under `pivot_before`
+// (the first row >= k of largest |entry|, NaN above every number, the lower
+// row on ties), passes the pivot row through the warp's shared-memory row
+// `row` (N values): its lane stores it, the lane of column j (lane j % 32,
+// slot j / 32) scales entry j there (divided by the pivot, or times its
+// reciprocal when `recip`; the pivot entry 1 / pivot), and every lane reads
+// the scaled row back to update its rows in registers: the pivot row takes
+// the scaled row, every other row r_j - c pr_j (-c / pivot in column k);
+// then the rows at positions k and p trade positions. No block barrier: the
+// warp's shuffles and __syncwarp carry every exchange; each lane divides at
+// most two entries a step (IEEE division is the costly operation here). The
+// arithmetic of `gj_inverse_pivot` and `gj_inverse_inplace`, entry for
+// entry. With `pivot` lane 0 writes the pivot row of each step to piv[k]
+// (shared memory, N ints).
+// ---------------------------------------------------------------------------
+template <int N, int R, typename S>
+__device__ __forceinline__ void gj_warp(S (&a)[R][N], int (&pos)[R], bool pivot, bool recip,
+                                        int* piv, S* row) {
+  static_assert(N <= 32 * R && R <= 2, "one warp holds at most 64 rows");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < R; ++s) pos[s] = lane + 32 * s;
+  for (int k = 0; k < N; ++k) {
+    S ck[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) ck[s] = S(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bool at = j == k;
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        ck[s] = at ? a[s][j] : ck[s];
+        a[s][j] = at ? S(0) : a[s][j];
+      }
+    }
+    int p = k, src = k;  // the pivot's logical row, and lane | slot << 5 holding it
+    if (pivot) {
+      // The best candidate: |entry|, and its row | (lane | slot << 5) << 8
+      // (row N: none yet).
+      S best = S(0);
+      int who = N;
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const S v = ck[s] < S(0) ? -ck[s] : ck[s];
+        if (pos[s] >= k && pos[s] < N && pivot_before<S, N>(v, pos[s], best, who & 255)) {
+          best = v;
+          who = pos[s] | ((lane | (s << 5)) << 8);
+        }
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        const S ob = __shfl_xor_sync(0xffffffffu, best, m);
+        const int ow = __shfl_xor_sync(0xffffffffu, who, m);
+        if (pivot_before<S, N>(ob, ow & 255, best, who & 255)) {
+          best = ob;
+          who = ow;
+        }
+      }
+      p = who & 255;
+      src = who >> 8;
+      if (lane == 0) piv[k] = p;
+    }
+    const int pl = src & 31, ps = src >> 5;
+    const S pv = __shfl_sync(0xffffffffu, R == 2 && ps ? ck[R - 1] : ck[0], pl);
+    const S ipv = S(1) / pv;
+    // The pivot row through `row`: its lane stores it, the lane of each
+    // column scales that entry, every lane reads the scaled row back.
+    if (lane == pl) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) row[j] = R == 2 && ps ? a[R - 1][j] : a[0][j];
+    }
+    __syncwarp();
+    S pr[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int col = lane + 32 * s;
+      const S raw = col < N ? row[col] : S(0);
+      pr[s] = col == k ? ipv : (recip ? ipv * raw : raw / pv);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      if (lane + 32 * s < N) row[lane + 32 * s] = pr[s];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const S prj = row[j];
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        a[s][j] = lane == pl && s == ps ? prj : a[s][j] - ck[s] * prj;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < R; ++s) pos[s] = pos[s] == k ? p : (pos[s] == p ? k : pos[s]);
+  }
+}
+
+// After `gj_warp`: the inverse's column of elimination column lane + 32 s,
+// into q[s]. inv(A) = inv(P A) P undoes the row swaps as column swaps, last
+// first, as `gj_inverse_pivot` does in memory; without `pivot`, the identity.
+// Reads piv (written by lane 0), so it begins with __syncwarp.
+template <int N, int R>
+__device__ __forceinline__ void gj_warp_columns(int (&q)[R], bool pivot, const int* piv) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < R; ++s) q[s] = lane + 32 * s;
+  if (!pivot) return;
+  for (int k = N - 1; k >= 0; --k) {
+    const int p = piv[k];
+#pragma unroll
+    for (int s = 0; s < R; ++s) q[s] = q[s] == k ? p : (q[s] == p ? k : q[s]);
+  }
+}
+
 // alpha = max(min(1, frac min_i(dv_i < 0 ? -v_i / dv_i : 1)), alpha_min);
 // NaN propagates, as jnp.minimum / jnp.maximum do.
 template <typename S, typename G>
@@ -1179,6 +1342,20 @@ __device__ void add_direction(const G& g, const Layout& L, S* dx, S* ds, S* dz, 
   g.sync();
 }
 
+// The kernel's layout of route P: for a WORKSPACE policy with `work`
+// non-null, the stored inverses in env's slice of it.
+template <typename P, typename S>
+__device__ __forceinline__ typename P::Layout kernel_layout(int T, unsigned char* work,
+                                                            long env) {
+  if constexpr (WorkPolicy<P>::value) {
+    typename P::Layout L = P::make_layout(T, (int)sizeof(S), work != nullptr);
+    L.wk = work == nullptr ? nullptr : work + env * L.work_bytes;
+    return L;
+  } else {
+    return P::make_layout(T, (int)sizeof(S));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The Newton-step kernel of every route: `iterations` Mehrotra steps of one
 // env per group G (a block, or NW warps of a block with several envs), from
@@ -1221,12 +1398,12 @@ pdipm_kernel(
     const S* __restrict__ bd_in, const S* __restrict__ b_in, const S* __restrict__ gu_in,
     const S* __restrict__ d_in, const S* x0, const S* s0, const S* z0, const S* y0,
     S* x_out, S* s_out, S* z_out, S* y_out, S* res_out, const int* go, int* ran, int T,
-    const StepArgs<S> A) {
+    const StepArgs<S> A, unsigned char* work) {
   if (!gate_open(go, ran)) return;
   const G g{};
   const long env = g.env();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
+  const typename P::Layout L = kernel_layout<P, S>(T, work, env);
   S* sm = reinterpret_cast<S*>(smem_raw);
   int* piv = reinterpret_cast<int*>(smem_raw + L.piv);
   const int tid = g.rank(), nt = g.size();
@@ -1476,11 +1653,13 @@ static StepArgs<S> step_args(const PdipmArgs* args) {
 }
 
 // Host side of every route's `pdipm_<route>_f32` / `_f64` entry (route
-// policy P in the block group, one env per 128-thread block) and of K1's and
-// K2's `pdipm_<route>_warp_f32` / `_f64` (their lean policies in their warp
-// group G, one env per block of G::THREADS threads): sets the kernel's shared
-// memory (one env's layout), launches `batch` blocks on `stream` with the
-// options `*args` and returns a cudaError_t (0 = success). The compensated
+// policy P in the block group, one env per 128-thread block) and of the
+// `pdipm_<route>_warp_f32` / `_f64` entries (a lean policy in its warp group
+// G, one env per block of G::THREADS threads; K5b's and K5d-a's with the
+// workspace `work`, batch x `work_bytes` bytes of device memory, or null):
+// sets the kernel's shared memory (one env's layout), launches `batch`
+// blocks on `stream` with the options `*args` and returns a cudaError_t (0 =
+// success). The compensated
 // residual refines the augmented system; a condensed route keeps the common
 // argument list, and `pdipm.check_options` refuses df there before any
 // launch, so the guard below fires only for a direct C caller.
@@ -1488,10 +1667,12 @@ template <typename P, typename S, typename G = BlockGroup>
 static int launch(const void* hd, const void* f, const void* ad, const void* bd, const void* b,
                   const void* gu, const void* d, const void* x0, const void* s0, const void* z0,
                   const void* y0, void* x, void* s, void* z, void* y, void* res, const void* go,
-                  void* ran, int batch, int T, const PdipmArgs* args, void* stream) {
+                  void* ran, int batch, int T, const PdipmArgs* args, void* stream,
+                  void* work = nullptr) {
   if (args == nullptr || (!P::AUG && args->refine_df != 0)) return (int)cudaErrorInvalidValue;
+  if (work != nullptr && !WorkPolicy<P>::value) return (int)cudaErrorInvalidValue;
   const StepArgs<S> a = step_args<S>(args);
-  const typename P::Layout L = P::make_layout(T, (int)sizeof(S));
+  const typename P::Layout L = route_layout<P>(T, (int)sizeof(S), work != nullptr);
   cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
@@ -1506,16 +1687,17 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
   pdipm_kernel<P, S, G><<<batch, G::THREADS, L.bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
       (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
-      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a);
+      (S*)y, (S*)res, (const int*)go, (int*)ran, T, a, (unsigned char*)work);
   return (int)cudaGetLastError();
 }
 
-// Resident envs per SM of route P in group G (one env per block), from
+// Resident envs per SM of route P in group G (one env per block), its
+// stored inverses in the workspace when `work`, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
 // failure.
 template <typename P, typename S, typename G>
-static int envs_per_sm(int T) {
-  const size_t bytes = P::make_layout(T, (int)sizeof(S)).bytes;
+static int envs_per_sm(int T, bool work = false) {
+  const size_t bytes = route_layout<P>(T, (int)sizeof(S), work).bytes;
   int blocks = 0;
   cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1527,6 +1709,37 @@ static int envs_per_sm(int T) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, G>,
                                                         G::THREADS, bytes);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Whether a WORKSPACE policy P in group G keeps its stored inverses in the
+// workspace at horizon T: when its layout with them does not fit in
+// PDIPM_MAX_SMEM, or when leaving them out lets more envs reside on an SM
+// (the occupancy calculator: registers, threads and shared memory). Where
+// shared memory holds the env, more resident envs hide the latency of its
+// chain of dependent steps better than shared memory serves the inverses
+// (PERF.md, Findings).
+template <typename P, typename S, typename G>
+static bool uses_workspace(int T) {
+  if (P::make_layout(T, (int)sizeof(S), false).bytes > PDIPM_MAX_SMEM) return true;
+  return envs_per_sm<P, S, G>(T, true) > envs_per_sm<P, S, G>(T, false);
+}
+
+// The C entries' bytes of a WORKSPACE policy (K5b's and K5d-a's warp
+// groups): one env's shared memory as it launches (`lean_bytes`), and the
+// workspace per env, 0 when the inverses stay in shared memory, or with
+// `force` whenever (`work_bytes`).
+template <typename P, typename G>
+static size_t lean_bytes(int T, int size_of_s) {
+  const bool work = size_of_s == 4 ? uses_workspace<P, float, G>(T)
+                                   : uses_workspace<P, double, G>(T);
+  return P::make_layout(T, size_of_s, work).bytes;
+}
+
+template <typename P, typename G>
+static size_t work_bytes(int T, int size_of_s, bool force) {
+  const bool work = force || (size_of_s == 4 ? uses_workspace<P, float, G>(T)
+                                             : uses_workspace<P, double, G>(T));
+  return work ? P::make_layout(T, size_of_s, true).work_bytes : 0;
 }
 
 #ifdef PDIPM_PROFILE

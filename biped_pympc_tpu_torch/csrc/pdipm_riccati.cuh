@@ -371,3 +371,188 @@ struct RicDenseRoute {
     riccati_solve<RicDenseRoute>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };
+
+// ---------------------------------------------------------------------------
+// K5d-a in its warp group (`RicAugDenseWarp`, four warps an env): the T stage
+// blocks are independent, so warp w builds and inverts stages w, w + 4, ...
+// in registers, a lane per row (30 of 32 lanes), with `gj_warp` (the pivot
+// by a shuffle argmax, the pivot row through the warp's shared-memory row,
+// no block barrier between blocks or steps), equilibrated around the
+// inverse when `jacobi`, and stores each inverse with the row swaps undone,
+// transposed (entry (r, c) at c 30 + r); the y-chain and the sweeps then
+// run in registers in the first warp (pdipm_common.cuh). The lean layout
+// leaves f, b and d in device memory, and the T inverses in shared memory
+// or in the caller's workspace (`WORKSPACE`, pdipm_common.cuh).
+// ---------------------------------------------------------------------------
+struct RicDenseLeanLayout : RicLayout {
+  int gjr;            // `gj_warp`'s pivot row, 32 values per warp
+  size_t work_bytes;  // the T stored inverses' bytes when in the workspace
+  unsigned char* wk;  // this env's workspace slice; null: inverses at ka
+};
+
+// f, b and d left in device memory; the T inverses at ka, or (work) in the
+// workspace; the refinement solved in place (ex = e1, ezz = ez, ey = e4);
+// and one union region, as K1's lean layout has, for what a Newton step
+// needs only inside the factor (P_t and Y'_t; Yhat_t^-1 stays in m) and only
+// after it (the rhs, refinement, directions and sweep buffers).
+static __host__ __device__ RicDenseLeanLayout make_ric_aug_dense_lean_layout(int T, int size_of_s,
+                                                                          int nwarps, bool work) {
+  constexpr int n = NKA_;
+  RicDenseLeanLayout L;
+  L.T = T;
+  L.nz = 24 * T;
+  L.ni = 16 * T;
+  L.ne = 14 * T;
+  int o = 0;
+  L.hd = take(o, L.nz); L.f = take(o, 0); L.ad = take(o, 144); L.bd = take(o, 144);
+  L.b = take(o, 0); L.gu = take(o, NI_ * NU_); L.d = take(o, 0);
+  L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
+  L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
+  L.sig = take(o, L.ni); L.w = take(o, L.ni);
+  L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, 144);
+  L.ka = take(o, work ? 0 : T * n * n); L.kuu = take(o, 0); L.sn = take(o, 0);
+  L.m = take(o, T * 144); L.q1 = take(o, 144); L.red = take(o, 32);
+  L.gjr = take(o, 32 * nwarps);
+  L.colk = L.prow = take(o, 0);
+  const int u = o;
+  L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r3 = take(o, 0); L.r4 = take(o, L.ne);
+  L.rz = take(o, L.ni); L.tmp = take(o, 0); L.r1h = take(o, 0);
+  L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
+  L.ex = L.e1; L.ezz = L.ez; L.ey = L.e4;  // the refinement solved in place, as K1's
+  L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+  L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+  L.run = take(o, T * NKA_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+  L.wy = take(o, T * NX_); L.v12 = take(o, NX_);
+  int f = u;  // the factor's side of the union
+  L.p = take(f, T * 144); L.yp = take(f, T * 144);
+  o = o > f ? o : f;
+  L.total = o;
+  L.piv = o * size_of_s;
+  L.bytes = (size_t)L.piv + sizeof(int) * nwarps * n;
+  L.work_bytes = work ? (size_t)T * n * n * size_of_s : 0;
+  L.wk = nullptr;
+  return L;
+}
+
+// Entry (r, c) of stage t's augmented block (RicDenseRoute<true>::factor's),
+// hd_u = hd + 12 T, wt = W_t.
+template <typename S>
+__device__ __forceinline__ S ric_aug_entry(int r, int c, const S* hd_u, const S* gu, const S* wt,
+                                           S beta, S delta) {
+  constexpr int N = NKA_;
+  S v = S(0);
+  if (r < NU_ && c < NU_) {
+    if (r == c) v = hd_u[r] + beta;
+  } else if (r < NU_ && c >= N - NMX_) {  // e^T: u6 -> nu0, u9 -> nu1
+    v = (r == 6 && c == N - 2) || (r == 9 && c == N - 1) ? S(1) : S(0);
+  } else if (c < NU_ && r >= N - NMX_) {  // e
+    v = (c == 6 && r == N - 2) || (c == 9 && r == N - 1) ? S(1) : S(0);
+  } else if (r >= N - NMX_ && c >= N - NMX_) {  // nu block
+    v = r == c ? -delta : S(0);
+  } else if (r < NU_ && c < NU_ + NI_) {
+    v = gu[(c - NU_) * NU_ + r];  // G^T
+  } else if (c < NU_ && r < NU_ + NI_) {
+    v = gu[(r - NU_) * NU_ + c];  // G
+  } else if (r == c) {
+    v = -wt[r - NU_];  // -W_t
+  }
+  return v;
+}
+
+struct RicAugDenseWarp {
+  static constexpr bool AUG = true;
+  static constexpr int N = NKA_;
+  static constexpr int NW = 4;  // warps an env: a stage block per warp at a time
+  // pdipm_common.cuh's LeanPolicy (f, b, d in device memory) and WorkPolicy
+  static constexpr bool INPUTS_IN_GLOBAL = true, RESIDUALS_FORMED = false;
+  static constexpr bool WORKSPACE = true;
+  using Layout = RicDenseLeanLayout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s, bool work = false) {
+    return make_ric_aug_dense_lean_layout(T, size_of_s, NW, work);
+  }
+
+  template <typename S>
+  static __device__ __forceinline__ const S* inverses(const S* sm, const Layout& L) {
+    return L.wk != nullptr ? reinterpret_cast<const S*>(L.wk) : sm + L.ka;
+  }
+
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(g, sm, L, beta, delta);
+  }
+
+  // Row o of K_t^-1 r through the transposed stored inverse.
+  template <typename S>
+  static __device__ __forceinline__ S kinv_row(const S* sm, const Layout& L, int t, int o,
+                                               const S* r) {
+    const S* k = inverses(sm, L) + (size_t)t * N * N + o;
+    S acc = S(0);
+    for (int j = 0; j < N; ++j) acc += k[j * N] * r[j];
+    return acc;
+  }
+
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags ff) {
+    static_assert(G::THREADS == 32 * NW, "one warp per stage block");
+    const int tid = g.rank(), nt = g.size(), T = L.T;
+    const int warp = tid >> 5, lane = tid & 31;
+    const S* hd_u = sm + L.hd + NX_ * T;
+    const S* gu = sm + L.gu;
+    const S* bd = sm + L.bd;
+    S* kb = const_cast<S*>(inverses(sm, L));
+    const bool pivot = ff.aug_pivot, jacobi = ff.jacobi;
+    int* wpiv = piv + warp * N;
+    const int rr = lane < N ? lane : N - 1;  // idle lanes read row N - 1
+    for (int t = warp; t < T; t += NW) {
+      const S* wt = sm + L.w + t * NI_;
+      S a[1][N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const S v = ric_aug_entry(rr, c, hd_u, gu, wt, beta, delta);
+        a[0][c] = lane < N ? v : S(0);
+      }
+      // Jacobi: K^-1 = D (D K D)^-1 D, D = 1 / sqrt(max(|diag K|, 1e-30)),
+      // each entry scaled as (k_ij d_i) d_j (`jacobi_apply`).
+      const S dl = jacobi ? jacobi_d(ric_aug_entry(rr, rr, hd_u, gu, wt, beta, delta)) : S(1);
+      if (jacobi) {
+#pragma unroll
+        for (int c = 0; c < N; ++c) a[0][c] = a[0][c] * dl * __shfl_sync(0xffffffffu, dl, c);
+      }
+      int pos[1], q[1];
+      gj_warp<N, 1>(a, pos, pivot, !pivot && ff.gj_inplace, wpiv, sm + L.gjr + 32 * warp);
+      gj_warp_columns<N, 1>(q, pivot, wpiv);
+      const int r = pos[0];
+      const S dr = __shfl_sync(0xffffffffu, dl, r < N ? r : 0);
+      S* kt = kb + (size_t)t * N * N;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int c = pivot ? __shfl_sync(0xffffffffu, q[0], j) : j;
+        const S dc = __shfl_sync(0xffffffffu, dl, c);
+        if (r < N) kt[c * N + r] = jacobi ? a[0][j] * dr * dc : a[0][j];
+      }
+      __syncwarp();  // wpiv before the warp's next block
+    }
+    g.sync();
+    PDIPM_MARK(g, PH_FOOT);
+    // P_t = Bd (K_t^-1)_uu from the transposed inverses, then Y'_t and the
+    // y-chain (`y_chain_from_kuu`'s sums).
+    S* p = sm + L.p;
+    for (int it = tid; it < T * 144; it += nt) {
+      const int t = it / 144, i = (it % 144) / NX_, c = it % NX_;
+      const S* k = kb + (size_t)t * N * N + c * N;
+      S v = S(0);
+      for (int j = 0; j < NU_; ++j) v += bd[i * NU_ + j] * k[j];
+      p[it] = v;
+    }
+    g.sync();
+    y_chain_from_p(g, sm, L, delta, ff.gj_inplace, piv);
+  }
+
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<RicAugDenseWarp>(g, sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};

@@ -9,6 +9,12 @@
 // shared memory and inverting it there with partial pivoting; the solve is
 // the two sweeps through the stored inverses. These routes ignore
 // kkt_scale, as the JAX kernel's `factor` / `factor_aug` do.
+//
+// The clock64() breakdown (`PDIPM_PROFILE` builds) books the factor's
+// Ad M_{t-1} and M_t (the chain from stage to stage) to PH_YCHAIN, the stage
+// block's build to PH_PT, its pivoted elimination to PH_FOOT; the solve's
+// forward and backward sweeps to PH_SWEEP and its stage rhs and x recovery
+// to PH_STAGE.
 
 #pragma once
 
@@ -72,17 +78,6 @@ static __host__ __device__ Layout make_tridiag_layout(int T, int size_of_s) {
   L.piv = o * size_of_s;
   L.bytes = (size_t)L.piv + sizeof(int) * N;
   return L;
-}
-
-// (v, i) ranks before (best, p) in the pivot search: the largest |entry|,
-// NaN above every number, the lower row on ties (what argmax picks, in
-// torch and jnp); p = N means no candidate yet.
-template <typename S, int N>
-__device__ __forceinline__ bool pivot_before(S v, int i, S best, int p) {
-  if (p == N) return i < N;
-  if (best != best) return v != v && i < p;
-  if (v != v) return true;
-  return v > best || (v == best && i < p);
 }
 
 // ---------------------------------------------------------------------------
@@ -153,8 +148,8 @@ __device__ void gj_inverse_pivot(S* a, S* colk, S* prow, S* rowk, int* piv) {
 // inverted in place in S_t^-1's slot; M_t = Q~^-1 + Q~^-1 N_yy Q~^-1 from its
 // y block N_yy. The stages are sequential: S_t needs M_{t-1}.
 // ---------------------------------------------------------------------------
-template <typename S, bool AUG>
-__device__ void thomas_factor(S* sm, const Layout& L, int* piv, S beta, S delta) {
+template <typename S, bool AUG, typename G>
+__device__ void thomas_factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta) {
   using K = Thomas<AUG>;
   constexpr int N = K::N, NNU = K::NNU, NY = K::NY;
   const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
@@ -177,6 +172,7 @@ __device__ void thomas_factor(S* sm, const Layout& L, int* piv, S beta, S delta)
       }
       __syncthreads();
     }
+    PDIPM_MARK(g, PH_YCHAIN);
     const S* wt = w + t * NI_;
     for (int it = tid; it < N * N; it += nt) {
       const int r = it / N, c = it % N;
@@ -213,13 +209,16 @@ __device__ void thomas_factor(S* sm, const Layout& L, int* piv, S beta, S delta)
       a[it] = v;
     }
     __syncthreads();
+    PDIPM_MARK(g, PH_PT);
     gj_inverse_pivot<S, N>(a, sm + L.colk, sm + L.prow, sm + L.rowk, piv);
+    PDIPM_MARK(g, PH_FOOT);
     for (int it = tid; it < 144; it += nt) {
       const int i = it / NX_, j = it % NX_;
       const S v = qinv[i] * a[(NY + i) * N + NY + j] * qinv[j];
       mp[it] = i == j ? qinv[i] + v : v;
     }
     __syncthreads();
+    PDIPM_MARK(g, PH_YCHAIN);
   }
 }
 
@@ -227,9 +226,9 @@ __device__ void thomas_factor(S* sm, const Layout& L, int* piv, S beta, S delta)
 // One two-sweep solve through the stored inverses: (r1, rz, r4) -> (dx, dz,
 // dy); rz and dz only on the augmented route.
 // ---------------------------------------------------------------------------
-template <typename S, bool AUG>
-__device__ void thomas_solve(S* sm, const Layout& L, const S* r1, const S* rz, const S* r4,
-                             S* dx, S* dz, S* dy) {
+template <typename S, bool AUG, typename G>
+__device__ void thomas_solve(const G& grp, S* sm, const Layout& L, const S* r1, const S* rz,
+                             const S* r4, S* dx, S* dz, S* dy) {
   using K = Thomas<AUG>;
   constexpr int N = K::N, NNU = K::NNU, NY = K::NY;
   const int tid = threadIdx.x, nt = blockDim.x, T = L.T;
@@ -251,6 +250,7 @@ __device__ void thomas_solve(S* sm, const Layout& L, const S* r1, const S* rz, c
     g[it] = v;
   }
   __syncthreads();
+  PDIPM_MARK(grp, PH_STAGE);
   // Forward: g_t[y] += Ad x_{t-1}; x_t = Q~^-1 (r_x - (S_t^-1 g_t)[y]).
   for (int t = 0; t < T; ++t) {
     S* gt = g + t * N;
@@ -296,6 +296,7 @@ __device__ void thomas_solve(S* sm, const Layout& L, const S* r1, const S* rz, c
     }
     __syncthreads();
   }
+  PDIPM_MARK(grp, PH_SWEEP);
   // x_{t+1} = Q~^-1 (r_x + Ad^T w_y(t+1) - w_y(t)).
   for (int k = tid; k < NX_ * T; k += nt) {
     const int t = k / NX_, i = k % NX_;
@@ -303,6 +304,7 @@ __device__ void thomas_solve(S* sm, const Layout& L, const S* r1, const S* rz, c
     dx[k] = qinv[i] * (rxa - dy[k]);
   }
   __syncthreads();
+  PDIPM_MARK(grp, PH_STAGE);
 }
 
 template <bool AUG_>
@@ -325,17 +327,296 @@ struct ThomasRoute {
   template <typename S, typename G>
   static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags) {
-    thomas_factor<S, AUG>(sm, L, piv, beta, delta);
-    PDIPM_MARK(g, PH_FOOT);
+    thomas_factor<S, AUG>(g, sm, L, piv, beta, delta);
   }
 
   template <typename S, typename G>
   static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
                                const S* r4, S* dx, S* dz, S* dy) {
-    thomas_solve<S, AUG>(sm, L, r1, rz, r4, dx, dz, dy);
-    PDIPM_MARK(g, PH_STAGE);
+    thomas_solve<S, AUG>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };
 
 struct Tridiag : ThomasRoute<false> {};    // K5a, 26-wide, condensed
 struct TridiagAug : ThomasRoute<true> {};  // K5b, 42-wide, augmented
+
+// ---------------------------------------------------------------------------
+// K5b in its warp group (`TridiagAugWarp`): one warp an env, the same factor
+// and solve. Per stage the warp builds the 42-wide block in registers, lane
+// l holding rows l and l + 32 (`thomas_aug_entry`), and eliminates it with
+// `gj_warp` (a shuffle argmax per pivot, the pivot row passed through a
+// shared-memory row, no block barrier in the 42-step chain); it stores the inverse with the row
+// swaps undone, transposed (entry (r, c) at c N + r, so that the lanes of a
+// warp read and write neighbouring values), and forms M_t from the y block
+// as it stores it. The lean layout leaves f, b and d in device memory, and
+// the T inverses in shared memory or in the caller's workspace
+// (`WORKSPACE`, pdipm_common.cuh).
+// ---------------------------------------------------------------------------
+struct ThomasLeanLayout : Layout {
+  int aat;                 // Ad M_{t-1} Ad^T (144)
+  int gjr;                 // `gj_warp`'s pivot row (64)
+  size_t work_bytes;       // the T stored inverses' bytes when in the workspace
+  unsigned char* wk;       // this env's workspace slice; null: inverses at sinv
+};
+
+static __host__ __device__ ThomasLeanLayout make_tridiag_aug_lean_layout(int T, int size_of_s,
+                                                                       bool work) {
+  constexpr int N = Thomas<true>::N;
+  ThomasLeanLayout L;
+  L.T = T;
+  L.nz = 24 * T;
+  L.ni = 16 * T;
+  L.ne = 14 * T;
+  int o = 0;
+  L.hd = take(o, L.nz); L.f = take(o, 0); L.ad = take(o, 144); L.bd = take(o, 144);
+  L.b = take(o, 0); L.gu = take(o, NI_ * NU_); L.d = take(o, 0);
+  L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
+  L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
+  L.sig = take(o, L.ni); L.w = take(o, L.ni);
+  L.qinv = take(o, NX_); L.sinv = take(o, work ? 0 : T * N * N); L.mp = take(o, 144);
+  L.adm = take(o, 144); L.aat = take(o, 144); L.gjr = take(o, 64);
+  L.colk = L.prow = L.rowk = take(o, 0);
+  L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r4 = take(o, L.ne); L.rz = take(o, L.ni);
+  L.r3 = L.tmp = L.r1h = take(o, 0);
+  L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
+  L.ex = take(o, L.nz); L.ezz = take(o, L.ni); L.ey = take(o, L.ne);
+  L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+  L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+  L.g = take(o, T * N); L.adtw = take(o, T * NX_); L.xp = take(o, NX_);
+  L.red = take(o, 32);
+  L.total = o;
+  L.piv = o * size_of_s;
+  L.bytes = (size_t)L.piv + sizeof(int) * N;
+  L.work_bytes = work ? (size_t)T * N * N * size_of_s : 0;
+  L.wk = nullptr;
+  return L;
+}
+
+// Entry (r, c) of stage t's augmented block (`thomas_factor`'s, term for
+// term); hd_u = hd + 12 T, wt = W_t, aat = Ad M_{t-1} Ad^T (t >= 1).
+template <typename S>
+__device__ __forceinline__ S thomas_aug_entry(int r, int c, bool chained, const S* hd_u,
+                                              const S* gu, const S* wt, const S* bd,
+                                              const S* qinv, const S* aat, S beta, S delta) {
+  using K = Thomas<true>;
+  constexpr int NNU = K::NNU, NY = K::NY;
+  S v = S(0);
+  if (r < NU_ && c < NU_) {
+    if (r == c) v += hd_u[r] + beta;
+  } else if (r >= NY && c >= NY) {
+    const int i = r - NY, j = c - NY;
+    if (i == j) v = -delta;
+    if (chained) v -= aat[i * NX_ + j];
+    if (i == j) v -= qinv[i];
+  } else if (r < NU_ && c >= NY) {
+    v = -bd[(c - NY) * NU_ + r];
+  } else if (r >= NY && c < NU_) {
+    v = -bd[(r - NY) * NU_ + c];
+  } else if (r < NU_ && c >= NNU) {
+    v = (r == 6 && c == NNU) || (r == 9 && c == NNU + 1) ? S(1) : S(0);
+  } else if (c < NU_ && r >= NNU) {
+    v = (c == 6 && r == NNU) || (c == 9 && r == NNU + 1) ? S(1) : S(0);
+  } else if (r >= NNU && c >= NNU) {
+    v = r == c ? -delta : S(0);
+  } else if (r < NU_) {
+    v = gu[(c - NU_) * NU_ + r];
+  } else if (c < NU_) {
+    v = gu[(r - NU_) * NU_ + c];
+  } else if (r == c) {
+    v = -wt[r - NU_];
+  }
+  return v;
+}
+
+// The stored inverses: in the workspace slice, or at sinv.
+template <typename S>
+__device__ __forceinline__ S* thomas_inverses(S* sm, const ThomasLeanLayout& L) {
+  return L.wk != nullptr ? reinterpret_cast<S*>(L.wk) : sm + L.sinv;
+}
+
+template <typename S, typename G>
+__device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L, int* piv, S beta,
+                                   S delta) {
+  static_assert(G::THREADS == 32, "K5b's warp group is one warp");
+  using K = Thomas<true>;
+  constexpr int N = K::N, NY = K::NY;
+  const int lane = g.rank(), T = L.T;
+  const S* hd_u = sm + L.hd + NX_ * T;
+  const S* gu = sm + L.gu;
+  const S* w = sm + L.w;
+  const S* ad = sm + L.ad;
+  const S* bd = sm + L.bd;
+  const S* qinv = sm + L.qinv;
+  S* mp = sm + L.mp;
+  S* adm = sm + L.adm;
+  S* aat = sm + L.aat;
+  S* sinv = thomas_inverses(sm, L);
+  for (int t = 0; t < T; ++t) {
+    if (t >= 1) {
+      for (int it = lane; it < 144; it += 32) {
+        const int i = it / NX_, k = it % NX_;
+        S acc = S(0);
+        for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * mp[l * NX_ + k];
+        adm[it] = acc;
+      }
+      g.sync();
+      for (int it = lane; it < 144; it += 32) {
+        const int i = it / NX_, j = it % NX_;
+        S acc = S(0);
+        for (int k = 0; k < NX_; ++k) acc += adm[i * NX_ + k] * ad[j * NX_ + k];
+        aat[it] = acc;
+      }
+      g.sync();
+    }
+    PDIPM_MARK(g, PH_YCHAIN);
+    const S* wt = w + t * NI_;
+    S a[2][N];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int r = lane + 32 * s, rr = r < N ? r : N - 1;  // idle slots read row N - 1
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const S v = thomas_aug_entry(rr, c, t >= 1, hd_u, gu, wt, bd, qinv, aat, beta, delta);
+        a[s][c] = r < N ? v : S(0);
+      }
+    }
+    PDIPM_MARK(g, PH_PT);
+    int pos[2], q[2];
+    gj_warp<N, 2>(a, pos, true, false, piv, sm + L.gjr);
+    gj_warp_columns<N, 2>(q, true, piv);
+    // Store row pos[s], column q(j) at c N + r; M_t = Q~^-1 + Q~^-1 N_yy Q~^-1
+    // from the y block as it passes.
+    S* inv = sinv + (size_t)t * N * N;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int c = __shfl_sync(0xffffffffu, q[j >> 5], j & 31);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int r = pos[s];
+        if (r < N) {
+          inv[c * N + r] = a[s][j];
+          if (r >= NY && c >= NY) {
+            const int i = r - NY, k = c - NY;
+            const S v = qinv[i] * a[s][j] * qinv[k];
+            mp[i * NX_ + k] = i == k ? qinv[i] + v : v;
+          }
+        }
+      }
+    }
+    g.sync();
+    PDIPM_MARK(g, PH_FOOT);
+  }
+}
+
+// `thomas_solve` in the warp group, through the transposed stored inverses.
+template <typename S, typename G>
+__device__ void thomas_solve_warp(const G& grp, S* sm, const ThomasLeanLayout& L, const S* r1,
+                                  const S* rz, const S* r4, S* dx, S* dz, S* dy) {
+  using K = Thomas<true>;
+  constexpr int N = K::N, NNU = K::NNU, NY = K::NY;
+  const int tid = grp.rank(), nt = grp.size(), T = L.T;
+  const S* ad = sm + L.ad;
+  const S* qinv = sm + L.qinv;
+  const S* sinv = thomas_inverses(sm, L);
+  S* g = sm + L.g;
+  S* adtw = sm + L.adtw;
+  S* xp = sm + L.xp;
+
+  // Stage rhs [u, z, nu, y - Q~^-1 x].
+  for (int it = tid; it < T * N; it += nt) {
+    const int t = it / N, r = it % N;
+    S v;
+    if (r < NU_) v = r1[NX_ * T + NU_ * t + r];
+    else if (r < NNU) v = rz[NI_ * t + r - NU_];
+    else if (r < NY) v = r4[NX_ * T + NMX_ * t + r - NNU];
+    else v = r4[NX_ * t + r - NY] - qinv[r - NY] * r1[NX_ * t + r - NY];
+    g[it] = v;
+  }
+  grp.sync();
+  PDIPM_MARK(grp, PH_STAGE);
+  // Forward: g_t[y] += Ad x_{t-1}; x_t = Q~^-1 (r_x - (S_t^-1 g_t)[y]).
+  for (int t = 0; t < T; ++t) {
+    S* gt = g + t * N;
+    if (t >= 1) {
+      for (int i = tid; i < NX_; i += nt) {
+        S acc = S(0);
+        for (int l = 0; l < NX_; ++l) acc += ad[i * NX_ + l] * xp[l];
+        gt[NY + i] += acc;
+      }
+      grp.sync();
+    }
+    if (t + 1 < T) {
+      for (int i = tid; i < NX_; i += nt) {
+        const S* col = sinv + (size_t)t * N * N + NY + i;
+        S acc = S(0);
+        for (int j = 0; j < N; ++j) acc += col[j * N] * gt[j];
+        xp[i] = qinv[i] * (r1[NX_ * t + i] - acc);
+      }
+      grp.sync();
+    }
+  }
+  // Backward: g_t[y] -= Q~^-1 Ad^T w_y(t+1); w_t = S_t^-1 g_t, scattered
+  // into (dx_u, dz, dy_nu, dy_y).
+  for (int t = T - 1; t >= 0; --t) {
+    S* gt = g + t * N;
+    if (t + 1 < T) {
+      for (int i = tid; i < NX_; i += nt) {
+        S acc = S(0);
+        for (int l = 0; l < NX_; ++l) acc += ad[l * NX_ + i] * dy[NX_ * (t + 1) + l];
+        adtw[NX_ * t + i] = acc;
+        gt[NY + i] -= qinv[i] * acc;
+      }
+      grp.sync();
+    }
+    for (int o = tid; o < N; o += nt) {
+      const S* col = sinv + (size_t)t * N * N + o;
+      S acc = S(0);
+      for (int j = 0; j < N; ++j) acc += col[j * N] * gt[j];
+      if (o < NU_) dx[NX_ * T + NU_ * t + o] = acc;
+      else if (o < NNU) dz[NI_ * t + o - NU_] = acc;
+      else if (o < NY) dy[NX_ * T + NMX_ * t + o - NNU] = acc;
+      else dy[NX_ * t + o - NY] = acc;
+    }
+    grp.sync();
+  }
+  PDIPM_MARK(grp, PH_SWEEP);
+  // x_{t+1} = Q~^-1 (r_x + Ad^T w_y(t+1) - w_y(t)).
+  for (int k = tid; k < NX_ * T; k += nt) {
+    const int t = k / NX_, i = k % NX_;
+    const S rxa = t + 1 < T ? r1[k] + adtw[k] : r1[k];
+    dx[k] = qinv[i] * (rxa - dy[k]);
+  }
+  grp.sync();
+  PDIPM_MARK(grp, PH_STAGE);
+}
+
+// K5b's policy in its warp group (`WarpGroup<1>`), the lean layout above.
+struct TridiagAugWarp {
+  static constexpr bool AUG = true;
+  // pdipm_common.cuh's LeanPolicy (f, b, d in device memory) and WorkPolicy
+  static constexpr bool INPUTS_IN_GLOBAL = true, RESIDUALS_FORMED = false;
+  static constexpr bool WORKSPACE = true;
+  using Layout = ThomasLeanLayout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s, bool work = false) {
+    return make_tridiag_aug_lean_layout(T, size_of_s, work);
+  }
+
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    for (int i = g.rank(); i < NX_; i += g.size()) sm[L.qinv + i] = S(1) / (sm[L.hd + i] + beta);
+    g.sync();
+  }
+
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags) {
+    thomas_factor_warp(g, sm, L, piv, beta, delta);
+  }
+
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    thomas_solve_warp(g, sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};

@@ -1,5 +1,7 @@
 // Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP on the augmented
-// block-Thomas route (K5b), one thread block per env.
+// block-Thomas route (K5b): one warp per env (`TridiagAugWarp`,
+// pdipm_tridiag.cuh), or, for comparison, one 128-thread block per env
+// (`TridiagAug`, the kernel before).
 //
 // Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` (:308) on its
 // backend="tridiag_aug" route: `factor_aug` (:1134) and `thomas_solve_aug`
@@ -16,35 +18,39 @@
 //
 // is inverted whole, with partial pivoting, T stages in order.
 //
-// What bounds it on an H100: operations, and the latency of their order. A
-// Newton step inverts T pivoted 42-wide blocks (2 * 42^3 = 148k flops each,
-// ~1.85M flops per env and step at T = 10 with the sweeps, refinement and
-// residuals); at b4096, 20 steps, that is 1.5e11 flops, 2.3 ms at the f32
-// peak of 67 TFLOP/s, while the env reads 1,260 values and writes 704 (32 MB
-// in f32, ~10 us at 3.35 TB/s). The elimination is 420 dependent steps per
-// Newton step (T x 42), each three barrier-separated phases over 128 threads.
+// What bounds it on an H100: the latency of one env's chain of dependent
+// steps, not operations or bandwidth. A Newton step inverts T pivoted
+// 42-wide blocks in order, T x 42 dependent elimination steps (420 at h10);
+// the least work of a step runs in 0.383 ms at b4096 (chip_smoke.py's
+// bound), and the env reads 1,260 values and writes 704. In the block group
+// a step took ~4,800 cycles of three barrier-separated phases over 128
+// threads, 90% of a Newton step (PERF.md, Findings).
 //
-// What the design does about that: every value of an env lives in the
-// block's dynamic shared memory for the whole solve, device memory read once
-// and written once; each block is built and inverted in its own S_t^-1 slot
-// (no second tableau), so T = 10 fits in f64 (198 KB; 99 KB in f32, two
-// blocks per SM). Each elimination step spreads the 42 x 42 rank-1 update
-// over the block's threads; warp 0 finds the pivot with shuffles, no extra
-// barrier. A (T, dtype) whose layout exceeds an H100 block's shared memory is
-// refused before any launch (ops/pdipm_cuda.py).
+// What the design does about that: each elimination step stays in one warp,
+// the block's rows in registers (lane l: rows l and l + 32), the pivot found
+// by a shuffle argmax and passed through a shared-memory row, so no block
+// barrier sits in the chain (`gj_warp`, pdipm_common.cuh); and more envs
+// run at once: the lean layout keeps f, b and d in device memory, and the T
+// stored inverses (70.6 KB an env at h10 in f32) in a device-memory
+// workspace wherever that puts more envs on an SM (8 against 2 at h10 in
+// f32) or they do not fit; so every horizon runs up to 103 (f32) and 50
+// (f64), against 24 and 11 in the block layout, which stays in this
+// library for comparison. Beyond those the lean layout without the
+// inverses outgrows a block and ops/pdipm_cuda.py refuses the launch.
 //
 // Numerics: -W_t reaches ~1e8 on its own diagonal beside R + beta ~ 1e-5, so
 // the pivot search is load-bearing (natural order gives NaN on stress
 // problems); the pivot is the first row >= k of largest |a_ik|, NaN above
-// every number, as argmax picks in the plain version. The inverse's pivot
-// entry is written as 1/pivot directly. Build without --use_fast_math.
+// every number, as argmax picks in the plain version. The pivot row is
+// divided by the pivot, and the inverse's pivot entry written as 1/pivot
+// directly. Build without --use_fast_math.
 
 #include "pdipm_tridiag.cuh"
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes, for horizon T and a value
-// size of 4 (float) or 8 (double).
+// Dynamic shared memory of one block of the block group, in bytes, for
+// horizon T and a value size of 4 (float) or 8 (double).
 size_t pdipm_tridiag_aug_smem_bytes(int T, int value_size) {
   return TridiagAug::make_layout(T, value_size).bytes;
 }
@@ -67,6 +73,61 @@ int pdipm_tridiag_aug_f64(const void* hd, const void* f, const void* ad, const v
                           const PdipmArgs* args, void* stream) {
   return launch<TridiagAug, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                                     ran, batch, T, args, stream);
+}
+
+#ifdef PDIPM_PROFILE
+// The clock64() breakdown of the last launch (a PDIPM_PROFILE build): n envs
+// x PH_COUNT cycles into `out`, then cleared; a cudaError_t.
+int pdipm_tridiag_aug_profile_read(void* out, int n) { return prof_read(out, n); }
+#endif
+
+// One env's shared memory in the warp group, in bytes, and the workspace
+// per env in bytes: 0 when the stored inverses stay in shared memory
+// (`uses_workspace`, pdipm_common.cuh), unless `force`.
+size_t pdipm_tridiag_aug_lean_bytes(int T, int value_size) {
+  return lean_bytes<TridiagAugWarp, WarpGroup<1>>(T, value_size);
+}
+
+size_t pdipm_tridiag_aug_work_bytes(int T, int value_size, int force) {
+  return work_bytes<TridiagAugWarp, WarpGroup<1>>(T, value_size, force != 0);
+}
+
+// Resident envs per SM of the block group (mode 0), of the warp group as it
+// launches (1) or with the stored inverses in the workspace (2), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+int pdipm_tridiag_aug_envs_per_sm(int T, int value_size, int mode) {
+  if (mode == 0)
+    return value_size == 4 ? envs_per_sm<TridiagAug, float, BlockGroup>(T)
+                           : envs_per_sm<TridiagAug, double, BlockGroup>(T);
+  const bool work =
+      mode == 2 || work_bytes<TridiagAugWarp, WarpGroup<1>>(T, value_size, false) > 0;
+  return value_size == 4 ? envs_per_sm<TridiagAugWarp, float, WarpGroup<1>>(T, work)
+                         : envs_per_sm<TridiagAugWarp, double, WarpGroup<1>>(T, work);
+}
+
+// The same solve in the route's warp group, one warp per env, one env per
+// block, in its lean layout; `work` is batch x `pdipm_tridiag_aug_work_bytes`
+// bytes of device memory for the stored inverses, or null to keep them in
+// shared memory.
+int pdipm_tridiag_aug_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
+                               const void* b, const void* gu, const void* d, const void* x0,
+                               const void* s0, const void* z0, const void* y0, void* x, void* s,
+                               void* z, void* y, void* res, const void* go, void* ran, int batch,
+                               int T, const PdipmArgs* args, void* stream, void* work) {
+  return launch<TridiagAugWarp, float, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x,
+                                                     s, z, y, res, go, ran, batch, T, args,
+                                                     stream, work);
+}
+
+int pdipm_tridiag_aug_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
+                               const void* b, const void* gu, const void* d, const void* x0,
+                               const void* s0, const void* z0, const void* y0, void* x, void* s,
+                               void* z, void* y, void* res, const void* go, void* ran, int batch,
+                               int T, const PdipmArgs* args, void* stream, void* work) {
+  return launch<TridiagAugWarp, double, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x,
+                                                      s, z, y, res, go, ran, batch, T, args,
+                                                      stream, work);
 }
 
 const char* pdipm_tridiag_aug_error_string(int err) {

@@ -6,11 +6,13 @@
 the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
 "ric_aug" also `opts.foot_split` and `opts.foot_pack`; one library per source
 in `SOURCES`) in the launch geometry of `geometry` (one env per 128-thread
-block, or for K1 two warps and K2 one per env in their lean layouts), CPU
-tensors run the plain version `ops/pdipm.py`. There is no fallback between
-the two: a failed build or
-launch raises, and so does a horizon and dtype whose layout does not fit in a
-block's shared memory. A given `state` is the warm start; every other field
+block, or for K1, K2, K5b and K5d-a a warp group per env in their lean
+layouts; K5b's and K5d-a's stored stage inverses in a device-memory
+workspace that `_launch` allocates where the library asks for one),
+CPU tensors run the plain version `ops/pdipm.py`. There is no fallback
+between the two: a failed build, allocation or launch raises, and so does a
+horizon and dtype whose layout does not fit in a block's shared memory. A
+given `state` is the warm start; every other field
 of `PdipmOptions` reaches the kernel through `PdipmArgs` (the refinement and
 its schedule, the residual's precision, the KKT scaling, the Gauss-Jordan
 form and pivot knobs, the corrector form, the sigma cap and the step rule's
@@ -70,20 +72,26 @@ MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
 # Launch geometry (`geometry`). Every route runs in the block group: one env
 # per block of BLOCK_THREADS threads (`BlockGroup`, csrc/pdipm_common.cuh),
-# but K1 and K2 (LEAN_ROUTES), which run in their warp group (`WarpGroup`),
-# WARP_THREADS[route] threads per env and one env per block, in their lean
-# layouts. The warp groups finish first at every batch measured, from b128
-# (one env per SM, where one env's latency decides) to b4096 (PERF.md,
-# Findings), so the choice does not depend on the batch.
+# but K1, K2, K5b and K5d-a (LEAN_ROUTES), which run in their warp group
+# (`WarpGroup`), WARP_THREADS[route] threads per env and one env per block,
+# in their lean layouts. K1's and K2's warp groups finish first at every
+# batch measured, from b128 (one env per SM, where one env's latency
+# decides) to b4096 (PERF.md, Findings), so the choice does not depend on the
+# batch. K5b and K5d-a (WORK_ROUTES) keep their T stored stage inverses in
+# shared memory, or in a workspace of device memory,
+# `pdipm_<route>_work_bytes` per env, where they do not fit or where that
+# puts more envs on an SM (the library asks the occupancy calculator; at
+# h10 K5b in f32 runs 8 envs an SM with it against 2 without, PERF.md).
 BLOCK_THREADS = 128
-WARP_THREADS = {"ric_aug": 64, "ric": 32}
-LEAN_ROUTES = ("ric_aug", "ric")
+WARP_THREADS = {"ric_aug": 64, "ric": 32, "tridiag_aug": 32, "ric_aug_dense": 128}
+LEAN_ROUTES = ("ric_aug", "ric", "tridiag_aug", "ric_aug_dense")
+WORK_ROUTES = ("tridiag_aug", "ric_aug_dense")
 
 # Kernel launches issued in this process: solves per route (`route`), and
 # launches of the refinement-residual entry; chip_smoke.py reads them to show
 # that each path went through the kernels.
 launches = {backend: 0 for backend in SOURCES}
-# Of those, the launches in a warp group (K1 and K2 only; the rest of each
+# Of those, the launches in a warp group (LEAN_ROUTES only; the rest of each
 # route's count ran in the block group).
 warp_launches = {backend: 0 for backend in LEAN_ROUTES}
 residual_launches = {"ric_aug": 0}
@@ -106,28 +114,25 @@ class PdipmArgs(ctypes.Structure):
 @dataclass(frozen=True)
 class Geometry:
     """How one launch lays envs on the card: threads per env (BLOCK_THREADS
-    for the block group, WARP_THREADS for a warp group) and envs per block
-    (one in either)."""
+    for the block group, WARP_THREADS for a warp group), envs per block (one
+    in either), and whether it is the route's warp group in its lean layout
+    (`lean`; K5d-a's four warps have the block group's 128 threads)."""
 
     threads_per_env: int
     envs_per_block: int
-
-    @property
-    def lean(self) -> bool:
-        """A warp group, in the route's lean layout."""
-        return self.threads_per_env != BLOCK_THREADS
+    lean: bool = False
 
 
 BLOCK = Geometry(BLOCK_THREADS, 1)
 
 
 def geometry(backend: str) -> Geometry:
-    """The launch geometry of route `backend`: the block group, but for K1
-    and K2 their warp group of WARP_THREADS[backend] threads, one env per
-    block. Whether the route's layout fits a block at the launch's horizon
-    and dtype, `_launch` asks the library."""
+    """The launch geometry of route `backend`: the block group, but for the
+    LEAN_ROUTES their warp group of WARP_THREADS[backend] threads, one env
+    per block. Whether the route's layout fits a block at the launch's
+    horizon and dtype, `_launch` asks the library."""
     if backend in LEAN_ROUTES:
-        return Geometry(WARP_THREADS[backend], 1)
+        return Geometry(WARP_THREADS[backend], 1, lean=True)
     return BLOCK
 
 
@@ -155,6 +160,9 @@ def args(opts: PdipmOptions) -> PdipmArgs:
 # must be 0, which `pdipm.check_options` ensures before any launch. Each
 # route reads the options that apply to it, as the JAX kernel does.
 ENTRY_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+# The warp entries of WORK_ROUTES take one more pointer: the workspace (null:
+# the stored inverses in shared memory).
+WORK_ENTRY_ARGTYPES = ENTRY_ARGTYPES + [ctypes.c_void_p]
 # C interface of `pdipm_ric_aug_residual_<f32|f64>`: hd, Ad, Bd, G_u, W, dx,
 # dz, dy, r1, rz, r4; the outputs e1, ez, e4; then batch, T, refine_df, beta,
 # delta and the stream.
@@ -199,7 +207,8 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     for suffix in ("f32", "f64"):
         entries = [(f"pdipm_{backend}_{suffix}", ENTRY_ARGTYPES)]
         if backend in LEAN_ROUTES:
-            entries.append((f"pdipm_{backend}_warp_{suffix}", ENTRY_ARGTYPES))
+            entries.append((f"pdipm_{backend}_warp_{suffix}", WORK_ENTRY_ARGTYPES
+                            if backend in WORK_ROUTES else ENTRY_ARGTYPES))
         if backend == "ric_aug":
             entries.append((f"pdipm_ric_aug_residual_{suffix}", RESIDUAL_ARGTYPES))
         for name, argtypes in entries:
@@ -209,18 +218,22 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     smem = getattr(lib, f"pdipm_{backend}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_size_t
+    extras = []
     if backend in LEAN_ROUTES:
-        # K1's and K2's lean layout and occupancy; a profile build's
-        # breakdown (`bench/pdipm_geometry.py`).
+        # The warp group's lean layout and occupancy, and K5b's and K5d-a's
+        # workspace.
         extras = [(f"pdipm_{backend}_lean_bytes", [ctypes.c_int] * 2, ctypes.c_size_t),
                   (f"pdipm_{backend}_envs_per_sm", [ctypes.c_int] * 3, ctypes.c_int)]
-        if hasattr(lib, f"pdipm_{backend}_profile_read"):
-            extras.append((f"pdipm_{backend}_profile_read", [ctypes.c_void_p, ctypes.c_int],
-                           ctypes.c_int))
-        for name, argtypes, restype in extras:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
+        if backend in WORK_ROUTES:
+            extras.append((f"pdipm_{backend}_work_bytes", [ctypes.c_int] * 3, ctypes.c_size_t))
+    if hasattr(lib, f"pdipm_{backend}_profile_read"):
+        # A profile build's breakdown (`bench/pdipm_geometry.py`).
+        extras.append((f"pdipm_{backend}_profile_read", [ctypes.c_void_p, ctypes.c_int],
+                       ctypes.c_int))
+    for name, argtypes, restype in extras:
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     errs = getattr(lib, f"pdipm_{backend}_error_string")
     errs.argtypes = [ctypes.c_int]
     errs.restype = ctypes.c_char_p
@@ -233,11 +246,14 @@ def _library(backend: str) -> ctypes.CDLL:
     return _libs[backend]
 
 
-def smem_bytes(backend: str, horizon: int, dtype: torch.dtype) -> int:
+def smem_bytes(backend: str, horizon: int, dtype: torch.dtype, geom: Geometry = BLOCK) -> int:
     """Bytes of shared memory one env of route `backend` needs at `horizon`
-    in `dtype`, from the kernel library's own layout (builds it)."""
+    in `dtype` in `geom` (the block layout, or the route's warp group's lean
+    layout as it launches), from the kernel library's own layout (builds
+    it)."""
     size = torch.empty((), dtype=dtype).element_size()
-    return getattr(_library(backend), f"pdipm_{backend}_smem_bytes")(horizon, size)
+    kind = "lean" if geom.lean else "smem"
+    return getattr(_library(backend), f"pdipm_{backend}_{kind}_bytes")(horizon, size)
 
 
 def _inputs(qp: StageQP) -> list:
@@ -275,14 +291,34 @@ def _state_tensors(qp: StageQP, state: pdipm.PdipmState) -> list:
                     [(nb, qp.nz), (nb, qp.n_ineq), (nb, qp.n_ineq), (nb, qp.n_eq)], qp.f)
 
 
+def workspace(lib, backend: str, horizon: int, dtype: torch.dtype, batch: int, device,
+              force: bool | None = None) -> torch.Tensor | None:
+    """The device-memory workspace of a WORK_ROUTES warp launch: batch x
+    `pdipm_<route>_work_bytes` bytes, or None where the stored inverses stay
+    in shared memory (the library decides: where they fit and the workspace
+    does not let more envs reside on an SM). `force` True or False overrides
+    the choice, a measurement of the other layout (False: the launch fails
+    where they do not fit). Allocated before the launch, so a failed
+    allocation raises before it."""
+    if force is False:
+        return None
+    size = torch.empty((), dtype=dtype).element_size()
+    per_env = getattr(lib, f"pdipm_{backend}_work_bytes")(horizon, size, int(bool(force)))
+    if per_env == 0:
+        return None
+    return torch.empty(batch * per_env, dtype=torch.uint8, device=device)
+
+
 def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=None, ran=None,
-            geom: Geometry | None = None):
+            geom: Geometry | None = None, force_workspace: bool | None = None):
     """One launch of route `route(opts)` from `lib` in `geom` (None: the
-    route's `geometry`; `BLOCK` runs K1 and K2 in the block group, as
-    chip_smoke.py does to compare): warm (x0, s0, z0, y0) or None for the
+    route's `geometry`; `BLOCK` runs a warp-group route in the block group,
+    as chip_smoke.py does to compare): warm (x0, s0, z0, y0) or None for the
     cold start; outs (x, s, z, y, res), which may be the warm tensors
     themselves; go / ran the gate flag and chunk counter (int32 device
-    tensors) or None."""
+    tensors) or None; `force_workspace` (K5b, K5d-a in their warp group)
+    True or False puts the stored inverses in the workspace or in shared
+    memory whatever the library's choice (`workspace`), None leaves it."""
     if opts.iterations < 0 or opts.refine_steps < 0:
         raise ValueError(f"iterations and refine_steps must be >= 0: {opts}")
     T = qp.horizon
@@ -302,9 +338,14 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     entry = f"{name}_warp" if geom.lean else name
     fn = getattr(lib, f"{entry}_f32" if qp.f.dtype == torch.float32 else f"{entry}_f64")
     options = args(opts)
+    # The workspace lives until the launch is queued; the stream orders its
+    # reuse by the caching allocator after the kernel.
+    work = [workspace(lib, key, T, qp.f.dtype, qp.f.shape[0], qp.f.device, force_workspace)
+            ] if geom.lean and key in WORK_ROUTES else []
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
              *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
-             ctypes.addressof(options), stream)
+             ctypes.addressof(options), stream, *[ptr(t) for t in work])
+    del work
     if err != 0:
         raise RuntimeError(f"PDIPM kernel {name} launch failed: "
                            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
@@ -315,16 +356,18 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
 
 def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream,
                state: pdipm.PdipmState | None = None,
-               geom: Geometry | None = None) -> PdipmResult:
+               geom: Geometry | None = None,
+               force_workspace: bool | None = None) -> PdipmResult:
     """Launch the kernel of route `route(opts)` from `lib` on `qp`'s tensors
     in `geom` (None: `geometry`), from `state` (warm) or the cold start;
-    `stream` is a raw stream handle (int) or None. Checks shapes and types,
-    allocates the outputs."""
+    `stream` is a raw stream handle (int) or None; `force_workspace` as in
+    `_launch`. Checks shapes and types, allocates the outputs (and the
+    workspace)."""
     ins = _inputs(qp)
     warm = None if state is None else _state_tensors(qp, state)
     new = lambda n: torch.empty(qp.f.shape[0], n, dtype=qp.f.dtype, device=qp.f.device)
     outs = [new(qp.nz), new(qp.n_ineq), new(qp.n_ineq), new(qp.n_eq), new(4)]
-    _launch(lib, qp, ins, opts, stream, warm, outs, geom=geom)
+    _launch(lib, qp, ins, opts, stream, warm, outs, geom=geom, force_workspace=force_workspace)
     return PdipmResult(*outs)
 
 

@@ -28,15 +28,19 @@ the fixed solve bit for bit, that the adaptive solve stops where the JAX
 loop does without waiting for the device, that a layout over a block's
 shared memory raises before any launch, and prints whether K1 and K2 (in
 their former Gauss-Jordan form), K5a and K5b still give the bits their
-builds gave before the Newton step was shared. K1 and K2 run in warp groups
-(`pdipm_cuda.geometry`: K1 two warps per env, K2 one, in their lean
-layouts); the
-script checks every route's bits, K1 and K2 in the block group, against the
-build before the warp groups (BEFORE_WARP_DIGESTS), holds the block group
-against the plain version too, and times both geometries in turns beside a
-clock64() breakdown of a Newton step and the resident envs per SM (`geometry_phase`;
-`python3 chip_smoke.py --geometry` runs that phase alone with a sweep of
-batch sizes, `--digests` prints the digests; no other argument is taken).
+builds gave before the Newton step was shared. K1, K2, K5b and K5d-a run in
+warp groups (`pdipm_cuda.geometry`: K1 two warps per env, K2 and K5b one,
+K5d-a four, in their lean layouts; K5b's and K5d-a's stored stage inverses
+in shared memory or in a device-memory workspace); the script checks every
+route's bits, those four in the block group, against the build before the
+warp groups (BEFORE_WARP_DIGESTS), holds the block group against the plain
+version too, and times both geometries in turns beside a clock64()
+breakdown of a Newton step and the resident envs per SM, with K5b's and
+K5d-a's two places for the inverses in turns (`geometry_phase`; `python3
+chip_smoke.py --geometry` runs that phase alone with a sweep of batch
+sizes, `--digests` prints the digests; no other argument is taken). It
+holds K5b and K5d-a at horizons 20 and 40 against the f64 plain version
+(HORIZONS), which their block layouts refused in f64.
 It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
@@ -164,6 +168,13 @@ BEFORE_WARP_DIGESTS = {
 }
 # The hybrid's re-solve batch at b4096, max(64, B // 32).
 RESOLVE_BATCH = 128
+# The horizons K5b and K5d-a are held at beyond the controller's 10: the
+# JAX package's horizon table (bench/ab_round4.py:389); their block layouts
+# refused T = 20 in f64 (ROADMAP Queue 3 item 5).
+HORIZONS = (20, 40)
+# The converged envs of a long-horizon batch on which the f64 roundoff
+# witness of K5b and K5d-a is taken: those where the kernel parts most.
+WITNESS_ENVS = 64
 
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
@@ -242,14 +253,14 @@ def ptxas_report(lib_paths) -> str:
     return "; ".join(out)
 
 
-def walking_draws(batch, seed):
+def walking_draws(batch, seed, T=10):
     """The numpy draws of `make_qp_batch`: small random attitude, position,
     twist; forward command in [-0.2, 0.4] m/s; contact tables of the 5-step
     walking gait at random phase (swing stages in every env); per-env
     friction in [0.4, 1.0]. Returns (x0 (B, 12), x_ref (B, T, 12), contact
-    (B, T, 2), feet (B, 2, 3), mu (B,)), float64, T = 10."""
+    (B, T, 2), feet (B, 2, 3), mu (B,)), float64; the draws do not depend on
+    the horizon T."""
     rng = np.random.default_rng(seed)
-    T = 10
     x0 = np.zeros((batch, 12))
     x0[:, 0:3] = rng.uniform(-0.03, 0.03, (batch, 3))
     x0[:, 3:6] = rng.uniform(-0.02, 0.02, (batch, 3)) + [0.0, 0.0, 0.55]
@@ -266,16 +277,16 @@ def walking_draws(batch, seed):
     return x0, x_ref, contact, feet, rng.uniform(0.4, 1.0, batch)
 
 
-def make_qp_batch(batch, seed, dtype, device):
-    """Randomized HECTOR walking QPs (`walking_draws`) through the port's
-    `build_qp`."""
+def make_qp_batch(batch, seed, dtype, device, T=10):
+    """Randomized HECTOR walking QPs (`walking_draws`, horizon T) through the
+    port's `build_qp`."""
     import torch
     from biped_pympc_tpu_torch.models import hector
     from biped_pympc_tpu_torch.models.srbd import SrbdLin
     from biped_pympc_tpu_torch.ops import qp as qps
     from biped_pympc_tpu_torch.utils.maths import rot_x, rot_y, rot_z
 
-    x0, x_ref, contact, feet, mu = walking_draws(batch, seed)
+    x0, x_ref, contact, feet, mu = walking_draws(batch, seed, T)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     rot = rot_z(t(x0[:, 2])) @ rot_y(t(x0[:, 1])) @ rot_x(t(x0[:, 0]))
     lin = SrbdLin(
@@ -572,24 +583,30 @@ def sass_report(roofline_lib: str) -> str:
 
 
 def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
-    """K1 and K2 in their launch geometries: the largest horizon each route
-    and dtype runs in its warp group and in the block group (the libraries'
-    `lean_bytes` / `smem_bytes` within a block's shared memory); the
-    geometry `pdipm_cuda.geometry` picks and the resident envs per SM of it
-    and of the block group; the clock64() breakdown of a Newton step in both
-    (`pdipm_geometry`); and the solve times of the block group (the build
-    before the warp groups) and the warp group in turns (block, new, new,
-    block), f32 and f64, at b4096 and at the hybrid's re-solve batch, each
-    required faster in every turn. With `explore`, also a sweep of batch
-    sizes. Returns {"geo", "occ", "turns", "breakdown"}."""
+    """The routes with a warp group (K1, K2, K5b, K5d-a) in their launch
+    geometries: the largest horizon each route and dtype runs in its warp
+    group and in the block group (the libraries' `lean_bytes` /
+    `smem_bytes` within a block's shared memory); the geometry
+    `pdipm_cuda.geometry` picks and the resident envs per SM of it and of
+    the block group (K5b and K5d-a also with their stored inverses in the
+    workspace); the clock64() breakdown of a Newton step in both
+    (`pdipm_geometry`); the solve times of the block group (the build before
+    the warp groups) and the warp group in turns (block, new, new, block),
+    f32 and f64, at b4096 and, for K1 and K2, at the hybrid's re-solve
+    batch, each required faster in every turn; and K5b's and K5d-a's warp
+    group with the stored inverses in shared memory and in the workspace in
+    turns, the one `pdipm_cuda` launches required no slower. With
+    `explore`, also a sweep of batch sizes (K1, K2). Returns {"geo", "occ",
+    "turns", "breakdown", "workspace"}."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
 
     dts = {"f32": torch.float32, "f64": torch.float64}
+    routes = pdipm_cuda.LEAN_ROUTES
     fits = {}
-    for route in pdipm_cuda.LEAN_ROUTES:
+    for route in routes:
         lib = pdipm_cuda._library(route)
         for dt, dtype in dts.items():
             size = torch.empty((), dtype=dtype).element_size()
@@ -600,24 +617,34 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
                     <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
     qps_ = {"f32": qp32, "f64": qp64}
     T = qp32.horizon
-    geo = {r: pdipm_cuda.geometry(r) for r in pdipm_cuda.LEAN_ROUTES}
+    geo = {r: pdipm_cuda.geometry(r) for r in routes}
     env_b = {(r, dt): getattr(pdipm_cuda._library(r), f"pdipm_{r}_lean_bytes")(
         T, torch.empty((), dtype=dts[dt]).element_size())
-        for r in pdipm_cuda.LEAN_ROUTES for dt in dts}
+        for r in routes for dt in dts}
+    work_b = {(r, dt): getattr(pdipm_cuda._library(r), f"pdipm_{r}_work_bytes")(
+        T, torch.empty((), dtype=dts[dt]).element_size(), 0)
+        for r in pdipm_cuda.WORK_ROUTES for dt in dts}
     occ = {(r, dt, tag): pg.envs_per_sm(r, T, dts[dt], g)
-           for r in pdipm_cuda.LEAN_ROUTES for dt in dts
+           for r in routes for dt in dts
            for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r]))}
+    occ.update({(r, dt, "workspace"): pg.envs_per_sm(r, T, dts[dt], geo[r], True)
+                for r in pdipm_cuda.WORK_ROUTES for dt in dts})
     print(f"[geometry] {label}: largest horizon per route and dtype: {fits}; picked: "
           + ", ".join(f"{r} {g.threads_per_env} threads x {g.envs_per_block} env per block"
                       for r, g in geo.items())
           + f"; lean bytes per env at h{T}: "
           + ", ".join(f"{r} {dt} {n}" for (r, dt), n in env_b.items())
+          + f"; workspace bytes per env at h{T} (0: inverses in shared memory): "
+          + ", ".join(f"{r} {dt} {n}" for (r, dt), n in work_b.items())
           + "; resident envs per SM (occupancy calculator): "
           + ", ".join(f"{r} {dt} {tag} {n}" for (r, dt, tag), n in occ.items()))
-    for r in pdipm_cuda.LEAN_ROUTES:
-        check(occ[r, "f32", "new"] > 4, f"{r} f32 holds {occ[r, 'f32', 'new']} envs per SM")
-    base = {"ric_aug": opts, "ric": dataclasses.replace(opts, backend="ric")}
-    out = {"geo": geo, "occ": occ, "turns": {}, "breakdown": {}}
+    for r in routes:
+        for dt in dts:
+            check(occ[r, dt, "new"] > occ[r, dt, "block"],
+                  f"{r} {dt} holds {occ[r, dt, 'new']} envs per SM in its warp group, "
+                  f"{occ[r, dt, 'block']} in the block group")
+    base = {r: pg.route_opts(r, opts) for r in routes}
+    out = {"geo": geo, "occ": occ, "turns": {}, "breakdown": {}, "workspace": {}}
     for r, o in base.items():
         for dt in dts:
             for tag, g in (("block", pdipm_cuda.BLOCK), ("new", geo[r])):
@@ -626,11 +653,14 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
                 print(pg.breakdown_line(f"[breakdown] {label}: {r} {dt} b{B} {tag} "
                                         f"({g.threads_per_env} x {g.envs_per_block})", res))
     for r, o in base.items():
+        calls = 1 if r in pdipm_cuda.WORK_ROUTES else 10  # K5b / K5d-a: 0.04-0.74 s a solve
         for dt in dts:
             qp = qps_[dt]
             sub = qps.take(qp, torch.arange(RESOLVE_BATCH, device=qp.f.device))
             for nb, q in ((B, qp), (RESOLVE_BATCH, sub)):
-                out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r])
+                if nb == RESOLVE_BATCH and r in pdipm_cuda.WORK_ROUTES:
+                    continue  # the re-solve batch is the hybrid's, K1's
+                out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r], calls)
     print(f"[geometry times] {label}: block group / warp group / warp group / block "
           f"group, ms: " + "; ".join(f"{r} {dt} b{nb} " + " / ".join(f"{v:.3f}" for v in t)
                                      for (r, dt, nb), t in out["turns"].items()))
@@ -638,13 +668,26 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
         check(max(t[1], t[2]) < min(t[0], t[3]),
               f"{r} {dt} b{nb}: the warp group is not faster than the block group in every "
               f"turn: {t}")
+    for r in pdipm_cuda.WORK_ROUTES:
+        for dt in dts:
+            out["workspace"][r, dt] = pg.workspace_turns(qps_[dt], base[r], 1)
+    print(f"[workspace] {label}: warp group at h{T}, stored inverses in shared memory / "
+          f"workspace / workspace / shared memory, ms: "
+          + "; ".join(f"{r} {dt} " + " / ".join(f"{v:.3f}" for v in t)
+                      for (r, dt), t in out["workspace"].items())
+          + " (launched: " + ", ".join(f"{r} {dt} {'workspace' if n else 'shared memory'}"
+                                       for (r, dt), n in work_b.items()) + ")")
+    for (r, dt), t in out["workspace"].items():
+        used, other = (t[1:3], t[0::3]) if work_b[r, dt] else (t[0::3], t[1:3])
+        check(max(used) <= min(other) * 1.05,
+              f"{r} {dt}: the layout pdipm_cuda launches is slower than the other: {t}")
     if explore:
-        for r, o in base.items():
+        for r in pdipm_cuda.LEAN_ROUTES[:2]:
             qp = qps_["f32"]
             line = []
             for nb in (256, 512, 1024, 2048):
                 q = qps.take(qp, torch.arange(nb, device=qp.f.device))
-                tt = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r])
+                tt = pg.turns(q, base[r], pdipm_cuda.BLOCK, geo[r])
                 line.append(f"b{nb} block {tt[0]:.3f} / warp {tt[1]:.3f} ms")
             print(f"[geometry explore] {label}: {r} f32: " + "; ".join(line)
                   + f"; SASS instructions {pg.sass_sizes(pdipm_cuda.library_path(r))}")
@@ -848,6 +891,7 @@ def quick(mode: str) -> int:
     and hold K1 and K2 in the picked geometry against their plain versions
     at f64 on the converged envs."""
     import torch
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
 
     dev = torch.device("cuda:0")
@@ -864,7 +908,7 @@ def quick(mode: str) -> int:
     print(f"[digests] as recorded: {same}")
     geometry_phase(label, qp32, qp64, opts, explore=True)
     for r in pdipm_cuda.LEAN_ROUTES:
-        o = dataclasses.replace(opts, backend=r)
+        o = pg.route_opts(r, opts)
         plain = pdipm.solve(qp64, o)
         kern = pdipm_cuda.solve(qp64, o)
         k32 = pdipm_cuda.solve(qp32, o)
@@ -1253,7 +1297,7 @@ def main() -> int:
             roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5b")
-        k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_}
+        k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_, "plain": plain64_, "cv": cv_}
 
     # 4g. K3 on K5a and K5b: four warm 5-step launches vs one 20-step launch.
     warm_line = []
@@ -1304,7 +1348,23 @@ def main() -> int:
             roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5d-a")
-        k5n[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_}
+        k5n[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_, "plain": plain64_, "cv": cv_}
+
+    # K5b and K5d-a in the block group, the parent's kernels (their bits in
+    # 7b), against the same plain f64 solves, with the same bound.
+    blk_line = []
+    for tag, runs in (("K5b", k5["K5b"]), ("K5d-a", k5n["K5d-a"])):
+        o = thomas[tag] if tag == "K5b" else riccati[tag]
+        blk = pg.solve_in(qp64, o, pdipm_cuda.BLOCK)
+        cv_ = torch.as_tensor(runs["cv"], device=dev)
+        e = max(float((getattr(blk, n) - getattr(runs["plain"], n)).abs().amax(1)[cv_].max())
+                for n in "xszy")
+        w_, differ = bit_diff(runs["f64"], blk)
+        blk_line.append(f"{tag} {e:.3e} (warp group {runs['err']:.3e}; the two part by "
+                        f"{w_:.3e} on {differ} envs)")
+        check(e <= F64_ATOL, f"f64 {tag} in the block group differs from the plain version")
+    print(f"[block group f64 vs plain f64] b{B}, converged envs, max |dx,ds,dz,dy| (bound "
+          f"{F64_ATOL:g}): " + "; ".join(blk_line))
 
     # 4k. Jacobi equilibration (kkt_scale="jacobi") on K1 and K5d-c: f64
     # kernel vs f64 plain version (same scaling) within the route's bound,
@@ -1495,40 +1555,48 @@ def main() -> int:
     inputs_same = all(digest(pdipm_cuda._inputs(qp)) == PARENT_DIGESTS["inputs", dt]
                       for dt, qp in (("f32", qp32), ("f64", qp64)))
     # K1 and K2 in the form and geometry those builds had: gj_form
-    # "tableau", the block group.
+    # "tableau", the block group; K5b in the block group.
     block_tableau = {(tag, dt): pg.solve_in(qp, dataclasses.replace(o, gj_form="tableau"),
                                              pdipm_cuda.BLOCK)
                      for tag, o in (("K1", opts), ("K2", ric))
                      for dt, qp in (("f32", qp32), ("f64", qp64))}
+    block_k5b = {dt: pg.solve_in(qp, thomas["K5b"], pdipm_cuda.BLOCK)
+                 for dt, qp in (("f32", qp32), ("f64", qp64))}
     refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]
                      for tag, runs in (("K1", {d: block_tableau["K1", d] for d in ("f32", "f64")}),
                                        ("K2", {d: block_tableau["K2", d] for d in ("f32", "f64")}),
-                                       ("K5a", k5["K5a"]), ("K5b", k5["K5b"]))
+                                       ("K5a", k5["K5a"]), ("K5b", block_k5b))
                      for dt in ("f32", "f64")}
 
     # 4i. Layouts over a block's shared memory raise before any launch: the
-    # largest horizon of each route and dtype that fits, and K5b at T = 20 in
-    # f64, which does not.
+    # largest horizon of each route and dtype that fits in the geometry
+    # `pdipm_cuda.geometry` picks (the block layout, or a warp group's lean
+    # one: K5b's and K5d-a's with the stored inverses in the workspace where
+    # needed), and for K5b and K5d-a a horizon beyond it in f64, which
+    # raises.
     fits = {}
     for route in pdipm_cuda.SOURCES:
+        lib_ = pdipm_cuda._library(route)
+        layout = "lean" if pdipm_cuda.geometry(route).lean else "smem"
         for dt in (torch.float32, torch.float64):
+            size = torch.empty((), dtype=dt).element_size()
             fits[f"{route} {str(dt)[6:]}"] = max(
-                T_ for T_ in range(1, 65)
-                if pdipm_cuda.smem_bytes(route, T_, dt) <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
-    qp20 = dataclasses.replace(qp64, d=torch.cat([qp64.d, qp64.d], dim=1),
-                               f=torch.cat([qp64.f[:, :120], qp64.f[:, :120],
-                                            qp64.f[:, 120:], qp64.f[:, 120:]], dim=1))
+                T_ for T_ in range(1, 129)
+                if getattr(lib_, f"pdipm_{route}_{layout}_bytes")(T_, size)
+                <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
     pdipm_cuda.reset_counts()
     raised = {}
     for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"])):
+        over = fits[f"{pdipm_cuda.route(opts_)} float64"] + 1
         try:
-            pdipm_cuda.solve(qp20, opts_)
+            pdipm_cuda.solve(make_qp_batch(8, 0, torch.float64, dev, over), opts_)
         except ValueError as exc:
-            raised[tag] = str(exc)
-        check("shared memory" in raised.get(tag, ""), f"{tag} f64 T=20 did not raise")
+            raised[f"{tag} T={over}"] = str(exc)
+        check(any(k.startswith(tag) and "shared memory" in v for k, v in raised.items()),
+              f"{tag} f64 T={over} did not raise")
     check(pdipm_cuda.launches == route_counts(), "a layout that does not fit was launched")
-    print(f"[shared memory] largest horizon that fits per route and dtype: {fits}; f64 T=20 "
-          f"raised before any launch: {raised}")
+    print(f"[shared memory] largest horizon that fits per route and dtype: {fits}; beyond it, "
+          f"f64, raised before any launch: {raised}")
 
     # 5. Main path: MPCController at b4096 on the card, default solver (K1).
     obs = torch.tensor(hector_obs(B), device=dev)
@@ -1593,7 +1661,7 @@ def main() -> int:
           f"{float(h_fz[:, 1].abs().max()):.3e} N")
     check(h_launches == route_counts(ric_aug=h_mpc, ric=h_mpc),
           "the hybrid path did not launch K2 and K1 once each per run_mpc")
-    check(h_warp == {"ric_aug": h_mpc, "ric": h_mpc},
+    check(h_warp == {**{r: 0 for r in h_warp}, "ric_aug": h_mpc, "ric": h_mpc},
           f"the hybrid path's K1 and K2 did not run in their warp groups: {h_warp}")
     check(all(st["dropped_nonfinite"] == 0 for st in stats), "hybrid dropped non-finite envs")
     check(h_tau_ok, "hybrid joint torques not finite or beyond the torque limits")
@@ -1694,6 +1762,7 @@ def main() -> int:
         t_mpc, t_first, t_tau_ok = walk(tctrl, obs, ticks, limit)
         torch.cuda.synchronize()
         t_launches = dict(pdipm_cuda.launches)
+        t_warp = {r: n for r, n in pdipm_cuda.warp_launches.items() if r in per_mpc}
         t_fz = -t_first[:, :, 2]
         tref = MPCController(ControllerConf(), conf, num_envs=8, gait_id=2, dtype=torch.float64,
                              device="cpu")
@@ -1702,7 +1771,8 @@ def main() -> int:
         tref.run_mpc()
         t_dw = float((t_first[:8].cpu().double() - tref.ground_reaction_wrench).abs().max())
         print(f"[{name} path] MPCController b{B}, {ticks} ticks: "
-              f"run_mpc {t_mpc}, kernel launches {t_launches}; tau finite and within limits: "
+              f"run_mpc {t_mpc}, kernel launches {t_launches} (in a warp group {t_warp}); tau "
+              f"finite and within limits: "
               f"{t_tau_ok}; first solve fz left [{float(t_fz[:, 0].min()):.2f}, "
               f"{float(t_fz[:, 0].max()):.2f}] N, right swing max |fz| "
               f"{float(t_fz[:, 1].abs().max()):.3e} N; vs CPU plain f64 on 8 envs max |d| "
@@ -1710,6 +1780,8 @@ def main() -> int:
               f"first solve max |d| {float((t_first - first_wrench).abs().max()):.3e} N")
         check(t_launches == route_counts(**{r: n * t_mpc for r, n in per_mpc.items()}),
               f"the {name} path did not launch its kernels {per_mpc} per run_mpc")
+        check(all(t_warp[r] == t_launches[r] for r in t_warp),
+              f"the {name} path's {sorted(t_warp)} did not run in their warp groups: {t_warp}")
         check(t_tau_ok, f"{name}: joint torques not finite or beyond the torque limits")
         check(bool((t_fz[:, 1].abs() < 1.0).all()), f"{name}: swinging right foot carries force")
         check(bool((t_first[:, 0, 2] < -50.0).all()), f"{name}: stance left foot not loaded")
@@ -1850,9 +1922,11 @@ def main() -> int:
           f"what the kernel's loops do / the least (the bounds' count): "
           + ", ".join(f"{k} {done:.4g} / {least:.4g}" for k, done, least in flops))
     now = {"K1": new_ms["K1 tableau"]["k32"], "K2": new_ms["K2 tableau"]["k32"],
-           "K5a": k5_ms["K5a"]["k32"], "K5b": k5_ms["K5b"]["k32"]}
-    print(f"[refactor] {label}: K1 and K2 under gj_form tableau in the block group, K5a and "
-          f"K5b, in the one Newton-step kernel, b{B} cold 20 steps: inputs as recorded: "
+           "K5a": k5_ms["K5a"]["k32"],
+           "K5b": cuda_ms(lambda: pg.solve_in(qp32, thomas["K5b"], pdipm_cuda.BLOCK), 2)}
+    print(f"[refactor] {label}: K1 and K2 under gj_form tableau in the block group, K5a, and "
+          f"K5b in the block group, in the one Newton-step kernel, b{B} cold 20 steps: inputs "
+          f"as recorded: "
           f"{inputs_same}; x, s, z, y "
           f"and residuals bitwise the build before the move (digest): {refactor_same}; f32 ms now "
           f"/ before the move: "
@@ -1868,6 +1942,63 @@ def main() -> int:
           f"the build before the warp groups (BEFORE_WARP_DIGESTS): {before}")
     check(all(before.values()), "a route's bits differ from the build before the warp groups")
     geometry_phase(label, qp32, qp64, opts)
+
+    # 7c. K5b and K5d-a at the longer HORIZONS, in their warp groups, on
+    # this script's walking batch at that horizon, b4096, against the f64
+    # plain version with the robust class's bounds: f64 on the converged
+    # envs, f32 u0 and finiteness. The f64 bound is the larger of F64_ATOL
+    # and WITNESS_FACTOR times the plain route's own roundoff there (its
+    # f64 solve on the CPU against the same on the card, over the
+    # WITNESS_ENVS converged envs where the kernel parts most), as for the
+    # step variants (4p); both are printed.
+    for T_ in HORIZONS:
+        q64, q32 = (make_qp_batch(B, 0, dt, dev, T_) for dt in (torch.float64, torch.float32))
+        u0 = slice(12 * T_, 12 * T_ + 12)
+        for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"])):
+            key = pdipm_cuda.route(opts_)
+            pdipm_cuda.reset_counts()
+            k64_, k32_ = pdipm_cuda.solve(q64, opts_), pdipm_cuda.solve(q32, opts_)
+            torch.cuda.synchronize()
+            check(pdipm_cuda.launches[key] == 2 and pdipm_cuda.warp_launches[key] == 2,
+                  f"{tag} h{T_}: not two launches in its warp group")
+            plain_ = pdipm.solve(q64, opts_)
+            cv_ = plain_.residuals[:, 3] <= MU_CONVERGED
+            check(int(cv_.sum()) >= B // 10, f"only {int(cv_.sum())} envs converged at h{T_}")
+            gap = torch.stack([(getattr(k64_, n) - getattr(plain_, n)).abs().amax(1)
+                               for n in "xszy"]).amax(0)
+            rel = torch.stack([((getattr(k64_, n) - getattr(plain_, n)).abs()
+                                / getattr(plain_, n).abs().clamp_min(1.0)).amax(1)
+                               for n in "xszy"]).amax(0)
+            worst_, worst_rel = float(gap[cv_].max()), float(rel[cv_].max())
+            cv_idx = torch.nonzero(cv_).flatten()
+            idx = cv_idx[torch.argsort(gap[cv_idx], descending=True)[:WITNESS_ENVS]]
+            cpu = pdipm.solve(qp_map(qps.take(q64, idx), lambda v: v.cpu()), opts_)
+            wit = max(float((getattr(cpu, n) - getattr(plain_, n)[idx].cpu()).abs().max())
+                      for n in "xszy")
+            bound_ = max(F64_ATOL, WITNESS_FACTOR * wit)
+            fin = torch.isfinite(k32_.x).all(1)
+            du0 = (k32_.x[:, u0].double() - plain_.x[:, u0]).abs().amax(1)
+            reps = 2 if T_ <= 20 else 1
+            ms32 = cuda_ms(lambda: pdipm_cuda.solve(q32, opts_), reps)
+            ms64 = cuda_ms(lambda: pdipm_cuda.solve(q64, opts_), reps)
+            lib_ = pdipm_cuda._library(key)
+            work = {dt: getattr(lib_, f"pdipm_{key}_work_bytes")(T_, sz, 0)
+                    for dt, sz in (("f32", 4), ("f64", 8))}
+            print(f"[{tag} h{T_}] {label}: b{B} {key} in its warp group, converged envs "
+                  f"{int(cv_.sum())}: f64 vs plain f64 max |dx,ds,dz,dy| {worst_:.3e} (bound "
+                  f"{bound_:.3e}: the larger of {F64_ATOL:g} and {WITNESS_FACTOR} x the "
+                  f"witness), relative to max(1, |v|) {worst_rel:.3e}; witness (plain f64 on "
+                  f"the CPU vs the card, the {len(idx)} converged envs the kernel parts most "
+                  f"on) {wit:.3e}; f32 finite {int(fin.sum())}/{B}, u0 |dGRF| converged finite "
+                  f"{quantiles(du0[cv_ & fin].cpu().numpy())} (bound {F32_U0_ATOL}), above "
+                  f"{F32_U0_ATOL} N over all finite envs {int((du0[fin] > F32_U0_ATOL).sum())}; "
+                  f"kernel f32 {ms32:.3f} ms, f64 {ms64:.3f} ms; workspace bytes per env "
+                  f"{work}")
+            check(worst_ <= bound_, f"f64 {tag} h{T_} differs from the plain version")
+            check(float(fin.double().mean()) >= F32_FINITE_SHARE,
+                  f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
+            check(float(du0[cv_ & fin].max()) <= F32_U0_ATOL,
+                  f"f32 {tag} h{T_} GRF off on converged envs")
 
     bench_kernels = bench_twins(label)
 

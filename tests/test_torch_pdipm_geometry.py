@@ -1,11 +1,14 @@
 """The launch geometry of the port's PDIPM kernels (`pdipm_cuda.geometry`):
-K1 ("ric_aug") runs two warps per env and K2 ("ric") one, one env per block,
-in their lean layouts; every other route keeps the block group. The layouts'
-byte counts come from the kernels' own `make_layout`, read from a g++ build
-of K1 and K2 against the host shim (`ops/host_build.py`; the tests that need
-it skip, deciding inside the test, where g++ is absent)."""
+K1 ("ric_aug") runs two warps per env, K2 ("ric") and K5b ("tridiag_aug")
+one, K5d-a ("ric_aug_dense") four, one env per block, in their lean layouts
+(K5b's and K5d-a's stored inverses in shared memory or in a device-memory
+workspace); every other route keeps the block group. The layouts' byte
+counts come from the kernels' own `make_layout`, read from a g++ build of
+those four routes against the host shim (`ops/host_build.py`; the tests
+that need it skip, deciding inside the test, where g++ is absent)."""
 
 import contextlib
+import dataclasses
 import types
 
 import pytest
@@ -28,9 +31,18 @@ def _size(dt):
     return torch.empty((), dtype=DTYPES[dt]).element_size()
 
 
+# The largest horizon K5b and K5d-a run in their warp group, per dtype: the
+# lean layout with the stored inverses in the workspace within 232,448 B;
+# and their T x N x N inverses' width N.
+WORK_MAX_T = {("tridiag_aug", "f32"): 103, ("tridiag_aug", "f64"): 50,
+              ("ric_aug_dense", "f32"): 86, ("ric_aug_dense", "f64"): 42}
+WORK_N = {"tridiag_aug": 42, "ric_aug_dense": 30}
+
+
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """{route: the host build of K1 / K2}, or a skip without g++."""
+    """{route: the host build of K1 / K2 / K5b / K5d-a}, or a skip without
+    g++."""
     if host_build.find_gxx() is None:
         pytest.skip("g++ is not installed: the host build of the kernels needs it")
     out = tmp_path_factory.mktemp("host_build")
@@ -135,9 +147,9 @@ class _FakeLib:
 @pytest.mark.parametrize("route", sorted(set(pdipm_cuda.SOURCES) - set(pdipm_cuda.LEAN_ROUTES)))
 @pytest.mark.parametrize("T", [1, 10, 20])
 def test_other_routes_keep_the_block_group(monkeypatch, route, T):
-    """Every route but K1 and K2 runs one env per 128-thread block, its own
-    layout (the library's `smem_bytes`) and its block entry, at any horizon
-    and dtype."""
+    """Every route without a warp group runs one env per 128-thread block,
+    its own layout (the library's `smem_bytes`) and its block entry, at any
+    horizon and dtype."""
     from biped_pympc_tpu_torch.bench import bench_common
 
     assert pdipm_cuda.geometry(route) == pdipm_cuda.BLOCK == pdipm_cuda.Geometry(128, 1)
@@ -153,6 +165,86 @@ def test_other_routes_keep_the_block_group(monkeypatch, route, T):
         pdipm_cuda.run_kernel(lib, qp, opts, None)
         assert lib.calls == [(f"pdipm_{route}_smem_bytes", (T, _size(dt))),
                              (f"pdipm_{route}_{dt}", None)]
+
+
+class _WorkLib(_FakeLib):
+    """A stand-in for K5b's or K5d-a's library: `lean_bytes` answers
+    `nbytes`, `work_bytes` answers `work` per env, and the warp entry records
+    the workspace pointer it is given."""
+
+    def __init__(self, nbytes, work):
+        super().__init__(nbytes)
+        self.work, self.given = work, []
+
+    def __getattr__(self, name):
+        if name.endswith("_work_bytes"):
+            return lambda *a: (self.calls.append((name, a)), self.work)[1]
+        if "_warp_" in name:
+            return lambda *a: (self.calls.append((name, None)), self.given.append(a[-1]), 0)[2]
+        return super().__getattr__(name)
+
+
+@pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
+@pytest.mark.parametrize("T", [1, 10, 20])
+def test_work_routes_take_their_warp_group(monkeypatch, route, T):
+    """K5b and K5d-a run their warp group (one and four warps an env, one env
+    per block) at any horizon and dtype: the launch asks the library for the
+    lean layout's bytes and the workspace per env, allocates batch x that
+    when it is not 0 and passes it to the warp entry, else passes null."""
+    from biped_pympc_tpu_torch.bench import bench_common
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
+
+    g = pdipm_cuda.geometry(route)
+    assert g == pdipm_cuda.Geometry(pdipm_cuda.WARP_THREADS[route], 1, lean=True)
+    assert (g.threads_per_env, route in pdipm_cuda.LEAN_ROUTES) == (
+        {"tridiag_aug": 32, "ric_aug_dense": 128}[route], True)
+    opts = dataclasses.replace(pg.route_opts(route), iterations=1)
+    assert pdipm_cuda.route(opts) == route
+    monkeypatch.setattr(pdipm_cuda, "launches", dict.fromkeys(pdipm_cuda.launches, 0))
+    monkeypatch.setattr(pdipm_cuda, "warp_launches", dict.fromkeys(pdipm_cuda.warp_launches, 0))
+    for dt, dtype in DTYPES.items():
+        qp = bench_common.make_qp_batch(2, horizon=T, dtype=dtype, device="cpu")
+        for work in (0, 96):
+            lib = _WorkLib(1024, work)
+            pdipm_cuda.run_kernel(lib, qp, opts, None)
+            assert lib.calls == [(f"pdipm_{route}_lean_bytes", (T, _size(dt))),
+                                 (f"pdipm_{route}_work_bytes", (T, _size(dt), 0)),
+                                 (f"pdipm_{route}_warp_{dt}", None)]
+            assert (lib.given[0] is None) == (work == 0)
+    assert pdipm_cuda.warp_launches[route] == pdipm_cuda.launches[route] == 4
+
+
+@pytest.mark.parametrize("T", [10, 20, 40])
+@pytest.mark.parametrize("route, dt", sorted(WORK_MAX_T))
+def test_work_layouts_fit_at_the_long_horizons(libs, route, dt, T):
+    """K5b's and K5d-a's lean layouts at h10, h20 and h40 fit in an H100
+    block: with the T stored inverses in shared memory where the layout with
+    them fits (the host build's occupancy stub never prefers the workspace),
+    else workspace-backed, T x N x N values per env; forced, the workspace
+    takes them at any horizon and the rest fits."""
+    lean = _bytes(libs, route, T, dt, lean=True)
+    assert lean <= pdipm_cuda.MAX_SMEM_PER_BLOCK
+    work = getattr(libs[route], f"pdipm_{route}_work_bytes")
+    inverses = T * WORK_N[route] ** 2 * _size(dt)
+    assert work(T, _size(dt), 1) == inverses
+    if work(T, _size(dt), 0):
+        assert work(T, _size(dt), 0) == inverses
+        assert lean + inverses > pdipm_cuda.MAX_SMEM_PER_BLOCK
+    else:
+        assert lean > inverses  # the inverses are in it
+    # The block layout refused f64 from T = 12 (K5b) and 15 (K5d-a).
+    if dt == "f64" and T >= 20:
+        assert _bytes(libs, route, T, dt, lean=False) > pdipm_cuda.MAX_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("route, dt", sorted(WORK_MAX_T))
+def test_work_routes_refuse_only_beyond_their_limit(libs, route, dt):
+    """Every horizon up to WORK_MAX_T fits the warp group's lean layout, and
+    none beyond it (the limit PERF.md states): the refusal is left only
+    there, where the layout without the inverses outgrows a block."""
+    fits = [T for T in range(1, 150)
+            if _bytes(libs, route, T, dt, lean=True) <= pdipm_cuda.MAX_SMEM_PER_BLOCK]
+    assert fits == list(range(1, WORK_MAX_T[route, dt] + 1))
 
 
 @pytest.mark.parametrize("dt", DTYPES)

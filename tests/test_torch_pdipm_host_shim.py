@@ -1,11 +1,13 @@
-"""K1 and K2's device code on the CPU: each built with g++ against
-`ops/host_shim.h` (`ops/host_build.py`: one host thread per CUDA thread,
-barriers and shuffles as the shim's), launched through the port's own
-wrapper (`pdipm_cuda.run_kernel`) on CPU tensors, in the block group and in
-the route's warp group, and held against the plain version in f64 at a small size
-(B = 2, T = 2, 2 Newton steps). Skips, deciding inside each test, where
-g++ is absent. The build has no FMA contraction, so its agreement is that
-of the arithmetic, not the card's rounding."""
+"""The device code of the routes with a warp group (K1, K2, K5b, K5d-a) on
+the CPU: each built with g++ against `ops/host_shim.h` (`ops/host_build.py`:
+one host thread per CUDA thread, barriers and shuffles as the shim's),
+launched through the port's own wrapper (`pdipm_cuda.run_kernel`) on CPU
+tensors, in the block group and in the route's warp group (K5b and K5d-a
+with their stored inverses in shared memory and in the workspace), and held
+against the plain version in f64 at a small size (B = 2, T = 2, 2 Newton
+steps). Skips, deciding inside each test, where g++ is absent. The build
+has no FMA contraction, so its agreement is that of the arithmetic, not the
+card's rounding."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from biped_pympc_tpu_torch.bench import bench_common
+from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
 from biped_pympc_tpu_torch.ops import host_build, pdipm, pdipm_cuda
 
 ATOL = 1e-10
@@ -25,7 +28,8 @@ def _geom(route, name):
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """{route: the host build of K1 / K2}, or a skip without g++."""
+    """{route: the host build of K1 / K2 / K5b / K5d-a}, or a skip without
+    g++."""
     if host_build.find_gxx() is None:
         pytest.skip("g++ is not installed: the host build of the kernels needs it")
     out = tmp_path_factory.mktemp("host_build")
@@ -39,8 +43,9 @@ def _qp(batch, horizon=2):
 
 
 def _opts(route, **kw):
-    return pdipm.PdipmOptions(**{"backend": route, "foot_split": True, "refine_steps": 1,
-                                 "iterations": 2, **kw})
+    """The controller's options on `route` (`pdipm_geometry.route_opts`), 2
+    Newton steps."""
+    return dataclasses.replace(pg.route_opts(route), **{"iterations": 2, **kw})
 
 
 def _assert_close(got, want, atol=ATOL):
@@ -61,14 +66,34 @@ def test_kernel_matches_the_plain_version(libs, route, geom, horizon):
     _assert_close(got, pdipm.solve(qp, opts))
 
 
-# Each option value on each route that takes it (df: the augmented route only,
-# `pdipm.check_options`).
+@pytest.mark.parametrize("horizon", [2, 3])
+@pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
+def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
+    """K5b and K5d-a in their warp group with the stored inverses in the
+    device-memory workspace (here host memory) and in shared memory: the
+    same arithmetic, so the same bits, both within 1e-10 of the plain
+    version."""
+    qp = _qp(2, horizon)
+    opts = _opts(route)
+    geom = _geom(route, "warp")
+    shared = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=geom, force_workspace=False)
+    work = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=geom, force_workspace=True)
+    for name in ("x", "s", "z", "y", "residuals"):
+        assert torch.equal(getattr(work, name), getattr(shared, name)), name
+    _assert_close(work, pdipm.solve(qp, opts))
+
+
+# Each option value on each route that takes it (df: the augmented routes
+# only, `pdipm.check_options`; aug_pivot=False, K5f's natural order: on
+# K5d-a, whose warp group eliminates both ways).
 OPTIONS = [(route, name, kw) for name, kw in (
     ("tableau", dict(gj_form="tableau")), ("jacobi", dict(kkt_scale="jacobi")),
     ("sum_refine", dict(corrector_form="sum_refine")), ("combined", dict(corrector_form="combined")),
     ("aff_ref", dict(corrector_form="aff_ref")), ("df", dict(refine_residual="df")),
-    ("sigma_cap", dict(sigma_cap=1e3))) for route in pdipm_cuda.LEAN_ROUTES
-    if not (route == "ric" and name == "df")]
+    ("sigma_cap", dict(sigma_cap=1e3)), ("no_pivot", dict(aug_pivot=False)))
+    for route in pdipm_cuda.LEAN_ROUTES
+    if not (route == "ric" and name == "df")
+    and not (name == "no_pivot" and route != "ric_aug_dense")]
 
 
 @pytest.mark.parametrize("route, name, kw", OPTIONS, ids=[f"{r}-{n}" for r, n, _ in OPTIONS])
@@ -130,4 +155,5 @@ def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
     want = pdipm_cuda.run_kernel(libs["ric"], qp, opts, None, geom=pdipm_cuda.BLOCK)
     assert pdipm_ab.digest(got) == pdipm_ab.digest(want)
     _assert_close(got, pdipm.solve(qp, opts))
-    assert pdipm_ab.KEYS == ["ric", "ric2", "ric_aug", "ric_dense"]
+    assert pdipm_ab.KEYS == ["ric", "ric2", "ric_aug", "ric_aug_dense", "ric_dense", "tridiag",
+                             "tridiag_aug"]

@@ -92,10 +92,12 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     if backend == "ric_aug":
         names += [f"pdipm_ric_aug_residual_{suffix}" for suffix in ("f32", "f64")]
     extras = [f"pdipm_{backend}_smem_bytes", f"pdipm_{backend}_error_string"]
-    if backend in pdipm_cuda.LEAN_ROUTES:  # K1's and K2's warp entries and occupancy
+    if backend in pdipm_cuda.LEAN_ROUTES:  # the warp entries and occupancy
         names += [f"pdipm_{backend}_warp_{suffix}" for suffix in ("f32", "f64")]
         names.append(f"pdipm_{backend}_envs_per_sm")
         extras.append(f"pdipm_{backend}_lean_bytes")
+    if backend in pdipm_cuda.WORK_ROUTES:  # K5b's and K5d-a's workspace
+        extras.append(f"pdipm_{backend}_work_bytes")
     fake = types.SimpleNamespace(**{
         name: types.SimpleNamespace() for name in names + extras})
     monkeypatch.setattr(pdipm_cuda.ctypes, "CDLL", lambda path: fake)
@@ -104,6 +106,7 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
         assert getattr(lib, name).argtypes == _c_entry_params(extern_c, name), name
         assert getattr(lib, name).restype is ctypes.c_int
     assert len(pdipm_cuda.ENTRY_ARGTYPES) == 22
+    assert len(pdipm_cuda.WORK_ENTRY_ARGTYPES) == 23
     assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
@@ -208,17 +211,21 @@ def test_kernel_sources_include_only_their_own_headers():
 
 def test_layout_over_the_shared_memory_limit_raises_before_launch():
     """A (route, horizon, dtype) whose layout exceeds an H100 block's shared
-    memory raises ValueError naming all four, and launches nothing."""
+    memory raises ValueError naming all four, and launches nothing (nor
+    allocates a workspace): the block layout, and a warp group's lean one."""
     def entry(*args):
         pytest.fail("launched a layout that does not fit")
 
     fake = types.SimpleNamespace(pdipm_tridiag_aug_smem_bytes=lambda T, size: 387736,
-                                 pdipm_tridiag_aug_f64=entry)
+                                 pdipm_tridiag_aug_lean_bytes=lambda T, size: 387736,
+                                 pdipm_tridiag_aug_f64=entry, pdipm_tridiag_aug_warp_f64=entry,
+                                 pdipm_tridiag_aug_work_bytes=entry)
     before = dict(pdipm_cuda.launches)
-    with pytest.raises(ValueError, match=r"'tridiag_aug' at horizon 10 in torch.float64 needs "
-                                         r"387736 B .* at most 232448 B"):
-        pdipm_cuda.run_kernel(fake, _qp(2, torch.float64), pdipm.PdipmOptions(backend="tridiag_aug"),
-                              None)
+    for geom in (pdipm_cuda.BLOCK, pdipm_cuda.geometry("tridiag_aug")):
+        with pytest.raises(ValueError, match=r"'tridiag_aug' at horizon 10 in torch.float64 "
+                                             r"needs 387736 B .* at most 232448 B"):
+            pdipm_cuda.run_kernel(fake, _qp(2, torch.float64),
+                                  pdipm.PdipmOptions(backend="tridiag_aug"), None, geom=geom)
     assert pdipm_cuda.launches == before
 
 
@@ -323,14 +330,16 @@ def test_options_cover_every_kernel():
 @pytest.mark.parametrize("backend", ROUTES)
 @pytest.mark.parametrize("horizon, refine_steps", [(10, 1), (5, 0), (20, 2)])
 def test_kernel_matches_plain_on_card(horizon, refine_steps, backend):
-    """A (route, horizon) whose f64 layout does not fit in shared memory
-    (tridiag_aug at T = 20) must raise before any launch instead."""
+    """A (route, horizon) whose f64 layout in the route's geometry does not
+    fit in shared memory must raise before any launch instead (none here
+    since K5b's and K5d-a's warp groups run T = 20 in f64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     qp = _qp(64, torch.float64, "cuda", horizon)
     opts = pdipm.PdipmOptions(iterations=8, refine_steps=refine_steps, **OPTIONS[backend])
     before = dict(pdipm_cuda.launches)
-    if pdipm_cuda.smem_bytes(backend, horizon, torch.float64) > pdipm_cuda.MAX_SMEM_PER_BLOCK:
+    geom = pdipm_cuda.geometry(backend)
+    if pdipm_cuda.smem_bytes(backend, horizon, torch.float64, geom) > pdipm_cuda.MAX_SMEM_PER_BLOCK:
         with pytest.raises(ValueError, match="shared memory"):
             pdipm_cuda.solve(qp, opts)
         assert pdipm_cuda.launches == before
@@ -422,16 +431,26 @@ def test_jacobi_kernel_matches_plain_on_card(backend):
 
 @pytest.mark.cuda
 def test_unsplit_aug_f64_layout_refused_at_horizon_20_on_card():
-    """K5d-a keeps T x 900 stored inverses: in f64 at horizon 20 its layout
-    exceeds a block's shared memory and the solve raises before any launch."""
+    """K5d-a keeps T x 900 stored inverses: in f64 at horizon 20 its block
+    layout exceeds a block's shared memory and a block-group launch raises
+    before any launch; its warp group keeps them in the workspace there and
+    runs, matching the plain version, and refuses only beyond T = 42."""
     _card()
     opts = pdipm.PdipmOptions(**OPTIONS["ric_aug_dense"])
     assert pdipm_cuda.smem_bytes("ric_aug_dense", 20, torch.float64) > pdipm_cuda.MAX_SMEM_PER_BLOCK
     assert pdipm_cuda.smem_bytes("ric_aug_dense", 10, torch.float64) <= pdipm_cuda.MAX_SMEM_PER_BLOCK
+    qp = _qp(4, torch.float64, "cuda", 20)
+    lib = pdipm_cuda._library("ric_aug_dense")
     before = dict(pdipm_cuda.launches)
     with pytest.raises(ValueError, match="'ric_aug_dense' at horizon 20 in torch.float64"):
-        pdipm_cuda.solve(_qp(4, torch.float64, "cuda", 20), opts)
+        pdipm_cuda.run_kernel(lib, qp, opts, None, geom=pdipm_cuda.BLOCK)
     assert pdipm_cuda.launches == before
+    got = pdipm_cuda.solve(qp, opts)
+    want = pdipm.solve(qp, opts)
+    for name in ("x", "s", "z", "y"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="'ric_aug_dense' at horizon 43 in torch.float64"):
+        pdipm_cuda.solve(_qp(2, torch.float64, "cuda", 43), opts)
 
 
 def _cancellation_case(qp, seed=3):
