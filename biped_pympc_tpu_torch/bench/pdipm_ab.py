@@ -13,7 +13,9 @@ solve (`bench_common.make_qp_batch`, cold, 20 steps, one refinement step)
 in f32 and f64, timed in turns (this build, the others, the others in
 reverse, this build; `bench_common.device_ms`, median of 3), with whether
 every build gives the same bits; then this build's warp groups (K1, K2,
-K5b, K5d-a), each in turns with the first other build's block group.
+K5b, K5d-a, K5a, K5e-a), each in turns with the first other build's block
+group, and with each other build's warp group of the same route where that
+build has one (its warp entries share this build's C interface).
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ ROUTES = {"K1": BASE, "K2": dataclasses.replace(BASE, backend="ric"),
           "K5b": pg.route_opts("tridiag_aug"),
           "K5c": dataclasses.replace(BASE, backend="ric2", foot_split=False),
           "K5d-c": dataclasses.replace(BASE, backend="ric", foot_split=False),
-          "K5d-a": pg.route_opts("ric_aug_dense")}
+          "K5d-a": pg.route_opts("ric_aug_dense"),
+          "K5e-c": dataclasses.replace(BASE, backend="ric", foot_pack=True),
+          "K5e-a": pg.route_opts("ric_aug_pack")}
 KEYS = sorted({pdipm_cuda.route(o) for o in ROUTES.values()})
 
 
@@ -151,6 +155,15 @@ def main(argv) -> int:
             print(f"[ab warp] {label}: {key} {dt} b4096, {tags[1]} block group / this build's "
                   f"{geom} / the same / {tags[1]} block group: "
                   + " / ".join(f"{v:.3f}" for v in ms) + " ms")
+            for tag in tags[1:]:
+                if not hasattr(libs[tag][key], f"pdipm_{key}_warp_f32"):
+                    continue
+                other = pdipm_cuda.load_library(paths[tag][key], key)
+                owarp = lambda: pdipm_cuda.run_kernel(other, qp, o, stream(), geom=geom)
+                ms = [bench_common.device_ms(fn, 5, 3) for fn in (owarp, warp, warp, owarp)]
+                print(f"[ab warp same] {label}: {key} {dt} b4096, {tag} / this / this / {tag} "
+                      f"{geom}: " + " / ".join(f"{v:.3f}" for v in ms)
+                      + f" ms; same bits: {digest(owarp()) == digest(warp())}")
     return 0
 
 

@@ -1,7 +1,7 @@
-"""The PDIPM routes that have a warp group (K1, K2, K5b, K5d-a: `ROUTES`) in
-their launch geometries on the card: where a Newton step's cycles go, how
-many envs reside on an SM, and the solve times of the block group and the
-warp group in turns.
+"""The PDIPM routes that have a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a:
+`ROUTES`) in their launch geometries on the card: where a Newton step's
+cycles go, how many envs reside on an SM, and the solve times of the block
+group and the warp group in turns.
 
 The breakdown runs a build of the route with `-DPDIPM_PROFILE`
 (`build_profile`): each group's first thread reads clock64() at the
@@ -36,11 +36,21 @@ PHASES = ("load", "resid", "reduce", "foot", "pt", "ychain", "stage", "sweep", "
 PER_LAUNCH = ("load", "store")  # booked once per launch; the rest per Newton step
 PROFILE_FLAGS = ("-DPDIPM_PROFILE",)
 # The routes with a breakdown and a warp group, and their options on top of
-# the controller's (`BASE`): K1, K2, K5b, K5d-a.
+# the controller's (`BASE`): K1, K2, K5b, K5d-a, K5a, K5e-a (its paired form,
+# foot_pack True).
 BASE = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
 ROUTES = {"ric_aug": {}, "ric": {"backend": "ric"},
           "tridiag_aug": {"backend": "tridiag_aug", "foot_split": False},
-          "ric_aug_dense": {"foot_split": False}}
+          "ric_aug_dense": {"foot_split": False},
+          "tridiag": {"backend": "tridiag", "foot_split": False},
+          "ric_aug_pack": {"foot_pack": True}}
+
+
+# K5e-a's foot elimination spread as K1 spreads its own (`gj_inverse_rows`:
+# a lane per block, entry or row, a group barrier between the three phases
+# of each step), a build with PAIR_ROWS_FLAGS, against the route's one warp
+# a stage pair (`gj_pair_warp`, pdipm_split.cuh): `pair_rows_turns`.
+PAIR_ROWS_FLAGS = ("-DPDIPM_PAIR_ROWS",)
 
 
 def route_opts(route: str, base: pdipm.PdipmOptions = BASE) -> pdipm.PdipmOptions:
@@ -61,6 +71,19 @@ def build_profile() -> dict:
     """Build the profile libraries of the ROUTES (one nvcc each, together)."""
     return cuda_build.build({r: pdipm_cuda.SOURCES[r] for r in ROUTES},
                             profile_paths(), pdipm_cuda.BUILD_DIR, flags=PROFILE_FLAGS)
+
+
+def pair_rows_path() -> str:
+    """The .so path of K5e-a's PAIR_ROWS_FLAGS build."""
+    return cuda_build.library_path("pdipm_ric_aug_pack_rows", pdipm_cuda.SOURCES["ric_aug_pack"],
+                                   pdipm_cuda.HEADERS, pdipm_cuda.BUILD_DIR, PAIR_ROWS_FLAGS)
+
+
+def build_pair_rows() -> str:
+    """Build K5e-a's PAIR_ROWS_FLAGS library (one nvcc); return its path."""
+    return cuda_build.build({"ric_aug_pack": pdipm_cuda.SOURCES["ric_aug_pack"]},
+                            {"ric_aug_pack": pair_rows_path()}, pdipm_cuda.BUILD_DIR,
+                            flags=PAIR_ROWS_FLAGS)["ric_aug_pack"]
 
 
 def _profile_library(route: str):
@@ -121,8 +144,8 @@ def breakdown_line(tag: str, res: dict) -> str:
 
 def envs_per_sm(route: str, horizon: int, dtype, geom, workspace: bool = False) -> int:
     """Resident envs per SM of `route` in `geom` (the block group or the
-    route's warp group as it launches; with `workspace`, K5b's or K5d-a's
-    warp group with its stored inverses in the workspace), from the CUDA
+    route's warp group as it launches; with `workspace`, a WORK_ROUTES warp
+    group with its stored inverses in the workspace), from the CUDA
     occupancy calculator (`pdipm_<route>_envs_per_sm`)."""
     lib = pdipm_cuda._library(route)
     size = torch.empty((), dtype=dtype).element_size()
@@ -149,8 +172,23 @@ def turns(qp, opts, old, new, calls: int = 10) -> list:
     return [run(old), run(new), run(new), run(old)]
 
 
+def pair_rows_turns(qp, opts, calls: int = 10) -> tuple:
+    """K5e-a's warp group (`opts` on route ric_aug_pack) with its pairs
+    eliminated by rows and by one warp a pair, in turns: rows, pair, pair,
+    rows (device ms as `turns`); and whether the two give the same bits."""
+    rows = pdipm_cuda.load_library(build_pair_rows(), "ric_aug_pack")
+    geom = pdipm_cuda.geometry("ric_aug_pack")
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    by_rows = lambda: pdipm_cuda.run_kernel(rows, qp, opts, stream(), geom=geom)
+    by_pair = lambda: solve_in(qp, opts, geom)
+    ms = [bench_common.device_ms(fn, calls, 3) for fn in (by_rows, by_pair, by_pair, by_rows)]
+    a, b = by_rows(), by_pair()
+    same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in ("x", "s", "z", "y", "residuals"))
+    return ms, same
+
+
 def workspace_turns(qp, opts, calls: int = 3) -> list:
-    """K5b's or K5d-a's warp group with its stored inverses in shared memory
+    """A WORK_ROUTES warp group with its stored inverses in shared memory
     and in the workspace, in turns: shared, workspace, workspace, shared
     (device ms as `turns`). The shared-memory layout must fit."""
     geom = pdipm_cuda.geometry(pdipm_cuda.route(opts))

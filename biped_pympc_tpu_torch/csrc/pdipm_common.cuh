@@ -153,11 +153,25 @@ struct MaxRegs {
 };
 
 // The kernel's configuration as one type, so that a macro argument holds no
-// comma (`__maxnreg__(Config<S, G>::regs)` would be two).
-template <typename S, typename G>
+// comma (`__maxnreg__(Config<S, G>::regs)` would be two). REGS32 > 0 caps
+// the f32 kernel at that many registers instead of MaxRegs' value.
+template <typename S, typename G, int REGS32 = 0>
 struct KernelConfig {
-  static constexpr int regs = MaxRegs<S, G>::value;
+  static constexpr int regs = REGS32 > 0 && sizeof(S) == 4 ? REGS32 : MaxRegs<S, G>::value;
   static constexpr int threads = G::THREADS;
+};
+
+// The configuration route P's kernel is built with: KernelConfig<S, G>, or
+// with a policy's own f32 cap `REGS32` (K5a's one-warp group: 168, so that
+// 3 of its warps share a register file and the 12 envs its lean layout fits
+// at h10 reside; with 255 as K2's and K5b's, 2 a file hold it to 8).
+template <typename P, typename S, typename G, typename = void>
+struct RouteConfig {
+  using type = KernelConfig<S, G>;
+};
+template <typename P, typename S, typename G>
+struct RouteConfig<P, S, G, std::void_t<decltype(P::REGS32)>> {
+  using type = KernelConfig<S, G, P::REGS32>;
 };
 
 // A lean route policy (pdipm_split.cuh) keeps f, b and d out of its layout
@@ -739,15 +753,18 @@ __device__ void gj_pair(const G& g, S* pairs, int T, bool pivot, S* colk, S* pro
 }
 
 // The elimination of gj_inverse_inplace in a warp group (K1's lean layout,
-// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats` (stride 144): the
-// same pivot rule and arithmetic entry for entry, spread over the group by
-// blocks, entries and rows, and no row moved in memory. Step k finds each
-// block's pivot row p (one lane per block); forms its scaled pivot row (old
-// row p) and saves old row k (one lane per entry); then updates every row
-// (one lane per row), row p from old row k, each row's column-k entry read
-// before the row is written. A last pass undoes the swaps as column swaps.
-// prow and rowk hold count * 12 values, piv count * 12 ints.
-template <typename S, typename G>
+// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats`: with LD = 12 one
+// after another (stride 144), with LD = 24 the halves of stage pairs [K_L |
+// K_R] (`gj_block`: K5e-a built with -DPDIPM_PAIR_ROWS, the reference its
+// one-warp-a-pair elimination is measured against). The same pivot rule
+// and arithmetic entry for entry, spread over the group by blocks, entries
+// and rows, and no row moved in memory. Step k finds each block's pivot row p (one lane
+// per block); forms its scaled pivot row (old row p) and saves old row k
+// (one lane per entry); then updates every row (one lane per row), row p
+// from old row k, each row's column-k entry read before the row is written.
+// A last pass undoes the swaps as column swaps. prow and rowk hold count *
+// 12 values, piv count * 12 ints.
+template <int LD = NX_, typename S, typename G>
 __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool recip, S* prow,
                                 S* rowk, int* piv) {
   constexpr int N = NX_;
@@ -755,12 +772,12 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
   for (int k = 0; k < N; ++k) {
     if (pivot) {
       for (int mi = tid; mi < count; mi += nt) {
-        const S* a = mats + mi * N * N + k;
+        const S* a = mats + gj_block<N, LD>(mi) + k;
         int p = k;
-        S best = a[k * N] < S(0) ? -a[k * N] : a[k * N];
+        S best = a[k * LD] < S(0) ? -a[k * LD] : a[k * LD];
 #pragma unroll
         for (int i = 1; i < N; ++i) {  // rows k + 1 .. 11, every load issued up front
-          S v = a[i * N];
+          S v = a[i * LD];
           v = v < S(0) ? -v : v;
           if (i > k && (v > best || (v != v && best == best))) { best = v; p = i; }
         }
@@ -770,18 +787,18 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
     }
     for (int it = tid; it < count * N; it += nt) {
       const int mi = it / N, j = it % N;
-      const S* a = mats + mi * N * N;
+      const S* a = mats + gj_block<N, LD>(mi);
       const int p = pivot ? piv[mi * N + k] : k;
-      const S pv = a[p * N + k];
+      const S pv = a[p * LD + k];
       const S ipv = S(1) / pv;
-      const S apj = a[p * N + j];
+      const S apj = a[p * LD + j];
       prow[it] = j == k ? ipv : (recip ? ipv * apj : apj / pv);
-      rowk[it] = a[k * N + j];
+      rowk[it] = a[k * LD + j];
     }
     g.sync();
     for (int it = tid; it < count * N; it += nt) {
       const int mi = it / N, i = it % N;
-      S* ai = mats + mi * N * N + i * N;
+      S* ai = mats + gj_block<N, LD>(mi) + i * LD;
       const S* pr = prow + mi * N;
       if (i == k) {
 #pragma unroll
@@ -797,7 +814,7 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
   }
   if (!pivot) return;
   for (int it = tid; it < count * N; it += nt) {
-    S* row = mats + it * N;
+    S* row = LD == N ? mats + it * N : mats + gj_block<N, LD>(it / N) + (it % N) * LD;
     const int* pv = piv + (it / N) * N;
     for (int k = N - 1; k >= 0; --k) {
       const int p = pv[k];
@@ -1671,20 +1688,21 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
                   void* work = nullptr) {
   if (args == nullptr || (!P::AUG && args->refine_df != 0)) return (int)cudaErrorInvalidValue;
   if (work != nullptr && !WorkPolicy<P>::value) return (int)cudaErrorInvalidValue;
+  using C = typename RouteConfig<P, S, G>::type;
   const StepArgs<S> a = step_args<S>(args);
   const typename P::Layout L = route_layout<P>(T, (int)sizeof(S), work != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
   if constexpr (G::WARP) {
-    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G, C>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
   }
   if (batch == 0) return 0;
-  pdipm_kernel<P, S, G><<<batch, G::THREADS, L.bytes, (cudaStream_t)stream>>>(
+  pdipm_kernel<P, S, G, C><<<batch, G::THREADS, L.bytes, (cudaStream_t)stream>>>(
       (const S*)hd, (const S*)f, (const S*)ad, (const S*)bd, (const S*)b, (const S*)gu,
       (const S*)d, (const S*)x0, (const S*)s0, (const S*)z0, (const S*)y0, (S*)x, (S*)s, (S*)z,
       (S*)y, (S*)res, (const int*)go, (int*)ran, T, a, (unsigned char*)work);
@@ -1697,16 +1715,17 @@ static int launch(const void* hd, const void* f, const void* ad, const void* bd,
 // failure.
 template <typename P, typename S, typename G>
 static int envs_per_sm(int T, bool work = false) {
+  using C = typename RouteConfig<P, S, G>::type;
   const size_t bytes = route_layout<P>(T, (int)sizeof(S), work).bytes;
   int blocks = 0;
-  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+  cudaError_t err = cudaFuncSetAttribute(pdipm_kernel<P, S, G, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && G::WARP)
-    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G>,
+    err = cudaFuncSetAttribute(pdipm_kernel<P, S, G, C>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, G>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pdipm_kernel<P, S, G, C>,
                                                         G::THREADS, bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -3,10 +3,10 @@
 // packed twins K5e-c (`RicPack`, pdipm_ric_pack.cu) and K5e-a (`RicAugPack`,
 // pdipm_ric_aug_pack.cu), one template each with the packing a compile-time
 // flag, so that K1's and K2's builds hold none of the packed code. A second
-// flag, LEAN, gives K1 and K2 the layout of their warp groups (`RicLean`,
-// `RicAugLean`; pdipm_common.cuh's `WarpGroup`): the same factor and solve,
-// with the buffers one step does not need at once sharing memory
-// (`make_layout` says which).
+// flag, LEAN, gives K1, K2 and K5e-a the layout of their warp groups
+// (`RicLean`, `RicAugLean`, `RicAugPackLean`; pdipm_common.cuh's
+// `WarpGroup`): the same factor and solve, with the buffers one step does
+// not need at once sharing memory (`make_layout` says which).
 //
 // Split (`foot_split=True`, `factor_ric_split:647`, `factor_ric_aug_split:735`):
 // per stage the [u, nu] (condensed) or [u, z, nu] (augmented) block splits
@@ -326,9 +326,102 @@ struct RicSplit {
 // ---------------------------------------------------------------------------
 static constexpr int NF_ = 12;  // width of a foot block [F (3), M_y (1), z_f (8)]
 
+// K5e-a's elimination of its T stage pairs [K_L | K_R] (12 rows of 24
+// values at `pairs`) in its warp group, one warp a stage pair: lane 16 h + i
+// (i < 12) holds row i of half h in registers, so both halves run in one
+// elimination and no step waits on a group barrier. Per step k each half
+// finds its pivot by a shuffle argmax over its 16 lanes (`pivot_before`:
+// the first position >= k of largest |entry|, NaN first, as
+// gj_inverse_inplace scans), passes the pivot row through the warp's
+// shared-memory row (24 values at `rows`: the pivot lane stores it, the
+// lane of each column scales that entry, every lane reads it back, as
+// `gj_warp` does) and updates its row; no row moves, each lane keeps its
+// row's position, and the columns are unpermuted as the rows are stored.
+// gj_inverse_inplace's arithmetic entry for entry: the pivot row times the
+// pivot's reciprocal when `recip`, else divided by the pivot, its pivot
+// entry 1 / pivot. rows holds 24 values and piv 24 ints per warp.
+template <typename S, typename G>
+__device__ void gj_pair_warp(const G& g, S* pairs, int T, bool pivot, bool recip, S* rows,
+                             int* piv) {
+  constexpr int N = NF_, LD = 2 * NF_;
+  const int warp = g.rank() >> 5, lane = g.rank() & 31, h = lane >> 4, i = lane & 15;
+  const bool live = i < N;
+  S* row = rows + warp * LD + h * N;  // this half's pivot row
+  int* pv = piv + warp * LD + h * N;  // this half's pivot positions
+  for (int t = warp; t < T; t += G::THREADS / 32) {
+    S* half = pairs + t * N * LD + h * N;
+    S a[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[j] = half[(live ? i : N - 1) * LD + j];
+    int pos = live ? i : N;  // the row's position in the swapped half; N: idle
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const S ck = a[k];
+      int p = k, src = k;  // the pivot's position, and the lane (in the half) holding it
+      if (pivot) {
+        S best = S(0);
+        int who = N;  // position | lane << 8 of the best candidate (N: none yet)
+        const S v = ck < S(0) ? -ck : ck;
+        if (live && pos >= k && pivot_before<S, N>(v, pos, best, who)) {
+          best = v;
+          who = pos | (i << 8);
+        }
+#pragma unroll
+        for (int m = 8; m > 0; m >>= 1) {
+          const S ob = __shfl_xor_sync(0xffffffffu, best, m);
+          const int ow = __shfl_xor_sync(0xffffffffu, who, m);
+          if (pivot_before<S, N>(ob, ow & 255, best, who & 255)) {
+            best = ob;
+            who = ow;
+          }
+        }
+        p = who & 255;
+        src = who >> 8;
+        if (i == 0) pv[k] = p;
+      }
+      const S pvt = __shfl_sync(0xffffffffu, ck, (h << 4) | src);
+      const S ipv = S(1) / pvt;
+      if (i == src) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) row[j] = a[j];
+      }
+      __syncwarp();
+      S pr = S(0);
+      if (live) {
+        const S raw = row[i];
+        pr = i == k ? ipv : (recip ? ipv * raw : raw / pvt);
+      }
+      __syncwarp();
+      if (live) row[i] = pr;
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const S prj = row[j];
+        a[j] = i == src ? prj : (j == k ? -ck * prj : a[j] - ck * prj);
+      }
+      __syncwarp();
+      pos = pos == k ? p : (pos == p ? k : pos);
+    }
+    // Column j of the elimination is column q(j) of the inverse: the row
+    // swaps undone as column swaps, last first.
+    int q = i;
+    if (pivot)
+      for (int k = N - 1; k >= 0; --k) {
+        const int p = pv[k];
+        q = q == k ? p : (q == p ? k : q);
+      }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int c = __shfl_sync(0xffffffffu, q, (h << 4) | j);
+      if (live) half[pos * LD + c] = a[j];
+    }
+    __syncwarp();
+  }
+  g.sync();
+}
+
 template <bool PACK, bool LEAN = false>
 struct RicAugSplit {
-  static_assert(!(PACK && LEAN), "the packed route has no lean layout");
   static constexpr bool AUG = true;
   // pdipm_common.cuh's LeanPolicy: f, b, d in device memory and the KKT
   // residuals formed where read, when lean
@@ -370,12 +463,13 @@ struct RicAugSplit {
   // (ex = e1, ezz = ez, ey = e4), r2 in dsc (ds = (r2 - dz) / Sigma reads it
   // entry by entry where it writes the solve's ds, dsa or dsc), and one union
   // region for what a Newton step needs only inside the factor (P_t, Y'_t,
-  // Ad Q~^-1 Ad^T and the chain's q1) and only after it (the rhs,
-  // refinement, directions and sweep buffers). The foot blocks' elimination
-  // scratch (prow, rowk, Jacobi's D and the pivot table) lies in m, which the
-  // factor rewrites after it. The inverses stay whole: the unrefined solves of
-  // the corrector forms carry the rounding of whichever triangle a half
-  // would keep (PERF.md, Findings).
+  // Ad Q~^-1 Ad^T, the packed route's yc, both formed anew each factor, and
+  // the chain's q1) and only after it (the rhs, refinement, directions and
+  // sweep buffers); the packed route's P_t is its 8 columns a row (T x 96).
+  // The foot blocks' elimination scratch (prow, rowk, Jacobi's D and the
+  // pivot table) lies in m, which the factor rewrites after it. The inverses
+  // stay whole: the unrefined solves of the corrector forms carry the
+  // rounding of whichever triangle a half would keep (PERF.md, Findings).
   static __host__ __device__ Layout make_layout(int T, int size_of_s) {
     Layout L;
     L.T = T;
@@ -390,7 +484,7 @@ struct RicAugSplit {
     L.rx = take(o, kept * L.nz); L.rs = take(o, kept * L.ni); L.re = take(o, kept * L.ne);
     L.sig = take(o, L.ni); L.w = take(o, L.ni);
     L.qinv = take(o, NX_); L.sc = take(o, 144); L.adqad = take(o, kept * 144);
-    L.yc = take(o, PACK ? 144 : 0); L.cf = take(o, 8);
+    L.yc = take(o, PACK && !LEAN ? 144 : 0); L.cf = take(o, 8);
     if constexpr (LEAN) {
       L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.red = take(o, 4);
       const int u = o;
@@ -406,9 +500,10 @@ struct RicAugSplit {
       L.prow = take(fm, 2 * T * NF_); L.rowk = take(fm, 2 * T * NF_); L.dj = take(fm, 2 * T * NF_);
       L.colk = L.prow;
       const int piv_at = fm;
-      int fb = u;  // the y-chain's factor, with Ad Q~^-1 Ad^T formed anew
-      L.p = take(fb, T * 144); L.yp = take(fb, T * 144); L.q1 = take(fb, 144);
-      L.adqad = take(fb, 144);
+      int fb = u;  // the y-chain's factor, with Ad Q~^-1 Ad^T (and yc) formed anew
+      L.p = take(fb, PACK ? T * NX_ * 8 : T * 144); L.yp = take(fb, T * 144);
+      L.q1 = take(fb, 144); L.adqad = take(fb, 144);
+      if constexpr (PACK) L.yc = take(fb, 144);
       o = o > fb ? o : fb;
       L.total = o;
       L.piv = piv_at * size_of_s;
@@ -434,10 +529,10 @@ struct RicAugSplit {
   }
 
   // q_inv, S, Ad Q~^-1 Ad^T, the [M_x, nu] pair / M_z coefficients (and the
-  // packed route's yc).
+  // packed block layout's yc; the lean one forms it in each factor).
   template <typename S, typename G>
   static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
-    riccati_setup<true, PACK>(g, sm, L, beta, delta);
+    riccati_setup<true, PACK && !LEAN>(g, sm, L, beta, delta);
   }
 
   // -------------------------------------------------------------------------
@@ -492,11 +587,12 @@ struct RicAugSplit {
 
     if constexpr (LEAN) {
       // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block
-      // foot*T + t, one row per item; then their elimination by rows.
+      // foot*T + t (packed: half foot of pair t), one row per item; then
+      // their elimination by rows.
       for (int it = tid; it < 2 * T * NF_; it += nt) {
         const int blk = it / NF_, r = it % NF_;
         const int foot = blk >= T ? 1 : 0, t = blk - foot * T;
-        S* row = ka + blk * 144 + r * NF_;
+        S* row = PACK ? ka + krow(T, foot, t, r) : ka + blk * 144 + r * NF_;
         if (r < 4) {
           const int ur = foot_col(foot, r);
 #pragma unroll
@@ -512,14 +608,36 @@ struct RicAugSplit {
           for (int c = 4; c < NF_; ++c) row[c] = r == c ? wr : S(0);
         }
       }
-      g.sync();
-      if (ff.jacobi) {
-        jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);
-        jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+      if constexpr (PACK) {
+        // Ad Q~^-1 Ad^T and yc into the union, as riccati_setup forms them.
+        for (int it = tid; it < 288; it += nt) {
+          const int k = it % 144, i = k / NX_, j = k % NX_;
+          sm[(it < 144 ? L.adqad : L.yc) + k] =
+              it < 144 ? adqad_entry(sm, L, i, j) : yc_entry(sm, L, i, j, delta);
+        }
       }
-      gj_inverse_rows(g, ka, 2 * T, ff.aug_pivot, !ff.aug_pivot && ff.gj_inplace, sm + L.prow,
-                      sm + L.rowk, piv);
-      if (ff.jacobi) jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+      g.sync();
+      if constexpr (PACK) {
+        // The pair's halves (True: the pivot row scaled by its reciprocal,
+        // as the paired elimination does) or each half as the unpacked route
+        // eliminates its block ("apply"), in place in the pair; no Jacobi
+        // scaling (`:800-812`).
+        const bool recip = ff.foot_pack == FOOT_PACK_PAIR || (!ff.aug_pivot && ff.gj_inplace);
+#ifdef PDIPM_PAIR_ROWS
+        gj_inverse_rows<2 * NF_>(g, ka, 2 * T, ff.aug_pivot, recip, sm + L.prow, sm + L.rowk,
+                                 piv);
+#else
+        gj_pair_warp(g, ka, T, ff.aug_pivot, recip, sm + L.prow, piv);
+#endif
+      } else {
+        if (ff.jacobi) {
+          jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);
+          jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+        }
+        gj_inverse_rows(g, ka, 2 * T, ff.aug_pivot, !ff.aug_pivot && ff.gj_inplace, sm + L.prow,
+                        sm + L.rowk, piv);
+        if (ff.jacobi) jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+      }
     } else {
       // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block foot*T + t.
       for (int it = tid; it < 2 * T * 144; it += nt) {
@@ -542,12 +660,14 @@ struct RicAugSplit {
     if constexpr (PACK) {
       // The pair (True) or each half as the unpacked route inverts it
       // ("apply"); no Jacobi scaling, as in the JAX kernel (`:800-812`).
-      if (ff.foot_pack == FOOT_PACK_PAIR)
-        gj_pair<NF_>(g, ka, T, ff.aug_pivot, sm + L.colk, sm + L.prow, piv);
-      else
-        gj_inverse_inplace<NF_, S, 2 * NF_>(g, ka, 2 * T, ff.aug_pivot,
-                                            !ff.aug_pivot && ff.gj_inplace, sm + L.colk,
-                                            sm + L.prow, piv);
+      if constexpr (!LEAN) {
+        if (ff.foot_pack == FOOT_PACK_PAIR)
+          gj_pair<NF_>(g, ka, T, ff.aug_pivot, sm + L.colk, sm + L.prow, piv);
+        else
+          gj_inverse_inplace<NF_, S, 2 * NF_>(g, ka, 2 * T, ff.aug_pivot,
+                                              !ff.aug_pivot && ff.gj_inplace, sm + L.colk,
+                                              sm + L.prow, piv);
+      }
       PDIPM_MARK(g, PH_FOOT);
       y_chain_packed<RicAugSplit>(g, sm, L, ff.gj_inplace, piv);
     } else {

@@ -12,9 +12,10 @@
 //
 // The clock64() breakdown (`PDIPM_PROFILE` builds) books the factor's
 // Ad M_{t-1} and M_t (the chain from stage to stage) to PH_YCHAIN, the stage
-// block's build to PH_PT, its pivoted elimination to PH_FOOT; the solve's
-// forward and backward sweeps to PH_SWEEP and its stage rhs and x recovery
-// to PH_STAGE.
+// block's build to PH_PT (K5a's warp group: with Ad M_{t-1} Ad^T, formed in
+// one pass with the u block), its pivoted elimination to PH_FOOT; the
+// solve's forward and backward sweeps to PH_SWEEP and its stage rhs and x
+// recovery to PH_STAGE.
 
 #pragma once
 
@@ -341,20 +342,22 @@ struct Tridiag : ThomasRoute<false> {};    // K5a, 26-wide, condensed
 struct TridiagAug : ThomasRoute<true> {};  // K5b, 42-wide, augmented
 
 // ---------------------------------------------------------------------------
-// K5b in its warp group (`TridiagAugWarp`): one warp an env, the same factor
-// and solve. Per stage the warp builds the 42-wide block in registers, lane
-// l holding rows l and l + 32 (`thomas_aug_entry`), and eliminates it with
-// `gj_warp` (a shuffle argmax per pivot, the pivot row passed through a
-// shared-memory row, no block barrier in the 42-step chain); it stores the inverse with the row
-// swaps undone, transposed (entry (r, c) at c N + r, so that the lanes of a
-// warp read and write neighbouring values), and forms M_t from the y block
-// as it stores it. The lean layout leaves f, b and d in device memory, and
-// the T inverses in shared memory or in the caller's workspace
-// (`WORKSPACE`, pdipm_common.cuh).
+// K5a and K5b in their warp groups (`TridiagWarp`, `TridiagAugWarp`): one
+// warp an env, the same factor and solve. Per stage the warp builds the
+// N-wide block in registers, lane l holding row l (K5a, N = 26) or rows l
+// and l + 32 (K5b, N = 42) (`thomas_entry`, `thomas_aug_entry`), and
+// eliminates it with `gj_warp` (a shuffle argmax per pivot, the pivot row
+// passed through a shared-memory row, no block barrier in the N-step chain);
+// it stores the inverse with the row swaps undone, transposed (entry (r, c)
+// at c N + r, so that the lanes of a warp read and write neighbouring
+// values), and forms M_t from the y block as it stores it. The lean layouts
+// leave f, b and d in device memory, and the T inverses in shared memory or
+// in the caller's workspace (`WORKSPACE`, pdipm_common.cuh).
 // ---------------------------------------------------------------------------
 struct ThomasLeanLayout : Layout {
   int aat;                 // Ad M_{t-1} Ad^T (144)
-  int gjr;                 // `gj_warp`'s pivot row (64)
+  int gjr;                 // `gj_warp`'s pivot row (64 / 32 values)
+  int uu;                  // the condensed u block R + beta + G^T W_t^-1 G (144)
   size_t work_bytes;       // the T stored inverses' bytes when in the workspace
   unsigned char* wk;       // this env's workspace slice; null: inverses at sinv
 };
@@ -374,7 +377,7 @@ static __host__ __device__ ThomasLeanLayout make_tridiag_aug_lean_layout(int T, 
   L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
   L.sig = take(o, L.ni); L.w = take(o, L.ni);
   L.qinv = take(o, NX_); L.sinv = take(o, work ? 0 : T * N * N); L.mp = take(o, 144);
-  L.adm = take(o, 144); L.aat = take(o, 144); L.gjr = take(o, 64);
+  L.adm = take(o, 144); L.aat = take(o, 144); L.gjr = take(o, 64); L.uu = take(o, 0);
   L.colk = L.prow = L.rowk = take(o, 0);
   L.r1 = take(o, L.nz); L.r2 = take(o, L.ni); L.r4 = take(o, L.ne); L.rz = take(o, L.ni);
   L.r3 = L.tmp = L.r1h = take(o, 0);
@@ -390,6 +393,91 @@ static __host__ __device__ ThomasLeanLayout make_tridiag_aug_lean_layout(int T, 
   L.work_bytes = work ? (size_t)T * N * N * size_of_s : 0;
   L.wk = nullptr;
   return L;
+}
+
+// K5a's lean layout, condensed and leaner than K5b's: no KKT residual
+// buffers (the step forms rx, rs, re where it reads them, `RESIDUALS_FORMED`);
+// the refinement solved in place (ex = e1, ey = e4: the solve reads each
+// rhs entry before it writes the entry that replaces it); r1_hat in r1 and
+// r2, r3 in dsc, dzc, as K2's lean layout has them (`RicSplit`); and one
+// union region for what a Newton step needs only inside the factor (M_{t-1},
+// Ad M_{t-1}, Ad M_{t-1} Ad^T, the u block, the pivot row) and only after
+// it (the rhs, refinement, directions and sweep buffers). At h10 in f32
+// that is 17,976 B an env without the stored inverses, 12 envs an SM.
+static __host__ __device__ ThomasLeanLayout make_tridiag_lean_layout(int T, int size_of_s,
+                                                                   bool work) {
+  constexpr int N = Thomas<false>::N;
+  ThomasLeanLayout L;
+  L.T = T;
+  L.nz = 24 * T;
+  L.ni = 16 * T;
+  L.ne = 14 * T;
+  int o = 0;
+  L.hd = take(o, L.nz); L.f = take(o, 0); L.ad = take(o, 144); L.bd = take(o, 144);
+  L.b = take(o, 0); L.gu = take(o, NI_ * NU_); L.d = take(o, 0);
+  L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
+  L.rx = L.rs = L.re = take(o, 0);
+  L.sig = take(o, L.ni); L.w = take(o, L.ni);
+  L.qinv = take(o, NX_); L.sinv = take(o, work ? 0 : T * N * N); L.red = take(o, 4);
+  L.colk = L.prow = L.rowk = L.rz = L.ez = L.ezz = take(o, 0);
+  const int u = o;
+  L.r1 = take(o, L.nz); L.r1h = L.r1; L.r4 = take(o, L.ne); L.tmp = take(o, L.ni);
+  L.e1 = take(o, L.nz); L.e4 = take(o, L.ne); L.ex = L.e1; L.ey = L.e4;
+  L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+  L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+  L.r2 = L.dsc; L.r3 = L.dzc;
+  L.g = take(o, T * N); L.adtw = take(o, T * NX_); L.xp = take(o, NX_);
+  int f = u;  // the factor's scratch
+  L.mp = take(f, 144); L.adm = take(f, 144); L.aat = take(f, 144); L.gjr = take(f, 32);
+  L.uu = take(f, 144);
+  o = o > f ? o : f;
+  L.total = o;
+  L.piv = o * size_of_s;
+  L.bytes = (size_t)L.piv + sizeof(int) * N;
+  L.work_bytes = work ? (size_t)T * N * N * size_of_s : 0;
+  L.wk = nullptr;
+  return L;
+}
+
+// Entry (r, c) < 12 of stage t's condensed u block R + beta + G^T W_t^-1 G
+// (`thomas_factor`'s, term for term: the 16-term sum in the same order, then
+// R + beta on its diagonal); hd_u = hd + 12 T, wt = W_t^-1.
+template <typename S>
+__device__ __forceinline__ S thomas_u_entry(int r, int c, const S* hd_u, const S* gu,
+                                            const S* wt, S beta) {
+  S v = S(0);
+  for (int q = 0; q < NI_; ++q) v += gu[q * NU_ + r] * wt[q] * gu[q * NU_ + c];
+  if (r == c) v += hd_u[r] + beta;
+  return v;
+}
+
+// Entry (r, c) of stage t's condensed block (`thomas_factor`'s): the u block
+// from uu (`thomas_u_entry`, formed before), aat = Ad M_{t-1} Ad^T (t >= 1).
+template <typename S>
+__device__ __forceinline__ S thomas_entry(int r, int c, bool chained, const S* uu, const S* bd,
+                                          const S* qinv, const S* aat, S delta) {
+  using K = Thomas<false>;
+  constexpr int NNU = K::NNU, NY = K::NY;
+  S v = S(0);
+  if (r < NU_ && c < NU_) {
+    v = uu[r * NU_ + c];
+  } else if (r >= NY && c >= NY) {
+    const int i = r - NY, j = c - NY;
+    if (i == j) v = -delta;
+    if (chained) v -= aat[i * NX_ + j];
+    if (i == j) v -= qinv[i];
+  } else if (r < NU_ && c >= NY) {
+    v = -bd[(c - NY) * NU_ + r];
+  } else if (r >= NY && c < NU_) {
+    v = -bd[(r - NY) * NU_ + c];
+  } else if (r < NU_ && c >= NNU) {
+    v = (r == 6 && c == NNU) || (r == 9 && c == NNU + 1) ? S(1) : S(0);
+  } else if (c < NU_ && r >= NNU) {
+    v = (c == 6 && r == NNU) || (c == 9 && r == NNU + 1) ? S(1) : S(0);
+  } else if (r >= NNU && c >= NNU) {
+    v = r == c ? -delta : S(0);
+  }
+  return v;
 }
 
 // Entry (r, c) of stage t's augmented block (`thomas_factor`'s, term for
@@ -434,12 +522,13 @@ __device__ __forceinline__ S* thomas_inverses(S* sm, const ThomasLeanLayout& L) 
   return L.wk != nullptr ? reinterpret_cast<S*>(L.wk) : sm + L.sinv;
 }
 
-template <typename S, typename G>
+template <bool AUG, typename S, typename G>
 __device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L, int* piv, S beta,
                                    S delta) {
-  static_assert(G::THREADS == 32, "K5b's warp group is one warp");
-  using K = Thomas<true>;
+  static_assert(G::THREADS == 32, "the block-Thomas warp groups are one warp");
+  using K = Thomas<AUG>;
   constexpr int N = K::N, NY = K::NY;
+  constexpr int R = AUG ? 2 : 1;  // rows a lane holds
   const int lane = g.rank(), T = L.T;
   const S* hd_u = sm + L.hd + NX_ * T;
   const S* gu = sm + L.gu;
@@ -450,8 +539,10 @@ __device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L,
   S* mp = sm + L.mp;
   S* adm = sm + L.adm;
   S* aat = sm + L.aat;
+  S* uu = sm + L.uu;
   S* sinv = thomas_inverses(sm, L);
   for (int t = 0; t < T; ++t) {
+    const S* wt = w + t * NI_;
     if (t >= 1) {
       for (int it = lane; it < 144; it += 32) {
         const int i = it / NX_, k = it % NX_;
@@ -460,30 +551,54 @@ __device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L,
         adm[it] = acc;
       }
       g.sync();
-      for (int it = lane; it < 144; it += 32) {
-        const int i = it / NX_, j = it % NX_;
-        S acc = S(0);
-        for (int k = 0; k < NX_; ++k) acc += adm[i * NX_ + k] * ad[j * NX_ + k];
-        aat[it] = acc;
+    }
+    if constexpr (AUG) {
+      if (t >= 1) {
+        for (int it = lane; it < 144; it += 32) {
+          const int i = it / NX_, j = it % NX_;
+          S acc = S(0);
+          for (int k = 0; k < NX_; ++k) acc += adm[i * NX_ + k] * ad[j * NX_ + k];
+          aat[it] = acc;
+        }
+        g.sync();
+      }
+      PDIPM_MARK(g, PH_YCHAIN);
+    } else {
+      // Ad M_{t-1} Ad^T (t >= 1) and the u block in one pass (booked to the
+      // build, pt), spread over the warp (`thomas_u_entry`), not summed by
+      // the 12 lanes of its rows.
+      PDIPM_MARK(g, PH_YCHAIN);
+      for (int it = (t >= 1 ? 0 : 144) + lane; it < 288; it += 32) {
+        const int k = it % 144, i = k / NX_, j = k % NX_;
+        if (it < 144) {
+          S acc = S(0);
+          for (int l = 0; l < NX_; ++l) acc += adm[i * NX_ + l] * ad[j * NX_ + l];
+          aat[k] = acc;
+        } else {
+          uu[k] = thomas_u_entry(i, j, hd_u, gu, wt, beta);
+        }
       }
       g.sync();
     }
-    PDIPM_MARK(g, PH_YCHAIN);
-    const S* wt = w + t * NI_;
-    S a[2][N];
+    S a[R][N];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < R; ++s) {
       const int r = lane + 32 * s, rr = r < N ? r : N - 1;  // idle slots read row N - 1
 #pragma unroll
       for (int c = 0; c < N; ++c) {
-        const S v = thomas_aug_entry(rr, c, t >= 1, hd_u, gu, wt, bd, qinv, aat, beta, delta);
+        S v;
+        if constexpr (AUG) {
+          v = thomas_aug_entry(rr, c, t >= 1, hd_u, gu, wt, bd, qinv, aat, beta, delta);
+        } else {
+          v = thomas_entry(rr, c, t >= 1, uu, bd, qinv, aat, delta);
+        }
         a[s][c] = r < N ? v : S(0);
       }
     }
     PDIPM_MARK(g, PH_PT);
-    int pos[2], q[2];
-    gj_warp<N, 2>(a, pos, true, false, piv, sm + L.gjr);
-    gj_warp_columns<N, 2>(q, true, piv);
+    int pos[R], q[R];
+    gj_warp<N, R>(a, pos, true, false, piv, sm + L.gjr);
+    gj_warp_columns<N, R>(q, true, piv);
     // Store row pos[s], column q(j) at c N + r; M_t = Q~^-1 + Q~^-1 N_yy Q~^-1
     // from the y block as it passes.
     S* inv = sinv + (size_t)t * N * N;
@@ -491,7 +606,7 @@ __device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L,
     for (int j = 0; j < N; ++j) {
       const int c = __shfl_sync(0xffffffffu, q[j >> 5], j & 31);
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
+      for (int s = 0; s < R; ++s) {
         const int r = pos[s];
         if (r < N) {
           inv[c * N + r] = a[s][j];
@@ -509,10 +624,10 @@ __device__ void thomas_factor_warp(const G& g, S* sm, const ThomasLeanLayout& L,
 }
 
 // `thomas_solve` in the warp group, through the transposed stored inverses.
-template <typename S, typename G>
+template <bool AUG, typename S, typename G>
 __device__ void thomas_solve_warp(const G& grp, S* sm, const ThomasLeanLayout& L, const S* r1,
                                   const S* rz, const S* r4, S* dx, S* dz, S* dy) {
-  using K = Thomas<true>;
+  using K = Thomas<AUG>;
   constexpr int N = K::N, NNU = K::NNU, NY = K::NY;
   const int tid = grp.rank(), nt = grp.size(), T = L.T;
   const S* ad = sm + L.ad;
@@ -527,7 +642,7 @@ __device__ void thomas_solve_warp(const G& grp, S* sm, const ThomasLeanLayout& L
     const int t = it / N, r = it % N;
     S v;
     if (r < NU_) v = r1[NX_ * T + NU_ * t + r];
-    else if (r < NNU) v = rz[NI_ * t + r - NU_];
+    else if (AUG && r < NNU) v = rz[NI_ * t + r - NU_];
     else if (r < NY) v = r4[NX_ * T + NMX_ * t + r - NNU];
     else v = r4[NX_ * t + r - NY] - qinv[r - NY] * r1[NX_ * t + r - NY];
     g[it] = v;
@@ -573,7 +688,7 @@ __device__ void thomas_solve_warp(const G& grp, S* sm, const ThomasLeanLayout& L
       S acc = S(0);
       for (int j = 0; j < N; ++j) acc += col[j * N] * gt[j];
       if (o < NU_) dx[NX_ * T + NU_ * t + o] = acc;
-      else if (o < NNU) dz[NI_ * t + o - NU_] = acc;
+      else if (AUG && o < NNU) dz[NI_ * t + o - NU_] = acc;
       else if (o < NY) dy[NX_ * T + NMX_ * t + o - NNU] = acc;
       else dy[NX_ * t + o - NY] = acc;
     }
@@ -590,16 +705,20 @@ __device__ void thomas_solve_warp(const G& grp, S* sm, const ThomasLeanLayout& L
   PDIPM_MARK(grp, PH_STAGE);
 }
 
-// K5b's policy in its warp group (`WarpGroup<1>`), the lean layout above.
-struct TridiagAugWarp {
-  static constexpr bool AUG = true;
+// The block-Thomas policies in their warp group (`WarpGroup<1>`), the lean
+// layouts above: K5b's (AUG) keeps its KKT residual buffers, K5a's forms
+// them where read.
+template <bool AUG_>
+struct ThomasWarp {
+  static constexpr bool AUG = AUG_;
   // pdipm_common.cuh's LeanPolicy (f, b, d in device memory) and WorkPolicy
-  static constexpr bool INPUTS_IN_GLOBAL = true, RESIDUALS_FORMED = false;
+  static constexpr bool INPUTS_IN_GLOBAL = true, RESIDUALS_FORMED = !AUG_;
   static constexpr bool WORKSPACE = true;
   using Layout = ThomasLeanLayout;
 
   static __host__ __device__ Layout make_layout(int T, int size_of_s, bool work = false) {
-    return make_tridiag_aug_lean_layout(T, size_of_s, work);
+    return AUG ? make_tridiag_aug_lean_layout(T, size_of_s, work)
+               : make_tridiag_lean_layout(T, size_of_s, work);
   }
 
   template <typename S, typename G>
@@ -611,12 +730,17 @@ struct TridiagAugWarp {
   template <typename S, typename G>
   static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
                                 FactorFlags) {
-    thomas_factor_warp(g, sm, L, piv, beta, delta);
+    thomas_factor_warp<AUG>(g, sm, L, piv, beta, delta);
   }
 
   template <typename S, typename G>
   static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
                                const S* r4, S* dx, S* dz, S* dy) {
-    thomas_solve_warp(g, sm, L, r1, rz, r4, dx, dz, dy);
+    thomas_solve_warp<AUG>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
+};
+
+struct TridiagAugWarp : ThomasWarp<true> {};  // K5b
+struct TridiagWarp : ThomasWarp<false> {      // K5a, capped for 12 envs an SM in f32
+  static constexpr int REGS32 = 168;
 };

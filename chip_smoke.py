@@ -28,19 +28,19 @@ the fixed solve bit for bit, that the adaptive solve stops where the JAX
 loop does without waiting for the device, that a layout over a block's
 shared memory raises before any launch, and prints whether K1 and K2 (in
 their former Gauss-Jordan form), K5a and K5b still give the bits their
-builds gave before the Newton step was shared. K1, K2, K5b and K5d-a run in
-warp groups (`pdipm_cuda.geometry`: K1 two warps per env, K2 and K5b one,
-K5d-a four, in their lean layouts; K5b's and K5d-a's stored stage inverses
-in shared memory or in a device-memory workspace); the script checks every
-route's bits, those four in the block group, against the build before the
-warp groups (BEFORE_WARP_DIGESTS), holds the block group against the plain
-version too, and times both geometries in turns beside a clock64()
-breakdown of a Newton step and the resident envs per SM, with K5b's and
-K5d-a's two places for the inverses in turns (`geometry_phase`; `python3
-chip_smoke.py --geometry` runs that phase alone with a sweep of batch
-sizes, `--digests` prints the digests; no other argument is taken). It
-holds K5b and K5d-a at horizons 20 and 40 against the f64 plain version
-(HORIZONS), which their block layouts refused in f64.
+builds gave before the Newton step was shared. K1, K2, K5b, K5d-a, K5a and
+K5e-a run in warp groups (`pdipm_cuda.geometry`: K1 and K5e-a two warps per
+env, K2, K5b and K5a one, K5d-a four, in their lean layouts; K5b's, K5d-a's
+and K5a's stored stage inverses in shared memory or in a device-memory
+workspace); the script checks every route's bits, those six in the block
+group, against the build before the warp groups (BEFORE_WARP_DIGESTS), holds
+the block group against the plain version too, and times both geometries in
+turns beside a clock64() breakdown of a Newton step and the resident envs
+per SM, with the two places for the inverses in turns (`geometry_phase`;
+`python3 chip_smoke.py --geometry` runs that phase alone with a sweep of
+batch sizes, `--digests` prints the digests; no other argument is taken).
+It holds K5b, K5d-a and K5a at horizons 20 and 40 against the f64 plain
+version (HORIZONS), which their block layouts refused in f64 (K5a at 40).
 It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
@@ -168,10 +168,13 @@ BEFORE_WARP_DIGESTS = {
 }
 # The hybrid's re-solve batch at b4096, max(64, B // 32).
 RESOLVE_BATCH = 128
-# The horizons K5b and K5d-a are held at beyond the controller's 10: the
-# JAX package's horizon table (bench/ab_round4.py:389); their block layouts
-# refused T = 20 in f64 (ROADMAP Queue 3 item 5).
+# The horizons K5b, K5d-a and K5a are held at beyond the controller's 10:
+# the JAX package's horizon table (bench/ab_round4.py:389); their block
+# layouts refused T = 20 (K5a: 40) in f64 (ROADMAP Queue 3 item 5). K5a is
+# held on the first HORIZON_ENVS envs of the batch, which keeps the plain
+# version's f64 solves at h40 short.
 HORIZONS = (20, 40)
+HORIZON_ENVS = 1024
 # The converged envs of a long-horizon batch on which the f64 roundoff
 # witness of K5b and K5d-a is taken: those where the kernel parts most.
 WITNESS_ENVS = 64
@@ -197,8 +200,9 @@ def card_label() -> str:
 
 
 def build_all() -> list:
-    """Build the nine PDIPM libraries, K1's and K2's profile builds
-    (`pdipm_geometry.build_profile`), the roofline probes' and the tape's at
+    """Build the nine PDIPM libraries, the profile builds of the routes with a
+    warp group (`pdipm_geometry.build_profile`), K5e-a's elimination by rows
+    (`pdipm_geometry.build_pair_rows`), the roofline probes' and the tape's at
     once (each build function starts its nvcc processes together); return
     the production libraries' paths, the roofline's and the tape's last."""
     from concurrent.futures import ThreadPoolExecutor
@@ -207,10 +211,11 @@ def build_all() -> list:
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futures = [pool.submit(fn) for fn in (pdipm_cuda.build, ab_roofline.build,
-                                              bench_synthetic.build, pg.build_profile)]
-        pdipm_paths, roofline, tape, _ = (f.result() for f in futures)
+                                              bench_synthetic.build, pg.build_profile,
+                                              pg.build_pair_rows)]
+        pdipm_paths, roofline, tape, _, _ = (f.result() for f in futures)
     return sorted(pdipm_paths.values()) + [roofline, tape]
 
 
@@ -583,21 +588,23 @@ def sass_report(roofline_lib: str) -> str:
 
 
 def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
-    """The routes with a warp group (K1, K2, K5b, K5d-a) in their launch
-    geometries: the largest horizon each route and dtype runs in its warp
+    """The routes with a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a) in their
+    launch geometries: the largest horizon each route and dtype runs in its warp
     group and in the block group (the libraries' `lean_bytes` /
     `smem_bytes` within a block's shared memory); the geometry
     `pdipm_cuda.geometry` picks and the resident envs per SM of it and of
-    the block group (K5b and K5d-a also with their stored inverses in the
+    the block group (the WORK_ROUTES also with their stored inverses in the
     workspace); the clock64() breakdown of a Newton step in both
     (`pdipm_geometry`); the solve times of the block group (the build before
     the warp groups) and the warp group in turns (block, new, new, block),
-    f32 and f64, at b4096 and, for K1 and K2, at the hybrid's re-solve
-    batch, each required faster in every turn; and K5b's and K5d-a's warp
-    group with the stored inverses in shared memory and in the workspace in
-    turns, the one `pdipm_cuda` launches required no slower. With
-    `explore`, also a sweep of batch sizes (K1, K2). Returns {"geo", "occ",
-    "turns", "breakdown", "workspace"}."""
+    f32 and f64, at b4096 and, for the routes without a workspace, at the
+    hybrid's re-solve batch, each required faster in every turn; and the
+    WORK_ROUTES' warp groups with the stored inverses in shared memory and in
+    the workspace in turns, the one `pdipm_cuda` launches required no slower. With
+    `explore`, also a sweep of batch sizes (K1, K2). Also K5e-a's pairs
+    eliminated one warp a pair (as it launches) and by rows, as K1 spreads
+    its elimination, in turns, required to give the same bits. Returns
+    {"geo", "occ", "turns", "breakdown", "workspace", "pair"}."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
@@ -612,7 +619,7 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
             size = torch.empty((), dtype=dtype).element_size()
             for tag, kind in (("warp group", "lean"), ("block group", "smem")):
                 fits[f"{route} {dt} {tag}"] = max(
-                    T for T in range(1, 65)
+                    T for T in range(1, 151)
                     if getattr(lib, f"pdipm_{route}_{kind}_bytes")(T, size)
                     <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
     qps_ = {"f32": qp32, "f64": qp64}
@@ -653,13 +660,13 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
                 print(pg.breakdown_line(f"[breakdown] {label}: {r} {dt} b{B} {tag} "
                                         f"({g.threads_per_env} x {g.envs_per_block})", res))
     for r, o in base.items():
-        calls = 1 if r in pdipm_cuda.WORK_ROUTES else 10  # K5b / K5d-a: 0.04-0.74 s a solve
+        calls = 1 if r in pdipm_cuda.WORK_ROUTES else 10  # K5a / K5b / K5d-a: 0.02-0.74 s a solve
         for dt in dts:
             qp = qps_[dt]
             sub = qps.take(qp, torch.arange(RESOLVE_BATCH, device=qp.f.device))
             for nb, q in ((B, qp), (RESOLVE_BATCH, sub)):
                 if nb == RESOLVE_BATCH and r in pdipm_cuda.WORK_ROUTES:
-                    continue  # the re-solve batch is the hybrid's, K1's
+                    continue  # the re-solve batch is the hybrid's: K1's, packed K5e-a's
                 out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r], calls)
     print(f"[geometry times] {label}: block group / warp group / warp group / block "
           f"group, ms: " + "; ".join(f"{r} {dt} b{nb} " + " / ".join(f"{v:.3f}" for v in t)
@@ -681,6 +688,21 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
         used, other = (t[1:3], t[0::3]) if work_b[r, dt] else (t[0::3], t[1:3])
         check(max(used) <= min(other) * 1.05,
               f"{r} {dt}: the layout pdipm_cuda launches is slower than the other: {t}")
+    # K5e-a's stage pairs eliminated one warp a pair (as launched) against
+    # K1's spread by rows, same bits, in turns (pdipm_geometry.pair_rows_turns).
+    pair = {}
+    for dt in dts:
+        for pack in (True, "apply"):
+            pair[dt, pack] = pg.pair_rows_turns(qps_[dt], dataclasses.replace(
+                base["ric_aug_pack"], foot_pack=pack))
+    print(f"[pair elimination] {label}: K5e-a b{B} h{T}, pairs eliminated by rows (K1's "
+          f"spread) / one warp a pair / the same / by rows, ms: "
+          + "; ".join(f"{dt} {'pair' if pack is True else 'apply'} "
+                      + " / ".join(f"{v:.3f}" for v in t) + f" (same bits: {same})"
+                      for (dt, pack), (t, same) in pair.items()))
+    for key, (t, same) in pair.items():
+        check(same, f"K5e-a {key}: the two eliminations give other bits")
+    out["pair"] = pair
     if explore:
         for r in pdipm_cuda.LEAN_ROUTES[:2]:
             qp = qps_["f32"]
@@ -1297,6 +1319,9 @@ def main() -> int:
             roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5b")
+        if tag == "K5a":  # the condensed class's f32 tail in the block group, beside
+            blk32 = f32_tail(pg.solve_in(qp32, opts_, pdipm_cuda.BLOCK), plain64_, cv_)[2]
+            print(f"[K5a f32 block group vs plain f64] {blk32} (printed)")
         k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_, "plain": plain64_, "cv": cv_}
 
     # 4g. K3 on K5a and K5b: four warm 5-step launches vs one 20-step launch.
@@ -1549,30 +1574,29 @@ def main() -> int:
         k5g[tag] = {"opts": o, "err": worst_, "launches": launched}
 
     # 4m. The shared Newton step left K1, K2, K5a and K5b as they were: the
-    # digest of each one's x, s, z, y and residuals on this batch against
-    # the one the build before the move gave (PARENT_DIGESTS); printed with
-    # the times in 7.
+    # digest of each one's x, s, z, y and residuals on this batch, each in
+    # the block group, against the one the build before the move gave
+    # (PARENT_DIGESTS); printed with the times in 7.
     inputs_same = all(digest(pdipm_cuda._inputs(qp)) == PARENT_DIGESTS["inputs", dt]
                       for dt, qp in (("f32", qp32), ("f64", qp64)))
     # K1 and K2 in the form and geometry those builds had: gj_form
-    # "tableau", the block group; K5b in the block group.
+    # "tableau", the block group; K5a and K5b in the block group.
     block_tableau = {(tag, dt): pg.solve_in(qp, dataclasses.replace(o, gj_form="tableau"),
                                              pdipm_cuda.BLOCK)
                      for tag, o in (("K1", opts), ("K2", ric))
                      for dt, qp in (("f32", qp32), ("f64", qp64))}
-    block_k5b = {dt: pg.solve_in(qp, thomas["K5b"], pdipm_cuda.BLOCK)
-                 for dt, qp in (("f32", qp32), ("f64", qp64))}
-    refactor_same = {f"{tag} {dt}": digest(results(runs[dt])) == PARENT_DIGESTS[tag, dt]
-                     for tag, runs in (("K1", {d: block_tableau["K1", d] for d in ("f32", "f64")}),
-                                       ("K2", {d: block_tableau["K2", d] for d in ("f32", "f64")}),
-                                       ("K5a", k5["K5a"]), ("K5b", block_k5b))
+    block_k5 = {(tag, dt): pg.solve_in(qp, thomas[tag], pdipm_cuda.BLOCK)
+                for tag in ("K5a", "K5b") for dt, qp in (("f32", qp32), ("f64", qp64))}
+    refactor_same = {f"{tag} {dt}": digest(results(runs[tag, dt])) == PARENT_DIGESTS[tag, dt]
+                     for tag, runs in (("K1", block_tableau), ("K2", block_tableau),
+                                       ("K5a", block_k5), ("K5b", block_k5))
                      for dt in ("f32", "f64")}
 
     # 4i. Layouts over a block's shared memory raise before any launch: the
     # largest horizon of each route and dtype that fits in the geometry
     # `pdipm_cuda.geometry` picks (the block layout, or a warp group's lean
-    # one: K5b's and K5d-a's with the stored inverses in the workspace where
-    # needed), and for K5b and K5d-a a horizon beyond it in f64, which
+    # one: the WORK_ROUTES' with the stored inverses in the workspace where
+    # needed), and for K5b, K5d-a and K5a a horizon beyond it in f64, which
     # raises.
     fits = {}
     for route in pdipm_cuda.SOURCES:
@@ -1581,12 +1605,13 @@ def main() -> int:
         for dt in (torch.float32, torch.float64):
             size = torch.empty((), dtype=dt).element_size()
             fits[f"{route} {str(dt)[6:]}"] = max(
-                T_ for T_ in range(1, 129)
+                T_ for T_ in range(1, 151)
                 if getattr(lib_, f"pdipm_{route}_{layout}_bytes")(T_, size)
                 <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
     pdipm_cuda.reset_counts()
     raised = {}
-    for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"])):
+    for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"]),
+                       ("K5a", thomas["K5a"])):
         over = fits[f"{pdipm_cuda.route(opts_)} float64"] + 1
         try:
             pdipm_cuda.solve(make_qp_batch(8, 0, torch.float64, dev, over), opts_)
@@ -1922,9 +1947,9 @@ def main() -> int:
           f"what the kernel's loops do / the least (the bounds' count): "
           + ", ".join(f"{k} {done:.4g} / {least:.4g}" for k, done, least in flops))
     now = {"K1": new_ms["K1 tableau"]["k32"], "K2": new_ms["K2 tableau"]["k32"],
-           "K5a": k5_ms["K5a"]["k32"],
-           "K5b": cuda_ms(lambda: pg.solve_in(qp32, thomas["K5b"], pdipm_cuda.BLOCK), 2)}
-    print(f"[refactor] {label}: K1 and K2 under gj_form tableau in the block group, K5a, and "
+           **{tag: cuda_ms(lambda: pg.solve_in(qp32, thomas[tag], pdipm_cuda.BLOCK), 2)
+              for tag in ("K5a", "K5b")}}
+    print(f"[refactor] {label}: K1 and K2 under gj_form tableau in the block group, K5a and "
           f"K5b in the block group, in the one Newton-step kernel, b{B} cold 20 steps: inputs "
           f"as recorded: "
           f"{inputs_same}; x, s, z, y "
@@ -1943,27 +1968,35 @@ def main() -> int:
     check(all(before.values()), "a route's bits differ from the build before the warp groups")
     geometry_phase(label, qp32, qp64, opts)
 
-    # 7c. K5b and K5d-a at the longer HORIZONS, in their warp groups, on
-    # this script's walking batch at that horizon, b4096, against the f64
-    # plain version with the robust class's bounds: f64 on the converged
-    # envs, f32 u0 and finiteness. The f64 bound is the larger of F64_ATOL
-    # and WITNESS_FACTOR times the plain route's own roundoff there (its
-    # f64 solve on the CPU against the same on the card, over the
-    # WITNESS_ENVS converged envs where the kernel parts most), as for the
-    # step variants (4p); both are printed.
+    # 7c. K5b, K5d-a and K5a at the longer HORIZONS, in their warp groups, on
+    # this script's walking batch at that horizon (K5a on its first
+    # HORIZON_ENVS envs), against the f64 plain version with their class's
+    # bounds: K5b and K5d-a as the robust class, f64 on the converged envs,
+    # f32 u0 and finiteness; K5a as the condensed class, f64 relative to
+    # max(1, |v|), its f32 finite count and u0 tail printed. The f64 bound
+    # is the larger of the class bound (F64_ATOL absolute, or
+    # CONDENSED_F64_RTOL relative) and WITNESS_FACTOR times the plain route's
+    # own roundoff there (its f64 solve on the CPU against the same on the
+    # card, over the WITNESS_ENVS converged envs where the kernel parts
+    # most), as for the step variants (4p); both are printed.
     for T_ in HORIZONS:
         q64, q32 = (make_qp_batch(B, 0, dt, dev, T_) for dt in (torch.float64, torch.float32))
         u0 = slice(12 * T_, 12 * T_ + 12)
-        for tag, opts_ in (("K5b", thomas["K5b"]), ("K5d-a", riccati["K5d-a"])):
+        for tag, opts_, nb in (("K5b", thomas["K5b"], B), ("K5d-a", riccati["K5d-a"], B),
+                               ("K5a", thomas["K5a"], HORIZON_ENVS)):
             key = pdipm_cuda.route(opts_)
+            condensed = tag == "K5a"
+            sub = (lambda q: q) if nb == B else (
+                lambda q: qps.take(q, torch.arange(nb, device=dev)))
+            h64, h32 = sub(q64), sub(q32)
             pdipm_cuda.reset_counts()
-            k64_, k32_ = pdipm_cuda.solve(q64, opts_), pdipm_cuda.solve(q32, opts_)
+            k64_, k32_ = pdipm_cuda.solve(h64, opts_), pdipm_cuda.solve(h32, opts_)
             torch.cuda.synchronize()
             check(pdipm_cuda.launches[key] == 2 and pdipm_cuda.warp_launches[key] == 2,
                   f"{tag} h{T_}: not two launches in its warp group")
-            plain_ = pdipm.solve(q64, opts_)
+            plain_ = pdipm.solve(h64, opts_)
             cv_ = plain_.residuals[:, 3] <= MU_CONVERGED
-            check(int(cv_.sum()) >= B // 10, f"only {int(cv_.sum())} envs converged at h{T_}")
+            check(int(cv_.sum()) >= nb // 10, f"only {int(cv_.sum())} envs converged at h{T_}")
             gap = torch.stack([(getattr(k64_, n) - getattr(plain_, n)).abs().amax(1)
                                for n in "xszy"]).amax(0)
             rel = torch.stack([((getattr(k64_, n) - getattr(plain_, n)).abs()
@@ -1971,34 +2004,42 @@ def main() -> int:
                                for n in "xszy"]).amax(0)
             worst_, worst_rel = float(gap[cv_].max()), float(rel[cv_].max())
             cv_idx = torch.nonzero(cv_).flatten()
-            idx = cv_idx[torch.argsort(gap[cv_idx], descending=True)[:WITNESS_ENVS]]
-            cpu = pdipm.solve(qp_map(qps.take(q64, idx), lambda v: v.cpu()), opts_)
-            wit = max(float((getattr(cpu, n) - getattr(plain_, n)[idx].cpu()).abs().max())
-                      for n in "xszy")
-            bound_ = max(F64_ATOL, WITNESS_FACTOR * wit)
+            part = rel if condensed else gap
+            idx = cv_idx[torch.argsort(part[cv_idx], descending=True)[:WITNESS_ENVS]]
+            cpu = pdipm.solve(qp_map(qps.take(h64, idx), lambda v: v.cpu()), opts_)
+            cgap = {n: (getattr(cpu, n) - getattr(plain_, n)[idx].cpu()).abs() for n in "xszy"}
+            wit = max(float(g.max()) for g in cgap.values())
+            wit_rel = max(float((g / getattr(cpu, n).abs().clamp_min(1.0)).max())
+                          for n, g in cgap.items())
+            err, floor_, w_ = ((worst_rel, CONDENSED_F64_RTOL, wit_rel) if condensed
+                               else (worst_, F64_ATOL, wit))
+            bound_ = max(floor_, WITNESS_FACTOR * w_)
             fin = torch.isfinite(k32_.x).all(1)
             du0 = (k32_.x[:, u0].double() - plain_.x[:, u0]).abs().amax(1)
             reps = 2 if T_ <= 20 else 1
-            ms32 = cuda_ms(lambda: pdipm_cuda.solve(q32, opts_), reps)
-            ms64 = cuda_ms(lambda: pdipm_cuda.solve(q64, opts_), reps)
+            ms32 = cuda_ms(lambda: pdipm_cuda.solve(h32, opts_), reps)
+            ms64 = cuda_ms(lambda: pdipm_cuda.solve(h64, opts_), reps)
             lib_ = pdipm_cuda._library(key)
             work = {dt: getattr(lib_, f"pdipm_{key}_work_bytes")(T_, sz, 0)
                     for dt, sz in (("f32", 4), ("f64", 8))}
-            print(f"[{tag} h{T_}] {label}: b{B} {key} in its warp group, converged envs "
-                  f"{int(cv_.sum())}: f64 vs plain f64 max |dx,ds,dz,dy| {worst_:.3e} (bound "
-                  f"{bound_:.3e}: the larger of {F64_ATOL:g} and {WITNESS_FACTOR} x the "
-                  f"witness), relative to max(1, |v|) {worst_rel:.3e}; witness (plain f64 on "
-                  f"the CPU vs the card, the {len(idx)} converged envs the kernel parts most "
-                  f"on) {wit:.3e}; f32 finite {int(fin.sum())}/{B}, u0 |dGRF| converged finite "
-                  f"{quantiles(du0[cv_ & fin].cpu().numpy())} (bound {F32_U0_ATOL}), above "
+            print(f"[{tag} h{T_}] {label}: b{nb} {key} in its warp group, converged envs "
+                  f"{int(cv_.sum())}: f64 vs plain f64 max |dx,ds,dz,dy| {worst_:.3e}, relative "
+                  f"to max(1, |v|) {worst_rel:.3e} (bound {bound_:.3e} "
+                  f"{'relative' if condensed else 'absolute'}: the larger of {floor_:g} and "
+                  f"{WITNESS_FACTOR} x the witness); witness (plain f64 on the CPU vs the card, the {len(idx)} "
+                  f"converged envs the kernel parts most on) {wit:.3e} absolute, {wit_rel:.3e} "
+                  f"relative; f32 finite {int(fin.sum())}/{nb}, u0 |dGRF| converged finite "
+                  f"{quantiles(du0[cv_ & fin].cpu().numpy())}"
+                  f"{' (printed)' if condensed else f' (bound {F32_U0_ATOL})'}, above "
                   f"{F32_U0_ATOL} N over all finite envs {int((du0[fin] > F32_U0_ATOL).sum())}; "
                   f"kernel f32 {ms32:.3f} ms, f64 {ms64:.3f} ms; workspace bytes per env "
                   f"{work}")
-            check(worst_ <= bound_, f"f64 {tag} h{T_} differs from the plain version")
-            check(float(fin.double().mean()) >= F32_FINITE_SHARE,
-                  f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
-            check(float(du0[cv_ & fin].max()) <= F32_U0_ATOL,
-                  f"f32 {tag} h{T_} GRF off on converged envs")
+            check(err <= bound_, f"f64 {tag} h{T_} differs from the plain version")
+            if not condensed:
+                check(float(fin.double().mean()) >= F32_FINITE_SHARE,
+                      f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
+                check(float(du0[cv_ & fin].max()) <= F32_U0_ATOL,
+                      f"f32 {tag} h{T_} GRF off on converged envs")
 
     bench_kernels = bench_twins(label)
 

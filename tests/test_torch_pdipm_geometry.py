@@ -1,11 +1,12 @@
 """The launch geometry of the port's PDIPM kernels (`pdipm_cuda.geometry`):
-K1 ("ric_aug") runs two warps per env, K2 ("ric") and K5b ("tridiag_aug")
-one, K5d-a ("ric_aug_dense") four, one env per block, in their lean layouts
-(K5b's and K5d-a's stored inverses in shared memory or in a device-memory
+K1 ("ric_aug") and K5e-a ("ric_aug_pack") run two warps per env, K2
+("ric"), K5b ("tridiag_aug") and K5a ("tridiag") one, K5d-a
+("ric_aug_dense") four, one env per block, in their lean layouts (K5b's,
+K5d-a's and K5a's stored inverses in shared memory or in a device-memory
 workspace); every other route keeps the block group. The layouts' byte
 counts come from the kernels' own `make_layout`, read from a g++ build of
-those four routes against the host shim (`ops/host_build.py`; the tests
-that need it skip, deciding inside the test, where g++ is absent)."""
+those routes against the host shim (`ops/host_build.py`; the tests that
+need it skip, deciding inside the test, where g++ is absent)."""
 
 import contextlib
 import dataclasses
@@ -31,18 +32,23 @@ def _size(dt):
     return torch.empty((), dtype=DTYPES[dt]).element_size()
 
 
-# The largest horizon K5b and K5d-a run in their warp group, per dtype: the
-# lean layout with the stored inverses in the workspace within 232,448 B;
-# and their T x N x N inverses' width N.
+# The largest horizon K5b, K5d-a and K5a run in their warp group, per dtype:
+# the lean layout with the stored inverses in the workspace within 232,448
+# B; their T x N x N inverses' width N; and the largest horizon their block
+# layout fits (ROADMAP Queue 3, item 5).
 WORK_MAX_T = {("tridiag_aug", "f32"): 103, ("tridiag_aug", "f64"): 50,
-              ("ric_aug_dense", "f32"): 86, ("ric_aug_dense", "f64"): 42}
-WORK_N = {"tridiag_aug": 42, "ric_aug_dense": 30}
+              ("ric_aug_dense", "f32"): 86, ("ric_aug_dense", "f64"): 42,
+              ("tridiag", "f32"): 145, ("tridiag", "f64"): 72}
+WORK_N = {"tridiag_aug": 42, "ric_aug_dense": 30, "tridiag": 26}
+WORK_BLOCK_MAX_T = {("tridiag_aug", "f32"): 24, ("tridiag_aug", "f64"): 11,
+                    ("ric_aug_dense", "f32"): 30, ("ric_aug_dense", "f64"): 14,
+                    ("tridiag", "f32"): 44, ("tridiag", "f64"): 22}
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """{route: the host build of K1 / K2 / K5b / K5d-a}, or a skip without
-    g++."""
+    """{route: the host build of every route with a warp group}, or a skip
+    without g++."""
     if host_build.find_gxx() is None:
         pytest.skip("g++ is not installed: the host build of the kernels needs it")
     out = tmp_path_factory.mktemp("host_build")
@@ -120,14 +126,31 @@ def _resident(nbytes, threads):
 
 
 @pytest.mark.parametrize("route, dt, want, block_want", [
-    ("ric_aug", "f32", 6, 4), ("ric", "f32", 8, 5), ("ric_aug", "f64", 3, 2), ("ric", "f64", 4, 2)])
+    ("ric_aug", "f32", 6, 4), ("ric", "f32", 8, 5), ("ric_aug", "f64", 3, 2), ("ric", "f64", 4, 2),
+    ("ric_aug_pack", "f32", 6, 4), ("ric_aug_pack", "f64", 3, 2)])
 def test_h10_geometry_puts_more_envs_on_an_sm(libs, route, dt, want, block_want):
     """At h10 the warp group's lean layouts let more envs reside on an SM by
     shared memory than the block group's (K2's block group in f32 is held to
-    4 by its register cap besides)."""
+    4 by its register cap besides; K5e-a's lean layout, K1's with the packed
+    P_t and yc in its union, fits K1's 6)."""
     g = pdipm_cuda.geometry(route)
     assert _resident(_bytes(libs, route, 10, dt, lean=True), g.threads_per_env) == want
     assert _resident(_bytes(libs, route, 10, dt, lean=False), 128) == block_want
+
+
+@pytest.mark.parametrize("dt, want, with_inverses, block_want",
+                         [("f32", 12, 5, 4), ("f64", 6, 2, 2)])
+def test_k5a_workspace_layout_puts_more_envs_on_an_sm(libs, dt, want, with_inverses, block_want):
+    """K5a's lean layout without its stored inverses (in the workspace) holds
+    12 envs an SM at h10 in f32 and 6 in f64 by shared memory, against 5 and
+    2 with them and the block layout's 4 and 2, so the library moves them
+    (`uses_workspace`; the host build's occupancy stub does not, so its lean
+    bytes here carry them)."""
+    inverses = getattr(libs["tridiag"], "pdipm_tridiag_work_bytes")(10, _size(dt), 1)
+    lean = _bytes(libs, "tridiag", 10, dt, lean=True)
+    assert _resident(lean - inverses, 32) == want
+    assert _resident(lean, 32) == with_inverses
+    assert _resident(_bytes(libs, "tridiag", 10, dt, lean=False), 128) == block_want
 
 
 class _FakeLib:
@@ -187,8 +210,8 @@ class _WorkLib(_FakeLib):
 @pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
 @pytest.mark.parametrize("T", [1, 10, 20])
 def test_work_routes_take_their_warp_group(monkeypatch, route, T):
-    """K5b and K5d-a run their warp group (one and four warps an env, one env
-    per block) at any horizon and dtype: the launch asks the library for the
+    """K5b, K5d-a and K5a run their warp group (one, four and one warps an
+    env, one env per block) at any horizon and dtype: the launch asks the library for the
     lean layout's bytes and the workspace per env, allocates batch x that
     when it is not 0 and passes it to the warp entry, else passes null."""
     from biped_pympc_tpu_torch.bench import bench_common
@@ -197,7 +220,7 @@ def test_work_routes_take_their_warp_group(monkeypatch, route, T):
     g = pdipm_cuda.geometry(route)
     assert g == pdipm_cuda.Geometry(pdipm_cuda.WARP_THREADS[route], 1, lean=True)
     assert (g.threads_per_env, route in pdipm_cuda.LEAN_ROUTES) == (
-        {"tridiag_aug": 32, "ric_aug_dense": 128}[route], True)
+        {"tridiag_aug": 32, "ric_aug_dense": 128, "tridiag": 32}[route], True)
     opts = dataclasses.replace(pg.route_opts(route), iterations=1)
     assert pdipm_cuda.route(opts) == route
     monkeypatch.setattr(pdipm_cuda, "launches", dict.fromkeys(pdipm_cuda.launches, 0))
@@ -217,11 +240,12 @@ def test_work_routes_take_their_warp_group(monkeypatch, route, T):
 @pytest.mark.parametrize("T", [10, 20, 40])
 @pytest.mark.parametrize("route, dt", sorted(WORK_MAX_T))
 def test_work_layouts_fit_at_the_long_horizons(libs, route, dt, T):
-    """K5b's and K5d-a's lean layouts at h10, h20 and h40 fit in an H100
-    block: with the T stored inverses in shared memory where the layout with
-    them fits (the host build's occupancy stub never prefers the workspace),
-    else workspace-backed, T x N x N values per env; forced, the workspace
-    takes them at any horizon and the rest fits."""
+    """K5b's, K5d-a's and K5a's lean layouts at h10, h20 and h40 fit in an
+    H100 block: with the T stored inverses in shared memory where the layout
+    with them fits (the host build's occupancy stub never prefers the
+    workspace), else workspace-backed, T x N x N values per env; forced, the
+    workspace takes them at any horizon and the rest fits; the block layout
+    fits exactly up to its old limit."""
     lean = _bytes(libs, route, T, dt, lean=True)
     assert lean <= pdipm_cuda.MAX_SMEM_PER_BLOCK
     work = getattr(libs[route], f"pdipm_{route}_work_bytes")
@@ -232,9 +256,9 @@ def test_work_layouts_fit_at_the_long_horizons(libs, route, dt, T):
         assert lean + inverses > pdipm_cuda.MAX_SMEM_PER_BLOCK
     else:
         assert lean > inverses  # the inverses are in it
-    # The block layout refused f64 from T = 12 (K5b) and 15 (K5d-a).
-    if dt == "f64" and T >= 20:
-        assert _bytes(libs, route, T, dt, lean=False) > pdipm_cuda.MAX_SMEM_PER_BLOCK
+    # The block layout refused f64 from T = 12 (K5b), 15 (K5d-a) and 23 (K5a).
+    assert (_bytes(libs, route, T, dt, lean=False) > pdipm_cuda.MAX_SMEM_PER_BLOCK) == (
+        T > WORK_BLOCK_MAX_T[route, dt])
 
 
 @pytest.mark.parametrize("route, dt", sorted(WORK_MAX_T))
@@ -283,7 +307,8 @@ def test_block_geometry_rejected_for_other_routes_in_a_warp_group():
 
     qp = bench_common.make_qp_batch(2, horizon=2, dtype=torch.float64, device="cpu")
     before = dict(pdipm_cuda.launches)
-    for backend, geom in (("tridiag", pdipm_cuda.Geometry(32, 1)),
+    for backend, geom in (("ric2", pdipm_cuda.Geometry(32, 1)),
+                          ("tridiag", pdipm_cuda.Geometry(64, 1, lean=True)),
                           ("ric", pdipm_cuda.Geometry(64, 1)),
                           ("ric_aug", pdipm_cuda.Geometry(32, 2))):
         lib = _FakeLib(1024)

@@ -1,9 +1,10 @@
-"""The device code of the routes with a warp group (K1, K2, K5b, K5d-a) on
-the CPU: each built with g++ against `ops/host_shim.h` (`ops/host_build.py`:
-one host thread per CUDA thread, barriers and shuffles as the shim's),
-launched through the port's own wrapper (`pdipm_cuda.run_kernel`) on CPU
-tensors, in the block group and in the route's warp group (K5b and K5d-a
-with their stored inverses in shared memory and in the workspace), and held
+"""The device code of the routes with a warp group (K1, K2, K5b, K5d-a, K5a,
+K5e-a) on the CPU: each built with g++ against `ops/host_shim.h`
+(`ops/host_build.py`: one host thread per CUDA thread, barriers and shuffles
+as the shim's), launched through the port's own wrapper
+(`pdipm_cuda.run_kernel`) on CPU tensors, in the block group and in the
+route's warp group (K5b, K5d-a and K5a with their stored inverses in shared
+memory and in the workspace; K5e-a in both packings), and held
 against the plain version in f64 at a small size (B = 2, T = 2, 2 Newton
 steps). Skips, deciding inside each test, where g++ is absent. The build
 has no FMA contraction, so its agreement is that of the arithmetic, not the
@@ -28,8 +29,8 @@ def _geom(route, name):
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """{route: the host build of K1 / K2 / K5b / K5d-a}, or a skip without
-    g++."""
+    """{route: the host build of every route with a warp group}, or a skip
+    without g++."""
     if host_build.find_gxx() is None:
         pytest.skip("g++ is not installed: the host build of the kernels needs it")
     out = tmp_path_factory.mktemp("host_build")
@@ -66,10 +67,31 @@ def test_kernel_matches_the_plain_version(libs, route, geom, horizon):
     _assert_close(got, pdipm.solve(qp, opts))
 
 
+# f32 bounds relative to max(1, |v|) after 2 steps: the condensed K5a's W^-1
+# blocks (up to ~1e8) amplify f32 rounding (1.1e-4 read at T = 2), the
+# augmented K5e-a reads 1.6e-6.
+F32_RTOL = {"tridiag": 5e-4, "ric_aug_pack": 2e-5}
+
+
+@pytest.mark.parametrize("horizon", [1, 3])
+@pytest.mark.parametrize("route", sorted(F32_RTOL))
+def test_k5a_and_k5e_a_warp_groups_match_the_plain_version_in_f32(libs, route, horizon):
+    """K5a's and K5e-a's warp groups in f32 against the plain version in f32,
+    B = 2, 2 steps, within their class's f32 bound."""
+    qp = bench_common.make_qp_batch(2, horizon=horizon, dtype=torch.float32, device="cpu")
+    opts = _opts(route)
+    got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, "warp"))
+    want = pdipm.solve(qp, opts)
+    for name in ("x", "s", "z", "y", "residuals"):
+        u, v = getattr(got, name), getattr(want, name)
+        rel = float(((u - v).abs() / v.abs().clamp_min(1.0)).max())
+        assert rel <= F32_RTOL[route], (name, rel)
+
+
 @pytest.mark.parametrize("horizon", [2, 3])
 @pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
 def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
-    """K5b and K5d-a in their warp group with the stored inverses in the
+    """K5b, K5d-a and K5a in their warp group with the stored inverses in the
     device-memory workspace (here host memory) and in shared memory: the
     same arithmetic, so the same bits, both within 1e-10 of the plain
     version."""
@@ -85,15 +107,20 @@ def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
 
 # Each option value on each route that takes it (df: the augmented routes
 # only, `pdipm.check_options`; aug_pivot=False, K5f's natural order: on
-# K5d-a, whose warp group eliminates both ways).
+# K5d-a and K5e-a, whose warp groups eliminate both ways; K5e-a's packings:
+# `route_opts` pairs the halves, "apply" eliminates each as K1 does, with
+# and without the pivot search).
+CONDENSED = ("ric", "tridiag")
 OPTIONS = [(route, name, kw) for name, kw in (
     ("tableau", dict(gj_form="tableau")), ("jacobi", dict(kkt_scale="jacobi")),
     ("sum_refine", dict(corrector_form="sum_refine")), ("combined", dict(corrector_form="combined")),
     ("aff_ref", dict(corrector_form="aff_ref")), ("df", dict(refine_residual="df")),
-    ("sigma_cap", dict(sigma_cap=1e3)), ("no_pivot", dict(aug_pivot=False)))
+    ("sigma_cap", dict(sigma_cap=1e3)), ("no_pivot", dict(aug_pivot=False)),
+    ("apply", dict(foot_pack="apply")), ("apply_no_pivot", dict(foot_pack="apply", aug_pivot=False)))
     for route in pdipm_cuda.LEAN_ROUTES
-    if not (route == "ric" and name == "df")
-    and not (name == "no_pivot" and route != "ric_aug_dense")]
+    if not (route in CONDENSED and name == "df")
+    and not (name == "no_pivot" and route not in ("ric_aug_dense", "ric_aug_pack"))
+    and not (name.startswith("apply") and route != "ric_aug_pack")]
 
 
 @pytest.mark.parametrize("route, name, kw", OPTIONS, ids=[f"{r}-{n}" for r, n, _ in OPTIONS])
@@ -122,23 +149,38 @@ def test_warm_chunks_equal_one_launch_in_the_warp_group(libs, route):
         assert torch.equal(getattr(r, name), getattr(one, name)), name
 
 
+def _assert_df_refused(libs, route, dtype):
+    """Both entries of condensed `route` return an error for the compensated
+    residual and write nothing."""
+    qp = bench_common.make_qp_batch(2, horizon=2, dtype=dtype, device="cpu")
+    opts = dataclasses.replace(_opts(route), refine_residual="df")
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    for entry, work in ((f"pdipm_{route}_warp_{suffix}", route in pdipm_cuda.WORK_ROUTES),
+                        (f"pdipm_{route}_{suffix}", False)):
+        ins = pdipm_cuda._inputs(qp)
+        outs = [torch.full((2, n), 7.0, dtype=dtype) for n in
+                (qp.nz, qp.n_ineq, qp.n_ineq, qp.n_eq, 4)]
+        err = getattr(libs[route], entry)(
+            *[t.data_ptr() for t in ins], None, None, None, None, *[t.data_ptr() for t in outs],
+            None, None, 2, qp.horizon, pdipm_cuda.ctypes.addressof(pdipm_cuda.args(opts)), None,
+            *[None] * work)
+        assert err != 0, entry
+        assert all(bool((t == 7.0).all()) for t in outs), entry
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_warp_entry_refuses_df_on_the_condensed_route(libs, dtype):
     """K2's warp entry, like its block entry, refuses the compensated
     residual (an augmented-route option): it returns an error and writes
     nothing."""
-    qp = bench_common.make_qp_batch(2, horizon=2, dtype=dtype, device="cpu")
-    opts = dataclasses.replace(_opts("ric"), refine_residual="df")
-    suffix = "f32" if dtype == torch.float32 else "f64"
-    for entry in (f"pdipm_ric_warp_{suffix}", f"pdipm_ric_{suffix}"):
-        ins = pdipm_cuda._inputs(qp)
-        outs = [torch.full((2, n), 7.0, dtype=dtype) for n in
-                (qp.nz, qp.n_ineq, qp.n_ineq, qp.n_eq, 4)]
-        err = getattr(libs["ric"], entry)(
-            *[t.data_ptr() for t in ins], None, None, None, None, *[t.data_ptr() for t in outs],
-            None, None, 2, qp.horizon, pdipm_cuda.ctypes.addressof(pdipm_cuda.args(opts)), None)
-        assert err != 0, entry
-        assert all(bool((t == 7.0).all()) for t in outs), entry
+    _assert_df_refused(libs, "ric", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_k5a_warp_entry_refuses_df(libs, dtype):
+    """K5a's warp entry (with its workspace argument) refuses the compensated
+    residual as its block entry does."""
+    _assert_df_refused(libs, "tridiag", dtype)
 
 
 def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
@@ -155,5 +197,37 @@ def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
     want = pdipm_cuda.run_kernel(libs["ric"], qp, opts, None, geom=pdipm_cuda.BLOCK)
     assert pdipm_ab.digest(got) == pdipm_ab.digest(want)
     _assert_close(got, pdipm.solve(qp, opts))
-    assert pdipm_ab.KEYS == ["ric", "ric2", "ric_aug", "ric_aug_dense", "ric_dense", "tridiag",
-                             "tridiag_aug"]
+    assert pdipm_ab.KEYS == ["ric", "ric2", "ric_aug", "ric_aug_dense", "ric_aug_pack",
+                             "ric_dense", "ric_pack", "tridiag", "tridiag_aug"]
+
+
+@pytest.fixture(scope="module")
+def rows_lib(libs, tmp_path_factory):
+    """K5e-a built with `pdipm_geometry.PAIR_ROWS_FLAGS` for the host (after
+    `libs`, which skips without g++)."""
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
+
+    out = tmp_path_factory.mktemp("host_build_rows")
+    return pdipm_cuda.load_library(host_build.build(
+        pdipm_cuda.SOURCES["ric_aug_pack"], str(out / "librows.so"),
+        [f[2:] for f in pg.PAIR_ROWS_FLAGS]), "ric_aug_pack")
+
+
+@pytest.mark.parametrize("pack, pivot", [(True, True), ("apply", True), (True, False),
+                                         ("apply", False)])
+def test_k5e_a_pair_warp_gives_the_bits_of_the_rows_elimination(libs, rows_lib, pack, pivot):
+    """K5e-a's warp group eliminates each stage pair in one warp
+    (`gj_pair_warp`); built with `pdipm_geometry.PAIR_ROWS_FLAGS` it spreads
+    the elimination by rows as K1's warp group does (`gj_inverse_rows` at
+    the pair's stride): the same arithmetic, so the same bits, in both
+    packings, pivoted or not, f64 and f32, T = 1 (one pair: the second warp
+    idle) and 3."""
+    opts = _opts("ric_aug_pack", foot_pack=pack, aug_pivot=pivot, iterations=4)
+    for dtype in (torch.float64, torch.float32):
+        for horizon in (1, 3):
+            qp = bench_common.make_qp_batch(2, horizon=horizon, dtype=dtype, device="cpu")
+            a = pdipm_cuda.run_kernel(rows_lib, qp, opts, None)
+            b = pdipm_cuda.run_kernel(libs["ric_aug_pack"], qp, opts, None)
+            for name in ("x", "s", "z", "y", "residuals"):
+                u, v = getattr(a, name), getattr(b, name)
+                assert torch.equal(u.nan_to_num(7.0), v.nan_to_num(7.0)), (name, dtype, horizon)

@@ -1,8 +1,8 @@
-"""The plain versions of K5b's and K5d-a's routes at horizon 20, where their
-kernels now run in f64 too: the port's `tridiag_aug` and unsplit `ric_aug`
-(with and without the Jacobi scaling) against the JAX package's pure-JAX
-`pdipm.solve` of the same names, f64, B = 2 walking QPs with swing stages,
-six Newton steps."""
+"""The plain versions of K5b's, K5d-a's and K5a's routes at horizon 20, where
+their kernels now run in f64 too: the port's `tridiag_aug`, unsplit
+`ric_aug` (with and without the Jacobi scaling) and `tridiag` against the
+JAX package's pure-JAX `pdipm.solve` of the same names, f64, B = 2 walking
+QPs with swing stages, six Newton steps."""
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +19,7 @@ from biped_pympc_tpu_torch.ops import pdipm as tpdipm
 torch.set_num_threads(1)
 T = 20
 STEPS = 6
-ATOL = 1e-8  # the augmented routes' bound at h10 (`test_torch_pdipm.ATOL`)
+ATOL = 1e-8  # the augmented routes' bound at h10 (`test_torch_pdipm.ATOL`); K5a's holds it too
 
 
 def _walking_qp(seed):
@@ -52,11 +52,13 @@ def batch():
     return jax.tree.map(lambda *xs: jnp.stack(xs), *[_walking_qp(s) for s in range(2)])
 
 
-# The two routes: K5b's block-Thomas (pivoted 42-wide blocks) and K5d-a's
-# unsplit Riccati (pivoted 30-wide blocks), the latter also Jacobi-scaled.
+# The routes: K5b's block-Thomas (pivoted 42-wide blocks), K5d-a's unsplit
+# Riccati (pivoted 30-wide blocks), the latter also Jacobi-scaled, and K5a's
+# condensed block-Thomas (pivoted 26-wide blocks).
 ROUTES = {"tridiag_aug": dict(backend="tridiag_aug"),
           "ric_aug unsplit": dict(backend="ric_aug", foot_split=False),
-          "ric_aug unsplit jacobi": dict(backend="ric_aug", foot_split=False, kkt_scale="jacobi")}
+          "ric_aug unsplit jacobi": dict(backend="ric_aug", foot_split=False, kkt_scale="jacobi"),
+          "tridiag": dict(backend="tridiag")}
 
 
 @pytest.mark.parametrize("route", ROUTES)
