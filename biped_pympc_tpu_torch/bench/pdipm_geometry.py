@@ -46,13 +46,6 @@ ROUTES = {"ric_aug": {}, "ric": {"backend": "ric"},
           "ric_aug_pack": {"foot_pack": True}}
 
 
-# K5e-a's foot elimination spread as K1 spreads its own (`gj_inverse_rows`:
-# a lane per block, entry or row, a group barrier between the three phases
-# of each step), a build with PAIR_ROWS_FLAGS, against the route's one warp
-# a stage pair (`gj_pair_warp`, pdipm_split.cuh): `pair_rows_turns`.
-PAIR_ROWS_FLAGS = ("-DPDIPM_PAIR_ROWS",)
-
-
 def route_opts(route: str, base: pdipm.PdipmOptions = BASE) -> pdipm.PdipmOptions:
     """`base` on route `route` (a key of ROUTES)."""
     return dataclasses.replace(base, **ROUTES[route])
@@ -71,19 +64,6 @@ def build_profile() -> dict:
     """Build the profile libraries of the ROUTES (one nvcc each, together)."""
     return cuda_build.build({r: pdipm_cuda.SOURCES[r] for r in ROUTES},
                             profile_paths(), pdipm_cuda.BUILD_DIR, flags=PROFILE_FLAGS)
-
-
-def pair_rows_path() -> str:
-    """The .so path of K5e-a's PAIR_ROWS_FLAGS build."""
-    return cuda_build.library_path("pdipm_ric_aug_pack_rows", pdipm_cuda.SOURCES["ric_aug_pack"],
-                                   pdipm_cuda.HEADERS, pdipm_cuda.BUILD_DIR, PAIR_ROWS_FLAGS)
-
-
-def build_pair_rows() -> str:
-    """Build K5e-a's PAIR_ROWS_FLAGS library (one nvcc); return its path."""
-    return cuda_build.build({"ric_aug_pack": pdipm_cuda.SOURCES["ric_aug_pack"]},
-                            {"ric_aug_pack": pair_rows_path()}, pdipm_cuda.BUILD_DIR,
-                            flags=PAIR_ROWS_FLAGS)["ric_aug_pack"]
 
 
 def _profile_library(route: str):
@@ -170,21 +150,6 @@ def turns(qp, opts, old, new, calls: int = 10) -> list:
     new, new, old (`bench_common.device_ms`, median of 3)."""
     run = lambda g: bench_common.device_ms(lambda: solve_in(qp, opts, g), calls, 3)
     return [run(old), run(new), run(new), run(old)]
-
-
-def pair_rows_turns(qp, opts, calls: int = 10) -> tuple:
-    """K5e-a's warp group (`opts` on route ric_aug_pack) with its pairs
-    eliminated by rows and by one warp a pair, in turns: rows, pair, pair,
-    rows (device ms as `turns`); and whether the two give the same bits."""
-    rows = pdipm_cuda.load_library(build_pair_rows(), "ric_aug_pack")
-    geom = pdipm_cuda.geometry("ric_aug_pack")
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-    by_rows = lambda: pdipm_cuda.run_kernel(rows, qp, opts, stream(), geom=geom)
-    by_pair = lambda: solve_in(qp, opts, geom)
-    ms = [bench_common.device_ms(fn, calls, 3) for fn in (by_rows, by_pair, by_pair, by_rows)]
-    a, b = by_rows(), by_pair()
-    same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in ("x", "s", "z", "y", "residuals"))
-    return ms, same
 
 
 def workspace_turns(qp, opts, calls: int = 3) -> list:

@@ -753,18 +753,15 @@ __device__ void gj_pair(const G& g, S* pairs, int T, bool pivot, S* colk, S* pro
 }
 
 // The elimination of gj_inverse_inplace in a warp group (K1's lean layout,
-// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats`: with LD = 12 one
-// after another (stride 144), with LD = 24 the halves of stage pairs [K_L |
-// K_R] (`gj_block`: K5e-a built with -DPDIPM_PAIR_ROWS, the reference its
-// one-warp-a-pair elimination is measured against). The same pivot rule
-// and arithmetic entry for entry, spread over the group by blocks, entries
-// and rows, and no row moved in memory. Step k finds each block's pivot row p (one lane
-// per block); forms its scaled pivot row (old row p) and saves old row k
-// (one lane per entry); then updates every row (one lane per row), row p
-// from old row k, each row's column-k entry read before the row is written.
-// A last pass undoes the swaps as column swaps. prow and rowk hold count *
-// 12 values, piv count * 12 ints.
-template <int LD = NX_, typename S, typename G>
+// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats` (stride 144): the
+// same pivot rule and arithmetic entry for entry, spread over the group by
+// blocks, entries and rows, and no row moved in memory. Step k finds each
+// block's pivot row p (one lane per block); forms its scaled pivot row (old
+// row p) and saves old row k (one lane per entry); then updates every row
+// (one lane per row), row p from old row k, each row's column-k entry read
+// before the row is written. A last pass undoes the swaps as column swaps.
+// prow and rowk hold count * 12 values, piv count * 12 ints.
+template <typename S, typename G>
 __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool recip, S* prow,
                                 S* rowk, int* piv) {
   constexpr int N = NX_;
@@ -772,12 +769,12 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
   for (int k = 0; k < N; ++k) {
     if (pivot) {
       for (int mi = tid; mi < count; mi += nt) {
-        const S* a = mats + gj_block<N, LD>(mi) + k;
+        const S* a = mats + mi * N * N + k;
         int p = k;
-        S best = a[k * LD] < S(0) ? -a[k * LD] : a[k * LD];
+        S best = a[k * N] < S(0) ? -a[k * N] : a[k * N];
 #pragma unroll
         for (int i = 1; i < N; ++i) {  // rows k + 1 .. 11, every load issued up front
-          S v = a[i * LD];
+          S v = a[i * N];
           v = v < S(0) ? -v : v;
           if (i > k && (v > best || (v != v && best == best))) { best = v; p = i; }
         }
@@ -787,18 +784,18 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
     }
     for (int it = tid; it < count * N; it += nt) {
       const int mi = it / N, j = it % N;
-      const S* a = mats + gj_block<N, LD>(mi);
+      const S* a = mats + mi * N * N;
       const int p = pivot ? piv[mi * N + k] : k;
-      const S pv = a[p * LD + k];
+      const S pv = a[p * N + k];
       const S ipv = S(1) / pv;
-      const S apj = a[p * LD + j];
+      const S apj = a[p * N + j];
       prow[it] = j == k ? ipv : (recip ? ipv * apj : apj / pv);
-      rowk[it] = a[k * LD + j];
+      rowk[it] = a[k * N + j];
     }
     g.sync();
     for (int it = tid; it < count * N; it += nt) {
       const int mi = it / N, i = it % N;
-      S* ai = mats + gj_block<N, LD>(mi) + i * LD;
+      S* ai = mats + mi * N * N + i * N;
       const S* pr = prow + mi * N;
       if (i == k) {
 #pragma unroll
@@ -814,7 +811,7 @@ __device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool
   }
   if (!pivot) return;
   for (int it = tid; it < count * N; it += nt) {
-    S* row = LD == N ? mats + it * N : mats + gj_block<N, LD>(it / N) + (it % N) * LD;
+    S* row = mats + it * N;
     const int* pv = piv + (it / N) * N;
     for (int k = N - 1; k >= 0; --k) {
       const int p = pv[k];

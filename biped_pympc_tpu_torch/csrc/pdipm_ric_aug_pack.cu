@@ -29,9 +29,10 @@
 // 168-register cap in f32): the lean layout (37,472 B an env at h10 in f32,
 // 6 envs an SM against 4 blocks: the packed P_t is 8 columns a row, so yc
 // and Ad Q~^-1 Ad^T, formed anew each factor, fit in the union K1 leaves),
-// the pair's halves eliminated one row per lane with no row moved
-// (`gj_inverse_rows` at the pair's stride, both forms), and the y-chain and
-// its sweeps in one warp's registers.
+// each stage pair eliminated in one warp (`gj_pair_warp`: 24 of its 32
+// lanes, one row of a half a lane, both halves in one elimination with no
+// group barrier, both forms), and the y-chain and its sweeps in one warp's
+// registers.
 //
 // Numerics: "apply" is K1's arithmetic per half, so it differs from K1 only
 // in the order of the Bd K^-1 Bd^T sum (the packed 8-column sum here, K1's

@@ -623,12 +623,7 @@ struct RicAugSplit {
         // eliminates its block ("apply"), in place in the pair; no Jacobi
         // scaling (`:800-812`).
         const bool recip = ff.foot_pack == FOOT_PACK_PAIR || (!ff.aug_pivot && ff.gj_inplace);
-#ifdef PDIPM_PAIR_ROWS
-        gj_inverse_rows<2 * NF_>(g, ka, 2 * T, ff.aug_pivot, recip, sm + L.prow, sm + L.rowk,
-                                 piv);
-#else
         gj_pair_warp(g, ka, T, ff.aug_pivot, recip, sm + L.prow, piv);
-#endif
       } else {
         if (ff.jacobi) {
           jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);

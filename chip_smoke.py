@@ -201,21 +201,20 @@ def card_label() -> str:
 
 def build_all() -> list:
     """Build the nine PDIPM libraries, the profile builds of the routes with a
-    warp group (`pdipm_geometry.build_profile`), K5e-a's elimination by rows
-    (`pdipm_geometry.build_pair_rows`), the roofline probes' and the tape's at
-    once (each build function starts its nvcc processes together); return
-    the production libraries' paths, the roofline's and the tape's last."""
+    warp group (`pdipm_geometry.build_profile`), the roofline probes' and the
+    tape's at once (each build function starts its nvcc processes together);
+    return the production libraries' paths, the roofline's and the tape's
+    last."""
     from concurrent.futures import ThreadPoolExecutor
 
     from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(fn) for fn in (pdipm_cuda.build, ab_roofline.build,
-                                              bench_synthetic.build, pg.build_profile,
-                                              pg.build_pair_rows)]
-        pdipm_paths, roofline, tape, _, _ = (f.result() for f in futures)
+                                              bench_synthetic.build, pg.build_profile)]
+        pdipm_paths, roofline, tape, _ = (f.result() for f in futures)
     return sorted(pdipm_paths.values()) + [roofline, tape]
 
 
@@ -688,21 +687,6 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
         used, other = (t[1:3], t[0::3]) if work_b[r, dt] else (t[0::3], t[1:3])
         check(max(used) <= min(other) * 1.05,
               f"{r} {dt}: the layout pdipm_cuda launches is slower than the other: {t}")
-    # K5e-a's stage pairs eliminated one warp a pair (as launched) against
-    # K1's spread by rows, same bits, in turns (pdipm_geometry.pair_rows_turns).
-    pair = {}
-    for dt in dts:
-        for pack in (True, "apply"):
-            pair[dt, pack] = pg.pair_rows_turns(qps_[dt], dataclasses.replace(
-                base["ric_aug_pack"], foot_pack=pack))
-    print(f"[pair elimination] {label}: K5e-a b{B} h{T}, pairs eliminated by rows (K1's "
-          f"spread) / one warp a pair / the same / by rows, ms: "
-          + "; ".join(f"{dt} {'pair' if pack is True else 'apply'} "
-                      + " / ".join(f"{v:.3f}" for v in t) + f" (same bits: {same})"
-                      for (dt, pack), (t, same) in pair.items()))
-    for key, (t, same) in pair.items():
-        check(same, f"K5e-a {key}: the two eliminations give other bits")
-    out["pair"] = pair
     if explore:
         for r in pdipm_cuda.LEAN_ROUTES[:2]:
             qp = qps_["f32"]
@@ -1319,9 +1303,12 @@ def main() -> int:
             roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5b")
-        if tag == "K5a":  # the condensed class's f32 tail in the block group, beside
+        if tag == "K5a":  # the condensed class's f32 tail in the block group, beside;
+            # its u0 tail is printed, its finite share bounded
             blk32 = f32_tail(pg.solve_in(qp32, opts_, pdipm_cuda.BLOCK), plain64_, cv_)[2]
             print(f"[K5a f32 block group vs plain f64] {blk32} (printed)")
+            fin32 = f32_tail(kern32_, plain64_, cv_)[0]
+            check(fin32.mean() >= F32_FINITE_SHARE, f"f32 K5a finite on {fin32.mean():.4f} of envs")
         k5[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_, "plain": plain64_, "cv": cv_}
 
     # 4g. K3 on K5a and K5b: four warm 5-step launches vs one 20-step launch.
@@ -1973,7 +1960,9 @@ def main() -> int:
     # HORIZON_ENVS envs), against the f64 plain version with their class's
     # bounds: K5b and K5d-a as the robust class, f64 on the converged envs,
     # f32 u0 and finiteness; K5a as the condensed class, f64 relative to
-    # max(1, |v|), its f32 finite count and u0 tail printed. The f64 bound
+    # max(1, |v|), f32 finiteness, its f32 u0 tail printed beside the block
+    # group's where the block layout fits (so that a redesign that amplifies
+    # f32 rounding shows). The f64 bound
     # is the larger of the class bound (F64_ATOL absolute, or
     # CONDENSED_F64_RTOL relative) and WITNESS_FACTOR times the plain route's
     # own roundoff there (its f64 solve on the CPU against the same on the
@@ -2016,6 +2005,15 @@ def main() -> int:
             bound_ = max(floor_, WITNESS_FACTOR * w_)
             fin = torch.isfinite(k32_.x).all(1)
             du0 = (k32_.x[:, u0].double() - plain_.x[:, u0]).abs().amax(1)
+            block32 = ""
+            if condensed and pdipm_cuda.smem_bytes(key, T_, torch.float32) <= \
+                    pdipm_cuda.MAX_SMEM_PER_BLOCK:
+                b32 = pg.solve_in(h32, opts_, pdipm_cuda.BLOCK).x
+                bfin = torch.isfinite(b32).all(1)
+                bu0 = (b32[:, u0].double() - plain_.x[:, u0]).abs().amax(1)
+                block32 = (f"; the block group's f32 finite {int(bfin.sum())}/{nb}, u0 |dGRF| "
+                           f"converged finite {quantiles(bu0[cv_ & bfin].cpu().numpy())} "
+                           f"(printed)")
             reps = 2 if T_ <= 20 else 1
             ms32 = cuda_ms(lambda: pdipm_cuda.solve(h32, opts_), reps)
             ms64 = cuda_ms(lambda: pdipm_cuda.solve(h64, opts_), reps)
@@ -2031,13 +2029,13 @@ def main() -> int:
                   f"relative; f32 finite {int(fin.sum())}/{nb}, u0 |dGRF| converged finite "
                   f"{quantiles(du0[cv_ & fin].cpu().numpy())}"
                   f"{' (printed)' if condensed else f' (bound {F32_U0_ATOL})'}, above "
-                  f"{F32_U0_ATOL} N over all finite envs {int((du0[fin] > F32_U0_ATOL).sum())}; "
-                  f"kernel f32 {ms32:.3f} ms, f64 {ms64:.3f} ms; workspace bytes per env "
+                  f"{F32_U0_ATOL} N over all finite envs {int((du0[fin] > F32_U0_ATOL).sum())}"
+                  f"{block32}; kernel f32 {ms32:.3f} ms, f64 {ms64:.3f} ms; workspace bytes per env "
                   f"{work}")
             check(err <= bound_, f"f64 {tag} h{T_} differs from the plain version")
+            check(float(fin.double().mean()) >= F32_FINITE_SHARE,
+                  f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
             if not condensed:
-                check(float(fin.double().mean()) >= F32_FINITE_SHARE,
-                      f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
                 check(float(du0[cv_ & fin].max()) <= F32_U0_ATOL,
                       f"f32 {tag} h{T_} GRF off on converged envs")
 

@@ -201,33 +201,20 @@ def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
                              "ric_dense", "ric_pack", "tridiag", "tridiag_aug"]
 
 
-@pytest.fixture(scope="module")
-def rows_lib(libs, tmp_path_factory):
-    """K5e-a built with `pdipm_geometry.PAIR_ROWS_FLAGS` for the host (after
-    `libs`, which skips without g++)."""
-    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
-
-    out = tmp_path_factory.mktemp("host_build_rows")
-    return pdipm_cuda.load_library(host_build.build(
-        pdipm_cuda.SOURCES["ric_aug_pack"], str(out / "librows.so"),
-        [f[2:] for f in pg.PAIR_ROWS_FLAGS]), "ric_aug_pack")
-
-
 @pytest.mark.parametrize("pack, pivot", [(True, True), ("apply", True), (True, False),
                                          ("apply", False)])
-def test_k5e_a_pair_warp_gives_the_bits_of_the_rows_elimination(libs, rows_lib, pack, pivot):
+def test_k5e_a_pair_warp_matches_the_plain_version(libs, pack, pivot):
     """K5e-a's warp group eliminates each stage pair in one warp
-    (`gj_pair_warp`); built with `pdipm_geometry.PAIR_ROWS_FLAGS` it spreads
-    the elimination by rows as K1's warp group does (`gj_inverse_rows` at
-    the pair's stride): the same arithmetic, so the same bits, in both
-    packings, pivoted or not, f64 and f32, T = 1 (one pair: the second warp
-    idle) and 3."""
+    (`gj_pair_warp`): in both packings, pivoted or not, 4 steps, f64, T = 1
+    (one pair: the second warp idle) and 3 (the first warp two pairs),
+    within 1e-10 of the plain version (NaN where it has NaN: the natural
+    order fails on the stress QPs by design)."""
     opts = _opts("ric_aug_pack", foot_pack=pack, aug_pivot=pivot, iterations=4)
-    for dtype in (torch.float64, torch.float32):
-        for horizon in (1, 3):
-            qp = bench_common.make_qp_batch(2, horizon=horizon, dtype=dtype, device="cpu")
-            a = pdipm_cuda.run_kernel(rows_lib, qp, opts, None)
-            b = pdipm_cuda.run_kernel(libs["ric_aug_pack"], qp, opts, None)
-            for name in ("x", "s", "z", "y", "residuals"):
-                u, v = getattr(a, name), getattr(b, name)
-                assert torch.equal(u.nan_to_num(7.0), v.nan_to_num(7.0)), (name, dtype, horizon)
+    for horizon in (1, 3):
+        qp = _qp(2, horizon)
+        got = pdipm_cuda.run_kernel(libs["ric_aug_pack"], qp, opts, None,
+                                    geom=_geom("ric_aug_pack", "warp"))
+        want = pdipm.solve(qp, opts)
+        for name in ("x", "s", "z", "y", "residuals"):
+            torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0,
+                                       atol=ATOL, equal_nan=True, msg=f"{name} T={horizon}")
