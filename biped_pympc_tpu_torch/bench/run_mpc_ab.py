@@ -1,15 +1,17 @@
 """`MPCController.run_mpc` of another checkout against this one's, on the card.
 
     python -m biped_pympc_tpu_torch.bench.run_mpc_ab DIR [--batch 4096] [--rounds 1]
+        [--paths default,hybrid]
 
 DIR is the root of another checkout of this repo (for instance the parent
 commit, `git archive <commit> | tar -x -C DIR`). Each turn is one process
 started in a checkout's root, on its own package: it builds the
 checkout's kernels (`pdipm_cuda.build`, into the checkout's build
-directory), makes the controller of the default solver and of
-`solver="pallas_hybrid"` at `--batch` envs (HECTOR, walking gait, f32, the
-standing observation) and times one `run_mpc` of each: device ms from CUDA
-events, the mean of 10 calls after a warm-up call, the median of 3. The
+directory), makes the controller of each of `--paths` (keys of `PATHS`: the
+default solver, `solver="pallas_hybrid"`, `"pallas_ric2"`, `"pallas_ric"`
+unsplit) at `--batch` envs (HECTOR, walking gait, f32, the standing
+observation) and times one `run_mpc` of each: device ms from CUDA events,
+the mean of 10 calls after a warm-up call, the median of 3. The
 turns run DIR, this, this, DIR (`--rounds` times), so that a drift of the
 host's load shows as a drift and not as a difference. The last line is
 one JSON object with every turn's times.
@@ -23,11 +25,17 @@ import os
 import subprocess
 import sys
 
+# The controller paths a turn can time: name -> MPCConf keyword arguments.
+PATHS = {"default": {}, "hybrid": {"solver": "pallas_hybrid"},
+         "ric2": {"solver": "pallas_ric2"},
+         "ric_dense": {"solver": "pallas_ric", "solver_foot_split": False}}
+
 # The code of one turn, run by `python -c` in a checkout's root with its
-# root and the batch as arguments; it prints one JSON object.
+# root, the batch and the paths' {name: MPCConf keywords} as arguments; it
+# prints one JSON object.
 TURN = r"""
 import json, sys
-root, batch = sys.argv[1], int(sys.argv[2])
+root, batch, paths = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
 sys.path.insert(0, root)
 import numpy as np
 import torch
@@ -60,8 +68,8 @@ def device_ms(fn, calls=10, reps=3):
 
 
 times = {}
-for name, conf in (("default", MPCConf(verbose=False)),
-                   ("hybrid", MPCConf(solver="pallas_hybrid", verbose=False))):
+for name, kw in paths.items():
+    conf = MPCConf(verbose=False, **kw)
     ctrl = MPCController(ControllerConf(), conf, num_envs=batch, gait_id=2, device="cuda")
     ctrl.set_command(twist, height)
     ctrl.update_state(obs)
@@ -70,10 +78,12 @@ print(json.dumps(times))
 """
 
 
-def turn(root: str, batch: int) -> dict:
-    """{"default": ms, "hybrid": ms} of one turn in the checkout at `root`."""
+def turn(root: str, batch: int, paths) -> dict:
+    """{path: ms} of one turn in the checkout at `root`, for each of `paths`
+    (keys of PATHS)."""
     root = os.path.abspath(root)
-    out = subprocess.run([sys.executable, "-c", TURN, root, str(batch)], capture_output=True,
+    out = subprocess.run([sys.executable, "-c", TURN, root, str(batch),
+                          json.dumps({p: PATHS[p] for p in paths})], capture_output=True,
                          text=True, cwd=root, timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{out.stderr[-4000:]}")
@@ -85,7 +95,13 @@ def main(argv) -> int:
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--paths", default="default,hybrid",
+                    help=f"comma-separated keys of {sorted(PATHS)}")
     args = ap.parse_args(argv)
+    paths = args.paths.split(",")
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        ap.error(f"unknown paths {sorted(unknown)}; known: {sorted(PATHS)}")
     label = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
                            check=True, timeout=60).stdout.strip()
@@ -96,10 +112,10 @@ def main(argv) -> int:
     runs = []
     for _ in range(args.rounds):
         for name, root in order:
-            runs.append({"checkout": name, **turn(root, args.batch)})
-            print(f"[run_mpc ab] {label}: b{args.batch} f32 {name}: run_mpc default "
-                  f"{runs[-1]['default']:.3f} ms, hybrid {runs[-1]['hybrid']:.3f} ms", flush=True)
-    for key in ("default", "hybrid"):
+            runs.append({"checkout": name, **turn(root, args.batch, paths)})
+            print(f"[run_mpc ab] {label}: b{args.batch} f32 {name}: run_mpc "
+                  + ", ".join(f"{p} {runs[-1][p]:.3f} ms" for p in paths), flush=True)
+    for key in paths:
         mean = {n: sum(r[key] for r in runs if r["checkout"] == n)
                 / sum(r["checkout"] == n for r in runs) for n in (tag, "this")}
         print(f"[run_mpc ab] {label}: {key} mean over turns, {tag} {mean[tag]:.3f} ms / this "

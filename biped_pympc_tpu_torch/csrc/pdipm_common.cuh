@@ -16,8 +16,8 @@
 // The threads that work on one env are its group G, a compile-time parameter
 // of the kernel: `BlockGroup`, the whole 128-thread block (one env per
 // block; every route), or `WarpGroup<NW>`, NW warps, one env per block of
-// 32 NW threads (K1 two warps and K2 one, in their lean layouts,
-// pdipm_split.cuh). Every function here
+// 32 NW threads (K1 and K5e-a two warps, K2, K5a, K5b, K5c and K5d-c one,
+// K5d-a four, in their lean layouts). Every function here
 // is called by all threads of the group `g` and spreads its items over
 // g.rank() / g.size(); the ones that end in g.sync() leave the group
 // synchronized. A warp group synchronizes with __syncwarp (NW = 1) or its
@@ -191,9 +191,9 @@ struct LeanPolicy<P, std::void_t<decltype(P::INPUTS_IN_GLOBAL)>> {
 // Shared memory an H100 gives one block, in bytes.
 #define PDIPM_MAX_SMEM 232448
 
-// A policy with WORKSPACE (the warp groups of K5b and K5d-a) keeps its T
-// stored stage inverses in shared memory or in a per-env workspace in
-// device memory that the caller allocates (`uses_workspace` decides):
+// A policy with WORKSPACE (the warp groups of K5b, K5d-a, K5a, K5c and
+// K5d-c) keeps its T stored stage inverses in shared memory or in a per-env
+// workspace in device memory that the caller allocates (`uses_workspace` decides):
 // `make_layout(T, size_of_s, work)` lays the env out without them when
 // `work`, and gives their bytes per env in `work_bytes`; the kernel points
 // the layout's `wk` at its env's slice (null: in shared memory). Every other
@@ -1194,6 +1194,86 @@ __device__ __forceinline__ void gj_warp_columns(int (&q)[R], bool pivot, const i
     const int p = piv[k];
 #pragma unroll
     for (int s = 0; s < R; ++s) q[s] = q[s] == k ? p : (q[s] == p ? k : q[s]);
+  }
+}
+
+// Two N x N blocks (N <= 16) eliminated together in one warp, in registers
+// (K5e-a's stage pairs, K5c's and K5d-c's stage blocks two at a time): lane
+// 16 h + i holds row i of block h in `a` (lanes i >= N idle: they hold a
+// copy of row N - 1, search no pivot and store nothing), and no row moves.
+// Step k finds each block's pivot by a shuffle argmax over its 16 lanes
+// (`pivot_before`: the first position >= k of largest |entry|, NaN first,
+// as gj_inverse_inplace scans), or takes position k; every lane of the
+// block reads the pivot row by __shfl_sync, scales it (times the pivot's
+// reciprocal when `recip`, else each lane divides its own column's entry
+// by the pivot and passes it round; the pivot entry 1 / pivot), and updates
+// its row: the pivot row takes the scaled row, every other row r_j - c pr_j
+// (-c / pivot in column k). No shared memory and no barrier: the shuffles
+// carry every exchange. gj_inverse_inplace's arithmetic entry for entry.
+// On exit `pos` is the position of this lane's row in the swapped block (N:
+// idle) and `q` the inverse's column of elimination column i: entry
+// (pos, q of lane 16 h + j) of the inverse is a[j] (without `pivot`, pos =
+// q = i).
+template <int N, typename S>
+__device__ __forceinline__ void gj_pair_regs(S (&a)[N], bool pivot, bool recip, int& pos,
+                                             int& q) {
+  static_assert(N <= 16, "a block's rows fit the 16 lanes of a half warp");
+  const int lane = threadIdx.x & 31, h = lane >> 4, i = lane & 15;
+  const bool live = i < N;
+  int pk[N];  // the pivot position of each step, the same in every lane of the block
+  pos = live ? i : N;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const S ck = a[k];
+    int p = k, src = k;  // the pivot's position, and the lane (in the half) holding it
+    if (pivot) {
+      S best = S(0);
+      int who = N;  // position | lane << 8 of the best candidate (N: none yet)
+      const S v = ck < S(0) ? -ck : ck;
+      if (live && pos >= k && pivot_before<S, N>(v, pos, best, who)) {
+        best = v;
+        who = pos | (i << 8);
+      }
+#pragma unroll
+      for (int m = 8; m > 0; m >>= 1) {
+        const S ob = __shfl_xor_sync(0xffffffffu, best, m);
+        const int ow = __shfl_xor_sync(0xffffffffu, who, m);
+        if (pivot_before<S, N>(ob, ow & 255, best, who & 255)) {
+          best = ob;
+          who = ow;
+        }
+      }
+      p = who & 255;
+      src = who >> 8;
+    }
+    pk[k] = p;
+    const int sl = (h << 4) | src;
+    S pr[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) pr[j] = __shfl_sync(0xffffffffu, a[j], sl);
+    const S pvt = pr[k];
+    const S ipv = S(1) / pvt;
+    if (recip) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) pr[j] = j == k ? ipv : ipv * pr[j];
+    } else {
+      S own = S(0);
+#pragma unroll
+      for (int j = 0; j < N; ++j) own = j == i ? pr[j] : own;
+      own = i == k ? ipv : own / pvt;
+#pragma unroll
+      for (int j = 0; j < N; ++j) pr[j] = __shfl_sync(0xffffffffu, own, (h << 4) | j);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[j] = i == src ? pr[j] : (j == k ? -ck * pr[j] : a[j] - ck * pr[j]);
+    pos = pos == k ? p : (pos == p ? k : pos);
+  }
+  // Column i of the elimination is column q of the inverse: the row swaps
+  // undone as column swaps, last first.
+  q = i;
+  if (pivot) {
+#pragma unroll
+    for (int k = N - 1; k >= 0; --k) q = q == k ? pk[k] : (q == pk[k] ? k : q);
   }
 }
 

@@ -1,5 +1,7 @@
 // Fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP on the rank-2
-// condensed route (K5c), one thread block per env.
+// condensed route (K5c): one warp per env (`Ric2Warp`, pdipm_riccati.cuh),
+// or, for comparison, one 128-thread block per env (`Ric2`, the kernel
+// before).
 //
 // Replaces: biped_pympc_tpu/ops/pdipm_pallas.py `_pdipm_kernel` (:308) on its
 // backend="ric2" route: `factor_ric2` (:839) and `_kinv2_apply` (:885), the
@@ -23,14 +25,24 @@
 //
 // What bounds it on an H100: as the other Riccati routes (pdipm_ric_aug.cu),
 // an env reads 1,260 values and writes 704, so the kernel is bound by the
-// latency and barriers of small dependent eliminations, not by bandwidth.
-// Its stage work is T 12-wide inverses per step, eliminated together (12
-// barrier steps), against K2's 2T 4x4 ones per thread.
+// latency of one env's chain of small dependent eliminations, not by
+// bandwidth. In the block group the T 12-wide inverses were eliminated
+// together in 12 steps of two block barriers each, one thread a block
+// forming each pivot row, and the y-chain took two barriers a step.
 //
-// What the design does about that: every value of an env lives in the
-// block's dynamic shared memory for the whole solve; the T stage blocks are
-// independent and share each Jordan step's barrier; each K^-1 row recomputes
-// the two E Ru^-1 r entries it needs instead of waiting at a barrier for them.
+// What the design does about that: one warp an env, in K2's lean layout
+// (f, b, d in device memory, the refinement in place, a factor / solve
+// union; 26,880 B at h10 in f32), the T stage records (Ru^-1, E Ru^-1 and
+// S^-1, 6,880 B) in a device-memory workspace wherever that puts more envs
+// on an SM (8 against 6 at h10 in f32; the block group holds 4), so every
+// horizon runs up to 94 (f32) and 46 (f64), against 46 and 23 in the block
+// layout, which stays in this library for comparison. The warp builds and
+// eliminates two stage blocks at a time in registers, a row a lane, the
+// pivot row passed by shuffle (`gj_pair_regs`, no barrier in the chain),
+// forms S^-1, (K^-1)_uu, P_t and Y'_t in registers (rows 6 and 9 of Ru^-1
+// and the rows of (K^-1)_uu broadcast by shuffle), runs the y-chain and the
+// sweeps in registers, and forms S^-1 (r_nu - E Ru^-1 r_u) once a stage
+// before each K^-1 apply (`prep`) rather than once a row.
 //
 // Numerics: the 2x2 determinant sa * sc - sb * sb, with Ru^-1[6,6] ~
 // 1 / (r + beta) ~ 1e4, follows the JAX formula as written. Ru carries
@@ -132,10 +144,13 @@ struct Ric2 {
   }
 };
 
+// The warp group: one warp an env, two stage blocks at a time (pdipm_riccati.cuh).
+struct Ric2Warp : RicCondWarp<true> {};
+
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes, for horizon T and a value
-// size of 4 (float) or 8 (double).
+// Dynamic shared memory of one block of the block group, in bytes, for
+// horizon T and a value size of 4 (float) or 8 (double).
 size_t pdipm_ric2_smem_bytes(int T, int value_size) {
   return Ric2::make_layout(T, value_size).bytes;
 }
@@ -160,6 +175,58 @@ int pdipm_ric2_f64(const void* hd, const void* f, const void* ad, const void* bd
                    const PdipmArgs* args, void* stream) {
   return launch<Ric2, double>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y, res, go,
                               ran, batch, T, args, stream);
+}
+
+#ifdef PDIPM_PROFILE
+// The clock64() breakdown of the last launch (a PDIPM_PROFILE build): n envs
+// x PH_COUNT cycles into `out`, then cleared; a cudaError_t.
+int pdipm_ric2_profile_read(void* out, int n) { return prof_read(out, n); }
+#endif
+
+// One env's shared memory in the warp group, in bytes, and the workspace
+// per env in bytes: 0 when the stage records stay in shared memory
+// (`uses_workspace`, pdipm_common.cuh), unless `force`.
+size_t pdipm_ric2_lean_bytes(int T, int value_size) {
+  return lean_bytes<Ric2Warp, WarpGroup<1>>(T, value_size);
+}
+
+size_t pdipm_ric2_work_bytes(int T, int value_size, int force) {
+  return work_bytes<Ric2Warp, WarpGroup<1>>(T, value_size, force != 0);
+}
+
+// Resident envs per SM of the block group (mode 0), of the warp group as it
+// launches (1) or with the stage records in the workspace (2), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+int pdipm_ric2_envs_per_sm(int T, int value_size, int mode) {
+  if (mode == 0)
+    return value_size == 4 ? envs_per_sm<Ric2, float, BlockGroup>(T)
+                           : envs_per_sm<Ric2, double, BlockGroup>(T);
+  const bool work = mode == 2 || work_bytes<Ric2Warp, WarpGroup<1>>(T, value_size, false) > 0;
+  return value_size == 4 ? envs_per_sm<Ric2Warp, float, WarpGroup<1>>(T, work)
+                         : envs_per_sm<Ric2Warp, double, WarpGroup<1>>(T, work);
+}
+
+// The same solve in the route's warp group, one warp per env, one env per
+// block, in its lean layout; `work` is batch x `pdipm_ric2_work_bytes`
+// bytes of device memory for the stage records, or null to keep them in
+// shared memory. refine_df must be 0, as on the block entry.
+int pdipm_ric2_warp_f32(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, void* work) {
+  return launch<Ric2Warp, float, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z, y,
+                                        res, go, ran, batch, T, args, stream, work);
+}
+
+int pdipm_ric2_warp_f64(const void* hd, const void* f, const void* ad, const void* bd,
+                  const void* b, const void* gu, const void* d, const void* x0,
+                  const void* s0, const void* z0, const void* y0, void* x, void* s, void* z,
+                  void* y, void* res, const void* go, void* ran, int batch, int T,
+                  const PdipmArgs* args, void* stream, void* work) {
+  return launch<Ric2Warp, double, WarpGroup<1>>(hd, f, ad, bd, b, gu, d, x0, s0, z0, y0, x, s, z,
+                                         y, res, go, ran, batch, T, args, stream, work);
 }
 
 const char* pdipm_ric2_error_string(int err) {

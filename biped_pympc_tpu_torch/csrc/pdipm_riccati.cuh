@@ -1,7 +1,8 @@
 // The Riccati routes' shared pieces: the solve's constants, the one reduced
 // solve through the stage inverses and the 12-wide dual-Riccati y-chain, the
-// y-chain's factor from P_t = Bd (K_t^-1)_uu, and the layout and policy of
-// the unsplit routes (K5d). Included by pdipm_ric_aug.cu (K1),
+// y-chain's factor from P_t = Bd (K_t^-1)_uu, the layout and policy of the
+// unsplit routes (K5d), K5d-a's warp group, and the one-warp groups of the
+// condensed dense-stage routes (K5c, K5d-c). Included by pdipm_ric_aug.cu (K1),
 // pdipm_ric.cu (K2), pdipm_ric2.cu (K5c), pdipm_ric_dense.cu (K5d-c) and
 // pdipm_ric_aug_dense.cu (K5d-a).
 //
@@ -132,8 +133,20 @@ __device__ void y_chain_from_kuu(const G& g, S* sm, const Layout& L, const S* ku
 // ---------------------------------------------------------------------------
 // One reduced solve of route P through its stage inverses (P::kinv_row) and
 // the y-chain: (r1, r4) -> (dx, dy) condensed, (r1, rz, r4) -> (dx, dz, dy)
-// augmented (`ric_solve:929`, `ric_solve_aug:1061`).
+// augmented (`ric_solve:929`, `ric_solve_aug:1061`). A policy with
+// STAGE_PREP (K5c's warp group) forms what every row of a stage shares,
+// `P::prep(g, sm, L, run, NR)`, before each pass of kinv_row over the stage
+// rhs `run`; every other policy has no such member.
 // ---------------------------------------------------------------------------
+template <typename P, typename = void>
+struct StagePrep {
+  static constexpr bool value = false;
+};
+template <typename P>
+struct StagePrep<P, std::void_t<decltype(P::STAGE_PREP)>> {
+  static constexpr bool value = P::STAGE_PREP;
+};
+
 template <typename P, typename S, typename Layout, typename G>
 __device__ void riccati_solve(const G& grp, S* sm, const Layout& L, const S* r1, const S* rz,
                               const S* r4, S* dx, S* dz, S* dy) {
@@ -171,6 +184,7 @@ __device__ void riccati_solve(const G& grp, S* sm, const Layout& L, const S* r1,
     }
   }
   grp.sync();
+  if constexpr (StagePrep<P>::value) P::prep(grp, sm, L, run, NR);
   // u rows of K^-1 r_un
   for (int it = tid; it < T * NU_; it += nt) {
     const int t = it / NU_, o = it % NU_;
@@ -200,6 +214,7 @@ __device__ void riccati_solve(const G& grp, S* sm, const Layout& L, const S* r1,
     run[t * NR + r] += acc;
   }
   grp.sync();
+  if constexpr (StagePrep<P>::value) P::prep(grp, sm, L, run, NR);
   // [u, (z,) nu] = K^-1 rhs; x_{t+1} = Q~^-1 (c_t - y_t + Ad^T y_{t+1}); y.
   for (int it = tid; it < T * NR + T * NX_; it += nt) {
     if (it < T * NR) {
@@ -372,6 +387,13 @@ struct RicDenseRoute {
   }
 };
 
+// The T stored stage inverses of a lean layout with a workspace (K5d-a's,
+// K5c's and K5d-c's): the env's workspace slice `wk`, or ka in shared memory.
+template <typename S, typename Layout>
+__device__ __forceinline__ S* stage_inverses(S* sm, const Layout& L) {
+  return L.wk != nullptr ? reinterpret_cast<S*>(L.wk) : sm + L.ka;
+}
+
 // ---------------------------------------------------------------------------
 // K5d-a in its warp group (`RicAugDenseWarp`, four warps an env): the T stage
 // blocks are independent, so warp w builds and inverts stages w, w + 4, ...
@@ -472,11 +494,6 @@ struct RicAugDenseWarp {
     return make_ric_aug_dense_lean_layout(T, size_of_s, NW, work);
   }
 
-  template <typename S>
-  static __device__ __forceinline__ const S* inverses(const S* sm, const Layout& L) {
-    return L.wk != nullptr ? reinterpret_cast<const S*>(L.wk) : sm + L.ka;
-  }
-
   template <typename S, typename G>
   static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
     riccati_setup<false, false>(g, sm, L, beta, delta);
@@ -486,7 +503,7 @@ struct RicAugDenseWarp {
   template <typename S>
   static __device__ __forceinline__ S kinv_row(const S* sm, const Layout& L, int t, int o,
                                                const S* r) {
-    const S* k = inverses(sm, L) + (size_t)t * N * N + o;
+    const S* k = stage_inverses(sm, L) + (size_t)t * N * N + o;
     S acc = S(0);
     for (int j = 0; j < N; ++j) acc += k[j * N] * r[j];
     return acc;
@@ -501,7 +518,7 @@ struct RicAugDenseWarp {
     const S* hd_u = sm + L.hd + NX_ * T;
     const S* gu = sm + L.gu;
     const S* bd = sm + L.bd;
-    S* kb = const_cast<S*>(inverses(sm, L));
+    S* kb = stage_inverses(sm, L);
     const bool pivot = ff.aug_pivot, jacobi = ff.jacobi;
     int* wpiv = piv + warp * N;
     const int rr = lane < N ? lane : N - 1;  // idle lanes read row N - 1
@@ -554,5 +571,289 @@ struct RicAugDenseWarp {
   static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
                                const S* r4, S* dx, S* dz, S* dy) {
     riccati_solve<RicAugDenseWarp>(g, sm, L, r1, rz, r4, dx, dz, dy);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K5c and K5d-c in their warp group (`RicCondWarp<true>` = `Ric2Warp`,
+// `RicCondWarp<false>` = `RicDenseWarp`; `WarpGroup<1>`, one warp an env):
+// the T stage blocks are independent, so the warp builds and eliminates two
+// at a time in registers, lane 16 h + i holding row i of stage t0 + h
+// (`gj_pair_regs`: no shared memory and no barrier in the N-step chain; an
+// odd T leaves the second half idle on the last pair), equilibrated around
+// the inverse when `jacobi`, K5d-c pivoted when `k_pivot`. Each stage's
+// record goes to shared memory or to the caller's workspace (`WORKSPACE`,
+// pdipm_common.cuh), transposed (entry (r, c) at c N + r) so that a warp's
+// lanes read neighbouring values in the K^-1 applies: K5c's Ru^-1 with E
+// Ru^-1 (its rows 6 and 9) and the closed-form 2x2 S^-1, K5d-c's 14 x 14
+// K^-1. Then, still in registers, (K^-1)_uu (K5c: the rank-2 update of Ru^-1
+// from rows 6 and 9, broadcast by shuffle), P_t = Bd (K^-1)_uu (the rows of
+// (K^-1)_uu passed by shuffle) and Y'_t, row i in lane i, into the union;
+// the y-chain and the sweeps run in registers (`dual_riccati_chain_regs`,
+// `y_sweeps_regs`). Every sum runs in the block group's order. K5c forms
+// S^-1 (r_nu - E Ru^-1 r_u) once a stage before each pass of kinv_row
+// (`prep`), where the block group forms it again for each row. Two blocks a
+// warp, not one (`gj_warp`): both fit 16 lanes, so each elimination step
+// serves two stages, as one warp a stage pair did for K5e-a (PERF.md,
+// Findings). No register cap (`REGS32`): shared memory admits 8 envs an SM
+// in f32, and 8 one-warp blocks fit the register file at 255 a thread.
+// ---------------------------------------------------------------------------
+struct RicCondLeanLayout : RicLayout {
+  int eta;            // K5c: the T stages' S^-1 (r_nu - E Ru^-1 r_u), 2 values each
+  size_t work_bytes;  // the T stage records' bytes when in the workspace
+  unsigned char* wk;  // this env's workspace slice; null: the records at ka
+};
+
+// The condensed lean layout of K5c and K5d-c, as K2's (`RicSplit<false,
+// true>`): f, b and d left in device memory; the refinement solved in place
+// (ex = e1, ey = e4); r1_hat in r1, r2 and r3 in dsc and dzc (each read entry
+// by entry where the solve writes the entry that replaces it); the T stage
+// records of `rec` values at ka, or (`work`) in the workspace; and one union
+// region for what a Newton step needs only inside the factor (Y'_t, Ad Q~^-1
+// Ad^T, formed anew each factor, and the chain's q1) and only after it (the
+// rhs, refinement, directions and sweep buffers, K5c's `eta`).
+static __host__ __device__ RicCondLeanLayout make_ric_cond_lean_layout(int T, int size_of_s,
+                                                                     int rec, bool eta,
+                                                                     bool work) {
+  RicCondLeanLayout L;
+  L.T = T;
+  L.nz = 24 * T;
+  L.ni = 16 * T;
+  L.ne = 14 * T;
+  int o = 0;
+  L.hd = take(o, L.nz); L.f = take(o, 0); L.ad = take(o, 144); L.bd = take(o, 144);
+  L.b = take(o, 0); L.gu = take(o, NI_ * NU_); L.d = take(o, 0);
+  L.x = take(o, L.nz); L.s = take(o, L.ni); L.z = take(o, L.ni); L.y = take(o, L.ne);
+  L.rx = take(o, L.nz); L.rs = take(o, L.ni); L.re = take(o, L.ne);
+  L.sig = take(o, L.ni); L.w = take(o, L.ni);
+  L.qinv = take(o, NX_); L.sc = take(o, 144);
+  L.ka = take(o, work ? 0 : T * rec); L.kuu = L.sn = take(o, 0);
+  L.m = take(o, T * 144); L.red = take(o, 4);
+  L.colk = L.prow = L.p = L.rz = L.ez = L.ezz = take(o, 0);
+  const int u = o;
+  L.r1 = take(o, L.nz); L.r1h = L.r1; L.r4 = take(o, L.ne); L.tmp = take(o, L.ni);
+  L.e1 = take(o, L.nz); L.e4 = take(o, L.ne); L.ex = L.e1; L.ey = L.e4;
+  L.dxa = take(o, L.nz); L.dsa = take(o, L.ni); L.dza = take(o, L.ni); L.dya = take(o, L.ne);
+  L.dxc = take(o, L.nz); L.dsc = take(o, L.ni); L.dzc = take(o, L.ni); L.dyc = take(o, L.ne);
+  L.r2 = L.dsc; L.r3 = L.dzc;
+  L.run = take(o, T * NUN_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
+  L.wy = take(o, T * NX_); L.v12 = take(o, 0); L.eta = take(o, eta ? 2 * T : 0);
+  int f = u;  // the factor's side of the union
+  L.yp = take(f, T * 144); L.q1 = take(f, 144); L.adqad = take(f, 144);
+  o = o > f ? o : f;
+  L.total = o;
+  L.piv = o * size_of_s;
+  L.bytes = (size_t)L.piv;
+  L.work_bytes = work ? (size_t)T * rec * size_of_s : 0;
+  L.wk = nullptr;
+  return L;
+}
+
+// Entry (r, c) < 12 of stage t's condensed u block R + beta + G^T W_t^-1 G,
+// term for term the block group's (`Ric2::factor`, `RicDenseRoute::factor`);
+// hd_u = hd + 12 T, wt = W_t^-1.
+template <typename S>
+__device__ __forceinline__ S ric_u_entry(int r, int c, const S* hd_u, const S* gu, const S* wt,
+                                         S beta) {
+  S acc = S(0);
+  for (int q = 0; q < NI_; ++q) acc += gu[q * NU_ + r] * gu[q * NU_ + c] * wt[q];
+  return r == c ? acc + (hd_u[r] + beta) : acc;
+}
+
+// Entry (r, c) of stage t's eliminated block: Ru (K5c, 12 wide) or the
+// [u, nu] block [[Ru, e^T], [e, -delta I]] (K5d-c, 14 wide).
+template <bool RIC2, typename S>
+__device__ __forceinline__ S ric_cond_entry(int r, int c, const S* hd_u, const S* gu,
+                                            const S* wt, S beta, S delta) {
+  constexpr int N = NUN_;
+  if (RIC2 || (r < NU_ && c < NU_)) return ric_u_entry(r, c, hd_u, gu, wt, beta);
+  if (r < NU_) return (r == 6 && c == N - 2) || (r == 9 && c == N - 1) ? S(1) : S(0);  // e^T
+  if (c < NU_) return (c == 6 && r == N - 2) || (c == 9 && r == N - 1) ? S(1) : S(0);  // e
+  return r == c ? -delta : S(0);  // nu block
+}
+
+template <bool RIC2>
+struct RicCondWarp {
+  static constexpr bool AUG = false;
+  static constexpr int N = RIC2 ? NU_ : NUN_;  // the eliminated block's width
+  // A stage's record: K5c's Ru^-1, E Ru^-1 and S^-1; K5d-c's K^-1.
+  static constexpr int EROW = N * N, SINV = EROW + 2 * NU_;
+  static constexpr int REC = RIC2 ? SINV + 4 : N * N;
+  // pdipm_common.cuh's LeanPolicy (f, b, d in device memory), WorkPolicy and
+  // StagePrep above (K5c)
+  static constexpr bool INPUTS_IN_GLOBAL = true, RESIDUALS_FORMED = false;
+  static constexpr bool WORKSPACE = true;
+  static constexpr bool STAGE_PREP = RIC2;
+  using Layout = RicCondLeanLayout;
+
+  static __host__ __device__ Layout make_layout(int T, int size_of_s, bool work = false) {
+    return make_ric_cond_lean_layout(T, size_of_s, REC, RIC2, work);
+  }
+
+  template <typename S, typename G>
+  static __device__ void setup(const G& g, S* sm, const Layout& L, S beta, S delta) {
+    riccati_setup<false, false>(g, sm, L, beta, delta);
+  }
+
+  // K5c: eta_t = S^-1 (r_nu - E Ru^-1 r_u) of every stage (`_kinv2_apply`'s
+  // nu part), the block group's sums; ends synchronized.
+  template <typename S, typename G>
+  static __device__ void prep(const G& g, S* sm, const Layout& L, const S* run, int nr) {
+    const S* rec = stage_inverses(sm, L);
+    for (int t = g.rank(); t < L.T; t += g.size()) {
+      const S* er = rec + (size_t)t * REC + EROW;
+      const S* sn = rec + (size_t)t * REC + SINV;
+      const S* r = run + t * nr;
+      S t6 = S(0), t9 = S(0);
+      for (int j = 0; j < NU_; ++j) t6 += er[j] * r[j];
+      for (int j = 0; j < NU_; ++j) t9 += er[NU_ + j] * r[j];
+      const S e0 = r[NU_] - t6, e1 = r[NU_ + 1] - t9;
+      sm[L.eta + 2 * t] = sn[0] * e0 + sn[1] * e1;
+      sm[L.eta + 2 * t + 1] = sn[2] * e0 + sn[3] * e1;
+    }
+    g.sync();
+  }
+
+  // Row o (< 14) of K_t^-1 r through the transposed record: K5c by the
+  // block formula, du = Ru^-1 r_u - (E Ru^-1)^T eta, with eta from `prep`.
+  template <typename S>
+  static __device__ __forceinline__ S kinv_row(const S* sm, const Layout& L, int t, int o,
+                                               const S* r) {
+    const S* k = stage_inverses(sm, L) + (size_t)t * REC;
+    if constexpr (RIC2) {
+      const S* eta = sm + L.eta + 2 * t;
+      if (o >= NU_) return eta[o - NU_];
+      S t1 = S(0);
+      for (int j = 0; j < NU_; ++j) t1 += k[j * N + o] * r[j];
+      return t1 - (k[EROW + o] * eta[0] + k[EROW + NU_ + o] * eta[1]);
+    } else {
+      S acc = S(0);
+      for (int j = 0; j < N; ++j) acc += k[j * N + o] * r[j];
+      return acc;
+    }
+  }
+
+  template <typename S, typename G>
+  static __device__ void factor(const G& g, S* sm, const Layout& L, int* piv, S beta, S delta,
+                                FactorFlags ff) {
+    static_assert(G::THREADS == 32, "one warp an env, two stage blocks at a time");
+    const int lane = g.rank(), h = lane >> 4, i = lane & 15, T = L.T;
+    const int row = i < N ? i : N - 1;     // idle lanes hold a copy of row N - 1
+    const int yi = i < NX_ ? i : NX_ - 1;  // ... and of Y'_t's row 11
+    const S* hd_u = sm + L.hd + NX_ * T;
+    const S* gu = sm + L.gu;
+    const S* bd = sm + L.bd;
+    const S* qinv = sm + L.qinv;
+    S* rec = stage_inverses(sm, L);
+    const bool pivot = !RIC2 && ff.k_pivot, jacobi = ff.jacobi;
+    // Ad Q~^-1 Ad^T into the union, as riccati_setup forms it.
+    for (int k = lane; k < 144; k += 32) sm[L.adqad + k] = adqad_entry(sm, L, k / NX_, k % NX_);
+    for (int t0 = 0; t0 < T; t0 += 2) {
+      const bool on = t0 + h < T;      // an idle half (odd T) redoes stage t0 and stores nothing
+      const int t = on ? t0 + h : t0;
+      const S* wt = sm + L.w + t * NI_;
+      S a[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) a[c] = ric_cond_entry<RIC2>(row, c, hd_u, gu, wt, beta, delta);
+      // Jacobi: K^-1 = D (D K D)^-1 D, D = 1 / sqrt(max(|diag K|, 1e-30)),
+      // each entry scaled as (k_ij d_i) d_j (`jacobi_apply`).
+      S dl = S(1);
+      if (jacobi) {
+        S dg = S(0);
+#pragma unroll
+        for (int c = 0; c < N; ++c) dg = c == row ? a[c] : dg;
+        dl = jacobi_d(dg);
+#pragma unroll
+        for (int c = 0; c < N; ++c)
+          a[c] = a[c] * dl * __shfl_sync(0xffffffffu, dl, (h << 4) | c);
+      }
+      int pos, q;
+      gj_pair_regs<N>(a, pivot, !pivot && ff.gj_inplace, pos, q);
+      // The record: entry (pos, column q of lane j) is a[j], scaled back.
+      const S dr = jacobi ? __shfl_sync(0xffffffffu, dl, (h << 4) | (pos < N ? pos : 0)) : S(1);
+      S* kt = rec + (size_t)t * REC;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int c = pivot ? __shfl_sync(0xffffffffu, q, (h << 4) | j) : j;
+        if (jacobi) a[j] = a[j] * dr * __shfl_sync(0xffffffffu, dl, (h << 4) | c);
+        if (on && pos < N) kt[c * N + pos] = a[j];
+      }
+      // Row yi of (K^-1)_uu.
+      S ku[NU_];
+      if constexpr (RIC2) {
+        // S = -delta I - E Ru^-1 E^T in closed form; (K^-1)_uu = Ru^-1 +
+        // (E Ru^-1)^T S^-1 (E Ru^-1), rows 6 and 9 of Ru^-1 from their lanes.
+        S r6[NU_], r9[NU_];
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) {
+          r6[j] = __shfl_sync(0xffffffffu, a[j], (h << 4) | 6);
+          r9[j] = __shfl_sync(0xffffffffu, a[j], (h << 4) | 9);
+        }
+        const S sa = -delta - r6[6];
+        const S sb = -r6[9];
+        const S sc = -delta - r9[9];
+        const S det = sa * sc - sb * sb;
+        const S s0 = sc / det, s1 = -sb / det, s2 = -sb / det, s3 = sa / det;
+        S e6 = S(0), e9 = S(0);  // Ru^-1[6][yi], Ru^-1[9][yi]
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) {
+          e6 = j == yi ? r6[j] : e6;
+          e9 = j == yi ? r9[j] : e9;
+        }
+        if (on && i < NU_) {
+          kt[EROW + i] = e6;
+          kt[EROW + NU_ + i] = e9;
+        }
+        if (on && i < 4) kt[SINV + i] = i == 0 ? s0 : (i == 1 ? s1 : (i == 2 ? s2 : s3));
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) {
+          const S si0 = s0 * r6[j] + s1 * r9[j];
+          const S si1 = s2 * r6[j] + s3 * r9[j];
+          ku[j] = a[j] + (e6 * si0 + e9 * si1);
+        }
+      } else if (pivot) {
+        // The rows are permuted in the lanes: read row yi back from the record.
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) ku[j] = kt[j * N + yi];
+      } else {
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) ku[j] = a[j];
+      }
+      PDIPM_MARK(g, PH_FOOT);
+      // P_t = Bd (K^-1)_uu, row yi, and Y'_t = -delta I - Q~^-1 - P_t Bd^T -
+      // [t >= 1] Ad Q~^-1 Ad^T (`y_chain_from_kuu`, `y_chain_from_p`).
+      S p[NX_];
+#pragma unroll
+      for (int c = 0; c < NX_; ++c) p[c] = S(0);
+#pragma unroll
+      for (int j = 0; j < NU_; ++j) {
+        const S b = bd[yi * NU_ + j];
+#pragma unroll
+        for (int c = 0; c < NX_; ++c) p[c] += b * __shfl_sync(0xffffffffu, ku[c], (h << 4) | j);
+      }
+      __syncwarp();  // Ad Q~^-1 Ad^T
+      S* yt = sm + L.yp + t * 144 + yi * NX_;
+#pragma unroll
+      for (int l = 0; l < NX_; ++l) {
+        S bkb = S(0);
+#pragma unroll
+        for (int j = 0; j < NU_; ++j) bkb += p[j] * bd[l * NU_ + j];
+        S v = yi == l ? -delta - qinv[yi] : S(0);
+        v -= bkb;
+        if (t >= 1) v -= sm[L.adqad + yi * NX_ + l];
+        if (on && i < NX_) yt[l] = v;
+      }
+      PDIPM_MARK(g, PH_PT);
+    }
+    g.sync();
+    dual_riccati_chain_regs(g, sm + L.yp, sm + L.m, sm + L.sc, T, ff.gj_inplace, sm + L.q1);
+    PDIPM_MARK(g, PH_YCHAIN);
+  }
+
+  template <typename S, typename G>
+  static __device__ void solve(const G& g, S* sm, const Layout& L, const S* r1, const S* rz,
+                               const S* r4, S* dx, S* dz, S* dy) {
+    riccati_solve<RicCondWarp>(g, sm, L, r1, rz, r4, dx, dz, dy);
   }
 };

@@ -328,88 +328,24 @@ static constexpr int NF_ = 12;  // width of a foot block [F (3), M_y (1), z_f (8
 
 // K5e-a's elimination of its T stage pairs [K_L | K_R] (12 rows of 24
 // values at `pairs`) in its warp group, one warp a stage pair: lane 16 h + i
-// (i < 12) holds row i of half h in registers, so both halves run in one
-// elimination and no step waits on a group barrier. Per step k each half
-// finds its pivot by a shuffle argmax over its 16 lanes (`pivot_before`:
-// the first position >= k of largest |entry|, NaN first, as
-// gj_inverse_inplace scans), passes the pivot row through the warp's
-// shared-memory row (24 values at `rows`: the pivot lane stores it, the
-// lane of each column scales that entry, every lane reads it back, as
-// `gj_warp` does) and updates its row; no row moves, each lane keeps its
-// row's position, and the columns are unpermuted as the rows are stored.
-// gj_inverse_inplace's arithmetic entry for entry: the pivot row times the
-// pivot's reciprocal when `recip`, else divided by the pivot, its pivot
-// entry 1 / pivot. rows holds 24 values and piv 24 ints per warp.
+// (i < 12) loads row i of half h, so both halves run in one elimination in
+// registers (`gj_pair_regs`: a shuffle argmax per pivot, the pivot row passed
+// by shuffles, no shared memory or barrier in the chain), and stores its row
+// at its position with the columns unpermuted. gj_inverse_inplace's
+// arithmetic entry for entry: the pivot row times the pivot's reciprocal
+// when `recip`, else divided by the pivot, its pivot entry 1 / pivot.
 template <typename S, typename G>
-__device__ void gj_pair_warp(const G& g, S* pairs, int T, bool pivot, bool recip, S* rows,
-                             int* piv) {
+__device__ void gj_pair_warp(const G& g, S* pairs, int T, bool pivot, bool recip) {
   constexpr int N = NF_, LD = 2 * NF_;
   const int warp = g.rank() >> 5, lane = g.rank() & 31, h = lane >> 4, i = lane & 15;
   const bool live = i < N;
-  S* row = rows + warp * LD + h * N;  // this half's pivot row
-  int* pv = piv + warp * LD + h * N;  // this half's pivot positions
   for (int t = warp; t < T; t += G::THREADS / 32) {
     S* half = pairs + t * N * LD + h * N;
     S a[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) a[j] = half[(live ? i : N - 1) * LD + j];
-    int pos = live ? i : N;  // the row's position in the swapped half; N: idle
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const S ck = a[k];
-      int p = k, src = k;  // the pivot's position, and the lane (in the half) holding it
-      if (pivot) {
-        S best = S(0);
-        int who = N;  // position | lane << 8 of the best candidate (N: none yet)
-        const S v = ck < S(0) ? -ck : ck;
-        if (live && pos >= k && pivot_before<S, N>(v, pos, best, who)) {
-          best = v;
-          who = pos | (i << 8);
-        }
-#pragma unroll
-        for (int m = 8; m > 0; m >>= 1) {
-          const S ob = __shfl_xor_sync(0xffffffffu, best, m);
-          const int ow = __shfl_xor_sync(0xffffffffu, who, m);
-          if (pivot_before<S, N>(ob, ow & 255, best, who & 255)) {
-            best = ob;
-            who = ow;
-          }
-        }
-        p = who & 255;
-        src = who >> 8;
-        if (i == 0) pv[k] = p;
-      }
-      const S pvt = __shfl_sync(0xffffffffu, ck, (h << 4) | src);
-      const S ipv = S(1) / pvt;
-      if (i == src) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) row[j] = a[j];
-      }
-      __syncwarp();
-      S pr = S(0);
-      if (live) {
-        const S raw = row[i];
-        pr = i == k ? ipv : (recip ? ipv * raw : raw / pvt);
-      }
-      __syncwarp();
-      if (live) row[i] = pr;
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const S prj = row[j];
-        a[j] = i == src ? prj : (j == k ? -ck * prj : a[j] - ck * prj);
-      }
-      __syncwarp();
-      pos = pos == k ? p : (pos == p ? k : pos);
-    }
-    // Column j of the elimination is column q(j) of the inverse: the row
-    // swaps undone as column swaps, last first.
-    int q = i;
-    if (pivot)
-      for (int k = N - 1; k >= 0; --k) {
-        const int p = pv[k];
-        q = q == k ? p : (q == p ? k : q);
-      }
+    int pos, q;
+    gj_pair_regs<N>(a, pivot, recip, pos, q);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int c = __shfl_sync(0xffffffffu, q, (h << 4) | j);
@@ -623,7 +559,7 @@ struct RicAugSplit {
         // eliminates its block ("apply"), in place in the pair; no Jacobi
         // scaling (`:800-812`).
         const bool recip = ff.foot_pack == FOOT_PACK_PAIR || (!ff.aug_pivot && ff.gj_inplace);
-        gj_pair_warp(g, ka, T, ff.aug_pivot, recip, sm + L.prow, piv);
+        gj_pair_warp(g, ka, T, ff.aug_pivot, recip);
       } else {
         if (ff.jacobi) {
           jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);

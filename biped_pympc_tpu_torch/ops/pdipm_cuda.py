@@ -6,10 +6,10 @@
 the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
 "ric_aug" also `opts.foot_split` and `opts.foot_pack`; one library per source
 in `SOURCES`) in the launch geometry of `geometry` (one env per 128-thread
-block, or for K1, K2, K5a, K5b, K5d-a and K5e-a a warp group per env in
-their lean layouts; K5a's, K5b's and K5d-a's stored stage inverses in a
-device-memory workspace that `_launch` allocates where the library asks for
-one),
+block, or for K1, K2, K5a, K5b, K5c, K5d-a, K5d-c and K5e-a a warp group per
+env in their lean layouts; K5a's, K5b's, K5c's, K5d-a's and K5d-c's stored
+stage inverses in a device-memory workspace that `_launch` allocates where
+the library asks for one),
 CPU tensors run the plain version `ops/pdipm.py`. There is no fallback
 between the two: a failed build, allocation or launch raises, and so does a
 horizon and dtype whose layout does not fit in a block's shared memory. A
@@ -73,21 +73,23 @@ MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
 # Launch geometry (`geometry`). Every route runs in the block group: one env
 # per block of BLOCK_THREADS threads (`BlockGroup`, csrc/pdipm_common.cuh),
-# but K1, K2, K5b, K5d-a, K5a and K5e-a (LEAN_ROUTES), which run in their
-# warp group (`WarpGroup`), WARP_THREADS[route] threads per env and one env
-# per block, in their lean layouts. K1's and K2's warp groups finish first at
-# every batch measured, from b128 (one env per SM, where one env's latency
-# decides) to b4096 (PERF.md, Findings), so the choice does not depend on the
-# batch. K5b, K5d-a and K5a (WORK_ROUTES) keep their T stored stage inverses
-# in shared memory, or in a workspace of device memory,
-# `pdipm_<route>_work_bytes` per env, where they do not fit or where that
-# puts more envs on an SM (the library asks the occupancy calculator; at
-# h10 K5b in f32 runs 8 envs an SM with it against 2 without, PERF.md).
+# but K1, K2, K5b, K5d-a, K5a, K5e-a, K5c and K5d-c (LEAN_ROUTES), which run
+# in their warp group (`WarpGroup`), WARP_THREADS[route] threads per env and
+# one env per block, in their lean layouts. K1's and K2's warp groups finish
+# first at every batch measured, from b128 (one env per SM, where one env's
+# latency decides) to b4096 (PERF.md, Findings), and so do K5c's and K5d-c's
+# at b128 and b4096 (chip_smoke.py's turns), so the choice does not depend
+# on the batch. K5b, K5d-a, K5a, K5c and K5d-c (WORK_ROUTES) keep their T
+# stored stage inverses in shared memory, or in a workspace of device
+# memory, `pdipm_<route>_work_bytes` per env, where they do not fit or where
+# that puts more envs on an SM (the library asks the occupancy calculator;
+# at h10 K5b in f32 runs 8 envs an SM with it against 2 without, PERF.md).
 BLOCK_THREADS = 128
 WARP_THREADS = {"ric_aug": 64, "ric": 32, "tridiag_aug": 32, "ric_aug_dense": 128,
-                "tridiag": 32, "ric_aug_pack": 64}
-LEAN_ROUTES = ("ric_aug", "ric", "tridiag_aug", "ric_aug_dense", "tridiag", "ric_aug_pack")
-WORK_ROUTES = ("tridiag_aug", "ric_aug_dense", "tridiag")
+                "tridiag": 32, "ric_aug_pack": 64, "ric2": 32, "ric_dense": 32}
+LEAN_ROUTES = ("ric_aug", "ric", "tridiag_aug", "ric_aug_dense", "tridiag", "ric_aug_pack",
+               "ric2", "ric_dense")
+WORK_ROUTES = ("tridiag_aug", "ric_aug_dense", "tridiag", "ric2", "ric_dense")
 
 # Kernel launches issued in this process: solves per route (`route`), and
 # launches of the refinement-residual entry; chip_smoke.py reads them to show

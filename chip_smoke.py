@@ -28,19 +28,21 @@ the fixed solve bit for bit, that the adaptive solve stops where the JAX
 loop does without waiting for the device, that a layout over a block's
 shared memory raises before any launch, and prints whether K1 and K2 (in
 their former Gauss-Jordan form), K5a and K5b still give the bits their
-builds gave before the Newton step was shared. K1, K2, K5b, K5d-a, K5a and
-K5e-a run in warp groups (`pdipm_cuda.geometry`: K1 and K5e-a two warps per
-env, K2, K5b and K5a one, K5d-a four, in their lean layouts; K5b's, K5d-a's
-and K5a's stored stage inverses in shared memory or in a device-memory
-workspace); the script checks every route's bits, those six in the block
-group, against the build before the warp groups (BEFORE_WARP_DIGESTS), holds
+builds gave before the Newton step was shared. K1, K2, K5b, K5d-a, K5a,
+K5e-a, K5c and K5d-c run in warp groups (`pdipm_cuda.geometry`: K1 and K5e-a
+two warps per env, K2, K5b, K5a, K5c and K5d-c one, K5d-a four, in their
+lean layouts; K5b's, K5d-a's, K5a's, K5c's and K5d-c's stored stage inverses
+in shared memory or in a device-memory workspace); the script checks every
+route's bits, those eight in the block group, against the build before the
+warp groups (BEFORE_WARP_DIGESTS), holds
 the block group against the plain version too, and times both geometries in
 turns beside a clock64() breakdown of a Newton step and the resident envs
 per SM, with the two places for the inverses in turns (`geometry_phase`;
 `python3 chip_smoke.py --geometry` runs that phase alone with a sweep of
 batch sizes, `--digests` prints the digests; no other argument is taken).
-It holds K5b, K5d-a and K5a at horizons 20 and 40 against the f64 plain
-version (HORIZONS), which their block layouts refused in f64 (K5a at 40).
+It holds K5b, K5d-a, K5a, K5c and K5d-c at horizons 20 and 40 against the
+f64 plain version (HORIZONS), which their block layouts refused in f64 (K5a
+at 40).
 It drives `MPCController`
 (HECTOR, walking gait, 4096 envs) on the card with the default solver for 200
 ticks, with the hybrid speed mode (K2 everywhere, K1 re-solves) for 100
@@ -168,11 +170,14 @@ BEFORE_WARP_DIGESTS = {
 }
 # The hybrid's re-solve batch at b4096, max(64, B // 32).
 RESOLVE_BATCH = 128
-# The horizons K5b, K5d-a and K5a are held at beyond the controller's 10:
-# the JAX package's horizon table (bench/ab_round4.py:389); their block
-# layouts refused T = 20 (K5a: 40) in f64 (ROADMAP Queue 3 item 5). K5a is
-# held on the first HORIZON_ENVS envs of the batch, which keeps the plain
-# version's f64 solves at h40 short.
+# The warp-group routes `geometry_phase` times once a turn and not at the
+# re-solve batch: K5b, K5d-a and K5a, 0.02-0.74 s a solve in the block group.
+SLOW_ROUTES = ("tridiag_aug", "ric_aug_dense", "tridiag")
+# The horizons K5b, K5d-a, K5a, K5c and K5d-c are held at beyond the
+# controller's 10: the JAX package's horizon table (bench/ab_round4.py:389);
+# their block layouts refused T = 20 (K5a: 40) in f64 (ROADMAP Queue 3 item
+# 5). The condensed K5a, K5c and K5d-c are held on the first HORIZON_ENVS
+# envs of the batch, which keeps the plain version's f64 solves at h40 short.
 HORIZONS = (20, 40)
 HORIZON_ENVS = 1024
 # The converged envs of a long-horizon batch on which the f64 roundoff
@@ -347,8 +352,9 @@ def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False,
     foot blocks, K5c its 12-wide Ru blocks, K5d its dense 14- / 30-wide
     blocks (each Riccati route then the y-chain's folding and 12-wide
     inverses, ~17k per stage), and each reduced solve multiplies by the
-    stored inverses (K5c recomputes two rows of Ru^-1 r for each row it
-    applies); two solves per step and one more per refinement pass."""
+    stored inverses (K5c's warp group forms the two rows of E Ru^-1 r once a
+    stage, as many flops a solve as K5d-c's 14-wide rows); two solves per
+    step and one more per refinement pass."""
     n = {"tridiag_aug": 42, "tridiag": 26}.get(route)
     condensed = route in ("ric", "tridiag", "ric2", "ric_dense", "ric_pack")
     if n is not None:
@@ -356,7 +362,7 @@ def kernel_flops(route: str, T: int, refine_steps: int, df: bool = False,
         solve = T * (2 * n ** 2 + 25 * n + 684)
     else:
         factor, solve = {"ric_aug": (22600 * T, 3500 * T), "ric": (15200 * T, 2700 * T),
-                         "ric2": (28800 * T, 4100 * T), "ric_dense": (30000 * T, 2900 * T),
+                         "ric2": (28800 * T, 2900 * T), "ric_dense": (30000 * T, 2900 * T),
                          "ric_aug_dense": (72300 * T, 4500 * T),
                          "ric_pack": (15200 * T, 2700 * T),
                          "ric_aug_pack": (22600 * T, 3500 * T)}[route]
@@ -587,7 +593,7 @@ def sass_report(roofline_lib: str) -> str:
 
 
 def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
-    """The routes with a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a) in their
+    """The routes with a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a, K5c, K5d-c) in their
     launch geometries: the largest horizon each route and dtype runs in its warp
     group and in the block group (the libraries' `lean_bytes` /
     `smem_bytes` within a block's shared memory); the geometry
@@ -596,8 +602,8 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
     workspace); the clock64() breakdown of a Newton step in both
     (`pdipm_geometry`); the solve times of the block group (the build before
     the warp groups) and the warp group in turns (block, new, new, block),
-    f32 and f64, at b4096 and, for the routes without a workspace, at the
-    hybrid's re-solve batch, each required faster in every turn; and the
+    f32 and f64, at b4096 and, but for the wide-block routes (SLOW_ROUTES),
+    at the hybrid's re-solve batch, each required faster in every turn; and the
     WORK_ROUTES' warp groups with the stored inverses in shared memory and in
     the workspace in turns, the one `pdipm_cuda` launches required no slower. With
     `explore`, also a sweep of batch sizes (K1, K2). Also K5e-a's pairs
@@ -659,13 +665,13 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
                 print(pg.breakdown_line(f"[breakdown] {label}: {r} {dt} b{B} {tag} "
                                         f"({g.threads_per_env} x {g.envs_per_block})", res))
     for r, o in base.items():
-        calls = 1 if r in pdipm_cuda.WORK_ROUTES else 10  # K5a / K5b / K5d-a: 0.02-0.74 s a solve
+        calls = 1 if r in SLOW_ROUTES else 10
         for dt in dts:
             qp = qps_[dt]
             sub = qps.take(qp, torch.arange(RESOLVE_BATCH, device=qp.f.device))
             for nb, q in ((B, qp), (RESOLVE_BATCH, sub)):
-                if nb == RESOLVE_BATCH and r in pdipm_cuda.WORK_ROUTES:
-                    continue  # the re-solve batch is the hybrid's: K1's, packed K5e-a's
+                if nb == RESOLVE_BATCH and r in SLOW_ROUTES:
+                    continue
                 out["turns"][r, dt, nb] = pg.turns(q, o, pdipm_cuda.BLOCK, geo[r], calls)
     print(f"[geometry times] {label}: block group / warp group / warp group / block "
           f"group, ms: " + "; ".join(f"{r} {dt} b{nb} " + " / ".join(f"{v:.3f}" for v in t)
@@ -1343,11 +1349,23 @@ def main() -> int:
     check(float(k5df_err[k5df_cv].max()) <= F64_ATOL, "f64 K5b df differs from the plain df")
     check(k5df_fin.mean() >= F32_FINITE_SHARE, "f32 K5b df not finite")
 
+    def max_gap(a, b, mask):
+        return max(float((getattr(a, n) - getattr(b, n)).abs().amax(1)[mask].max())
+                   for n in "xszy") if bool(mask.any()) else float("nan")
+
+    def rel_gap(a, b, mask):
+        """max_gap relative to max(1, |v|) of `b`."""
+        return max(float(((getattr(a, n) - getattr(b, n)).abs()
+                          / getattr(b, n).abs().clamp_min(1.0)).amax(1)[mask].max())
+                   for n in "xszy")
+
     # 4j. K5c (rank-2, condensed), K5d-c (unsplit 14-wide, condensed) and
-    # K5d-a (unsplit 30-wide, augmented) vs their plain versions. K5d-a is
-    # the robust class (bounded in f32 as K1); the condensed pair is bounded
-    # in f64 as K5a, with its roundoff witness, and its f32 lines are
-    # printed, as K2's.
+    # K5d-a (unsplit 30-wide, augmented) vs their plain versions, each in its
+    # warp group. K5d-a is the robust class (bounded in f32 as K1); the
+    # condensed pair is bounded in f64 as K5a, with its roundoff witness, and
+    # its f32 lines are printed, as K2's, the block group's beside the warp
+    # group's on the same envs (so that a redesign that amplifies f32
+    # rounding shows).
     riccati = {"K5c": dataclasses.replace(opts, backend="ric2", foot_split=False),
                "K5d-c": dataclasses.replace(opts, backend="ric", foot_split=False),
                "K5d-a": dataclasses.replace(opts, backend="ric_aug", foot_split=False)}
@@ -1360,23 +1378,33 @@ def main() -> int:
             roundoff(tag, opts_, plain64_, cv_)
         kern32_ = pdipm_cuda.solve(qp32, opts_)
         f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=tag == "K5d-a")
+        if condensed:
+            blk32 = f32_tail(pg.solve_in(qp32, opts_, pdipm_cuda.BLOCK), plain64_, cv_)[2]
+            print(f"[{tag} f32 block group vs plain f64] {blk32} (printed)")
         k5n[tag] = {"f64": kern64_, "f32": kern32_, "err": worst_, "plain": plain64_, "cv": cv_}
 
-    # K5b and K5d-a in the block group, the parent's kernels (their bits in
-    # 7b), against the same plain f64 solves, with the same bound.
+    # K5b, K5d-a, K5c and K5d-c in the block group, the parent's kernels
+    # (their bits in 7b), against the same plain f64 solves, with the same
+    # bounds: F64_ATOL absolute, or CONDENSED_F64_RTOL relative to max(1,
+    # |v|) for the condensed K5c and K5d-c (the warp group's reading beside).
     blk_line = []
-    for tag, runs in (("K5b", k5["K5b"]), ("K5d-a", k5n["K5d-a"])):
+    for tag, runs in (("K5b", k5["K5b"]), ("K5d-a", k5n["K5d-a"]), ("K5c", k5n["K5c"]),
+                      ("K5d-c", k5n["K5d-c"])):
         o = thomas[tag] if tag == "K5b" else riccati[tag]
+        condensed = tag in ("K5c", "K5d-c")
         blk = pg.solve_in(qp64, o, pdipm_cuda.BLOCK)
         cv_ = torch.as_tensor(runs["cv"], device=dev)
-        e = max(float((getattr(blk, n) - getattr(runs["plain"], n)).abs().amax(1)[cv_].max())
-                for n in "xszy")
+        plain_ = runs["plain"]
+        e = (rel_gap(blk, plain_, cv_) if condensed else max_gap(blk, plain_, cv_))
+        warp_e = rel_gap(runs["f64"], plain_, cv_) if condensed else runs["err"]
         w_, differ = bit_diff(runs["f64"], blk)
-        blk_line.append(f"{tag} {e:.3e} (warp group {runs['err']:.3e}; the two part by "
-                        f"{w_:.3e} on {differ} envs)")
-        check(e <= F64_ATOL, f"f64 {tag} in the block group differs from the plain version")
-    print(f"[block group f64 vs plain f64] b{B}, converged envs, max |dx,ds,dz,dy| (bound "
-          f"{F64_ATOL:g}): " + "; ".join(blk_line))
+        blk_line.append(f"{tag} {e:.3e}{' relative' if condensed else ''} (bound "
+                        f"{CONDENSED_F64_RTOL if condensed else F64_ATOL:g}; warp group "
+                        f"{warp_e:.3e}; the two part by {w_:.3e} on {differ} envs)")
+        check(e <= (CONDENSED_F64_RTOL if condensed else F64_ATOL),
+              f"f64 {tag} in the block group differs from the plain version")
+    print(f"[block group f64 vs plain f64] b{B}, converged envs, max |dx,ds,dz,dy|: "
+          + "; ".join(blk_line))
 
     # 4k. Jacobi equilibration (kkt_scale="jacobi") on K1 and K5d-c: f64
     # kernel vs f64 plain version (same scaling) within the route's bound,
@@ -1458,16 +1486,6 @@ def main() -> int:
                "K5d-a": dataclasses.replace(riccati["K5d-a"], aug_pivot=False),
                "K5e-a": dataclasses.replace(opts, foot_pack=True, aug_pivot=False)}
     nopivot_err = {}
-
-    def max_gap(a, b, mask):
-        return max(float((getattr(a, n) - getattr(b, n)).abs().amax(1)[mask].max())
-                   for n in "xszy") if bool(mask.any()) else float("nan")
-
-    def rel_gap(a, b, mask):
-        """max_gap relative to max(1, |v|) of `b`."""
-        return max(float(((getattr(a, n) - getattr(b, n)).abs()
-                          / getattr(b, n).abs().clamp_min(1.0)).amax(1)[mask].max())
-                   for n in "xszy")
 
     def form_witness(tag, opts_, plain, mask):
         """The route's sensitivity to the rounding of its eliminations: its
@@ -1955,14 +1973,15 @@ def main() -> int:
     check(all(before.values()), "a route's bits differ from the build before the warp groups")
     geometry_phase(label, qp32, qp64, opts)
 
-    # 7c. K5b, K5d-a and K5a at the longer HORIZONS, in their warp groups, on
-    # this script's walking batch at that horizon (K5a on its first
-    # HORIZON_ENVS envs), against the f64 plain version with their class's
-    # bounds: K5b and K5d-a as the robust class, f64 on the converged envs,
-    # f32 u0 and finiteness; K5a as the condensed class, f64 relative to
-    # max(1, |v|), f32 finiteness, its f32 u0 tail printed beside the block
-    # group's where the block layout fits (so that a redesign that amplifies
-    # f32 rounding shows). The f64 bound
+    # 7c. K5b, K5d-a, K5a, K5c and K5d-c at the longer HORIZONS, in their
+    # warp groups, on this script's walking batch at that horizon (the
+    # condensed K5a, K5c and K5d-c on its first HORIZON_ENVS envs), against
+    # the f64 plain version with their class's bounds: K5b and K5d-a as the
+    # robust class, f64 on the converged envs, f32 u0 and finiteness; the
+    # condensed routes f64 relative to max(1, |v|), their f32 u0 tail printed
+    # beside the block group's where the block layout fits (so that a
+    # redesign that amplifies f32 rounding shows), K5a's f32 finiteness
+    # bounded (K5c's and K5d-c's printed, as at h10). The f64 bound
     # is the larger of the class bound (F64_ATOL absolute, or
     # CONDENSED_F64_RTOL relative) and WITNESS_FACTOR times the plain route's
     # own roundoff there (its f64 solve on the CPU against the same on the
@@ -1972,9 +1991,11 @@ def main() -> int:
         q64, q32 = (make_qp_batch(B, 0, dt, dev, T_) for dt in (torch.float64, torch.float32))
         u0 = slice(12 * T_, 12 * T_ + 12)
         for tag, opts_, nb in (("K5b", thomas["K5b"], B), ("K5d-a", riccati["K5d-a"], B),
-                               ("K5a", thomas["K5a"], HORIZON_ENVS)):
+                               ("K5a", thomas["K5a"], HORIZON_ENVS),
+                               ("K5c", riccati["K5c"], HORIZON_ENVS),
+                               ("K5d-c", riccati["K5d-c"], HORIZON_ENVS)):
             key = pdipm_cuda.route(opts_)
-            condensed = tag == "K5a"
+            condensed = tag in ("K5a", "K5c", "K5d-c")
             sub = (lambda q: q) if nb == B else (
                 lambda q: qps.take(q, torch.arange(nb, device=dev)))
             h64, h32 = sub(q64), sub(q32)
@@ -2033,8 +2054,9 @@ def main() -> int:
                   f"{block32}; kernel f32 {ms32:.3f} ms, f64 {ms64:.3f} ms; workspace bytes per env "
                   f"{work}")
             check(err <= bound_, f"f64 {tag} h{T_} differs from the plain version")
-            check(float(fin.double().mean()) >= F32_FINITE_SHARE,
-                  f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
+            if tag in ("K5b", "K5d-a", "K5a"):
+                check(float(fin.double().mean()) >= F32_FINITE_SHARE,
+                      f"f32 {tag} h{T_} finite on {int(fin.sum())} envs")
             if not condensed:
                 check(float(du0[cv_ & fin].max()) <= F32_U0_ATOL,
                       f"f32 {tag} h{T_} GRF off on converged envs")

@@ -1,9 +1,10 @@
 """The launch geometry of the port's PDIPM kernels (`pdipm_cuda.geometry`):
 K1 ("ric_aug") and K5e-a ("ric_aug_pack") run two warps per env, K2
-("ric"), K5b ("tridiag_aug") and K5a ("tridiag") one, K5d-a
-("ric_aug_dense") four, one env per block, in their lean layouts (K5b's,
-K5d-a's and K5a's stored inverses in shared memory or in a device-memory
-workspace); every other route keeps the block group. The layouts' byte
+("ric"), K5b ("tridiag_aug"), K5a ("tridiag"), K5c ("ric2") and K5d-c
+("ric_dense") one, K5d-a ("ric_aug_dense") four, one env per block, in
+their lean layouts (K5b's, K5d-a's, K5a's, K5c's and K5d-c's stored stage
+inverses in shared memory or in a device-memory workspace); K5e-c
+("ric_pack") keeps the block group. The layouts' byte
 counts come from the kernels' own `make_layout`, read from a g++ build of
 those routes against the host shim (`ops/host_build.py`; the tests that
 need it skip, deciding inside the test, where g++ is absent)."""
@@ -32,17 +33,23 @@ def _size(dt):
     return torch.empty((), dtype=DTYPES[dt]).element_size()
 
 
-# The largest horizon K5b, K5d-a and K5a run in their warp group, per dtype:
-# the lean layout with the stored inverses in the workspace within 232,448
-# B; their T x N x N inverses' width N; and the largest horizon their block
-# layout fits (ROADMAP Queue 3, item 5).
+# The largest horizon K5b, K5d-a, K5a, K5c and K5d-c run in their warp
+# group, per dtype: the lean layout with the stored inverses in the
+# workspace within 232,448 B; the values a stage stores (T x N x N
+# inverses of width N; K5c its 12 x 12 Ru^-1, E Ru^-1 and the 2 x 2 S^-1);
+# and the largest horizon their block layout fits (ROADMAP Queue 3, item 5).
 WORK_MAX_T = {("tridiag_aug", "f32"): 103, ("tridiag_aug", "f64"): 50,
               ("ric_aug_dense", "f32"): 86, ("ric_aug_dense", "f64"): 42,
-              ("tridiag", "f32"): 145, ("tridiag", "f64"): 72}
-WORK_N = {"tridiag_aug": 42, "ric_aug_dense": 30, "tridiag": 26}
+              ("tridiag", "f32"): 145, ("tridiag", "f64"): 72,
+              ("ric2", "f32"): 94, ("ric2", "f64"): 46,
+              ("ric_dense", "f32"): 94, ("ric_dense", "f64"): 46}
+WORK_STAGE_VALUES = {"tridiag_aug": 42 ** 2, "ric_aug_dense": 30 ** 2, "tridiag": 26 ** 2,
+                     "ric2": 12 ** 2 + 2 * 12 + 4, "ric_dense": 14 ** 2}
 WORK_BLOCK_MAX_T = {("tridiag_aug", "f32"): 24, ("tridiag_aug", "f64"): 11,
                     ("ric_aug_dense", "f32"): 30, ("ric_aug_dense", "f64"): 14,
-                    ("tridiag", "f32"): 44, ("tridiag", "f64"): 22}
+                    ("tridiag", "f32"): 44, ("tridiag", "f64"): 22,
+                    ("ric2", "f32"): 46, ("ric2", "f64"): 23,
+                    ("ric_dense", "f32"): 50, ("ric_dense", "f64"): 24}
 
 
 @pytest.fixture(scope="module")
@@ -127,14 +134,24 @@ def _resident(nbytes, threads):
 
 @pytest.mark.parametrize("route, dt, want, block_want", [
     ("ric_aug", "f32", 6, 4), ("ric", "f32", 8, 5), ("ric_aug", "f64", 3, 2), ("ric", "f64", 4, 2),
-    ("ric_aug_pack", "f32", 6, 4), ("ric_aug_pack", "f64", 3, 2)])
+    ("ric_aug_pack", "f32", 6, 4), ("ric_aug_pack", "f64", 3, 2),
+    ("ric2", "f32", 8, 4), ("ric2", "f64", 4, 2), ("ric_dense", "f32", 8, 4),
+    ("ric_dense", "f64", 4, 2)])
 def test_h10_geometry_puts_more_envs_on_an_sm(libs, route, dt, want, block_want):
     """At h10 the warp group's lean layouts let more envs reside on an SM by
     shared memory than the block group's (K2's block group in f32 is held to
     4 by its register cap besides; K5e-a's lean layout, K1's with the packed
-    P_t and yc in its union, fits K1's 6)."""
+    P_t and yc in its union, fits K1's 6; K5c's and K5d-c's, K2's with their
+    stage records in the workspace, which the library takes where it puts
+    more envs on an SM (`uses_workspace`; the host build's occupancy stub
+    does not, so its lean bytes here carry them), K2's 8)."""
     g = pdipm_cuda.geometry(route)
-    assert _resident(_bytes(libs, route, 10, dt, lean=True), g.threads_per_env) == want
+    lean = _bytes(libs, route, 10, dt, lean=True)
+    resident = _resident(lean, g.threads_per_env)
+    if route in pdipm_cuda.WORK_ROUTES:
+        records = getattr(libs[route], f"pdipm_{route}_work_bytes")(10, _size(dt), 1)
+        resident = max(resident, _resident(lean - records, g.threads_per_env))
+    assert resident == want
     assert _resident(_bytes(libs, route, 10, dt, lean=False), 128) == block_want
 
 
@@ -210,8 +227,9 @@ class _WorkLib(_FakeLib):
 @pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
 @pytest.mark.parametrize("T", [1, 10, 20])
 def test_work_routes_take_their_warp_group(monkeypatch, route, T):
-    """K5b, K5d-a and K5a run their warp group (one, four and one warps an
-    env, one env per block) at any horizon and dtype: the launch asks the library for the
+    """K5b, K5d-a, K5a, K5c and K5d-c run their warp group (one, four, one,
+    one and one warps an env, one env per block) at any horizon and dtype:
+    the launch asks the library for the
     lean layout's bytes and the workspace per env, allocates batch x that
     when it is not 0 and passes it to the warp entry, else passes null."""
     from biped_pympc_tpu_torch.bench import bench_common
@@ -220,7 +238,8 @@ def test_work_routes_take_their_warp_group(monkeypatch, route, T):
     g = pdipm_cuda.geometry(route)
     assert g == pdipm_cuda.Geometry(pdipm_cuda.WARP_THREADS[route], 1, lean=True)
     assert (g.threads_per_env, route in pdipm_cuda.LEAN_ROUTES) == (
-        {"tridiag_aug": 32, "ric_aug_dense": 128, "tridiag": 32}[route], True)
+        {"tridiag_aug": 32, "ric_aug_dense": 128, "tridiag": 32, "ric2": 32,
+         "ric_dense": 32}[route], True)
     opts = dataclasses.replace(pg.route_opts(route), iterations=1)
     assert pdipm_cuda.route(opts) == route
     monkeypatch.setattr(pdipm_cuda, "launches", dict.fromkeys(pdipm_cuda.launches, 0))
@@ -240,23 +259,24 @@ def test_work_routes_take_their_warp_group(monkeypatch, route, T):
 @pytest.mark.parametrize("T", [10, 20, 40])
 @pytest.mark.parametrize("route, dt", sorted(WORK_MAX_T))
 def test_work_layouts_fit_at_the_long_horizons(libs, route, dt, T):
-    """K5b's, K5d-a's and K5a's lean layouts at h10, h20 and h40 fit in an
-    H100 block: with the T stored inverses in shared memory where the layout
-    with them fits (the host build's occupancy stub never prefers the
-    workspace), else workspace-backed, T x N x N values per env; forced, the
-    workspace takes them at any horizon and the rest fits; the block layout
-    fits exactly up to its old limit."""
+    """K5b's, K5d-a's, K5a's, K5c's and K5d-c's lean layouts at h10, h20 and
+    h40 fit in an H100 block: with the T stored inverses in shared memory
+    where the layout with them fits (the host build's occupancy stub never
+    prefers the workspace), else workspace-backed, T x WORK_STAGE_VALUES
+    values per env; forced, the workspace takes them at any horizon and the
+    rest fits; the block layout fits exactly up to its old limit."""
     lean = _bytes(libs, route, T, dt, lean=True)
     assert lean <= pdipm_cuda.MAX_SMEM_PER_BLOCK
     work = getattr(libs[route], f"pdipm_{route}_work_bytes")
-    inverses = T * WORK_N[route] ** 2 * _size(dt)
+    inverses = T * WORK_STAGE_VALUES[route] * _size(dt)
     assert work(T, _size(dt), 1) == inverses
     if work(T, _size(dt), 0):
         assert work(T, _size(dt), 0) == inverses
         assert lean + inverses > pdipm_cuda.MAX_SMEM_PER_BLOCK
     else:
         assert lean > inverses  # the inverses are in it
-    # The block layout refused f64 from T = 12 (K5b), 15 (K5d-a) and 23 (K5a).
+    # The block layout refused f64 from T = 12 (K5b), 15 (K5d-a), 23 (K5a), 24
+    # (K5c) and 25 (K5d-c).
     assert (_bytes(libs, route, T, dt, lean=False) > pdipm_cuda.MAX_SMEM_PER_BLOCK) == (
         T > WORK_BLOCK_MAX_T[route, dt])
 
@@ -301,19 +321,23 @@ def test_hybrid_solves_both_take_their_warp_groups(monkeypatch, dt):
 
 
 def test_block_geometry_rejected_for_other_routes_in_a_warp_group():
-    """A warp-group geometry for a route that has none, or another warp
-    group than the route's, raises before any launch."""
+    """A warp-group geometry for a route that has none (K5e-c, the one route
+    left in the block group), or another warp group than the route's,
+    raises before any launch."""
     from biped_pympc_tpu_torch.bench import bench_common
 
     qp = bench_common.make_qp_batch(2, horizon=2, dtype=torch.float64, device="cpu")
     before = dict(pdipm_cuda.launches)
-    for backend, geom in (("ric2", pdipm_cuda.Geometry(32, 1)),
-                          ("tridiag", pdipm_cuda.Geometry(64, 1, lean=True)),
-                          ("ric", pdipm_cuda.Geometry(64, 1)),
-                          ("ric_aug", pdipm_cuda.Geometry(32, 2))):
+    pack = pdipm.PdipmOptions(backend="ric", foot_split=True, foot_pack=True)
+    assert pdipm_cuda.route(pack) == "ric_pack"
+    for opts, geom in ((pack, pdipm_cuda.Geometry(32, 1)),
+                       (pack, pdipm_cuda.Geometry(32, 1, lean=True)),
+                       (pdipm.PdipmOptions(backend="tridiag"), pdipm_cuda.Geometry(64, 1, lean=True)),
+                       (pdipm.PdipmOptions(backend="ric"), pdipm_cuda.Geometry(64, 1)),
+                       (pdipm.PdipmOptions(backend="ric_aug"), pdipm_cuda.Geometry(32, 2))):
         lib = _FakeLib(1024)
         with pytest.raises(ValueError, match="runs in"):
-            pdipm_cuda.run_kernel(lib, qp, pdipm.PdipmOptions(backend=backend), None, geom=geom)
+            pdipm_cuda.run_kernel(lib, qp, opts, None, geom=geom)
         assert lib.calls == []
     assert pdipm_cuda.launches == before
 

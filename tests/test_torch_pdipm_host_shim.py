@@ -1,10 +1,10 @@
 """The device code of the routes with a warp group (K1, K2, K5b, K5d-a, K5a,
-K5e-a) on the CPU: each built with g++ against `ops/host_shim.h`
+K5e-a, K5c, K5d-c) on the CPU: each built with g++ against `ops/host_shim.h`
 (`ops/host_build.py`: one host thread per CUDA thread, barriers and shuffles
 as the shim's), launched through the port's own wrapper
 (`pdipm_cuda.run_kernel`) on CPU tensors, in the block group and in the
-route's warp group (K5b, K5d-a and K5a with their stored inverses in shared
-memory and in the workspace; K5e-a in both packings), and held
+route's warp group (K5b, K5d-a, K5a, K5c and K5d-c with their stored stage
+inverses in shared memory and in the workspace; K5e-a in both packings), and held
 against the plain version in f64 at a small size (B = 2, T = 2, 2 Newton
 steps). Skips, deciding inside each test, where g++ is absent. The build
 has no FMA contraction, so its agreement is that of the arithmetic, not the
@@ -68,16 +68,17 @@ def test_kernel_matches_the_plain_version(libs, route, geom, horizon):
 
 
 # f32 bounds relative to max(1, |v|) after 2 steps: the condensed K5a's W^-1
-# blocks (up to ~1e8) amplify f32 rounding (1.1e-4 read at T = 2), the
-# augmented K5e-a reads 1.6e-6.
-F32_RTOL = {"tridiag": 5e-4, "ric_aug_pack": 2e-5}
+# blocks (up to ~1e8) amplify f32 rounding (1.1e-4 read at T = 2), and so do
+# K5c's and K5d-c's (4.1e-5 and 5.5e-5 read at T = 3), held to K5a's class
+# bound; the augmented K5e-a reads 1.6e-6.
+F32_RTOL = {"tridiag": 5e-4, "ric_aug_pack": 2e-5, "ric2": 5e-4, "ric_dense": 5e-4}
 
 
 @pytest.mark.parametrize("horizon", [1, 3])
 @pytest.mark.parametrize("route", sorted(F32_RTOL))
 def test_k5a_and_k5e_a_warp_groups_match_the_plain_version_in_f32(libs, route, horizon):
-    """K5a's and K5e-a's warp groups in f32 against the plain version in f32,
-    B = 2, 2 steps, within their class's f32 bound."""
+    """K5a's, K5e-a's, K5c's and K5d-c's warp groups in f32 against the plain
+    version in f32, B = 2, 2 steps, within their class's f32 bound."""
     qp = bench_common.make_qp_batch(2, horizon=horizon, dtype=torch.float32, device="cpu")
     opts = _opts(route)
     got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, "warp"))
@@ -91,7 +92,8 @@ def test_k5a_and_k5e_a_warp_groups_match_the_plain_version_in_f32(libs, route, h
 @pytest.mark.parametrize("horizon", [2, 3])
 @pytest.mark.parametrize("route", pdipm_cuda.WORK_ROUTES)
 def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
-    """K5b, K5d-a and K5a in their warp group with the stored inverses in the
+    """K5b, K5d-a, K5a, K5c and K5d-c in their warp group with the stored
+    inverses (K5c's and K5d-c's stage records) in the
     device-memory workspace (here host memory) and in shared memory: the
     same arithmetic, so the same bits, both within 1e-10 of the plain
     version."""
@@ -107,19 +109,22 @@ def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
 
 # Each option value on each route that takes it (df: the augmented routes
 # only, `pdipm.check_options`; aug_pivot=False, K5f's natural order: on
-# K5d-a and K5e-a, whose warp groups eliminate both ways; K5e-a's packings:
+# K5d-a and K5e-a, whose warp groups eliminate both ways; k_pivot, the pivot
+# search of the unsplit condensed blocks: on K5d-c; K5e-a's packings:
 # `route_opts` pairs the halves, "apply" eliminates each as K1 does, with
 # and without the pivot search).
-CONDENSED = ("ric", "tridiag")
+CONDENSED = ("ric", "tridiag", "ric2", "ric_dense")
 OPTIONS = [(route, name, kw) for name, kw in (
     ("tableau", dict(gj_form="tableau")), ("jacobi", dict(kkt_scale="jacobi")),
     ("sum_refine", dict(corrector_form="sum_refine")), ("combined", dict(corrector_form="combined")),
     ("aff_ref", dict(corrector_form="aff_ref")), ("df", dict(refine_residual="df")),
     ("sigma_cap", dict(sigma_cap=1e3)), ("no_pivot", dict(aug_pivot=False)),
+    ("k_pivot", dict(k_pivot=True)),
     ("apply", dict(foot_pack="apply")), ("apply_no_pivot", dict(foot_pack="apply", aug_pivot=False)))
     for route in pdipm_cuda.LEAN_ROUTES
     if not (route in CONDENSED and name == "df")
     and not (name == "no_pivot" and route not in ("ric_aug_dense", "ric_aug_pack"))
+    and not (name == "k_pivot" and route != "ric_dense")
     and not (name.startswith("apply") and route != "ric_aug_pack")]
 
 
@@ -181,6 +186,14 @@ def test_k5a_warp_entry_refuses_df(libs, dtype):
     """K5a's warp entry (with its workspace argument) refuses the compensated
     residual as its block entry does."""
     _assert_df_refused(libs, "tridiag", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("route", ["ric2", "ric_dense"])
+def test_k5c_and_k5d_c_warp_entries_refuse_df(libs, route, dtype):
+    """K5c's and K5d-c's warp entries (with their workspace argument) refuse
+    the compensated residual as their block entries do."""
+    _assert_df_refused(libs, route, dtype)
 
 
 def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):

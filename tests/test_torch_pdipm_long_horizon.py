@@ -1,8 +1,9 @@
-"""The plain versions of K5b's, K5d-a's and K5a's routes at horizon 20, where
-their kernels now run in f64 too: the port's `tridiag_aug`, unsplit
-`ric_aug` (with and without the Jacobi scaling) and `tridiag` against the
-JAX package's pure-JAX `pdipm.solve` of the same names, f64, B = 2 walking
-QPs with swing stages, six Newton steps."""
+"""The plain versions of K5b's, K5d-a's, K5a's, K5c's and K5d-c's routes at
+horizon 20, where their kernels now run in f64 too: the port's
+`tridiag_aug`, unsplit `ric_aug` (with and without the Jacobi scaling),
+`tridiag`, `ric2` and unsplit `ric` against the JAX package's pure-JAX
+`pdipm.solve` of the same names, f64, B = 2 walking QPs with swing stages,
+six Newton steps."""
 
 import jax
 import jax.numpy as jnp
@@ -53,18 +54,26 @@ def batch():
 
 
 # The routes: K5b's block-Thomas (pivoted 42-wide blocks), K5d-a's unsplit
-# Riccati (pivoted 30-wide blocks), the latter also Jacobi-scaled, and K5a's
-# condensed block-Thomas (pivoted 26-wide blocks).
+# Riccati (pivoted 30-wide blocks), the latter also Jacobi-scaled, K5a's
+# condensed block-Thomas (pivoted 26-wide blocks), K5c's rank-2 route
+# (12-wide Ru blocks) and K5d-c's unsplit condensed Riccati (14-wide). The
+# JAX package's pure `pdipm.solve` has no "ric2" (its Pallas kernel has):
+# K5c is held against the pure unsplit "ric", which eliminates the same
+# condensed stage block whole (`JAX_TWIN`).
 ROUTES = {"tridiag_aug": dict(backend="tridiag_aug"),
           "ric_aug unsplit": dict(backend="ric_aug", foot_split=False),
           "ric_aug unsplit jacobi": dict(backend="ric_aug", foot_split=False, kkt_scale="jacobi"),
-          "tridiag": dict(backend="tridiag")}
+          "tridiag": dict(backend="tridiag"),
+          "ric2": dict(backend="ric2"),
+          "ric unsplit": dict(backend="ric", foot_split=False)}
+JAX_TWIN = {"ric2": dict(backend="ric", foot_split=False)}
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_plain_matches_pure_jax_at_horizon_20(batch, route):
     kw = dict(ROUTES[route], refine_steps=1, iterations=STEPS)
-    ref = jax.jit(jax.vmap(lambda q: jpdipm.solve(q, jpdipm.PdipmOptions(**kw))))(batch)
+    jkw = dict(JAX_TWIN.get(route, ROUTES[route]), refine_steps=1, iterations=STEPS)
+    ref = jax.jit(jax.vmap(lambda q: jpdipm.solve(q, jpdipm.PdipmOptions(**jkw))))(batch)
     got = tpdipm.solve(stage_qp_from_numpy(jax.tree.map(np.asarray, batch)),
                        tpdipm.PdipmOptions(**kw))
     assert got.x.shape == (2, 24 * T)
