@@ -11,8 +11,11 @@ batches up to 32768. The same experiment here:
   state (batch last).
 
   methods
-    cuda   - `run_tape` on the card: the hand-written interpreter kernel of
-             `csrc/tape.cu` (K8), one thread per env
+    cuda   - `run_tape` on the card: a straight-line kernel generated from
+             the tape (`bench/tape_codegen.py`, K8), one thread per env
+    interp - `run_tape_interpreted`: the interpreter of `csrc/tape.cu`, the
+             kernel K8 replaced, kept as the comparison build and timed in
+             turns with `cuda` (cuda, interp, interp, cuda)
     plain  - `apply_tape_rows` in eager torch on the same device, where
              n_ops x chain <= PLAIN_MAX_OPS_CHAIN (it launches ~5 kernels
              per instruction)
@@ -20,12 +23,19 @@ batches up to 32768. The same experiment here:
              n_ops x batch <= 1e7)
 
 Prints one JSON line per (method, n_ops, batch): ms per evaluation (the
-mean over `chain` dependent evaluations, the median of `reps`) and the
-instruction rate. On the card the times come from CUDA events; with
---device cpu from the host clock, and only `plain` and `cpu` run.
+mean over `chain` dependent evaluations, the median of `reps`; `cuda` and
+`interp` the mean of their two turns) and the instruction rate; `cuda`
+also the seconds its libraries' nvcc ran (`build_s`; every tape's kernels
+are built together before the first timing). On the card the times come
+from CUDA events; with --device cpu from the host clock, and only `plain`
+and `cpu` run.
 
     python -m biped_pympc_tpu_torch.bench.bench_synthetic [--ops 1e1,1e2,1e3,1e4,1e5]
         [--batches 256,4096,32768] [--chain 10] [--reps 3] [--cpu] [--device cuda|cpu]
+        [--segment 10000]
+
+`--segment` is the ops of one generated kernel (`tape_codegen.SEGMENT_OPS`;
+a value past the longest tape builds each tape in one nvcc).
 """
 
 from __future__ import annotations
@@ -40,18 +50,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from biped_pympc_tpu_torch.bench import tape_codegen
 from biped_pympc_tpu_torch.bench.bench_common import device_ms, host_ms, require_card
 from biped_pympc_tpu_torch.ops import cuda_build, pdipm_cuda
 
-N_STATE = 16
-OPS = ("fma", "mul", "add", "sub", "div1p")  # the op codes of csrc/tape.cu, in order
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
-                      "tape.cu")
+N_STATE = tape_codegen.N_STATE
+OPS = tape_codegen.OPS  # the op codes of csrc/tape.cu, in order
+# The interpreter K8 replaced, kept to compare (`run_tape_interpreted`).
+INTERP_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "csrc", "tape.cu")
 PLAIN_MAX_OPS_CHAIN = 10_000
 CPU_MAX_OPS_BATCH = 10_000_000
 
-# Kernel launches in this process; chip_smoke.py reads them.
-launches = {"tape": 0}
+# Kernel launches in this process, one per kernel launched (a generated
+# tape's segments each count): the generated kernels ("tape") and the
+# interpreter ("tape_interp"); chip_smoke.py reads them.
+launches = {"tape": 0, "tape_interp": 0}
 _lib: list = []
 
 
@@ -114,13 +128,15 @@ def eval_cpu(tape, state):  # (B, N_STATE) f64 serial NumPy
 
 @dataclass
 class EncodedTape:
-    """A tape as the kernel reads it: `code` int32 (n_ops, 4) rows (op index
-    in OPS, dst, a, b), `c` (n_ops,) constants in the state's dtype, and the
-    tape as given (`ops`) for the plain version."""
+    """A tape as the interpreter reads it: `code` int32 (n_ops, 4) rows (op
+    index in OPS, dst, a, b), `c` (n_ops,) constants in the state's dtype,
+    and the tape as given (`ops`) for the plain version and the generated
+    kernel, which `run_tape` keeps in `kernel` once built."""
 
     ops: list
     code: torch.Tensor
     c: torch.Tensor
+    kernel: tape_codegen.Kernel | None = None
 
 
 def encode_tape(tape, dtype=torch.float32, device="cpu") -> EncodedTape:
@@ -143,19 +159,35 @@ def decode_tape(enc: EncodedTape) -> list:
             zip(enc.code.cpu().tolist(), enc.c.cpu().double().tolist())]
 
 
-def library_path() -> str:
-    return cuda_build.library_path("tape", SOURCE, (), pdipm_cuda.BUILD_DIR)
+def interp_path() -> str:
+    """Where the interpreter's library is built."""
+    return cuda_build.library_path("tape", INTERP_SOURCE, (), pdipm_cuda.BUILD_DIR)
 
 
-def build() -> str:
-    """Compile csrc/tape.cu if it is not built yet; return the library's path."""
-    return cuda_build.build({"tape": SOURCE}, {"tape": library_path()},
-                            pdipm_cuda.BUILD_DIR)["tape"]
+def build(tapes=(), segment: int = tape_codegen.SEGMENT_OPS) -> dict:
+    """Compile the interpreter and the generated kernels of `tapes`, (ops,
+    dtype) pairs cut into kernels of `segment` ops, that are not built yet:
+    one nvcc per library, all started together. Returns {"interp": path,
+    "tapes": [[segment library paths] per tape]}."""
+    sources, paths, per_tape = tape_codegen.plan(tapes, pdipm_cuda.BUILD_DIR, segment)
+    sources["tape"], paths["tape"] = INTERP_SOURCE, interp_path()
+    cuda_build.build(sources, paths, pdipm_cuda.BUILD_DIR)
+    return {"interp": paths["tape"], "tapes": per_tape}
+
+
+def kernel(tape, dtype: torch.dtype,
+           segment: int = tape_codegen.SEGMENT_OPS) -> tape_codegen.Kernel:
+    """The generated kernels of `tape` (a list of (op, dst, a, b, c)) in
+    `dtype`, `segment` ops each, built if they are not yet."""
+    paths = build([(tape, dtype)], segment)["tapes"][0]
+    return tape_codegen.Kernel(dtype, [tape_codegen.load(p) for p in paths])
 
 
 def _library() -> ctypes.CDLL:
+    """The interpreter's library, built if it is not yet."""
     if not _lib:
-        lib = ctypes.CDLL(build())
+        build()
+        lib = ctypes.CDLL(interp_path())
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"tape_run_{suffix}")
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -167,15 +199,45 @@ def _library() -> ctypes.CDLL:
     return _lib[0]
 
 
-def run_tape(tape, s: torch.Tensor) -> torch.Tensor:
-    """K8, the kernel of `pallas_fn`: the tape (a list of (op, dst, a, b, c)
-    or an `EncodedTape`) on a (N_STATE, B) float32 or float64 state. CUDA
-    tensors launch the kernel of csrc/tape.cu, one thread per env (a list is
-    encoded first); CPU tensors run `apply_tape_rows`."""
+def _checked_state(s: torch.Tensor) -> torch.Tensor:
     if s.dim() != 2 or s.shape[0] != N_STATE:
         raise ValueError(f"tape state must be ({N_STATE}, B), got {tuple(s.shape)}")
     if s.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"tape kernel takes float32 or float64, got {s.dtype}")
+    return s
+
+
+def run_tape(tape, s: torch.Tensor, threads: int = tape_codegen.THREADS) -> torch.Tensor:
+    """K8, the kernel of `pallas_fn`: the tape (a list of (op, dst, a, b, c)
+    or an `EncodedTape`) on a (N_STATE, B) float32 or float64 state. CUDA
+    tensors launch the straight-line kernel generated from the tape
+    (`tape_codegen`; built at first use, kept on an EncodedTape), `threads`
+    a block; CPU tensors run `apply_tape_rows`. A failed build or launch
+    raises."""
+    _checked_state(s)
+    ops = tape.ops if isinstance(tape, EncodedTape) else tape
+    if s.device.type == "cpu":
+        return apply_tape_rows(ops, s)
+    if isinstance(tape, EncodedTape):
+        if tape.kernel is None or tape.kernel.dtype != s.dtype:
+            tape.kernel = kernel(ops, s.dtype)
+        kern = tape.kernel
+    else:
+        kern = kernel(ops, s.dtype)
+
+    def count():
+        launches["tape"] += 1
+
+    with torch.cuda.device(s.device):
+        return kern(s.contiguous(), threads, torch.cuda.current_stream(s.device).cuda_stream,
+                    count)
+
+
+def run_tape_interpreted(tape, s: torch.Tensor) -> torch.Tensor:
+    """The interpreter of csrc/tape.cu that K8 replaced, one thread per env,
+    kept as the comparison build: CUDA tensors launch it (a list is encoded
+    first), CPU tensors run `apply_tape_rows`."""
+    _checked_state(s)
     ops = tape.ops if isinstance(tape, EncodedTape) else tape
     if s.device.type == "cpu":
         return apply_tape_rows(ops, s)
@@ -194,9 +256,9 @@ def run_tape(tape, s: torch.Tensor) -> torch.Tensor:
                  s.data_ptr(), out.data_ptr(), s.shape[1],
                  torch.cuda.current_stream(s.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"tape kernel launch failed: {lib.tape_error_string(err).decode()} "
-                           f"({err})")
-    launches["tape"] += 1
+        raise RuntimeError(f"tape interpreter launch failed: "
+                           f"{lib.tape_error_string(err).decode()} ({err})")
+    launches["tape_interp"] += 1
     return out
 
 
@@ -217,6 +279,7 @@ def main(argv=None) -> None:
     p.add_argument("--cpu", action="store_true",
                    help="also run the serial NumPy baseline (slow)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--segment", type=int, default=tape_codegen.SEGMENT_OPS)
     args = p.parse_args(argv)
     on_card = args.device == "cuda"
     dev = require_card() if on_card else "cpu"
@@ -238,25 +301,34 @@ def main(argv=None) -> None:
               else host_ms(chained, calls=1, reps=args.reps))
         return ms / args.chain, first_s
 
-    for n_ops_s in args.ops.split(","):
-        n_ops = int(float(n_ops_s))
-        tape = make_tape(n_ops)
+    tapes = {int(float(n)): make_tape(int(float(n))) for n in args.ops.split(",")}
+    built = (build([(t, torch.float32) for t in tapes.values()], args.segment)["tapes"]
+             if on_card else [])
+    build_s = [sum(cuda_build.build_seconds.get(p, 0.0) for p in paths) for paths in built]
+    for k, (n_ops, tape) in enumerate(tapes.items()):
         for batch in [int(b) for b in args.batches.split(",")]:
             rng = np.random.default_rng(1)
             x_np = rng.uniform(0.5, 1.5, (N_STATE, batch)).astype(np.float32)
             x = torch.as_tensor(x_np, device=args.device)
-            methods = []
+            rows = []
             if on_card:
                 enc = encode_tape(tape, x.dtype, x.device)
-                methods.append(("cuda", lambda s, e=enc: run_tape(e, s)))
+                enc.kernel = tape_codegen.Kernel(x.dtype, [tape_codegen.load(p) for p in built[k]])
+                gen = lambda s, e=enc: run_tape(e, s)
+                interp = lambda s, e=enc: run_tape_interpreted(e, s)
+                turns = [(name, timed(fn, x)) for name, fn in
+                         (("cuda", gen), ("interp", interp), ("interp", interp), ("cuda", gen))]
+                for name in ("cuda", "interp"):
+                    mine = [t for n, t in turns if n == name]
+                    rows.append((name, float(np.mean([t[0] for t in mine])), mine[0][1]))
             if n_ops * args.chain <= PLAIN_MAX_OPS_CHAIN:
-                methods.append(("plain", lambda s: apply_tape_rows(tape, s)))
-            for name, fn in methods:
-                ms, first_s = timed(fn, x)
+                rows.append(("plain", *timed(lambda s: apply_tape_rows(tape, s), x)))
+            for name, ms, first_s in rows:
+                extra = {"build_s": build_s[k]} if name == "cuda" else {}
                 print(json.dumps({
                     "method": name, "n_ops": n_ops, "batch": batch, "ms_per_eval": ms,
                     "giga_instr_per_sec": n_ops * batch / ms / 1e6,
-                    "compile_s": first_s, "device": dev}), flush=True)
+                    "compile_s": first_s, **extra, "device": dev}), flush=True)
             if args.cpu and n_ops * batch <= CPU_MAX_OPS_BATCH:
                 xs = x_np.T.astype(np.float64)
                 t0 = time.perf_counter()

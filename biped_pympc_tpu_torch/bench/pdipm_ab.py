@@ -13,7 +13,7 @@ solve (`bench_common.make_qp_batch`, cold, 20 steps, one refinement step)
 in f32 and f64, timed in turns (this build, the others, the others in
 reverse, this build; `bench_common.device_ms`, median of 3), with whether
 every build gives the same bits; then this build's warp groups (K1, K2,
-K5b, K5d-a, K5a, K5e-a, K5c, K5d-c), each in turns with the first other build's block
+K5b, K5d-a, K5a, K5e-a, K5c, K5d-c, K5e-c), each in turns with the first other build's block
 group, and with each other build's warp group of the same route where that
 build has one (its warp entries share this build's C interface).
 """

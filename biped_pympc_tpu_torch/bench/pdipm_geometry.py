@@ -1,5 +1,5 @@
-"""The PDIPM routes that have a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a,
-K5c, K5d-c: `ROUTES`) in their launch geometries on the card: where a Newton step's
+"""The PDIPM routes, each with a warp group (K1, K2, K5b, K5d-a, K5a, K5e-a,
+K5c, K5d-c, K5e-c: `ROUTES`), in their launch geometries on the card: where a Newton step's
 cycles go, how many envs reside on an SM, and the solve times of the block
 group and the warp group in turns.
 
@@ -37,7 +37,7 @@ PER_LAUNCH = ("load", "store")  # booked once per launch; the rest per Newton st
 PROFILE_FLAGS = ("-DPDIPM_PROFILE",)
 # The routes with a breakdown and a warp group, and their options on top of
 # the controller's (`BASE`): K1, K2, K5b, K5d-a, K5a, K5e-a (its paired form,
-# foot_pack True), K5c and K5d-c.
+# foot_pack True), K5c, K5d-c and K5e-c (its paired form).
 BASE = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
 ROUTES = {"ric_aug": {}, "ric": {"backend": "ric"},
           "tridiag_aug": {"backend": "tridiag_aug", "foot_split": False},
@@ -45,7 +45,8 @@ ROUTES = {"ric_aug": {}, "ric": {"backend": "ric"},
           "tridiag": {"backend": "tridiag", "foot_split": False},
           "ric_aug_pack": {"foot_pack": True},
           "ric2": {"backend": "ric2", "foot_split": False},
-          "ric_dense": {"backend": "ric", "foot_split": False}}
+          "ric_dense": {"backend": "ric", "foot_split": False},
+          "ric_pack": {"backend": "ric", "foot_pack": True}}
 
 
 def route_opts(route: str, base: pdipm.PdipmOptions = BASE) -> pdipm.PdipmOptions:

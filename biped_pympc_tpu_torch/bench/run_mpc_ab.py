@@ -9,7 +9,8 @@ started in a checkout's root, on its own package: it builds the
 checkout's kernels (`pdipm_cuda.build`, into the checkout's build
 directory), makes the controller of each of `--paths` (keys of `PATHS`: the
 default solver, `solver="pallas_hybrid"`, `"pallas_ric2"`, `"pallas_ric"`
-unsplit) at `--batch` envs (HECTOR, walking gait, f32, the standing
+unsplit, and `"pallas_hybrid"` and `"pallas_ric"` with `solver_foot_pack`)
+at `--batch` envs (HECTOR, walking gait, f32, the standing
 observation) and times one `run_mpc` of each: device ms from CUDA events,
 the mean of 10 calls after a warm-up call, the median of 3. The
 turns run DIR, this, this, DIR (`--rounds` times), so that a drift of the
@@ -28,7 +29,9 @@ import sys
 # The controller paths a turn can time: name -> MPCConf keyword arguments.
 PATHS = {"default": {}, "hybrid": {"solver": "pallas_hybrid"},
          "ric2": {"solver": "pallas_ric2"},
-         "ric_dense": {"solver": "pallas_ric", "solver_foot_split": False}}
+         "ric_dense": {"solver": "pallas_ric", "solver_foot_split": False},
+         "hybrid_pack": {"solver": "pallas_hybrid", "solver_foot_pack": True},
+         "ric_pack": {"solver": "pallas_ric", "solver_foot_pack": True}}
 
 # The code of one turn, run by `python -c` in a checkout's root with its
 # root, the batch and the paths' {name: MPCConf keywords} as arguments; it

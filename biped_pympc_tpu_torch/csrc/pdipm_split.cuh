@@ -3,8 +3,8 @@
 // packed twins K5e-c (`RicPack`, pdipm_ric_pack.cu) and K5e-a (`RicAugPack`,
 // pdipm_ric_aug_pack.cu), one template each with the packing a compile-time
 // flag, so that K1's and K2's builds hold none of the packed code. A second
-// flag, LEAN, gives K1, K2 and K5e-a the layout of their warp groups
-// (`RicLean`, `RicAugLean`, `RicAugPackLean`; pdipm_common.cuh's
+// flag, LEAN, gives all four the layout of their warp groups (`RicLean`,
+// `RicAugLean`, `RicPackLean`, `RicAugPackLean`; pdipm_common.cuh's
 // `WarpGroup`): the same factor and solve, with the buffers one step does
 // not need at once sharing memory (`make_layout` says which).
 //
@@ -22,8 +22,10 @@
 // foot_pack True the pair is inverted by one paired elimination (`gj_pair`:
 // both halves of every stage in each barrier step, per-half pivot search and
 // row swaps, the pivot row scaled by its reciprocal, as `_gj_pair_inplace`
-// and `_gj_pair_pivot` do); with "apply" each half is inverted as the
-// unpacked route inverts its block and stored packed. The K^-1 apply reads a
+// and `_gj_pair_pivot` do; in the warp groups K5e-c inverts each 4x4 half in
+// one lane's registers and K5e-a each 12 x 12 pair in one warp, with that
+// arithmetic); with "apply" each half is inverted as the unpacked route
+// inverts its block and stored packed. The K^-1 apply reads a
 // stage row's half as one contiguous run, and Bd K^-1 Bd^T is the packed
 // contraction of `_split_bkb_pack` (`:630-645`): P_t = [Bd_L K_L^-1 |
 // Bd_R K_R^-1] over the {F, M_y} corners, summed over its 8 columns against
@@ -117,11 +119,12 @@ __device__ void y_chain_packed(const G& g, S* sm, const Layout& L, bool gj_inpla
 // ---------------------------------------------------------------------------
 // Condensed split: K2 (PACK false) and K5e-c (PACK true). Per foot the 4x4
 // SPD block G_f^T diag(W^-1_f) G_f + diag(r_f + beta), inverted without
-// pivoting (k_pivot does not apply to the split).
+// pivoting (k_pivot does not apply to the split). The lean layouts of both
+// hold the same values: the packing moves only where a stage row of an
+// inverse starts (`krow`).
 // ---------------------------------------------------------------------------
 template <bool PACK, bool LEAN = false>
 struct RicSplit {
-  static_assert(!(PACK && LEAN), "the packed route has no lean layout");
   static constexpr bool AUG = false;
   // pdipm_common.cuh's LeanPolicy: f, b, d in device memory when lean
   static constexpr bool INPUTS_IN_GLOBAL = LEAN, RESIDUALS_FORMED = false;
@@ -258,9 +261,10 @@ struct RicSplit {
     const S* gu = sm + L.gu;
     const S* w = sm + L.w;
     S* ka = sm + L.ka;
-    // Inverted in registers, one block per thread: the unpacked route, and
-    // the packed one with "apply"; the pair is inverted after, together.
-    const bool in_regs = !PACK || ff.foot_pack == FOOT_PACK_APPLY;
+    // Inverted in registers, one block per thread: the unpacked route, the
+    // packed one in its warp group, and in the block group with "apply"; the
+    // block group's pair is inverted after, together (`gj_pair`).
+    const bool in_regs = LEAN || !PACK || ff.foot_pack == FOOT_PACK_APPLY;
 
     // Foot blocks G_f^T diag(W^-1_f) G_f + diag(r_f + beta), block foot*T + t,
     // equilibrated around the inverse when `jacobi` (`pdipm_pallas.py:712`;
@@ -283,13 +287,16 @@ struct RicSplit {
         // One inlined copy of the unrolled inverse: with a second one in an
         // else branch, nvcc spilled 48 B in f32 and the kernel ran 15% slower.
         const bool jacobi = !PACK && ff.jacobi;
+        // The packed warp group's pair: each half is gj_pair's arithmetic,
+        // the pivot row scaled by its reciprocal whatever gj_form says.
+        const bool recip = (PACK && LEAN && ff.foot_pack == FOOT_PACK_PAIR) || ff.gj_inplace;
         S dj[4];
         if (jacobi) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) dj[i] = jacobi_d(a[i * 4 + i]);
           scale4(a, dj);
         }
-        inverse4_nopivot(a, ff.gj_inplace);
+        inverse4_nopivot(a, recip);
         if (jacobi) scale4(a, dj);
       }
 #pragma unroll
@@ -306,7 +313,8 @@ struct RicSplit {
       }
     }
     g.sync();
-    if (!in_regs) gj_pair<4>(g, ka, T, false, sm + L.colk, sm + L.prow, piv);
+    if constexpr (!LEAN)
+      if (!in_regs) gj_pair<4>(g, ka, T, false, sm + L.colk, sm + L.prow, piv);
     PDIPM_MARK(g, PH_FOOT);
     y_chain_packed<RicSplit>(g, sm, L, ff.gj_inplace, piv);
   }

@@ -1,7 +1,12 @@
-// A straight-line instruction tape evaluated for every env, one thread per
-// env (K8): the role of the reference's CusADi kernels.
+// A straight-line instruction tape evaluated for every env by an
+// interpreter, one thread per env: the first port of K8, kept as the build
+// K8 is compared with (`run_tape_interpreted` in
+// biped_pympc_tpu_torch/bench/bench_synthetic.py). K8 itself is now one
+// straight-line kernel generated from each tape (bench/tape_codegen.py), as
+// the Pallas kernel unrolls the tape when it is traced and CusADi generates
+// a kernel per function.
 //
-// Replaces: bench/bench_synthetic.py, the kernel of `pallas_fn` (:154,
+// Twin of: bench/bench_synthetic.py, the kernel of `pallas_fn` (:154,
 // launched at :158): `apply_tape_rows` over a (16, B) state in VMEM. It
 // computes what `apply_tape_rows` of
 // biped_pympc_tpu_torch/bench/bench_synthetic.py computes (the plain
@@ -10,9 +15,6 @@
 // The tape is data: row i of `code` is (op, dst, a, b) and c[i] its
 // constant, with op 0 fma (x y + c), 1 mul, 2 add, 3 sub, 4 div1p
 // (x / (1 + y y)), x = s[a], y = s[b]; then s[dst] = s[dst] / 2 + r / 2.
-// This is an interpreter: the Pallas kernel unrolls the tape when it is
-// traced, a CusADi kernel is generated per function. A generated
-// straight-line kernel is the redesign (ROADMAP).
 //
 // What bounds it on an H100: each op depends on the ones before it through
 // the state, so every env runs n_ops dependent steps (a tape load, two state

@@ -15,12 +15,20 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 # -Xptxas -v: ptxas reports each kernel's registers and spills into the
 # compiler output, which `build` keeps beside the library (`build_log`); it
 # does not change the code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+# Seconds each library's nvcc ran, {library path: seconds}, for the builds of
+# this process (the wall time of its own process, beside the others built
+# with it).
+build_seconds: dict = {}
 
 
 def find_nvcc() -> str:
@@ -64,30 +72,39 @@ def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) 
     `nvcc` is called for the compiler's path only when something is to be
     built. Raises RuntimeError with the compiler's output if any nvcc fails;
     a library is moved into place only once whole, its compiler output
-    written beside it first (`build_log`)."""
+    written beside it first (`build_log`); each nvcc's seconds go to
+    `build_seconds`."""
     todo = [key for key, path in paths.items() if not os.path.exists(path)]
     if not todo:
         return paths
     compiler = nvcc()
     os.makedirs(build_dir, exist_ok=True)
     jobs, failed = [], []
+
+    def wait(job):
+        """(stdout, stderr, seconds) of one job's nvcc, read as it runs."""
+        out, err = job[4].communicate()
+        return out, err, time.perf_counter() - job[3]
+
     try:
         for key in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
             cmd = [compiler, *NVCC_FLAGS, *flags, "-o", tmp, sources[key]]
-            jobs.append((key, cmd, tmp, subprocess.Popen(
+            jobs.append((key, cmd, tmp, time.perf_counter(), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        for key, cmd, tmp, proc in jobs:
-            out, err = proc.communicate()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(wait, jobs))
+        for (key, cmd, tmp, _, proc), (out, err, seconds) in zip(jobs, done):
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
             else:
                 with open(os.path.splitext(paths[key])[0] + ".log", "w") as fh:
                     fh.write(out + err)
                 os.replace(tmp, paths[key])  # atomic: a concurrent build never loads a partial file
+                build_seconds[paths[key]] = seconds
     finally:
-        for _, _, tmp, proc in jobs:
+        for _, _, tmp, _, proc in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -41,19 +41,21 @@ def host_source(text: str) -> str:
 
 
 def build(source: str, out: str, defines=()) -> str:
-    """Compile `source` (a .cu of csrc/) into the shared library `out` for
-    the host; return `out`. Raises RuntimeError with the compiler's output if
+    """Compile `source` (a .cu of csrc/, or a generated one that includes
+    only system headers and csrc/'s) into the shared library `out` for the
+    host; return `out`. Raises RuntimeError with the compiler's output if
     g++ fails or is missing."""
     gxx = find_gxx()
     if gxx is None:
         raise RuntimeError("g++ not found: the host build of the kernels needs it")
     with tempfile.TemporaryDirectory() as tmp:
-        for name in os.listdir(_CSRC):
-            if name.endswith((".cu", ".cuh")):
-                with open(os.path.join(_CSRC, name)) as fh:
-                    text = host_source(fh.read())
-                with open(os.path.join(tmp, name), "w") as fh:
-                    fh.write(text)
+        paths = {os.path.join(_CSRC, name) for name in os.listdir(_CSRC)
+                 if name.endswith((".cu", ".cuh"))}
+        for path in paths | {os.path.abspath(source)}:
+            with open(path) as fh:
+                text = host_source(fh.read())
+            with open(os.path.join(tmp, os.path.basename(path)), "w") as fh:
+                fh.write(text)
         open(os.path.join(tmp, "cuda_runtime.h"), "w").close()
         cmd = [gxx, *GXX_FLAGS, "-include", SHIM, "-I", tmp,
                *[f"-D{d}" for d in defines], "-o", out,

@@ -5,11 +5,11 @@
 `solve(qp, opts, state)` dispatches on where the QP lies: CUDA tensors launch
 the kernel of the route (`route(opts)`: `opts.backend`, and for "ric" /
 "ric_aug" also `opts.foot_split` and `opts.foot_pack`; one library per source
-in `SOURCES`) in the launch geometry of `geometry` (one env per 128-thread
-block, or for K1, K2, K5a, K5b, K5c, K5d-a, K5d-c and K5e-a a warp group per
-env in their lean layouts; K5a's, K5b's, K5c's, K5d-a's and K5d-c's stored
-stage inverses in a device-memory workspace that `_launch` allocates where
-the library asks for one),
+in `SOURCES`) in the launch geometry of `geometry` (every route a warp
+group per env in its lean layout; K5a's, K5b's, K5c's, K5d-a's and K5d-c's
+stored stage inverses in a device-memory workspace that `_launch` allocates
+where the library asks for one; one env per 128-thread block, the block
+group, when a caller asks for it to compare),
 CPU tensors run the plain version `ops/pdipm.py`. There is no fallback
 between the two: a failed build, allocation or launch raises, and so does a
 horizon and dtype whose layout does not fit in a block's shared memory. A
@@ -71,32 +71,33 @@ HEADERS = tuple(os.path.join(_CSRC, name) for name in
 BUILD_DIR = os.path.join(_PKG, "_build")
 MAX_SMEM_PER_BLOCK = 232448  # bytes of shared memory an H100 gives one block
 
-# Launch geometry (`geometry`). Every route runs in the block group: one env
-# per block of BLOCK_THREADS threads (`BlockGroup`, csrc/pdipm_common.cuh),
-# but K1, K2, K5b, K5d-a, K5a, K5e-a, K5c and K5d-c (LEAN_ROUTES), which run
-# in their warp group (`WarpGroup`), WARP_THREADS[route] threads per env and
-# one env per block, in their lean layouts. K1's and K2's warp groups finish
-# first at every batch measured, from b128 (one env per SM, where one env's
-# latency decides) to b4096 (PERF.md, Findings), and so do K5c's and K5d-c's
-# at b128 and b4096 (chip_smoke.py's turns), so the choice does not depend
-# on the batch. K5b, K5d-a, K5a, K5c and K5d-c (WORK_ROUTES) keep their T
+# Launch geometry (`geometry`). Every route (LEAN_ROUTES, all of SOURCES)
+# runs in its warp group (`WarpGroup`, csrc/pdipm_common.cuh),
+# WARP_THREADS[route] threads per env and one env per block, in its lean
+# layout; each also keeps the block group, one env per block of
+# BLOCK_THREADS threads (`BlockGroup`) in its block layout, which a caller
+# asks for (`BLOCK`) to compare. K1's and K2's warp groups finish first at
+# every batch measured, from b128 (one env per SM, where one env's latency
+# decides) to b4096 (PERF.md, Findings), and so do the others' at b128 and
+# b4096 (chip_smoke.py's turns), so the choice does not depend on the
+# batch. K5b, K5d-a, K5a, K5c and K5d-c (WORK_ROUTES) keep their T
 # stored stage inverses in shared memory, or in a workspace of device
 # memory, `pdipm_<route>_work_bytes` per env, where they do not fit or where
 # that puts more envs on an SM (the library asks the occupancy calculator;
 # at h10 K5b in f32 runs 8 envs an SM with it against 2 without, PERF.md).
 BLOCK_THREADS = 128
 WARP_THREADS = {"ric_aug": 64, "ric": 32, "tridiag_aug": 32, "ric_aug_dense": 128,
-                "tridiag": 32, "ric_aug_pack": 64, "ric2": 32, "ric_dense": 32}
+                "tridiag": 32, "ric_aug_pack": 64, "ric2": 32, "ric_dense": 32, "ric_pack": 32}
 LEAN_ROUTES = ("ric_aug", "ric", "tridiag_aug", "ric_aug_dense", "tridiag", "ric_aug_pack",
-               "ric2", "ric_dense")
+               "ric2", "ric_dense", "ric_pack")
 WORK_ROUTES = ("tridiag_aug", "ric_aug_dense", "tridiag", "ric2", "ric_dense")
 
 # Kernel launches issued in this process: solves per route (`route`), and
 # launches of the refinement-residual entry; chip_smoke.py reads them to show
 # that each path went through the kernels.
 launches = {backend: 0 for backend in SOURCES}
-# Of those, the launches in a warp group (LEAN_ROUTES only; the rest of each
-# route's count ran in the block group).
+# Of those, the launches in a warp group (the rest of each route's count ran
+# in the block group).
 warp_launches = {backend: 0 for backend in LEAN_ROUTES}
 residual_launches = {"ric_aug": 0}
 # Launches of the adaptive solve whose gate was open, per (route, device):
@@ -131,13 +132,11 @@ BLOCK = Geometry(BLOCK_THREADS, 1)
 
 
 def geometry(backend: str) -> Geometry:
-    """The launch geometry of route `backend`: the block group, but for the
-    LEAN_ROUTES their warp group of WARP_THREADS[backend] threads, one env
-    per block. Whether the route's layout fits a block at the launch's
-    horizon and dtype, `_launch` asks the library."""
-    if backend in LEAN_ROUTES:
-        return Geometry(WARP_THREADS[backend], 1, lean=True)
-    return BLOCK
+    """The launch geometry of route `backend`: its warp group of
+    WARP_THREADS[backend] threads, one env per block. Whether the route's
+    layout fits a block at the launch's horizon and dtype, `_launch` asks
+    the library."""
+    return Geometry(WARP_THREADS[backend], 1, lean=True)
 
 
 def args(opts: PdipmOptions) -> PdipmArgs:
@@ -209,10 +208,9 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     """Load the built kernel library of a route and declare its C interface."""
     lib = ctypes.CDLL(path)
     for suffix in ("f32", "f64"):
-        entries = [(f"pdipm_{backend}_{suffix}", ENTRY_ARGTYPES)]
-        if backend in LEAN_ROUTES:
-            entries.append((f"pdipm_{backend}_warp_{suffix}", WORK_ENTRY_ARGTYPES
-                            if backend in WORK_ROUTES else ENTRY_ARGTYPES))
+        entries = [(f"pdipm_{backend}_{suffix}", ENTRY_ARGTYPES),
+                   (f"pdipm_{backend}_warp_{suffix}", WORK_ENTRY_ARGTYPES
+                    if backend in WORK_ROUTES else ENTRY_ARGTYPES)]
         if backend == "ric_aug":
             entries.append((f"pdipm_ric_aug_residual_{suffix}", RESIDUAL_ARGTYPES))
         for name, argtypes in entries:
@@ -222,14 +220,12 @@ def load_library(path: str, backend: str) -> ctypes.CDLL:
     smem = getattr(lib, f"pdipm_{backend}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_size_t
-    extras = []
-    if backend in LEAN_ROUTES:
-        # The warp group's lean layout and occupancy, and the WORK_ROUTES'
-        # workspace.
-        extras = [(f"pdipm_{backend}_lean_bytes", [ctypes.c_int] * 2, ctypes.c_size_t),
-                  (f"pdipm_{backend}_envs_per_sm", [ctypes.c_int] * 3, ctypes.c_int)]
-        if backend in WORK_ROUTES:
-            extras.append((f"pdipm_{backend}_work_bytes", [ctypes.c_int] * 3, ctypes.c_size_t))
+    # The warp group's lean layout and occupancy, and the WORK_ROUTES'
+    # workspace.
+    extras = [(f"pdipm_{backend}_lean_bytes", [ctypes.c_int] * 2, ctypes.c_size_t),
+              (f"pdipm_{backend}_envs_per_sm", [ctypes.c_int] * 3, ctypes.c_int)]
+    if backend in WORK_ROUTES:
+        extras.append((f"pdipm_{backend}_work_bytes", [ctypes.c_int] * 3, ctypes.c_size_t))
     if hasattr(lib, f"pdipm_{backend}_profile_read"):
         # A profile build's breakdown (`bench/pdipm_geometry.py`).
         extras.append((f"pdipm_{backend}_profile_read", [ctypes.c_void_p, ctypes.c_int],

@@ -1,10 +1,11 @@
 """The launch geometry of the port's PDIPM kernels (`pdipm_cuda.geometry`):
 K1 ("ric_aug") and K5e-a ("ric_aug_pack") run two warps per env, K2
 ("ric"), K5b ("tridiag_aug"), K5a ("tridiag"), K5c ("ric2") and K5d-c
-("ric_dense") one, K5d-a ("ric_aug_dense") four, one env per block, in
-their lean layouts (K5b's, K5d-a's, K5a's, K5c's and K5d-c's stored stage
-inverses in shared memory or in a device-memory workspace); K5e-c
-("ric_pack") keeps the block group. The layouts' byte
+("ric_dense") and K5e-c ("ric_pack") one, K5d-a ("ric_aug_dense") four,
+one env per block, in their lean layouts (K5b's, K5d-a's, K5a's, K5c's and
+K5d-c's stored stage inverses in shared memory or in a device-memory
+workspace); every route keeps its block group for a caller that asks for
+it. The layouts' byte
 counts come from the kernels' own `make_layout`, read from a g++ build of
 those routes against the host shim (`ops/host_build.py`; the tests that
 need it skip, deciding inside the test, where g++ is absent)."""
@@ -22,7 +23,10 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # The largest horizon each route ran before the warp groups, per dtype: the
 # block layout within 232,448 B (ROADMAP Queue 3, item 5).
 BLOCK_MAX_T = {("ric_aug", "f32"): 45, ("ric_aug", "f64"): 22, ("ric", "f32"): 64,
-               ("ric", "f64"): 31}
+               ("ric", "f64"): 31, ("ric_pack", "f32"): 63, ("ric_pack", "f64"): 31}
+# The options of each route of BLOCK_MAX_T.
+BLOCK_OPTS = {"ric_aug": dict(backend="ric_aug"), "ric": dict(backend="ric"),
+              "ric_pack": dict(backend="ric", foot_pack=True)}
 # One H100 SM: shared memory, the runtime's reserve per block and the
 # allocation unit, in bytes; threads and blocks at most.
 SM_SMEM, BLOCK_RESERVED_SMEM, SMEM_ALLOC_UNIT = 233472, 1024, 128
@@ -102,7 +106,8 @@ def test_block_bytes_are_envs_times_the_env_layout(monkeypatch, libs, route, dt,
     if T <= BLOCK_MAX_T[route, dt]:
         assert lean <= pdipm_cuda.MAX_SMEM_PER_BLOCK
     qp = bench_common.make_qp_batch(2, horizon=T, dtype=DTYPES[dt], device="cpu")
-    opts = pdipm.PdipmOptions(backend=route, foot_split=True, iterations=1)
+    opts = pdipm.PdipmOptions(foot_split=True, iterations=1, **BLOCK_OPTS[route])
+    assert pdipm_cuda.route(opts) == route
     monkeypatch.setattr(pdipm_cuda, "launches", dict(pdipm_cuda.launches))
     monkeypatch.setattr(pdipm_cuda, "warp_launches", dict(pdipm_cuda.warp_launches))
     lib = _FakeLib(lean)
@@ -136,7 +141,7 @@ def _resident(nbytes, threads):
     ("ric_aug", "f32", 6, 4), ("ric", "f32", 8, 5), ("ric_aug", "f64", 3, 2), ("ric", "f64", 4, 2),
     ("ric_aug_pack", "f32", 6, 4), ("ric_aug_pack", "f64", 3, 2),
     ("ric2", "f32", 8, 4), ("ric2", "f64", 4, 2), ("ric_dense", "f32", 8, 4),
-    ("ric_dense", "f64", 4, 2)])
+    ("ric_dense", "f64", 4, 2), ("ric_pack", "f32", 8, 5), ("ric_pack", "f64", 4, 2)])
 def test_h10_geometry_puts_more_envs_on_an_sm(libs, route, dt, want, block_want):
     """At h10 the warp group's lean layouts let more envs reside on an SM by
     shared memory than the block group's (K2's block group in f32 is held to
@@ -144,7 +149,8 @@ def test_h10_geometry_puts_more_envs_on_an_sm(libs, route, dt, want, block_want)
     P_t and yc in its union, fits K1's 6; K5c's and K5d-c's, K2's with their
     stage records in the workspace, which the library takes where it puts
     more envs on an SM (`uses_workspace`; the host build's occupancy stub
-    does not, so its lean bytes here carry them), K2's 8)."""
+    does not, so its lean bytes here carry them), K2's 8; K5e-c's is K2's, 8
+    against its block group's 5 by shared memory, 4 with the registers)."""
     g = pdipm_cuda.geometry(route)
     lean = _bytes(libs, route, 10, dt, lean=True)
     resident = _resident(lean, g.threads_per_env)
@@ -184,27 +190,43 @@ class _FakeLib:
         return fn
 
 
-@pytest.mark.parametrize("route", sorted(set(pdipm_cuda.SOURCES) - set(pdipm_cuda.LEAN_ROUTES)))
+@pytest.mark.parametrize("route", sorted(pdipm_cuda.SOURCES))
 @pytest.mark.parametrize("T", [1, 10, 20])
 def test_other_routes_keep_the_block_group(monkeypatch, route, T):
-    """Every route without a warp group runs one env per 128-thread block,
-    its own layout (the library's `smem_bytes`) and its block entry, at any
-    horizon and dtype."""
+    """Every route has a warp group now, and keeps its block group for a
+    caller that asks for it (`geom=BLOCK`, as chip_smoke.py and the benches
+    do to compare): one env per 128-thread block, its own block layout (the
+    library's `smem_bytes`) and its block entry, at any horizon and dtype,
+    counted as a launch but not as a warp-group launch."""
     from biped_pympc_tpu_torch.bench import bench_common
+    from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
 
-    assert pdipm_cuda.geometry(route) == pdipm_cuda.BLOCK == pdipm_cuda.Geometry(128, 1)
-    assert not pdipm_cuda.BLOCK.lean
-    backend, split = route.split("_dense")[0].split("_pack")[0], "_dense" not in route
-    opts = pdipm.PdipmOptions(backend=backend, foot_split=split,
-                              foot_pack="_pack" in route, iterations=1)
+    assert pdipm_cuda.BLOCK == pdipm_cuda.Geometry(128, 1) and not pdipm_cuda.BLOCK.lean
+    assert pdipm_cuda.geometry(route) != pdipm_cuda.BLOCK and route in pdipm_cuda.LEAN_ROUTES
+    opts = dataclasses.replace(pg.route_opts(route), iterations=1)
     assert pdipm_cuda.route(opts) == route
-    monkeypatch.setattr(pdipm_cuda, "launches", dict(pdipm_cuda.launches))
+    monkeypatch.setattr(pdipm_cuda, "launches", dict.fromkeys(pdipm_cuda.launches, 0))
+    monkeypatch.setattr(pdipm_cuda, "warp_launches", dict.fromkeys(pdipm_cuda.warp_launches, 0))
     for dt, dtype in DTYPES.items():
         qp = bench_common.make_qp_batch(2, horizon=T, dtype=dtype, device="cpu")
         lib = _FakeLib(1024)
-        pdipm_cuda.run_kernel(lib, qp, opts, None)
+        pdipm_cuda.run_kernel(lib, qp, opts, None, geom=pdipm_cuda.BLOCK)
         assert lib.calls == [(f"pdipm_{route}_smem_bytes", (T, _size(dt))),
                              (f"pdipm_{route}_{dt}", None)]
+    assert (pdipm_cuda.launches[route], pdipm_cuda.warp_launches[route]) == (2, 0)
+
+
+@pytest.mark.parametrize("T", [10, 40])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5e_c_lean_layout_is_k2s(libs, dt, T):
+    """K5e-c's lean layout holds K2's values, the stage pairs only reordered
+    (`krow`): the same bytes as K2's at h10 and h40 in f32 and f64, and so
+    K2's horizons (90 / 44 against its block layout's 63 / 31)."""
+    assert _bytes(libs, "ric_pack", T, dt, lean=True) == _bytes(libs, "ric", T, dt, lean=True)
+    fits = lambda r, lean: max(t for t in range(1, 120)
+                               if _bytes(libs, r, t, dt, lean) <= pdipm_cuda.MAX_SMEM_PER_BLOCK)
+    assert fits("ric_pack", True) == fits("ric", True) == {"f32": 90, "f64": 44}[dt]
+    assert fits("ric_pack", False) == BLOCK_MAX_T["ric_pack", dt]
 
 
 class _WorkLib(_FakeLib):
@@ -321,17 +343,20 @@ def test_hybrid_solves_both_take_their_warp_groups(monkeypatch, dt):
 
 
 def test_block_geometry_rejected_for_other_routes_in_a_warp_group():
-    """A warp-group geometry for a route that has none (K5e-c, the one route
-    left in the block group), or another warp group than the route's,
-    raises before any launch."""
+    """K5e-c ("ric_pack"), the last route to leave the block group, takes
+    its one-warp group (K2's); a warp-group geometry that is not the
+    route's own (another thread count, or the warp count without the lean
+    layout) raises before any launch."""
     from biped_pympc_tpu_torch.bench import bench_common
 
     qp = bench_common.make_qp_batch(2, horizon=2, dtype=torch.float64, device="cpu")
     before = dict(pdipm_cuda.launches)
     pack = pdipm.PdipmOptions(backend="ric", foot_split=True, foot_pack=True)
     assert pdipm_cuda.route(pack) == "ric_pack"
+    assert pdipm_cuda.geometry("ric_pack") == pdipm_cuda.Geometry(32, 1, lean=True) \
+        == pdipm_cuda.geometry("ric")
     for opts, geom in ((pack, pdipm_cuda.Geometry(32, 1)),
-                       (pack, pdipm_cuda.Geometry(32, 1, lean=True)),
+                       (pack, pdipm_cuda.Geometry(64, 1, lean=True)),
                        (pdipm.PdipmOptions(backend="tridiag"), pdipm_cuda.Geometry(64, 1, lean=True)),
                        (pdipm.PdipmOptions(backend="ric"), pdipm_cuda.Geometry(64, 1)),
                        (pdipm.PdipmOptions(backend="ric_aug"), pdipm_cuda.Geometry(32, 2))):

@@ -1,10 +1,11 @@
 """The device code of the routes with a warp group (K1, K2, K5b, K5d-a, K5a,
-K5e-a, K5c, K5d-c) on the CPU: each built with g++ against `ops/host_shim.h`
+K5e-a, K5c, K5d-c, K5e-c) on the CPU: each built with g++ against `ops/host_shim.h`
 (`ops/host_build.py`: one host thread per CUDA thread, barriers and shuffles
 as the shim's), launched through the port's own wrapper
 (`pdipm_cuda.run_kernel`) on CPU tensors, in the block group and in the
 route's warp group (K5b, K5d-a, K5a, K5c and K5d-c with their stored stage
-inverses in shared memory and in the workspace; K5e-a in both packings), and held
+inverses in shared memory and in the workspace; K5e-a and K5e-c in both
+packings), and held
 against the plain version in f64 at a small size (B = 2, T = 2, 2 Newton
 steps). Skips, deciding inside each test, where g++ is absent. The build
 has no FMA contraction, so its agreement is that of the arithmetic, not the
@@ -70,15 +71,18 @@ def test_kernel_matches_the_plain_version(libs, route, geom, horizon):
 # f32 bounds relative to max(1, |v|) after 2 steps: the condensed K5a's W^-1
 # blocks (up to ~1e8) amplify f32 rounding (1.1e-4 read at T = 2), and so do
 # K5c's and K5d-c's (4.1e-5 and 5.5e-5 read at T = 3), held to K5a's class
-# bound; the augmented K5e-a reads 1.6e-6.
-F32_RTOL = {"tridiag": 5e-4, "ric_aug_pack": 2e-5, "ric2": 5e-4, "ric_dense": 5e-4}
+# bound; the augmented K5e-a reads 1.6e-6 and the condensed K5e-c, K2's
+# 4x4 halves, 1.3e-6, both held to 2e-5.
+F32_RTOL = {"tridiag": 5e-4, "ric_aug_pack": 2e-5, "ric2": 5e-4, "ric_dense": 5e-4,
+            "ric_pack": 2e-5}
 
 
 @pytest.mark.parametrize("horizon", [1, 3])
 @pytest.mark.parametrize("route", sorted(F32_RTOL))
 def test_k5a_and_k5e_a_warp_groups_match_the_plain_version_in_f32(libs, route, horizon):
-    """K5a's, K5e-a's, K5c's and K5d-c's warp groups in f32 against the plain
-    version in f32, B = 2, 2 steps, within their class's f32 bound."""
+    """K5a's, K5e-a's, K5c's, K5d-c's and K5e-c's warp groups in f32 against
+    the plain version in f32, B = 2, 2 steps, within their class's f32
+    bound."""
     qp = bench_common.make_qp_batch(2, horizon=horizon, dtype=torch.float32, device="cpu")
     opts = _opts(route)
     got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, "warp"))
@@ -110,10 +114,11 @@ def test_workspace_gives_the_bits_of_shared_memory(libs, route, horizon):
 # Each option value on each route that takes it (df: the augmented routes
 # only, `pdipm.check_options`; aug_pivot=False, K5f's natural order: on
 # K5d-a and K5e-a, whose warp groups eliminate both ways; k_pivot, the pivot
-# search of the unsplit condensed blocks: on K5d-c; K5e-a's packings:
-# `route_opts` pairs the halves, "apply" eliminates each as K1 does, with
-# and without the pivot search).
-CONDENSED = ("ric", "tridiag", "ric2", "ric_dense")
+# search of the unsplit condensed blocks: on K5d-c; the packings:
+# `route_opts` pairs the halves, "apply" eliminates each as K1 does (K5e-a,
+# with and without the pivot search) or as K2 does (K5e-c); kkt_scale on
+# K5e-c, which ignores it as the plain version does).
+CONDENSED = ("ric", "tridiag", "ric2", "ric_dense", "ric_pack")
 OPTIONS = [(route, name, kw) for name, kw in (
     ("tableau", dict(gj_form="tableau")), ("jacobi", dict(kkt_scale="jacobi")),
     ("sum_refine", dict(corrector_form="sum_refine")), ("combined", dict(corrector_form="combined")),
@@ -125,7 +130,8 @@ OPTIONS = [(route, name, kw) for name, kw in (
     if not (route in CONDENSED and name == "df")
     and not (name == "no_pivot" and route not in ("ric_aug_dense", "ric_aug_pack"))
     and not (name == "k_pivot" and route != "ric_dense")
-    and not (name.startswith("apply") and route != "ric_aug_pack")]
+    and not (name == "apply" and route not in ("ric_aug_pack", "ric_pack"))
+    and not (name == "apply_no_pivot" and route != "ric_aug_pack")]
 
 
 @pytest.mark.parametrize("route, name, kw", OPTIONS, ids=[f"{r}-{n}" for r, n, _ in OPTIONS])
@@ -196,6 +202,13 @@ def test_k5c_and_k5d_c_warp_entries_refuse_df(libs, route, dtype):
     _assert_df_refused(libs, route, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_k5e_c_warp_entry_refuses_df(libs, dtype):
+    """K5e-c's warp entry refuses the compensated residual as its block
+    entry does."""
+    _assert_df_refused(libs, "ric_pack", dtype)
+
+
 def test_ab_loader_runs_any_build_through_its_block_entries(libs, tmp_path):
     """`bench/pdipm_ab.load_block` declares only the block-group entries
     that every build shares; through it the host build of K2 gives the bits
@@ -231,3 +244,37 @@ def test_k5e_a_pair_warp_matches_the_plain_version(libs, pack, pivot):
         for name in ("x", "s", "z", "y", "residuals"):
             torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0,
                                        atol=ATOL, equal_nan=True, msg=f"{name} T={horizon}")
+
+
+@pytest.mark.parametrize("horizon", [1, 2, 3])
+@pytest.mark.parametrize("pack", [True, "apply"], ids=["pair", "apply"])
+def test_k5e_c_warp_group_matches_the_plain_version(libs, pack, horizon):
+    """K5e-c's warp group inverts each 4x4 half in one lane's registers: in
+    both packings, under both Gauss-Jordan forms (the pair scales the pivot
+    row by its reciprocal whatever gj_form says, as the plain version does),
+    B = 2, 4 steps, f64, T = 1, 2 and 3, within 1e-10 of the plain version."""
+    qp = _qp(2, horizon)
+    for form in ("inplace", "tableau"):
+        opts = _opts("ric_pack", foot_pack=pack, gj_form=form, iterations=4)
+        got = pdipm_cuda.run_kernel(libs["ric_pack"], qp, opts, None,
+                                    geom=_geom("ric_pack", "warp"))
+        _assert_close(got, pdipm.solve(qp, opts))
+
+
+@pytest.mark.parametrize("horizon", [1, 3])
+@pytest.mark.parametrize("pack", [True, "apply"], ids=["pair", "apply"])
+def test_k5e_c_warp_group_gives_k2s_bits_under_the_default_form(libs, pack, horizon):
+    """Under gj_form "inplace" each half of K5e-c's pair is K2's inverse and
+    the packed Bd K^-1 Bd^T is K2's sum in K2's order, so K5e-c's warp group
+    gives K2's warp-group bits in both packings; under "tableau" the pair
+    (the reciprocal whatever the form) parts from K2 and "apply" does not."""
+    qp = _qp(2, horizon)
+    bits = lambda r: [getattr(r, n) for n in ("x", "s", "z", "y", "residuals")]
+    for form in ("inplace", "tableau"):
+        opts = _opts("ric_pack", foot_pack=pack, gj_form=form)
+        got = pdipm_cuda.run_kernel(libs["ric_pack"], qp, opts, None,
+                                    geom=_geom("ric_pack", "warp"))
+        k2 = pdipm_cuda.run_kernel(libs["ric"], qp, dataclasses.replace(opts, foot_pack=False),
+                                   None, geom=_geom("ric", "warp"))
+        same = all(torch.equal(a, b) for a, b in zip(bits(got), bits(k2)))
+        assert same == (form == "inplace" or pack == "apply"), form

@@ -110,12 +110,15 @@ def test_declared_c_interface_matches_the_entries(monkeypatch, backend):
     assert len(pdipm_cuda.RESIDUAL_ARGTYPES) == 20
 
 
-@pytest.mark.parametrize("module, entries", [
-    (ab_roofline, [f"roofline_{k}_{s}" for k in ("fma_peak", "stream") for s in ("f32", "f64")]),
-    (bench_synthetic, ["tape_run_f32", "tape_run_f64"])], ids=["roofline", "tape"])
-def test_bench_kernels_declare_their_c_interface(monkeypatch, module, entries):
-    """The bench twins declare each entry of their source with its types."""
-    source = pathlib.Path(module.SOURCE).read_text()
+@pytest.mark.parametrize("module, path, entries", [
+    (ab_roofline, ab_roofline.SOURCE,
+     [f"roofline_{k}_{s}" for k in ("fma_peak", "stream") for s in ("f32", "f64")]),
+    (bench_synthetic, bench_synthetic.INTERP_SOURCE, ["tape_run_f32", "tape_run_f64"])],
+    ids=["roofline", "tape"])
+def test_bench_kernels_declare_their_c_interface(monkeypatch, module, path, entries):
+    """The bench twins declare each entry of their source with its types
+    (the tape's: its interpreter, kept to compare)."""
+    source = pathlib.Path(path).read_text()
     extern_c = source[source.index('extern "C" {'):]
     prefix = entries[0].split("_")[0]
     fake = types.SimpleNamespace(**{name: types.SimpleNamespace()
@@ -205,7 +208,7 @@ def test_kernel_sources_include_only_their_own_headers():
         for inc in re.findall(r'^#include\s+(\S+)', path.read_text(), flags=re.M):
             assert inc.startswith("<") or (csrc / inc.strip('"')).is_file(), (path.name, inc)
     assert {pathlib.Path(p).name for p in (*pdipm_cuda.SOURCES.values(), *pdipm_cuda.HEADERS,
-                                           ab_roofline.SOURCE, bench_synthetic.SOURCE)} \
+                                           ab_roofline.SOURCE, bench_synthetic.INTERP_SOURCE)} \
         == {p.name for p in csrc.iterdir()}
 
 
@@ -598,18 +601,41 @@ def test_stream_kernel_matches_plain_on_card(rows):
 @pytest.mark.parametrize("n_ops, batch", [(10, 256), (1000, 4096), (100, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_tape_kernel_matches_plain_on_card(dtype, n_ops, batch):
-    """K8 against the plain version, a batch that is no multiple of the
-    block included: atol 1e-6 in float32, 1e-12 in float64 (the kernel
-    fuses x y + c)."""
+    """K8, the kernel generated from the tape, against the plain version, a
+    batch that is no multiple of the block included, at 32-, 64- and
+    128-thread blocks: atol 1e-6 in float32, 1e-12 in float64 (the kernel
+    fuses x y + c); the interpreter it replaced within the same bounds."""
     _card()
     tape = bench_synthetic.make_tape(n_ops)
     rng = np.random.default_rng(1)
     s = torch.tensor(rng.uniform(0.5, 1.5, (bench_synthetic.N_STATE, batch)), dtype=dtype,
                      device="cuda")
-    before = bench_synthetic.launches["tape"]
-    got = bench_synthetic.run_tape(tape, s)
+    before = dict(bench_synthetic.launches)
     want = bench_synthetic.apply_tape_rows(tape, s)
-    torch.cuda.synchronize()
-    assert bench_synthetic.launches["tape"] == before + 1
     atol = 1e-6 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    for threads in (32, 64, 128):
+        got = bench_synthetic.run_tape(tape, s, threads)
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    interp = bench_synthetic.run_tape_interpreted(tape, s)
+    torch.cuda.synchronize()
+    assert bench_synthetic.launches == {"tape": before["tape"] + 3,
+                                        "tape_interp": before["tape_interp"] + 1}
+    torch.testing.assert_close(interp, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_tape_segments_give_the_bits_of_one_kernel_on_card():
+    """A tape cut into consecutive kernels (the 16 values of each env passed
+    through device memory) gives the bits of one kernel of the whole tape,
+    and counts a launch per segment."""
+    _card()
+    tape = bench_synthetic.make_tape(250)
+    s = torch.rand(bench_synthetic.N_STATE, 300, device="cuda") + 0.5
+    whole = bench_synthetic.run_tape(tape, s)
+    enc = bench_synthetic.encode_tape(tape, s.dtype, s.device)
+    enc.kernel = bench_synthetic.kernel(tape, s.dtype, segment=100)
+    before = bench_synthetic.launches["tape"]
+    cut = bench_synthetic.run_tape(enc, s)
+    torch.cuda.synchronize()
+    assert len(enc.kernel.libs) == 3 and bench_synthetic.launches["tape"] == before + 3
+    assert torch.equal(cut, whole)
