@@ -32,10 +32,6 @@ and `cpu` run.
 
     python -m biped_pympc_tpu_torch.bench.bench_synthetic [--ops 1e1,1e2,1e3,1e4,1e5]
         [--batches 256,4096,32768] [--chain 10] [--reps 3] [--cpu] [--device cuda|cpu]
-        [--segment 10000]
-
-`--segment` is the ops of one generated kernel (`tape_codegen.SEGMENT_OPS`;
-a value past the longest tape builds each tape in one nvcc).
 """
 
 from __future__ import annotations
@@ -164,22 +160,21 @@ def interp_path() -> str:
     return cuda_build.library_path("tape", INTERP_SOURCE, (), pdipm_cuda.BUILD_DIR)
 
 
-def build(tapes=(), segment: int = tape_codegen.SEGMENT_OPS) -> dict:
+def build(tapes=()) -> dict:
     """Compile the interpreter and the generated kernels of `tapes`, (ops,
-    dtype) pairs cut into kernels of `segment` ops, that are not built yet:
-    one nvcc per library, all started together. Returns {"interp": path,
-    "tapes": [[segment library paths] per tape]}."""
-    sources, paths, per_tape = tape_codegen.plan(tapes, pdipm_cuda.BUILD_DIR, segment)
+    dtype) pairs cut into kernels of `tape_codegen.SEGMENT_OPS` ops, that
+    are not built yet: one nvcc per library, all started together. Returns
+    {"interp": path, "tapes": [[segment library paths] per tape]}."""
+    sources, paths, per_tape = tape_codegen.plan(tapes, pdipm_cuda.BUILD_DIR)
     sources["tape"], paths["tape"] = INTERP_SOURCE, interp_path()
     cuda_build.build(sources, paths, pdipm_cuda.BUILD_DIR)
     return {"interp": paths["tape"], "tapes": per_tape}
 
 
-def kernel(tape, dtype: torch.dtype,
-           segment: int = tape_codegen.SEGMENT_OPS) -> tape_codegen.Kernel:
+def kernel(tape, dtype: torch.dtype) -> tape_codegen.Kernel:
     """The generated kernels of `tape` (a list of (op, dst, a, b, c)) in
-    `dtype`, `segment` ops each, built if they are not yet."""
-    paths = build([(tape, dtype)], segment)["tapes"][0]
+    `dtype`, built if they are not yet."""
+    paths = build([(tape, dtype)])["tapes"][0]
     return tape_codegen.Kernel(dtype, [tape_codegen.load(p) for p in paths])
 
 
@@ -207,13 +202,13 @@ def _checked_state(s: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def run_tape(tape, s: torch.Tensor, threads: int = tape_codegen.THREADS) -> torch.Tensor:
+def run_tape(tape, s: torch.Tensor) -> torch.Tensor:
     """K8, the kernel of `pallas_fn`: the tape (a list of (op, dst, a, b, c)
     or an `EncodedTape`) on a (N_STATE, B) float32 or float64 state. CUDA
     tensors launch the straight-line kernel generated from the tape
-    (`tape_codegen`; built at first use, kept on an EncodedTape), `threads`
-    a block; CPU tensors run `apply_tape_rows`. A failed build or launch
-    raises."""
+    (`tape_codegen`; built at first use, kept on an EncodedTape), one
+    thread per env; CPU tensors run `apply_tape_rows`. A failed build or
+    launch raises."""
     _checked_state(s)
     ops = tape.ops if isinstance(tape, EncodedTape) else tape
     if s.device.type == "cpu":
@@ -229,8 +224,8 @@ def run_tape(tape, s: torch.Tensor, threads: int = tape_codegen.THREADS) -> torc
         launches["tape"] += 1
 
     with torch.cuda.device(s.device):
-        return kern(s.contiguous(), threads, torch.cuda.current_stream(s.device).cuda_stream,
-                    count)
+        return kern(s.contiguous(), stream=torch.cuda.current_stream(s.device).cuda_stream,
+                    on_launch=count)
 
 
 def run_tape_interpreted(tape, s: torch.Tensor) -> torch.Tensor:
@@ -279,7 +274,6 @@ def main(argv=None) -> None:
     p.add_argument("--cpu", action="store_true",
                    help="also run the serial NumPy baseline (slow)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--segment", type=int, default=tape_codegen.SEGMENT_OPS)
     args = p.parse_args(argv)
     on_card = args.device == "cuda"
     dev = require_card() if on_card else "cpu"
@@ -302,7 +296,7 @@ def main(argv=None) -> None:
         return ms / args.chain, first_s
 
     tapes = {int(float(n)): make_tape(int(float(n))) for n in args.ops.split(",")}
-    built = (build([(t, torch.float32) for t in tapes.values()], args.segment)["tapes"]
+    built = (build([(t, torch.float32) for t in tapes.values()])["tapes"]
              if on_card else [])
     build_s = [sum(cuda_build.build_seconds.get(p, 0.0) for p in paths) for paths in built]
     for k, (n_ops, tape) in enumerate(tapes.items()):

@@ -69,8 +69,8 @@ def literal(c: float, dtype: torch.dtype) -> str:
 def _statement(op, dst, a, b, c, dtype) -> str:
     """One op and its blend with every rounding written out, so that nvcc
     has no product left to contract and a tape gives the same bits however
-    it is cut into kernels: fma fused, y y + 1 fused (as nvcc contracts the
-    interpreter's 1 + y y), the division IEEE, and the blend s / 2 + r / 2
+    it is cut into kernels: fma fused, y y + 1 fused (as the interpreter of
+    csrc/tape.cu writes it), the division IEEE, and the blend s / 2 + r / 2
     one fused multiply-add of exact halves (one rounding, as the plain
     version's)."""
     fma = "fmaf" if dtype == torch.float32 else "fma"

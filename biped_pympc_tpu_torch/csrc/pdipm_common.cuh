@@ -350,6 +350,55 @@ __device__ __forceinline__ S group_min(const G& g, S v, S* red) {
   return group_reduce<true>(g, v, red);
 }
 
+// A policy with BLOCK_ORDER_SUMS (K5e-c's one-warp group) sums mu, mu_aff
+// and the residual norms in the block group's order (`block_order_sum`), so
+// that its warp group gives its block group's bits; every other policy has
+// no such member and sums in its own group's order.
+template <typename P, typename = void>
+struct BlockOrderPolicy {
+  static constexpr bool value = false;
+};
+template <typename P>
+struct BlockOrderPolicy<P, std::void_t<decltype(P::BLOCK_ORDER_SUMS)>> {
+  static constexpr bool value = P::BLOCK_ORDER_SUMS;
+};
+
+// The sum over k < n of term(k) in a one-warp group, rounded as the block
+// group rounds `for (it = tid; it < off + n; it += 128) part += term(it -
+// off)` and then block_sum: lane l stands in for the block's threads l + 32 q
+// (q < 4), each adding its terms in increasing k; the block tree's halvings
+// 64 and 32 in registers, the five after them group_reduce's butterfly,
+// which adds as block_sum does.
+template <typename S, typename G, typename F>
+__device__ __forceinline__ S block_order_sum(const G& g, int off, int n, F term, S* red) {
+  static_assert(G::WARP && G::THREADS == 32, "a one-warp group stands in for the block");
+  constexpr int V = PDIPM_THREADS / 32;
+  S v[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    v[q] = S(0);
+    for (int it = g.rank() + 32 * q; it < off + n; it += PDIPM_THREADS)
+      if (it >= off) v[q] += term(it - off);
+  }
+#pragma unroll
+  for (int h = V / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int q = 0; q < h; ++q) v[q] = v[q] + v[q + h];
+  return group_sum(g, v[0], red);
+}
+
+// The group's sum of the per-thread partials `part`, or with BLOCK_ORDER
+// (a one-warp group) the block-order sum of term(k), k < n, offset `off`
+// (`part` unused).
+template <bool BLOCK_ORDER, typename S, typename G, typename F>
+__device__ __forceinline__ S group_total(const G& g, S part, int off, int n, F term, S* red) {
+  if constexpr (BLOCK_ORDER) {
+    return block_order_sum<S>(g, off, n, term, red);
+  } else {
+    return group_sum(g, part, red);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Structured operators: one output entry each (callers spread entries over
 // threads). Layouts as in ops/qp.py: z = [x_1..x_T, u_0..u_{T-1}], equality
@@ -1512,6 +1561,8 @@ pdipm_kernel(
   // from device memory through the read-only path once per Newton step.
   constexpr bool fbd_global = LeanPolicy<P>::inputs_in_global;
   constexpr bool formed = LeanPolicy<P>::residuals_formed;
+  constexpr bool block_order = BlockOrderPolicy<P>::value;
+  static_assert(!(block_order && formed), "block-order sums read the stored residuals");
   load_env<!fbd_global>(g, sm, L, env, hd_in, f_in, ad_in, bd_in, b_in, gu_in, d_in, x0, s0, z0,
                         y0);
   P::setup(g, sm, L, beta, delta);
@@ -1586,7 +1637,10 @@ pdipm_kernel(
       }
     }
     PDIPM_MARK(g, PH_RESID);
-    const S mu = group_sum(g, part, red) / nif;  // syncs
+    // mu: the pass's partials, or the block-order sum of s z over its ni
+    // rows, which start at entry nz of the pass.
+    const S mu = group_total<block_order>(g, part, nz, ni, [&](int k) { return s[k] * z[k]; },
+                                          red) / nif;  // syncs
     PDIPM_MARK(g, PH_REDUCE);
 
     P::factor(g, sm, L, piv, beta, delta, A.ff);
@@ -1609,8 +1663,10 @@ pdipm_kernel(
     const S ap = frac_to_boundary(g, s, dsa, ni, red, A.frac_to_boundary, A.alpha_min);
     const S adl = frac_to_boundary(g, z, dza, ni, red, A.frac_to_boundary, A.alpha_min);
     part = S(0);
-    for (int k = tid; k < ni; k += nt) part += (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]);
-    const S mu_aff = group_sum(g, part, red) / nif;
+    auto aff = [&](int k) { return (s[k] + ap * dsa[k]) * (z[k] + adl * dza[k]); };
+    if constexpr (!block_order)
+      for (int k = tid; k < ni; k += nt) part += aff(k);
+    const S mu_aff = group_total<block_order>(g, part, 0, ni, aff, red) / nif;
     const S ratio = mu_aff / mu;
     const S sigma = ratio * ratio * ratio;
     PDIPM_MARK(g, PH_REDUCE);
@@ -1694,7 +1750,7 @@ pdipm_kernel(
   // Residual norms of the last step's start (summed by its residual pass
   // when `formed`), and mu after it.
   S p3 = S(0);
-  if (A.iterations > 0) {
+  if (!block_order && A.iterations > 0) {
     if constexpr (!formed)
       for (int i = tid; i < nz; i += nt) p0 += rx[i] * rx[i];
     for (int k = tid; k < ni; k += nt) {
@@ -1704,10 +1760,11 @@ pdipm_kernel(
     if constexpr (!formed)
       for (int e = tid; e < ne; e += nt) p2 += re[e] * re[e];
   }
-  p0 = group_sum(g, p0, red);
-  p1 = group_sum(g, p1, red);
-  p2 = group_sum(g, p2, red);
-  p3 = group_sum(g, p3, red);
+  const int n_sum = A.iterations > 0 ? 1 : 0;  // no step: every norm 0
+  p0 = group_total<block_order>(g, p0, 0, n_sum * nz, [&](int i) { return rx[i] * rx[i]; }, red);
+  p1 = group_total<block_order>(g, p1, 0, n_sum * ni, [&](int k) { return rsb[k] * rsb[k]; }, red);
+  p2 = group_total<block_order>(g, p2, 0, n_sum * ne, [&](int e) { return re[e] * re[e]; }, red);
+  p3 = group_total<block_order>(g, p3, 0, n_sum * ni, [&](int k) { return s[k] * z[k]; }, red);
   for (int i = tid; i < nz; i += nt) x_out[env * nz + i] = x[i];
   for (int k = tid; k < ni; k += nt) {
     s_out[env * ni + k] = s[k];

@@ -31,9 +31,11 @@
 // y-chain and the sweeps in the warp's registers, as K2's.
 //
 // Numerics: per half the paired elimination is K2's inverse with gj_form
-// "inplace", and the packed Bd K^-1 Bd^T is K2's sum in K2's order, so with
-// the default form both forms give K2's bits in the same group. kkt_scale is
-// ignored (`:680`, the JAX kernel does not equilibrate the packed blocks).
+// "inplace", and the packed Bd K^-1 Bd^T is K2's sum in K2's order. The warp
+// group sums mu, mu_aff and the residual norms in the block group's order
+// (`BLOCK_ORDER_SUMS`), so with the default form both forms give the bits
+// of the block group, K5e-c's and K2's. kkt_scale is ignored (`:680`, the
+// JAX kernel does not equilibrate the packed blocks).
 // Build without --use_fast_math: division and sqrt stay IEEE.
 
 #include "pdipm_split.cuh"

@@ -128,6 +128,14 @@ struct RicSplit {
   static constexpr bool AUG = false;
   // pdipm_common.cuh's LeanPolicy: f, b, d in device memory when lean
   static constexpr bool INPUTS_IN_GLOBAL = LEAN, RESIDUALS_FORMED = false;
+  // pdipm_common.cuh's BlockOrderPolicy: K5e-c's warp group sums mu and the
+  // residual norms as its block group does, so that it gives that group's
+  // bits (the arithmetic is otherwise the same entry for entry). Summed in
+  // the warp's own order, as K2's warp group sums, the f64 result read
+  // 4.1e-8 from the plain version on the converged envs of chip_smoke's
+  // batch, over the condensed class's 3e-8; the block group's order reads
+  // 2.2e-8 (PERF.md, Findings). K2's warp group keeps its own order.
+  static constexpr bool BLOCK_ORDER_SUMS = PACK && LEAN;
 
   // Index layout of all per-env buffers in shared memory (in values of S).
   struct Layout {

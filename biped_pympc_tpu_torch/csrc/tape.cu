@@ -28,9 +28,11 @@
 // so the branch on op is uniform across the warp. THREADS = 128 per block:
 // 8 KB of shared memory in float (16 KB double); B need not be a multiple.
 //
-// Numerics: fma is one fused multiply-add; the compiler may contract
-// 1 + y y; the division is IEEE (no --use_fast_math). The blend's halves
-// are exact, so it rounds once either way.
+// Numerics: fma is one fused multiply-add, and so is 1 + y y, written out
+// as the generated kernels write it (nvcc contracted it before), so that
+// the two give the same bits on the card and in a host build; the division
+// is IEEE (no --use_fast_math). The blend's halves are exact, so it rounds
+// once either way.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +61,7 @@ tape_kernel(const int4* __restrict__ code, const T* __restrict__ c, int n_ops,
       case 1: r = x * y; break;
       case 2: r = x + y; break;
       case 3: r = x - y; break;
-      default: r = x / (T(1) + y * y); break;
+      default: r = x / fma_t(y, y, T(1)); break;
     }
     T& d = col[ins.y * TAPE_THREADS];
     d = T(0.5) * d + T(0.5) * r;

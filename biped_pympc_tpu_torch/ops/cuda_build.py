@@ -65,10 +65,13 @@ def build_log(path: str) -> str | None:
         return fh.read()
 
 
-def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) -> dict:
+def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=(),
+          nice: int = 0) -> dict:
     """Compile every library of `sources` ({key: .cu path}) whose file in
     `paths` ({key: .so path}) does not exist yet, one nvcc each with
-    NVCC_FLAGS and the extra `flags`, all started together; return `paths`.
+    NVCC_FLAGS and the extra `flags`, all started together (under `nice -n
+    nice` when `nice`, so that a build in the background leaves the CPU to
+    the caller's other work); return `paths`.
     `nvcc` is called for the compiler's path only when something is to be
     built. Raises RuntimeError with the compiler's output if any nvcc fails;
     a library is moved into place only once whole, its compiler output
@@ -91,8 +94,9 @@ def build(sources: dict, paths: dict, build_dir: str, nvcc=find_nvcc, flags=()) 
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
             cmd = [compiler, *NVCC_FLAGS, *flags, "-o", tmp, sources[key]]
+            run = ["nice", "-n", str(nice), *cmd] if nice else cmd
             jobs.append((key, cmd, tmp, time.perf_counter(), subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+                run, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         with ThreadPoolExecutor(len(jobs)) as pool:
             done = list(pool.map(wait, jobs))
         for (key, cmd, tmp, _, proc), (out, err, seconds) in zip(jobs, done):

@@ -32,9 +32,18 @@
 #define __maxnreg__(...)
 #define __align__(n) alignas(n)
 
+// A kernel's static __shared__ array is one array, which the threads of a
+// block share and the blocks of a launch, run one after another, reuse.
+#define __shared__ static
+
 struct dim3 {
   unsigned int x = 1, y = 1, z = 1;
 };
+struct int4 {
+  int x, y, z, w;
+};
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;

@@ -220,26 +220,42 @@ def k8_tapes() -> list:
 
 def build_all() -> tuple:
     """Build the nine PDIPM libraries, the profile builds of the routes
-    (`pdipm_geometry.build_profile`), the roofline probes', the tape
-    interpreter's and the kernels generated from every tape of `k8_tapes`
-    at once (each build function starts its nvcc processes together); return
-    (the production libraries' paths, the roofline's and the interpreter's
-    last; {(n_ops, dtype): [the generated kernels' library paths]})."""
+    (`pdipm_geometry.build_profile`), the roofline probes' and the tape
+    interpreter's at once (each build function starts its nvcc processes
+    together); then start the kernels generated from every tape of
+    `k8_tapes` and K8_SEGMENTED's segments, all at once in the background at
+    the lowest CPU priority: only the bench twins, the last phase, launch
+    them, and the phases before it keep one core busy driving the card.
+    Return (the production libraries' paths, the roofline's and the
+    interpreter's last; a future of {(n_ops, dtype): [the generated kernels'
+    library paths], "segmented": [K8_SEGMENTED's]})."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+    import torch
+    from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic, tape_codegen
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
-    from biped_pympc_tpu_torch.ops import pdipm_cuda
+    from biped_pympc_tpu_torch.ops import cuda_build, pdipm_cuda
 
-    tapes = k8_tapes()
     with ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(pdipm_cuda.build), pool.submit(ab_roofline.build),
-                   pool.submit(bench_synthetic.build,
-                               [(bench_synthetic.make_tape(n), dt) for n, dt in tapes]),
-                   pool.submit(pg.build_profile)]
+        futures = [pool.submit(fn) for fn in (pdipm_cuda.build, ab_roofline.build,
+                                              bench_synthetic.build, pg.build_profile)]
         pdipm_paths, roofline, tape, _ = (f.result() for f in futures)
-    return (sorted(pdipm_paths.values()) + [roofline, tape["interp"]],
-            dict(zip(tapes, tape["tapes"])))
+    tapes = k8_tapes()
+    sources, paths, per_tape = tape_codegen.plan(
+        [(bench_synthetic.make_tape(n), dt) for n, dt in tapes], pdipm_cuda.BUILD_DIR)
+    n_seg, per = K8_SEGMENTED
+    seg_sources, seg_paths, seg_libs = tape_codegen.plan(
+        [(bench_synthetic.make_tape(n_seg), torch.float32)], pdipm_cuda.BUILD_DIR, segment=per)
+
+    def k8_build():
+        cuda_build.build({**sources, **seg_sources}, {**paths, **seg_paths}, pdipm_cuda.BUILD_DIR,
+                         nice=19)
+        return {**dict(zip(tapes, per_tape)), "segmented": seg_libs[0]}
+
+    background = ThreadPoolExecutor(1)
+    k8 = background.submit(k8_build)
+    background.shutdown(wait=False)  # the build runs on; the interpreter joins it at exit
+    return sorted(pdipm_paths.values()) + [roofline, tape["interp"]], k8
 
 
 def sm_clock_mhz() -> float:
@@ -749,6 +765,11 @@ K7_F32_RTOL = 1e-5
 K8_ATOL = {"float32": 1e-6, "float64": 1e-12}
 K8_OPS, K8_BATCH = (10, 100, 1000, 10000), 4096
 K8_LONG = (100_000, 32768, 256)
+# The 1e3-op tape also cut into kernels of 100 ops (float32), held bit for
+# bit against its one kernel: its output still depends on each segment's
+# input (a dropped segment moves it by ~1e-3), which at 1e4 ops and more it
+# no longer does to the last bit.
+K8_SEGMENTED = (1000, 100)
 
 
 def timed_once(fn):
@@ -766,8 +787,9 @@ def timed_once(fn):
 
 def k8_phase(label: str, k8_libs: dict, dev) -> dict:
     """K8's phase of `bench_twins`: the kernel generated from the tape at
-    each length against the plain version, the interpreter in turns with
-    it, the block sizes, the builds and the critical-path bound. Returns
+    each length against the plain version and, bit for bit, the
+    interpreter, timed in turns with it; the 1e3-op tape cut into segments
+    against its one kernel; the builds and the critical-path bound. Returns
     {"err": {dtype name: [max |d| per length]}, "ms", "plain_ms", "flops",
     "tape_bytes" (f32, K8_OPS[-1] ops, b K8_BATCH), "turns"}."""
     import torch
@@ -777,9 +799,10 @@ def k8_phase(label: str, k8_libs: dict, dev) -> dict:
 
     # K8: the kernel generated from the tape at each length, float32 and
     # float64, then 1e5 ops at b32768, against the plain version; the
-    # interpreter it replaced in turns with it (generated, interpreter,
-    # interpreter, generated); the block sizes in turns; each length's nvcc
-    # seconds and ptxas registers; the critical-path bound.
+    # interpreter it replaced (the same roundings written out) in turns
+    # with it (generated, interpreter, interpreter, generated), and bit for
+    # bit; each length's nvcc seconds and ptxas registers; the critical-path
+    # bound.
     rng = np.random.default_rng(1)
     state = rng.uniform(0.5, 1.5, (bs.N_STATE, K8_LONG[1])).astype(np.float32)
     k8 = {"float32": [], "float64": []}
@@ -800,7 +823,6 @@ def k8_phase(label: str, k8_libs: dict, dev) -> dict:
             if n_ops == K8_OPS[-1] and dtype == torch.float32:
                 k8_ms, k8_plain_ms = (turns[0] + turns[3]) / 2, plain_ms
                 k8_flops, k8_tape_bytes = bs.tape_flops(tape), n_ops * (16 + 4)
-                k8_enc, k8_s = enc, s
     n_long, b_long, b_slice = K8_LONG
     tape = bs.make_tape(n_long)
     s = torch.from_numpy(state).to(dev)
@@ -829,17 +851,32 @@ def k8_phase(label: str, k8_libs: dict, dev) -> dict:
                       + f" ({(t[1] + t[2]) / (t[0] + t[3]):.1f}x; same bits "
                         f"{k8_same[n, dt, nb]})"
                       for (n, dt, nb), t in k8_turns.items()))
-    blocks = []
-    for n, enc_, s_ in ((K8_OPS[-1], k8_enc, k8_s), (n_long, long_enc, s)):
-        order = (32, 64, 128, 128, 64, 32)
-        ms = [cuda_ms(lambda: bs.run_tape(enc_, s_, th), 5) for th in order]
-        per = {th: (ms[i] + ms[-1 - i]) / 2 for i, th in enumerate(order[:3])}
-        blocks.append(f"{n} ops b{s_.shape[1]}: " + ", ".join(
-            f"{th} threads {v:.4f} ms ({-(-s_.shape[1] // th)} blocks)" for th, v in per.items()))
-    print(f"[K8 blocks] {label}: the generated kernel by threads a block (launched: "
-          f"{tc.THREADS}), in turns 32, 64, 128, 128, 64, 32: " + "; ".join(blocks))
+    check(all(k8_same.values()), "the generated kernel and the interpreter give other bits")
+
+    # The 1e3-op tape in kernels of 100 ops: the segments' chaining.
+    n_seg, per = K8_SEGMENTED
+    tape = bs.make_tape(n_seg)
+    s = torch.from_numpy(state[:, :K8_BATCH]).to(dev)
+    cut = tc.Kernel(torch.float32, [tc.load(p) for p in k8_libs["segmented"]])
+    seen = []
+    with torch.cuda.device(dev):
+        got = cut(s, stream=torch.cuda.current_stream(dev).cuda_stream,
+                  on_launch=lambda: seen.append(1))
+    whole, plain = bs.run_tape(tape, s), bs.apply_tape_rows(tape, s)
+    seg_err = float((got - plain).abs().max())
+    drop = n_seg - 2 * per  # the next-to-last segment's first op
+    moved = float((bs.apply_tape_rows(tape[:drop] + tape[drop + per:], s) - plain).abs().max())
+    print(f"[K8 segments] {n_seg} ops f32 b{K8_BATCH} in {len(seen)} kernels of {per} ops: the "
+          f"bits of its one kernel {bool(torch.equal(got, whole))}, max |d| vs plain "
+          f"{seg_err:.3e} (bound {K8_ATOL['float32']:g}); the tape without its next-to-last "
+          f"segment parts from it by {moved:.3e}")
+    check(len(seen) == len(k8_libs["segmented"]) == -(-n_seg // per),
+          "the segmented tape did not launch each kernel once")
+    check(torch.equal(got, whole) and seg_err <= K8_ATOL["float32"],
+          "the segmented tape differs from its one kernel or the plain version")
+    check(moved > K8_ATOL["float32"], "the segmented tape's output does not depend on a segment")
     build = []
-    for (n, dt), paths in k8_libs.items():
+    for (n, dt), paths in ((k, v) for k, v in k8_libs.items() if k != "segmented"):
         logs = [cuda_build.build_log(p) or "" for p in paths]
         regs = max(int(m) for text in logs for m in re.findall(r"Used (\d+) registers", text))
         spill = max(int(m) for text in logs for m in re.findall(r"(\d+) bytes spill stores", text))
@@ -1083,10 +1120,9 @@ def main() -> int:
     # 2. Build: one nvcc per kernel source, started together, each with
     # `-Xptxas -v` for the register report kept beside its library.
     t0 = time.perf_counter()
-    lib_paths, k8_libs = build_all()
-    print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} and "
-          f"{sum(len(v) for v in k8_libs.values())} generated tape kernels "
-          f"in {time.perf_counter() - t0:.1f} s")
+    lib_paths, k8_build = build_all()
+    print(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)} -> {lib_paths} in "
+          f"{time.perf_counter() - t0:.1f} s; the generated tape kernels build in the background")
     print(f"[registers] ptxas -v, sm_90a: {ptxas_report(lib_paths)}")
     print(f"[sass] {sass_report(lib_paths[-2])}")
 
@@ -1556,8 +1592,10 @@ def main() -> int:
     # launches vs one of 20. K5e-c also in its block group, the parent's
     # kernel (its bits in 7b): held to the same f64 bound, its f32 tail
     # printed beside the warp group's, and the digests of the two groups
-    # against K2's two groups (under gj_form "inplace" each packing is K2's
-    # arithmetic, so each group gives the bits of K2's same group).
+    # against each other and K2's: under gj_form "inplace" each packing is
+    # K2's arithmetic, and K5e-c's warp group sums mu and the residual norms
+    # in the block group's order (`block_order_sum`), so both of its groups
+    # give the bits of K2's block group; K2's warp group sums in its own.
     unpacked = {"ric": (ric, {"f32": ric_kern32, "f64": ric_kern64}, "K2"),
                 "ric_aug": (opts, {"f32": kern32, "f64": kern64}, "K1")}
     ric_blk = {"f32": pg.solve_in(qp32, ric, pdipm_cuda.BLOCK), "f64": ric_blk64}
@@ -1566,26 +1604,8 @@ def main() -> int:
         for pack in (True, "apply"):
             tag = f"K5e-{'c' if backend == 'ric' else 'a'} {'pair' if pack is True else 'apply'}"
             o = dataclasses.replace(base, foot_pack=pack)
-            rtol = None
-            if backend == "ric":
-                # K5e-c's warp group gives K2's warp-group bits (checked
-                # below), which K2's plain version holds to the class bound
-                # (4); its own plain version, the packed contraction, parts
-                # from K2's by up to 2e-8 on this batch, and from itself
-                # (the card against the CPU) by up to 2.3e-8 (PERF.md,
-                # Findings). So its f64 bound is the larger of the
-                # class bound and WITNESS_FACTOR x that witness, as for the
-                # step variants (4p); the class bound alone is printed.
-                plain_ = pdipm.solve(qp64, o)
-                cv0 = (plain_.residuals[:, 3] <= MU_CONVERGED).cpu().numpy()
-                rtol = max(CONDENSED_F64_RTOL, WITNESS_FACTOR * roundoff(tag, o, plain_, cv0)[1])
-            kern64_, plain64_, cv_, worst_ = vs_plain64(tag, o, rtol)
-            if backend == "ric":
-                class_rel = rel_gap(kern64_, plain64_, torch.as_tensor(cv_, device=dev))
-                print(f"[{tag} class bound] f64 vs plain f64 on the converged envs "
-                      f"{class_rel:.3e} relative to max(1, |v|) against the condensed class's "
-                      f"{CONDENSED_F64_RTOL:g} alone: "
-                      f"{'held' if class_rel <= CONDENSED_F64_RTOL else 'missed'} (printed)")
+            kern64_, plain64_, cv_, worst_ = vs_plain64(
+                tag, o, CONDENSED_F64_RTOL if backend == "ric" else None)
             kern32_ = pdipm_cuda.solve(qp32, o)
             f32_vs_plain64(tag, kern32_, plain64_, cv_, bounded=backend == "ric_aug")
             runs = {"f32": kern32_, "f64": kern64_}
@@ -1604,9 +1624,9 @@ def main() -> int:
                 cv_t = torch.as_tensor(cv_, device=dev)
                 blk_rel = rel_gap(blk["f64"], plain64_, cv_t)
                 pair_same = {f"{dt} {name}": same(a, b) for dt in ("f32", "f64") for name, a, b in (
-                    ("warp group = K2 warp group", runs[dt], twin_runs[dt]),
                     ("warp group = own block group", runs[dt], blk[dt]),
-                    ("block group = K2 block group", blk[dt], ric_blk[dt]))}
+                    ("block group = K2 block group", blk[dt], ric_blk[dt]),
+                    ("warp group = K2 warp group", runs[dt], twin_runs[dt]))}
                 plains = rel_gap(plain64_, ric_plain64, cv_t)
                 print(f"[{tag} digests] b{B}, gj_form {o.gj_form}: {pair_same}; its plain version "
                       f"and K2's part by {plains:.3e} relative to max(1, |v|) on the converged "
@@ -1618,8 +1638,8 @@ def main() -> int:
                 check(blk_rel <= CONDENSED_F64_RTOL,
                       f"f64 {tag} in the block group differs from the plain version")
                 check(o.gj_form != "inplace" or all(v for k, v in pair_same.items()
-                                                    if "own block" not in k),
-                      f"{tag}: a group does not give the bits of K2's same group: {pair_same}")
+                                                    if "K2 warp" not in k),
+                      f"{tag}: a group does not give the bits of K2's block group: {pair_same}")
             k5e[tag] = {"opts": o, "f32": kern32_, "f64": kern64_, "err": worst_}
     print(f"[warm chunks K5e] b{B}, 4 x 5 warm launches vs 1 x 20: " + "; ".join(warm_line))
 
@@ -2237,6 +2257,11 @@ def main() -> int:
                       f"f32 {tag} h{T_} GRF off on converged envs")
 
     mark("horizons")
+    t0 = time.perf_counter()
+    k8_libs = k8_build.result()
+    print(f"[K8 build wait] {sum(len(v) for v in k8_libs.values())} generated tape kernels, "
+          f"built in the background, ready after {time.perf_counter() - t0:.1f} s more")
+    mark("K8 build wait")
     bench_kernels = bench_twins(label, k8_libs)
     mark("bench twins")
     print("[elapsed] seconds of each phase: "

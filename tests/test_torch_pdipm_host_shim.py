@@ -265,16 +265,39 @@ def test_k5e_c_warp_group_matches_the_plain_version(libs, pack, horizon):
 @pytest.mark.parametrize("pack", [True, "apply"], ids=["pair", "apply"])
 def test_k5e_c_warp_group_gives_k2s_bits_under_the_default_form(libs, pack, horizon):
     """Under gj_form "inplace" each half of K5e-c's pair is K2's inverse and
-    the packed Bd K^-1 Bd^T is K2's sum in K2's order, so K5e-c's warp group
-    gives K2's warp-group bits in both packings; under "tableau" the pair
-    (the reciprocal whatever the form) parts from K2 and "apply" does not."""
+    the packed Bd K^-1 Bd^T is K2's sum in K2's order, and K5e-c's warp
+    group sums mu and the residual norms in the block group's order, so it
+    gives the bits of K2's block group in both packings; under "tableau" the
+    pair (the reciprocal whatever the form) parts from K2 and "apply" does
+    not."""
     qp = _qp(2, horizon)
-    bits = lambda r: [getattr(r, n) for n in ("x", "s", "z", "y", "residuals")]
     for form in ("inplace", "tableau"):
         opts = _opts("ric_pack", foot_pack=pack, gj_form=form)
         got = pdipm_cuda.run_kernel(libs["ric_pack"], qp, opts, None,
                                     geom=_geom("ric_pack", "warp"))
         k2 = pdipm_cuda.run_kernel(libs["ric"], qp, dataclasses.replace(opts, foot_pack=False),
-                                   None, geom=_geom("ric", "warp"))
-        same = all(torch.equal(a, b) for a, b in zip(bits(got), bits(k2)))
-        assert same == (form == "inplace" or pack == "apply"), form
+                                   None, geom=_geom("ric", "block"))
+        assert _same_bits(got, k2) == (form == "inplace" or pack == "apply"), form
+
+
+def _same_bits(a, b):
+    return all(torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("x", "s", "z", "y", "residuals"))
+
+
+@pytest.mark.parametrize("form", ["inplace", "tableau"])
+@pytest.mark.parametrize("pack", [True, "apply"], ids=["pair", "apply"])
+def test_k5e_c_warp_group_gives_its_block_groups_bits(libs, pack, form):
+    """K5e-c's warp group does its block group's arithmetic entry for entry
+    and sums mu, mu_aff and the residual norms in the block group's order
+    (`block_order_sum`), so at T = 10 after 10 steps, where K2's two groups
+    already part by the order of those sums, its two groups give the same
+    bits, in both packings and both forms."""
+    qp = _qp(2, 10)
+    opts = _opts("ric_pack", foot_pack=pack, gj_form=form, iterations=10)
+    warp, block = (pdipm_cuda.run_kernel(libs["ric_pack"], qp, opts, None,
+                                         geom=_geom("ric_pack", g)) for g in GEOMETRIES)
+    assert _same_bits(warp, block)
+    k2 = dataclasses.replace(opts, foot_pack=False)
+    assert not _same_bits(*(pdipm_cuda.run_kernel(libs["ric"], qp, k2, None,
+                                                  geom=_geom("ric", g)) for g in GEOMETRIES))

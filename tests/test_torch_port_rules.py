@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic
+from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic, tape_codegen
 from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
 from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.models.srbd import SrbdLin
@@ -613,12 +613,14 @@ def test_tape_kernel_matches_plain_on_card(dtype, n_ops, batch):
     before = dict(bench_synthetic.launches)
     want = bench_synthetic.apply_tape_rows(tape, s)
     atol = 1e-6 if dtype == torch.float32 else 1e-12
-    for threads in (32, 64, 128):
-        got = bench_synthetic.run_tape(tape, s, threads)
-        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    enc = bench_synthetic.encode_tape(tape, dtype, s.device)
+    got = bench_synthetic.run_tape(enc, s)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    for threads in (32, 128):  # the launcher's other block sizes, uncounted
+        assert torch.equal(enc.kernel(s, threads), got)
     interp = bench_synthetic.run_tape_interpreted(tape, s)
     torch.cuda.synchronize()
-    assert bench_synthetic.launches == {"tape": before["tape"] + 3,
+    assert bench_synthetic.launches == {"tape": before["tape"] + 1,
                                         "tape_interp": before["tape_interp"] + 1}
     torch.testing.assert_close(interp, want, rtol=0, atol=atol)
 
@@ -633,7 +635,10 @@ def test_tape_segments_give_the_bits_of_one_kernel_on_card():
     s = torch.rand(bench_synthetic.N_STATE, 300, device="cuda") + 0.5
     whole = bench_synthetic.run_tape(tape, s)
     enc = bench_synthetic.encode_tape(tape, s.dtype, s.device)
-    enc.kernel = bench_synthetic.kernel(tape, s.dtype, segment=100)
+    sources, paths, per_tape = tape_codegen.plan([(tape, s.dtype)], pdipm_cuda.BUILD_DIR,
+                                                 segment=100)
+    cuda_build.build(sources, paths, pdipm_cuda.BUILD_DIR)
+    enc.kernel = tape_codegen.Kernel(s.dtype, [tape_codegen.load(p) for p in per_tape[0]])
     before = bench_synthetic.launches["tape"]
     cut = bench_synthetic.run_tape(enc, s)
     torch.cuda.synchronize()
