@@ -12,10 +12,14 @@ default solver, `solver="pallas_hybrid"`, `"pallas_ric2"`, `"pallas_ric"`
 unsplit, and `"pallas_hybrid"` and `"pallas_ric"` with `solver_foot_pack`)
 at `--batch` envs (HECTOR, walking gait, f32, the standing
 observation) and times one `run_mpc` of each: device ms from CUDA events,
-the mean of 10 calls after a warm-up call, the median of 3. The
-turns run DIR, this, this, DIR (`--rounds` times), so that a drift of the
-host's load shows as a drift and not as a difference. The last line is
-one JSON object with every turn's times.
+the mean of 10 calls after a warm-up call, the median of 3. With `--tick`
+a turn also times the first path's eager 1 kHz tick (`update_state` +
+`run_lowlevel` + `get_action`, the mean of 50) and counts the device's
+events a tick and a `run_mpc` (kernels, copies and fills, from a
+torch.profiler trace of 10 ticks and 3 solves; null where the trace holds no
+device event). The turns run DIR, this, this, DIR (`--rounds` times), so
+that a drift of the host's load shows as a drift and not as a difference.
+The last line is one JSON object with every turn's times.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ PATHS = {"default": {}, "hybrid": {"solver": "pallas_hybrid"},
 # prints one JSON object.
 TURN = r"""
 import json, sys
-root, batch, paths = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
+root, batch, paths, tick = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
 sys.path.insert(0, root)
 import numpy as np
 import torch
@@ -70,24 +74,50 @@ def device_ms(fn, calls=10, reps=3):
     return float(np.median(out))
 
 
-times = {}
+def device_events(fn, reps):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(getattr(e, "device_type", None) == DeviceType.CUDA for e in prof.events())
+    return n / reps if n else None
+
+
+times, ctrls = {}, {}
 for name, kw in paths.items():
     conf = MPCConf(verbose=False, **kw)
-    ctrl = MPCController(ControllerConf(), conf, num_envs=batch, gait_id=2, device="cuda")
+    ctrl = ctrls[name] = MPCController(ControllerConf(), conf, num_envs=batch, gait_id=2,
+                                       device="cuda")
     ctrl.set_command(twist, height)
     ctrl.update_state(obs)
     times[name] = device_ms(ctrl.run_mpc)
+if tick == "1":
+    ctrl = ctrls[next(iter(paths))]
+
+    def one_tick():
+        ctrl.update_state(obs)
+        ctrl.run_lowlevel()
+        ctrl.get_action()
+
+    times["tick"] = device_ms(one_tick, calls=50)
+    times["tick_events"] = device_events(one_tick, 10)
+    times["run_mpc_events"] = device_events(ctrl.run_mpc, 3)
 print(json.dumps(times))
 """
 
 
-def turn(root: str, batch: int, paths) -> dict:
+def turn(root: str, batch: int, paths, tick: bool = False) -> dict:
     """{path: ms} of one turn in the checkout at `root`, for each of `paths`
-    (keys of PATHS)."""
+    (keys of PATHS), with the tick's ms and the device events a tick and a
+    run_mpc when `tick`."""
     root = os.path.abspath(root)
     out = subprocess.run([sys.executable, "-c", TURN, root, str(batch),
-                          json.dumps({p: PATHS[p] for p in paths})], capture_output=True,
-                         text=True, cwd=root, timeout=900)
+                          json.dumps({p: PATHS[p] for p in paths}), str(int(tick))],
+                         capture_output=True, text=True, cwd=root, timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -100,6 +130,8 @@ def main(argv) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--paths", default="default,hybrid",
                     help=f"comma-separated keys of {sorted(PATHS)}")
+    ap.add_argument("--tick", action="store_true",
+                    help="also time the first path's eager tick and count device events")
     args = ap.parse_args(argv)
     paths = args.paths.split(",")
     unknown = set(paths) - set(PATHS)
@@ -115,10 +147,13 @@ def main(argv) -> int:
     runs = []
     for _ in range(args.rounds):
         for name, root in order:
-            runs.append({"checkout": name, **turn(root, args.batch, paths)})
+            runs.append({"checkout": name, **turn(root, args.batch, paths, args.tick)})
             print(f"[run_mpc ab] {label}: b{args.batch} f32 {name}: run_mpc "
-                  + ", ".join(f"{p} {runs[-1][p]:.3f} ms" for p in paths), flush=True)
-    for key in paths:
+                  + ", ".join(f"{p} {runs[-1][p]:.3f} ms" for p in paths)
+                  + ("" if not args.tick else f"; tick {runs[-1]['tick']:.3f} ms, device events "
+                     f"a tick {runs[-1]['tick_events']}, a run_mpc "
+                     f"{runs[-1]['run_mpc_events']}"), flush=True)
+    for key in paths + ["tick"] * args.tick:
         mean = {n: sum(r[key] for r in runs if r["checkout"] == n)
                 / sum(r["checkout"] == n for r in runs) for n in (tag, "this")}
         print(f"[run_mpc ab] {label}: {key} mean over turns, {tag} {mean[tag]:.3f} ms / this "

@@ -3,8 +3,7 @@
 The port's own copy: importing the JAX package's config would run its
 `__init__`, which imports jax. Field names and defaults are the JAX
 package's, restricted to the knobs this port implements. The solver menu
-keeps every JAX name so a config written for the JAX package either runs
-the same algorithm here or fails loudly (`SOLVERS_PORTED`,
+holds every JAX name, and each runs the same algorithm here (`SOLVERS`,
 `control/controller.py`).
 
 Note on Q: the reference's default Q carries 13 entries (a leftover of a
@@ -27,9 +26,11 @@ _DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 
 # budgeted augmented re-solve, "tridiag_aug" / "pallas_aug" the augmented
 # block-Thomas PDIPM (42-wide stage blocks) and "tridiag" / "pallas" the
 # condensed one (26-wide): each the hand-written CUDA kernel for CUDA
-# tensors, its plain torch version for CPU tensors.
-SOLVERS_PORTED = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_ric2",
-                  "pallas_hybrid", "tridiag_aug", "pallas_aug", "tridiag", "pallas")
+# tensors, its plain torch version for CPU tensors. "dense" is a batched LU
+# of the whole condensed reduced KKT, plain torch on both devices (as in
+# JAX, where XLA's LU computes it outside any Pallas kernel).
+SOLVERS = ("ric_aug", "pallas_ric_aug", "ric", "pallas_ric", "pallas_ric2", "pallas_hybrid",
+           "tridiag_aug", "pallas_aug", "tridiag", "pallas", "dense")
 
 
 @dataclass(frozen=True)
@@ -59,11 +60,11 @@ def recommended_conf(robot: str = "HECTOR"):
 class MPCConf:
     """MPC and solver settings (`biped_pympc_tpu/config.py:65`).
 
-    solver: the names in `SOLVERS_PORTED` are ported; the other JAX names
-    raise NotImplementedError when a controller is built. "pallas_ric" is
-    the bare condensed route: under domain randomization its f32 solve is
-    non-finite on 0.6-0.7% of envs and carries an error tail of tens of N
-    (the JAX package's TPU measurements, `biped_pympc_tpu/config.py:81-98`).
+    solver: one of `SOLVERS`; another name raises ValueError when a
+    controller is built. "pallas_ric" is the bare condensed route: under
+    domain randomization its f32 solve is non-finite on 0.6-0.7% of envs and
+    carries an error tail of tens of N (the JAX package's TPU measurements,
+    `biped_pympc_tpu/config.py:81-98`).
     "pallas_hybrid" re-solves the worst envs with the augmented route, which
     makes it finite while the budget covers the non-finite envs; it does not
     remove the error tail.

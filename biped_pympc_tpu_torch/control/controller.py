@@ -17,29 +17,16 @@ from dataclasses import dataclass
 
 import torch
 
-from biped_pympc_tpu_torch.config import SOLVERS_PORTED, ControllerConf, MPCConf
+from biped_pympc_tpu_torch.config import SOLVERS, ControllerConf, MPCConf
 from biped_pympc_tpu_torch.control import estimator, gait, legs, mpc, swing
 from biped_pympc_tpu_torch.models.robot import RobotSpec, get_robot
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
 
-# JAX solver names not ported yet, with the ROADMAP item that ports them.
-_SOLVERS_LATER = {"dense": "Queue 1, item 15 (dense)"}
-# Route of each ported solver name (`biped_pympc_tpu/control/controller.py:121`);
+# Route of each solver name (`biped_pympc_tpu/control/controller.py:121`);
 # "pallas_hybrid" runs the condensed route first and re-solves with "ric_aug".
 _BACKEND = {"pallas_ric": "ric", "pallas_ric2": "ric2", "pallas_ric_aug": "ric_aug",
             "pallas_hybrid": "ric", "pallas": "tridiag", "pallas_aug": "tridiag_aug"}
-
-
-def _check_solver(name: str) -> None:
-    if name in SOLVERS_PORTED:
-        return
-    where = _SOLVERS_LATER.get(name)
-    if where is None:
-        raise ValueError(f"unknown MPCConf.solver {name!r}")
-    raise NotImplementedError(
-        f"MPCConf.solver={name!r} is not ported to biped_pympc_tpu_torch; "
-        f"ported: {SOLVERS_PORTED}. See ROADMAP {where}.")
 
 
 def solver_options(c: MPCConf) -> PdipmOptions:
@@ -49,7 +36,8 @@ def solver_options(c: MPCConf) -> PdipmOptions:
     (ROADMAP Queue 2, item 3 (K5e)) only for a "pallas_*" name with the split
     on and a "ric" / "ric_aug" route, keeping its value (True or "apply");
     every other field at its default."""
-    _check_solver(c.solver)
+    if c.solver not in SOLVERS:
+        raise ValueError(f"unknown MPCConf.solver {c.solver!r}; expected one of {SOLVERS}")
     backend = _BACKEND.get(c.solver, c.solver)
     split = c.solver_foot_split and backend in ("ric", "ric_aug")
     # solver_foot_pack last, so that its value survives the chain.

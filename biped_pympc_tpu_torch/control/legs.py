@@ -8,6 +8,7 @@ from dataclasses import dataclass
 import torch
 
 from biped_pympc_tpu_torch.models.robot import RobotSpec
+from biped_pympc_tpu_torch.utils.consts import const
 
 
 @dataclass
@@ -76,8 +77,8 @@ def update_command(robot: RobotSpec, data: LegData, cmd: LegCommand) -> LegComma
     nb = data.q.shape[0]
     stance = data.contact_bool[..., None].bool()  # (B, 2, 1)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    kp = torch.tensor(robot.kp, dtype=dtype, device=dev).expand(nb, 2, -1)
-    kd = torch.tensor(robot.kd, dtype=dtype, device=dev).expand(nb, 2, -1)
+    kp = const(robot.kp, dtype, dev).expand(nb, 2, -1)
+    kd = const(robot.kd, dtype, dev).expand(nb, 2, -1)
     kp = torch.where(stance, zero, kp)
     tau_stance = (data.jac.transpose(-1, -2) @ cmd.wrench_ff[..., None])[..., 0]
     tau_ff = torch.where(stance, tau_stance, zero)
@@ -94,6 +95,6 @@ def update_command(robot: RobotSpec, data: LegData, cmd: LegCommand) -> LegComma
 def joint_torque(robot: RobotSpec, data: LegData, cmd: LegCommand) -> torch.Tensor:
     """clamp(tau_ff + Kp (q_des - q) + Kd (qd_des - qd)) -> (B, 2 * dof)."""
     tau = cmd.tau_ff + cmd.kp * (cmd.q_des - data.q) + cmd.kd * (cmd.qd_des - data.qd)
-    limit = torch.tensor(robot.torque_limit, dtype=tau.dtype, device=tau.device)
+    limit = const(robot.torque_limit, tau.dtype, tau.device)
     tau = tau.reshape(tau.shape[0], -1)
     return torch.maximum(torch.minimum(tau, limit), -limit)

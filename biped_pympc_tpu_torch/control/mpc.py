@@ -14,6 +14,7 @@ from biped_pympc_tpu_torch.models.robot import RobotSpec
 from biped_pympc_tpu_torch.models.srbd import SrbdLin
 from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.ops.pdipm import PdipmResult
+from biped_pympc_tpu_torch.utils.consts import const
 from biped_pympc_tpu_torch.utils.maths import rot_z
 
 
@@ -130,7 +131,7 @@ def build_mpc_qp(robot: RobotSpec, mem: MpcMemory, est: EstimatorData, des: Desi
     new_mem, x_ref = reference_trajectory(mem, est, des, dt_mpc, horizon, decimation_dt,
                                           yaw_wrap=contact_frame == "yaw")
     rot = est.rotation_body
-    i_body = torch.as_tensor(robot.i_body, dtype=dtype, device=dev)
+    i_body = const(robot.i_body, dtype, dev)
     lin = SrbdLin(
         rot_body=rot, inertia_world=rot @ i_body @ rot.transpose(-1, -2),
         body_pos=est.root_position, foot_pos=est.foot_position_w,

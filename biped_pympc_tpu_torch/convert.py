@@ -1,9 +1,10 @@
 """State and data carried over from the JAX package, as numpy.
 
-The JAX package's `StageQP` and `ControllerState` are trees of arrays. A
-caller turns their leaves into numpy (`jax.tree.map(np.asarray, tree)`) and
-these functions build the port's dataclasses from them, matching fields by
-name. This module takes numpy only and never imports jax.
+The JAX package's `StageQP` and `ControllerState`, and the examples' rollout
+and env carries, are trees of arrays. A caller turns their leaves into numpy
+(`jax.tree.map(np.asarray, tree)`) and these functions build the port's
+dataclasses from them, matching fields by name. This module takes numpy only
+and never imports jax.
 """
 
 from __future__ import annotations
@@ -58,3 +59,20 @@ def controller_state_from_numpy(state, dtype=torch.float32, device="cpu") -> Con
     `ControllerState`, the learned residual matrices (None or (B, 12, 12))
     included."""
     return _from_tree(ControllerState, state, dtype, device)
+
+
+def rollout_carry_from_numpy(carry, dtype=torch.float32, device="cpu") -> tuple:
+    """The JAX rollout's carry (state, x, foot_w) (`examples/tpu_rollout.py:190`)
+    with numpy leaves as the port's (`examples/tpu_rollout.init_carry`)."""
+    state, x, foot_w = carry
+    return (controller_state_from_numpy(state, dtype, device), _tensor(x, dtype, device),
+            _tensor(foot_w, dtype, device))
+
+
+def env_carry_from_numpy(carry, dtype=torch.float32, device="cpu"):
+    """The JAX device env's `EnvCarry` (`examples/rl_env_tpu.py:50`) with numpy
+    leaves as the port's `examples.rl_env_tpu.EnvCarry`."""
+    from biped_pympc_tpu_torch.examples.rl_env_tpu import EnvCarry
+
+    return EnvCarry(*rollout_carry_from_numpy((carry.state, carry.x, carry.foot_w), dtype,
+                                              device))

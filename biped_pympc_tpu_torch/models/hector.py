@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from biped_pympc_tpu_torch.utils.consts import const
 from biped_pympc_tpu_torch.utils.maths import rot_x, rot_z
 
 NUM_DOF = 5
@@ -53,7 +54,7 @@ def forward_kinematics(q: torch.Tensor, leg: int):
     axes (B, 5, 3))): the sole position and each joint's origin and z axis,
     in the torso frame."""
     mir_y, mir_z = _mirror(leg)
-    c = lambda a: torch.as_tensor(a, dtype=q.dtype, device=q.device)
+    c = lambda a: const(a, q.dtype, q.device)
     mv = lambda m, v: (m @ v[..., None])[..., 0]
     r12, r23 = c(_R12), c(_R23)
     r01 = rot_z(q[:, 0])
@@ -92,17 +93,16 @@ def analytical_ik(p_foot_b: torch.Tensor, leg: int) -> torch.Tensor:
     0, ankle aligned with torso pitch (`hector.py:220-276`)."""
     dtype, dev = p_foot_b.dtype, p_foot_b.device
     side = 1.0 if leg == 1 else -1.0
-    offset = torch.tensor([-0.00 + 0.0465 - 0.06, -side * (0.047 + 0.015), -0.126 - 0.0705],
-                          dtype=dtype, device=dev)
+    offset = const((-0.00 + 0.0465 - 0.06, -side * (0.047 + 0.015), -0.126 - 0.0705), dtype, dev)
     foot = p_foot_b - offset
-    foot = foot + torch.tensor([0.0, 0.0, 0.042], dtype=dtype, device=dev)
+    foot = foot + const((0.0, 0.0, 0.042), dtype, dev)
     thigh = 0.22
     calf = 0.22
     dist_yz = torch.sqrt(foot[:, 1] ** 2 + foot[:, 2] ** 2)
     dist_horiz = 0.018 + 0.01805
     q1 = torch.asin(torch.clamp(foot[:, 1] / dist_yz, -1.0, 1.0)) + torch.asin(
         torch.clamp(dist_horiz * side / dist_yz, -1.0, 1.0))
-    hip_pitch_off = torch.tensor([0.0, 0.018 * side, 0.0], dtype=dtype, device=dev)
+    hip_pitch_off = const((0.0, 0.018 * side, 0.0), dtype, dev)
     foot_hp = (rot_x(q1) @ foot[..., None])[..., 0] + hip_pitch_off
     r = torch.linalg.vector_norm(foot_hp, dim=-1)
     cos_q2 = torch.clamp((r ** 2 - thigh ** 2 - calf ** 2) / (2.0 * thigh * calf), -1.0, 1.0)
@@ -117,5 +117,5 @@ def analytical_ik(p_foot_b: torch.Tensor, leg: int) -> torch.Tensor:
 def hip_horizontal_location(leg: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """(3,) hip-roll projection used by the Raibert heuristic."""
     side = 1.0 if leg == 0 else -1.0
-    return torch.tensor([-0.00 + 0.0465 - 0.06, side * (0.047 + 0.015 + 0.036), 0.0],
-                        dtype=dtype, device=device)
+    return const((-0.00 + 0.0465 - 0.06, side * (0.047 + 0.015 + 0.036), 0.0), dtype,
+                 device).clone()

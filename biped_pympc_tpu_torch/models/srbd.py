@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
+from biped_pympc_tpu_torch.utils.consts import const
 from biped_pympc_tpu_torch.utils.maths import skew
 
 GRAVITY = 9.81
@@ -63,7 +64,7 @@ def continuous_dynamics(lin: SrbdLin,
     i_inv = inverse_3x3(lin.inertia_world.to(dtype))
     body = lin.body_pos.to(dtype)
     feet = lin.foot_pos.to(dtype)
-    mass = torch.as_tensor(lin.mass, dtype=dtype, device=dev).expand(nb)
+    mass = const(lin.mass, dtype, dev).expand(nb)
 
     A = torch.zeros(nb, 12, 12, dtype=dtype, device=dev)
     A[:, 0:3, 6:9] = rm
@@ -77,7 +78,7 @@ def continuous_dynamics(lin: SrbdLin,
     B[:, 9:12, 3:6] = eye3 / mass[:, None, None]
     c = torch.zeros(nb, 12, dtype=dtype, device=dev)
     c[:, 6:9] = lin.residual_ang_accel.to(dtype)
-    grav = torch.tensor([0.0, 0.0, -GRAVITY], dtype=dtype, device=dev)
+    grav = const((0.0, 0.0, -GRAVITY), dtype, dev)
     c[:, 9:12] = grav + lin.residual_lin_accel.to(dtype)
     if lin.residual_A is not None:
         A = A + lin.residual_A.to(dtype)
@@ -91,7 +92,7 @@ def discretize_rk4(cont: AffineDynamics, dt: torch.Tensor) -> AffineDynamics:
     Ad = I + dA + dA^2/2 + dA^3/6 + dA^4/24,
     M = dt (I + dA/2 + dA^2/6 + dA^3/24), Bd = M B, cd = M c."""
     A = cont.A
-    dt = torch.as_tensor(dt, dtype=A.dtype, device=A.device).expand(A.shape[0])
+    dt = const(dt, A.dtype, A.device).expand(A.shape[0])
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     dA = dt[:, None, None] * A
     dA2 = dA @ dA
@@ -106,3 +107,28 @@ def discrete_dynamics(lin: SrbdLin, dt: torch.Tensor,
                       euler_rate_mode: str = "rt_omega") -> AffineDynamics:
     """Continuous model at `lin`, discretized with RK4 over dt."""
     return discretize_rk4(continuous_dynamics(lin, euler_rate_mode), dt)
+
+
+def dynamics_rhs(lin: SrbdLin, x: torch.Tensor, u: torch.Tensor,
+                 euler_rate_mode: str = "rt_omega") -> torch.Tensor:
+    """xdot (B, 12) at x (B, 12), u (B, 12) (`srbd.py:168`)."""
+    d = continuous_dynamics(lin, euler_rate_mode)
+    return _mv(d.A, x) + _mv(d.B, u) + d.c
+
+
+def rk4_step_generic(lin: SrbdLin, x: torch.Tensor, u: torch.Tensor, dt,
+                     euler_rate_mode: str = "rt_omega") -> torch.Tensor:
+    """The literal 4-stage RK4 of the affine model over dt with u held
+    (`srbd.py:175`): the oracle of `discretize_rk4` and of the rollout's
+    closed form, and the plant of `examples/srbd_plant.py`."""
+    d = continuous_dynamics(lin, euler_rate_mode)
+    f = lambda xx: _mv(d.A, xx) + _mv(d.B, u) + d.c
+    k1 = f(x)
+    k2 = f(x + dt / 2 * k1)
+    k3 = f(x + dt / 2 * k2)
+    k4 = f(x + dt * k3)
+    return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (m @ v[..., None])[..., 0]

@@ -2,10 +2,13 @@
 of the Pallas kernel `biped_pympc_tpu/ops/pdipm_pallas.py`: "ric_aug" and
 "ric" with and without the foot split, "ric2", "tridiag_aug" and "tridiag",
 with `kkt_scale` "none" or "jacobi"; and of the pure-JAX routes of the same
-names in `biped_pympc_tpu/ops/pdipm.py`).
+names in `biped_pympc_tpu/ops/pdipm.py`, "dense" among them).
 
 This is the plain version of the CUDA kernels in `ops/pdipm_cuda.py`: the
-CPU path runs it, and the kernels are held against it on the card. `solve`
+CPU path runs it, and the kernels are held against it on the card. The
+"dense" route (a batched LU of the whole condensed reduced KKT, which JAX
+computes with XLA's LU outside any Pallas kernel) has no kernel: it runs
+here on both devices. `solve`
 starts from the cold start or from a given `PdipmState` (warm start);
 `solve_adaptive_batch` runs the solve in chunks with an early stop.
 
@@ -71,7 +74,7 @@ from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.ops.linalg import GJ_FORMS, gauss_jordan_inverse, gauss_jordan_pair_inverse
 from biped_pympc_tpu_torch.ops.qp import NU, NX, N_INEQ_PER_STAGE, N_MX_PER_STAGE, StageQP
 
-BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2")
+BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2", "dense")
 AUG_BACKENDS = ("ric_aug", "tridiag_aug")  # z kept in the stage blocks; "df" runs here
 REFINE_RESIDUALS = ("f32", "df")
 KKT_SCALES = ("none", "jacobi")
@@ -91,8 +94,8 @@ class PdipmOptions:
     """Solver settings: every field `_pdipm_kernel` reads, with the names and
     defaults of `biped_pympc_tpu/ops/pdipm.py:62-201`. Two JAX fields are
     left out: `interpret` (the Pallas lowering switch) and `inv_impl` (the
-    inverse of the pure-JAX routes, which belong with the unported "dense"
-    route, ROADMAP Queue 1 item 15)."""
+    stage inverse of the pure-JAX block routes, Gauss-Jordan or
+    `jnp.linalg.inv`; these routes follow the Pallas kernel's inverses)."""
 
     iterations: int = 20
     iterations_per_launch: int = 5  # Newton steps per chunk of the adaptive solve
@@ -101,7 +104,8 @@ class PdipmOptions:
     frac_to_boundary: float = 0.99  # step = this x the largest feasible one
     alpha_min: float = 1e-12  # floor of a step length
     sz_floor: float = 1e-8  # floor of s and z after a step
-    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "ric2" / "tridiag" (condensed)
+    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "ric2" / "tridiag" /
+    # "dense" (condensed)
     backend: str = "tridiag"
     refine_steps: int = 0  # iterative-refinement passes per reduced solve
     # The first min(this, iterations) Newton steps of a solve (of a launch,
@@ -567,10 +571,43 @@ def _solve_thomas(qp: StageQP, fac: _ThomasFactors, r1, r_z, r4):
     return dx, dz, dy
 
 
+def _factor_dense(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
+    """LU of the condensed reduced KKT [[H + beta + G^T W^-1 G, A^T], [A,
+    -delta I]], (nz + ne) wide, variables [x (12 T), u (12 T), y (ne)]
+    (`biped_pympc_tpu/ops/pdipm.py:252`). Like JAX's `lu_factor` it checks
+    nothing: a singular matrix gives non-finite values, and no check waits
+    for the device."""
+    T, nz, ne = qp.horizon, qp.nz, qp.n_eq
+    hd = qps.h_diag(qp) + opts.beta
+    m = torch.diag_embed(torch.cat([hd, hd.new_full((hd.shape[0], ne), -opts.delta)], dim=1))
+    # The stage blocks G_u^T W^-1 G_u, formed as JAX forms them: the stage
+    # Hessian (with R + beta on its diagonal) less R + beta.
+    rb = torch.diag_embed(qp.r_diag + opts.beta)[:, None]
+    ru = (_gtwg(qp, w_inv) + rb) - rb
+    for t in range(T):
+        r = NX * T + NU * t
+        m[:, r:r + NU, r:r + NU] += ru[:, t]
+    a = qps.dense_a(qp)
+    m[:, nz:, :nz] = a
+    m[:, :nz, nz:] = a.transpose(-1, -2)
+    lu, piv, _ = torch.linalg.lu_factor_ex(m, check_errors=False)
+    return lu, piv
+
+
+def _solve_dense(qp: StageQP, factors, r1_hat, r4):
+    """(dx, no z, dy) of the condensed reduced system (`pdipm.py:277`)."""
+    lu, piv = factors
+    sol = torch.linalg.lu_solve(lu, piv, torch.cat([r1_hat, r4], dim=1)[..., None])[..., 0]
+    return sol[:, :qp.nz], r1_hat.new_zeros(r1_hat.shape[0], 0), sol[:, qp.nz:]
+
+
 def _stage_solver(qp: StageQP, w: torch.Tensor, opts: PdipmOptions):
     """Factor route `opts.backend` at w (B, T, 16), W on the augmented routes
     and W^-1 on the condensed ones; return its reduced solve
     (r1, r_z, r4) -> (dx, dz, dy)."""
+    if opts.backend == "dense":
+        factors = _factor_dense(qp, w, opts)
+        return lambda r1, r_z, r4: _solve_dense(qp, factors, r1, r4)
     if opts.backend in ("tridiag", "tridiag_aug"):
         tf = _factor_thomas(qp, w, opts, aug=opts.backend == "tridiag_aug")
         return lambda r1, r_z, r4: _solve_thomas(qp, tf, r1, r_z, r4)

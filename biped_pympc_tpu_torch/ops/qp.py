@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from biped_pympc_tpu_torch.models.srbd import AffineDynamics, SrbdLin, discrete_dynamics
+from biped_pympc_tpu_torch.utils.consts import const
 
 NX = 12
 NU = 12
@@ -96,10 +97,10 @@ def build_qp(lin: SrbdLin, x0: torch.Tensor, x_ref: torch.Tensor,
     """
     dtype, dev = x0.dtype, x0.device
     nb = x0.shape[0]
-    per_env = lambda v: torch.as_tensor(v, dtype=dtype, device=dev).expand(nb)
+    per_env = lambda v: const(v, dtype, dev).expand(nb)
     dyn = discrete_dynamics(lin, per_env(dt_mpc), euler_rate_mode)
-    q_diag = torch.as_tensor(q_diag, dtype=dtype, device=dev).expand(nb, NX)
-    r_diag = torch.as_tensor(r_diag, dtype=dtype, device=dev).expand(nb, NU)
+    q_diag = const(q_diag, dtype, dev).expand(nb, NX)
+    r_diag = const(r_diag, dtype, dev).expand(nb, NU)
     f_x = (-(q_diag[:, None, :] * x_ref)).reshape(nb, -1)
     f = torch.cat([f_x, torch.zeros(nb, NU * horizon, dtype=dtype, device=dev)], 1)
     b0 = (dyn.A @ x0[..., None])[..., 0] + dyn.c
@@ -186,17 +187,14 @@ def d_vec(qp: StageQP) -> torch.Tensor:
     return qp.d.reshape(qp.d.shape[0], -1)
 
 
-def dense_matrices(qp: StageQP):
-    """Materialize (H, f, A, b, G, d) densely, each with a leading (B,)
-    axis, in the reference layout. For tests; never on the solve path."""
+def dense_a(qp: StageQP) -> torch.Tensor:
+    """(B, ne, nz) dense A in the reference's row order, built from the stage
+    blocks (`biped_pympc_tpu/ops/pdipm.py:283`)."""
     T = qp.horizon
     nb = qp.f.shape[0]
-    nz, neq, nin = qp.nz, qp.n_eq, qp.n_ineq
-    dtype, dev = qp.f.dtype, qp.f.device
     Ad, Bd = qp.dyn.A, qp.dyn.B
-    eye = torch.eye(NX, dtype=dtype, device=dev)
-    H = torch.diag_embed(h_diag(qp))
-    A = torch.zeros(nb, neq, nz, dtype=dtype, device=dev)
+    eye = torch.eye(NX, dtype=Ad.dtype, device=Ad.device)
+    A = torch.zeros(nb, qp.n_eq, qp.nz, dtype=Ad.dtype, device=Ad.device)
     for i in range(T):
         r = NX * i
         A[:, r:r + NX, NX * i:NX * i + NX] = eye
@@ -205,7 +203,16 @@ def dense_matrices(qp: StageQP):
         A[:, r:r + NX, NX * T + NU * i:NX * T + NU * i + NU] = -Bd
         A[:, NX * T + 2 * i, NX * T + NU * i + _MX_COLS[0]] = 1.0
         A[:, NX * T + 2 * i + 1, NX * T + NU * i + _MX_COLS[1]] = 1.0
-    G = torch.zeros(nb, nin, nz, dtype=dtype, device=dev)
+    return A
+
+
+def dense_matrices(qp: StageQP):
+    """Materialize (H, f, A, b, G, d) densely, each with a leading (B,)
+    axis, in the reference layout. For tests; never on the solve path."""
+    T = qp.horizon
+    nb = qp.f.shape[0]
+    H = torch.diag_embed(h_diag(qp))
+    G = torch.zeros(nb, qp.n_ineq, qp.nz, dtype=qp.f.dtype, device=qp.f.device)
     for i in range(T):
         G[:, 16 * i:16 * i + 16, NX * T + NU * i:NX * T + NU * i + NU] = qp.g_u
-    return H, qp.f, A, b_vec(qp), G, d_vec(qp)
+    return H, qp.f, dense_a(qp), b_vec(qp), G, d_vec(qp)

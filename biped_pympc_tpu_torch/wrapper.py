@@ -32,6 +32,7 @@ from biped_pympc_tpu_torch.config import ControllerConf, MPCConf
 from biped_pympc_tpu_torch.control import gait, swing
 from biped_pympc_tpu_torch.control.controller import BipedControllerCore, ControllerState
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
+from biped_pympc_tpu_torch.utils.consts import const
 
 
 class MPCController:
@@ -220,7 +221,7 @@ class MPCController:
         robot = self.core.robot
         lin = w[:, :, :3].sum(dim=1) / robot.mass
         rot = self.state.est.rotation_body
-        i_body = torch.as_tensor(robot.i_body, dtype=w.dtype, device=w.device)
+        i_body = const(robot.i_body, w.dtype, w.device)
         i_world = rot @ i_body @ rot.transpose(-1, -2)
         ang = (inverse_3x3(i_world) @ w[:, :, 3:].sum(dim=1)[..., None])[..., 0]
         return torch.cat([lin, ang], dim=1)

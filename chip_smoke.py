@@ -65,7 +65,16 @@ beside each length's nvcc seconds and critical path, and drives the two
 bench paths that
 launch them, `ab_roofline.main` (the ceilings and six PDIPM routes at
 b4096) and `bench_synthetic.main` (the tape sweep). Each phase prints
-one line of findings; any failure raises and the script exits non-zero. It
+one line of findings; any failure raises and the script exits non-zero.
+The closed loop (`biped_pympc_tpu_torch/examples/`, `closed_loop_phases`;
+`--closed-loop` runs it alone after the build): 4096 HECTOR bipeds walking
+with K1, one MPC cycle captured as a CUDA graph and replayed for 120 cycles
+(its first 3 bit for bit the eager cycles', every env within JAX's walk
+criteria, K1 once a replayed cycle by the profiler, ms a cycle graph and
+eager, the device's idle share), the RL device env's captured step against
+its eager one and an ARS update, `simulate` on K5b against the rollout's
+first cycle, and `solver="dense"` (plain torch) against the CPU at f64;
+one eager tick with the solve runs under the sync debug mode. It
 exits non-zero without a result when no CUDA device is visible. The last line
 is a JSON object naming the device.
 """
@@ -1036,13 +1045,277 @@ def bench_twins(label: str, k8_libs: dict) -> list:
     ]
 
 
+# The closed loop's phases (`closed_loop_phases`): HECTOR, walking gait, b4096,
+# f32, solver "pallas_ric_aug" (K1). The captured rollout replays
+# ROLLOUT_SECONDS of 1 kHz ticks (int(seconds / dt) // 10 = 120 cycles) after
+# EAGER_CYCLES eager cycles it must reproduce bit for bit; the RL population
+# is RL_DIRS antithetic directions of RL_ENVS_PER envs, RL_STEPS steps, the
+# first RL_EQUAL_STEPS held bit for bit against the eager env; `simulate`
+# runs CLOSED_LOOP_SECONDS of its host loop; the dense route is held on
+# DENSE_ENVS envs at f64 against its plain version on the CPU.
+ROLLOUT_SECONDS = 1.205
+EAGER_CYCLES = 3
+PROFILED_CYCLES = 5
+RL_DIRS, RL_ENVS_PER, RL_STEPS, RL_EQUAL_STEPS = 64, 32, 5, 2
+CLOSED_LOOP_SECONDS = 0.1
+DENSE_ENVS = 256
+# JAX's walk criteria (tests/test_tpu_rollout.py:112-126): every env.
+WALK = {"roll_pitch": 0.1, "height_dev": 0.05, "vx_late_dev": 0.12, "distance": 0.1}
+# `simulate`'s first cycle (x after 10 ticks, literal RK4 plant in float32,
+# solver "tridiag_aug" on K5b) against the eager rollout's (closed-form plant,
+# same solver): float32 plant roundoff through one cycle of the loop. The
+# two read 1.9e-9 on the CPU at b8 and 3.7e-9 on the H100 at b4096 (PERF.md,
+# section 5); the bound is ~170 float32 roundings of a position of 0.5.
+SIM_VS_ROLLOUT_ATOL = 1e-5
+
+
+def device_trace(fn, reps: int) -> dict:
+    """Run fn `reps` times under torch.profiler (CUPTI) and read the device's
+    side: {"events": device events (kernels, copies, fills) per rep, "k1":
+    PDIPM kernel launches per rep, "idle": the device's idle share between
+    its first event's start and its last event's end, "names": the kernels
+    of a rep by count}, or None where the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not evs:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, spans[0][0]
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    names = {}
+    for e in evs:
+        names[e.name] = names.get(e.name, 0) + 1
+    return {"events": len(evs) / reps, "k1": sum("pdipm_kernel" in e.name for e in evs) / reps,
+            "idle": 1.0 - busy / (end - spans[0][0]),
+            "names": {k: v / reps for k, v in sorted(names.items(), key=lambda kv: -kv[1])}}
+
+
+def walk_criteria(traj) -> dict:
+    """JAX's walk criteria over every env of a (cycles, B, 12) trajectory."""
+    n = traj.shape[0]
+    return {"roll_pitch": float(traj[:, :, :2].abs().max()),
+            "height_dev": float((traj[:, :, 5] - 0.55).abs().max()),
+            "vx_late_dev": float((traj[n // 2:, :, 9] - 0.3).abs().max()),
+            "distance": float((traj[-1, :, 3] - traj[0, :, 3]).min())}
+
+
+def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
+    """The closed loop on the card (`biped_pympc_tpu_torch/examples/`): the
+    captured rollout against its eager cycles, the RL population env, the
+    host loop `simulate` and the dense route. Prints one line each; returns
+    the numbers the later lines and the kernels' JSON use."""
+    import torch
+    from biped_pympc_tpu_torch.examples import (closed_loop_sim, rl_env_tpu, srbd_plant,
+                                                tpu_rollout, train_rl_mpc)
+    from biped_pympc_tpu_torch.examples.cuda_graph import tree_map
+    from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+    from biped_pympc_tpu_torch.ops import qp as qps
+
+    out = {}
+    core = tpu_rollout.make_core("pallas_ric_aug", device=dev, verbose=False)
+    carry0 = tree_map(torch.clone, tpu_rollout.init_carry(core, B, 0.3, 0.55))
+    decim = core.mpc_cfg.decimation
+
+    # Rollout, eager: EAGER_CYCLES cycles (the first builds K1 and fills the
+    # constant caches), then one more cycle under no_host_sync.
+    eager, _ = tpu_rollout.make_rollout(core, EAGER_CYCLES * 0.01 + 1e-4, graph=False)
+    pdipm_cuda.reset_counts()
+    _, traj_e = eager(carry0)
+    traj_e = traj_e.clone()
+    torch.cuda.synchronize()
+    e_launches = dict(pdipm_cuda.launches)
+    check(e_launches == route_counts(ric_aug=EAGER_CYCLES),
+          f"the eager rollout did not launch K1 once a cycle: {e_launches}")
+    one, _ = tpu_rollout.make_rollout(core, 0.0101, graph=False)
+    with no_host_sync():
+        one(carry0)
+    eager_ms = cuda_ms(lambda: eager(carry0), 2) / EAGER_CYCLES
+
+    # Rollout, captured: the first call warms up on a side stream, captures
+    # one cycle and replays it; counts read K1's warm-up and capture only.
+    rollout, cycles = tpu_rollout.make_rollout(core, ROLLOUT_SECONDS)
+    pdipm_cuda.reset_counts()
+    t0 = time.perf_counter()
+    _, traj = rollout(carry0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    g_launches = dict(pdipm_cuda.launches)
+    check(g_launches == route_counts(ric_aug=2),
+          f"the captured rollout did not launch K1 in its warm-up and capture: {g_launches}")
+    same = [bool(torch.equal(traj[i], traj_e[i])) for i in range(EAGER_CYCLES)]
+    crit = walk_criteria(traj)
+    finite = bool(torch.isfinite(traj).all())
+    graph_ms = cuda_ms(lambda: rollout(carry0), 1) / cycles
+    rollout.loop.carry.index.zero_()  # the profiled replays write traj[:PROFILED_CYCLES]
+    trace = device_trace(rollout.loop, PROFILED_CYCLES)
+    steps_s = B * decim / (graph_ms * 1e-3)
+    tr_line = ("profiler: no device events (not measured)" if trace is None else
+               f"profiler over {PROFILED_CYCLES} replays: {trace['events']:.1f} device events a "
+               f"cycle, K1 {trace['k1']:.2f} a cycle, device idle {trace['idle']:.2%}; top kernels "
+               + ", ".join(f"{k[:40]} {v:g}" for k, v in list(trace["names"].items())[:4]))
+    print(f"[rollout] {label}: b{B} f32 pallas_ric_aug, {cycles} cycles ({cycles * decim} ticks) "
+          f"as replays of one captured cycle: first {EAGER_CYCLES} cycles bitwise the eager "
+          f"ones: {same}; finite {finite}; walk criteria over every env {crit} (bounds {WALK}); "
+          f"K1 launches issued eager {e_launches['ric_aug']} for {EAGER_CYCLES} cycles, captured "
+          f"{g_launches['ric_aug']} (warm-up + capture); one eager cycle under no_host_sync: ok; "
+          f"ms a cycle graph {graph_ms:.3f} / eager {eager_ms:.3f} "
+          f"({eager_ms / graph_ms:.1f}x); env-steps/s graph {steps_s:.0f}, eager "
+          f"{B * decim / (eager_ms * 1e-3):.0f}; first call (capture + {cycles} cycles) "
+          f"{first_s:.2f} s; {tr_line}")
+    check(all(same), "the captured cycles differ from the eager ones")
+    check(finite, "the rollout is not finite")
+    check(crit["roll_pitch"] < WALK["roll_pitch"], "rollout: fell over (roll / pitch)")
+    check(crit["height_dev"] < WALK["height_dev"], "rollout: height not held")
+    check(crit["vx_late_dev"] < WALK["vx_late_dev"], "rollout: vx tracking off")
+    check(crit["distance"] > WALK["distance"], "rollout: did not walk forward")
+    if trace is not None:
+        check(trace["k1"] == 1.0, f"K1 ran {trace['k1']} times a replayed cycle")
+    out.update(rollout_ms=graph_ms, rollout_eager_ms=eager_ms, rollout_steps_s=steps_s,
+               rollout_trace=trace)
+
+    # Do the walk's own QPs converge under the 20-step rule, and does the
+    # adaptive stop fire on them (ROADMAP Queue 3 items 1 and 10)? The QPs
+    # of the walk's last state, solved by K1, fixed and adaptive.
+    walked = rollout.loop.carry
+    st = tree_map(torch.clone, walked.state)
+    core.ingest_state(st, srbd_plant.assemble_obs(core.robot, walked.x, walked.foot_w)[0])
+    _, _, wqp = core.assemble_mpc(st)
+    wres = pdipm_cuda.solve(wqp, core.opts)
+    pdipm_cuda.reset_counts()
+    pdipm_cuda.solve_adaptive(wqp, core.opts, WALK_TOL)
+    ran = pdipm_cuda.chunks_ran()["ric_aug"]
+    mu, crit_w = wres.residuals[:, 3], wres.residuals.amax(1)
+    print(f"[rollout QPs] {label}: the b{B} QPs of the walk's last state, K1: mu <= "
+          f"{MU_CONVERGED:g} on {int((mu <= MU_CONVERGED).sum())} of {B} envs, mu "
+          f"{quantiles(mu.double().cpu().numpy())}; max(||rx||, ||rs||, ||re||, mu) "
+          f"{quantiles(crit_w.double().cpu().numpy())}; solve_adaptive tol {WALK_TOL:g}: "
+          f"{ran} of {pdipm_cuda.launches['ric_aug']} chunks ran")
+    check(bool(torch.isfinite(wres.x).all()), "the walk's QPs are not finite in K1")
+
+    # RL: the device env over a population, one captured RL step replayed.
+    rng = np.random.default_rng(0)
+    n_rl = 2 * RL_DIRS * RL_ENVS_PER
+    env_step, reset_all, rl_obs, rl_core = rl_env_tpu.make_device_env(n_rl, device=dev)
+    deltas = rng.standard_normal((RL_DIRS, rl_env_tpu.ACT_DIM, rl_env_tpu.OBS_DIM))
+    w0 = np.zeros((rl_env_tpu.ACT_DIM, rl_env_tpu.OBS_DIM))
+    w_env = train_rl_mpc.population(w0, deltas, 0.05, RL_ENVS_PER)
+    start = reset_all()
+    eager_rl = rl_env_tpu.make_rollout(env_step, rl_obs, RL_EQUAL_STEPS, graph=False)
+    _, ret_e = eager_rl(start, w_env)
+    ret_e = ret_e.clone()
+    graph_rl = rl_env_tpu.make_rollout(env_step, rl_obs, RL_EQUAL_STEPS)
+    pdipm_cuda.reset_counts()
+    _, ret_g = graph_rl(start, w_env)
+    rl_same = bool(torch.equal(ret_g, ret_e))
+    graph_rl.steps = RL_STEPS
+    rl_ms = cuda_ms(lambda: graph_rl(start, w_env), 1) / RL_STEPS
+    _, returns = graph_rl(start, w_env)
+    returns = returns.double().cpu().numpy()
+    w1, spread = train_rl_mpc.ars_update(w0, deltas, returns, RL_ENVS_PER, 0.02)
+    rl_trace = device_trace(graph_rl.loop, 2)
+    rl_rate = n_rl * decim / (rl_ms * 1e-3)
+    print(f"[rl] {label}: make_device_env b{n_rl} ({RL_DIRS} directions x 2 x {RL_ENVS_PER} "
+          f"envs) f32 pallas_ric_aug: captured step vs eager over {RL_EQUAL_STEPS} steps, "
+          f"returns bitwise equal {rl_same}; {RL_STEPS} steps: returns mean "
+          f"{returns.mean():.4f}, min {returns.min():.4f}, finite "
+          f"{bool(np.isfinite(returns).all())}; ARS update |w| {np.linalg.norm(w1):.4e} "
+          f"(spread max {spread.max():+.4f}); ms an RL step {rl_ms:.3f}, env-steps/s "
+          f"{rl_rate:.0f}; K1 a replayed step "
+          f"{'not measured' if rl_trace is None else rl_trace['k1']}, device events "
+          f"{'not measured' if rl_trace is None else rl_trace['events']}, idle "
+          f"{'not measured' if rl_trace is None else format(rl_trace['idle'], '.2%')}")
+    check(rl_same, "the captured RL step differs from the eager one")
+    check(bool(np.isfinite(returns).all()), "RL returns not finite")
+    check(bool(np.isfinite(w1).all()) and np.linalg.norm(w1) > 0, "the ARS update left w at 0")
+    if rl_trace is not None:
+        check(rl_trace["k1"] == 1.0, f"K1 ran {rl_trace['k1']} times a replayed RL step")
+    out.update(rl_ms=rl_ms, rl_steps_s=rl_rate, rl_trace=rl_trace)
+
+    # The host loop, its default solver ("tridiag_aug", K5b), against the
+    # eager rollout's first cycle on the same solver.
+    pdipm_cuda.reset_counts()
+    t0 = time.perf_counter()
+    sim = closed_loop_sim.simulate(num_envs=B, seconds=CLOSED_LOOP_SECONDS, every=1,
+                                   verbose=False, device=dev)
+    sim_s = time.perf_counter() - t0
+    s_launches = dict(pdipm_cuda.launches)
+    n_ticks = int(CLOSED_LOOP_SECONDS / core.mpc_cfg.dt)
+    k5b = tpu_rollout.make_core("tridiag_aug", device=dev, verbose=False)
+    ro5, _ = tpu_rollout.make_rollout(k5b, 0.0101, graph=False)
+    _, t5 = ro5(tpu_rollout.init_carry(k5b, B, 0.3, 0.55))
+    x1 = t5[0].double().cpu().numpy()
+    d_sim = max(float(np.abs(sim["pos"][decim - 1] - x1[:, 3:6]).max()),
+                float(np.abs(sim["rpy"][decim - 1] - x1[:, 0:3]).max()),
+                float(np.abs(sim["vx"][decim - 1] - x1[:, 9]).max()))
+    sim_finite = all(np.isfinite(v).all() for v in sim.values())
+    print(f"[closed loop] {label}: simulate b{B} {CLOSED_LOOP_SECONDS} s ({n_ticks} ticks) "
+          f"solver tridiag_aug: launches {s_launches} in {sim_s:.2f} s "
+          f"({sim_s / n_ticks * 1e3:.2f} ms a tick on the host's clock); finite {sim_finite}; "
+          f"x after {decim} ticks vs the eager rollout's first cycle max |d| {d_sim:.3e} "
+          f"(bound {SIM_VS_ROLLOUT_ATOL:g}); final "
+          f"z {float(sim['pos'][-1][:, 2].min()):.4f}..{float(sim['pos'][-1][:, 2].max()):.4f}")
+    check(s_launches == route_counts(tridiag_aug=n_ticks // decim),
+          f"simulate did not launch K5b once a solve: {s_launches}")
+    check(sim_finite, "simulate is not finite")
+    check(d_sim <= SIM_VS_ROLLOUT_ATOL, "simulate's first cycle differs from the rollout's")
+
+    # solver="dense": a batched LU of the whole condensed reduced KKT, plain
+    # torch on the card, at f64 on DENSE_ENVS envs against the same on the CPU.
+    dense = pdipm.PdipmOptions(backend="dense", refine_steps=1)
+    idx = torch.arange(DENSE_ENVS, device=dev)
+    sub64 = qps.take(qp64, idx)
+    pdipm_cuda.reset_counts()
+    card = pdipm_cuda.solve(sub64, dense)
+    torch.cuda.synchronize()
+    d_launches = sum(pdipm_cuda.launches.values())
+    # One intra-op thread for the CPU's batched LU: under several, LAPACK's
+    # getrf in a CPU build of torch 2.13 stopped with "Parameter 6 was
+    # incorrect on entry to DLASWP" and hung (the tests run it on one).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = pdipm.solve(qp_map(sub64, lambda v: v.cpu()), dense)
+    finally:
+        torch.set_num_threads(threads)
+    cv = (cpu.residuals[:, 3] <= MU_CONVERGED)
+    rel = max(float(((getattr(card, n).cpu() - getattr(cpu, n)).abs()
+                     / getattr(cpu, n).abs().clamp_min(1.0)).amax(1)[cv].max()) for n in "xszy")
+    ric64 = pdipm.solve(sub64, dataclasses.replace(dense, backend="ric", foot_split=True))
+    wit = max(float(((getattr(ric64, n) - getattr(card, n)).abs()
+                     / getattr(card, n).abs().clamp_min(1.0)).amax(1)[cv.to(dev)].max())
+              for n in "xszy")
+    _, dense_ms = timed_once(lambda: pdipm_cuda.solve(qp32, dense))
+    nz, ne = qp32.nz, qp32.n_eq
+    print(f"[dense] {label}: b{DENSE_ENVS} f64 on the card vs the CPU, converged envs "
+          f"{int(cv.sum())}: max |dx,ds,dz,dy| {rel:.3e} relative to max(1, |v|) (bound "
+          f"{CONDENSED_F64_RTOL:g}); the plain ric route vs dense on the card {wit:.3e} "
+          f"(printed); kernel launches {d_launches}; b{B} f32 one solve {dense_ms:.1f} ms "
+          f"(batched LU of {nz + ne}-wide matrices, {B * (nz + ne) ** 2 * 4 / 1e9:.2f} GB)")
+    check(int(cv.sum()) >= DENSE_ENVS // 10, "dense: too few converged envs")
+    check(rel <= CONDENSED_F64_RTOL, "dense on the card differs from the CPU")
+    check(d_launches == 0, "the dense route launched a kernel")
+    out.update(dense_ms=dense_ms)
+    return out
+
+
 def quick(mode: str) -> int:
     """`--digests`: build the PDIPM kernels and print `route_digests` of
     this script's batch as one JSON line (it runs in a checkout of an
     earlier build too). `--geometry`: build, print the digests and their
     agreement with BEFORE_WARP_DIGESTS, run `geometry_phase` with its exploration,
     and hold K1 and K2 in the picked geometry against their plain versions
-    at f64 on the converged envs."""
+    at f64 on the converged envs. `--closed-loop`: build, then run
+    `closed_loop_phases` alone."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
@@ -1053,6 +1326,9 @@ def quick(mode: str) -> int:
     pdipm_cuda.build()
     opts = pdipm.PdipmOptions(backend="ric_aug", foot_split=True, refine_steps=1)
     qp32, qp64 = (make_qp_batch(B, 0, dt, dev) for dt in (torch.float32, torch.float64))
+    if mode == "--closed-loop":
+        closed_loop_phases(label, dev, qp32, qp64)
+        return 0
     dig = route_digests(qp32, qp64, opts)
     print(json.dumps({"digests": dig}))
     if mode == "--digests":
@@ -1086,9 +1362,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"]):
-        print(f"chip_smoke: takes no argument, --digests or --geometry; got {sys.argv[1:]}",
-              file=sys.stderr)
+    if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"], ["--closed-loop"]):
+        print(f"chip_smoke: takes no argument, --digests, --geometry or --closed-loop; got "
+              f"{sys.argv[1:]}", file=sys.stderr)
         return 2
     if len(sys.argv) > 1:
         return quick(sys.argv[1])
@@ -1846,6 +2122,13 @@ def main() -> int:
     check(bool((fz[:, 1].abs() < 1.0).all()), "swinging right foot carries force")
     check(bool((first_wrench[:, 0, 2] < -50.0).all()), "stance left foot not loaded")
     check(phase_adv > 0.05, "gait phase did not advance")
+    # One eager tick with the solve, default mode: nothing in it waits for
+    # the device (no constant is copied from the host per call).
+    with no_host_sync():
+        ctrl.update_state(obs)
+        ctrl.run_mpc()
+        ctrl.run_lowlevel()
+    print("[main path] one update_state + run_mpc + run_lowlevel under no_host_sync: ok")
 
     # Same first solve on 8 envs through the plain version on the CPU, f64.
     ref = MPCController(ControllerConf(), MPCConf(verbose=False), num_envs=8, gait_id=2,
@@ -2012,6 +2295,10 @@ def main() -> int:
 
     mark("main paths")
 
+    # 6d. The closed loop: the captured rollout, the RL env, simulate, dense.
+    loop = closed_loop_phases(label, dev, qp32, qp64)
+    mark("closed loop")
+
     # 7. Times on the card (CUDA events, after warm-up).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
     k64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, opts), 10)
@@ -2045,6 +2332,8 @@ def main() -> int:
         ctrl.get_action()
 
     tick_ms = cuda_ms(tick, 50)
+    tick_trace = device_trace(tick, 10)
+    mpc_trace = device_trace(ctrl.run_mpc, 3)
     k5_ms = {}
     for tag, opts_, path in (("K5b", thomas["K5b"], "pallas_aug"), ("K5a", thomas["K5a"], "pallas"),
                              ("K5c", riccati["K5c"], "pallas_ric2"),
@@ -2087,7 +2376,14 @@ def main() -> int:
           f"{budget}-env re-solve batch {k1_sub:.3f} ms)")
     print(f"[times] {label}: MPCController b{B} f32: run_mpc {mpc_ms:.3f} ms, hybrid run_mpc "
           f"{hmpc_ms:.3f} ms, 1 kHz tick (update_state + run_lowlevel + get_action) "
-          f"{tick_ms:.3f} ms")
+          f"{tick_ms:.3f} ms; device events (profiler) a tick "
+          f"{'not measured' if tick_trace is None else tick_trace['events']}, device idle "
+          f"{'not measured' if tick_trace is None else format(tick_trace['idle'], '.2%')}, a "
+          f"run_mpc {'not measured' if mpc_trace is None else mpc_trace['events']} (K1 "
+          f"{'not measured' if mpc_trace is None else mpc_trace['k1']}), device idle "
+          f"{'not measured' if mpc_trace is None else format(mpc_trace['idle'], '.2%')}; the "
+          f"closed loop's captured cycle {loop['rollout_ms']:.3f} ms (eager "
+          f"{loop['rollout_eager_ms']:.3f} ms), RL step {loop['rl_ms']:.3f} ms")
     print(f"[times] {label}: b{B} f32 solve_adaptive tol 0 (4 launches): K1 {ad0:.3f} ms vs "
           f"fixed {k32:.3f} ms, K2 on its {ric_qp32.f.shape[0]} finite envs {ad0_ric:.3f} ms vs "
           f"fixed {r32_sub:.3f} ms, plain (K1 route) {ad0_plain:.3f} "

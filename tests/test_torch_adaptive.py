@@ -141,7 +141,7 @@ def test_adaptive_options_are_checked(batch):  # noqa: F811
     with pytest.raises(ValueError, match="iterations_per_launch"):
         tpdipm.solve_adaptive_batch(qp, port_opts(iterations_per_launch=0))
     with pytest.raises(ValueError, match="unknown PDIPM backend"):
-        pdipm_cuda.solve_adaptive(qp, port_opts(backend="dense"))
+        pdipm_cuda.solve_adaptive(qp, port_opts(backend="bcr"))
 
 
 # --- MPCController with MPCConf.adaptive_tol, port vs JAX ---------------------

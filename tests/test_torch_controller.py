@@ -160,9 +160,11 @@ def test_reset_masks_only_selected_envs():
     assert ctrl.state.swing_state.first_swing[1].all()
 
 
-@pytest.mark.parametrize("solver", ["dense"])
-def test_unported_solver_names_raise(solver):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("solver", ["bcr", "pallas_bcr"])
+def test_unknown_solver_names_raise(solver):
+    """Every JAX solver name is ported; a name JAX does not know (here the
+    cyclic-reduction route JAX removed) raises ValueError, as in JAX."""
+    with pytest.raises(ValueError, match="unknown MPCConf.solver"):
         tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
                            num_envs=1, device="cpu")
 

@@ -23,8 +23,8 @@ from biped_pympc_tpu_torch.ops.linalg import gauss_jordan_inverse
 from test_torch_pdipm import batch, port_opts  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
-# JAX fields the port leaves out: a Pallas lowering switch, and the inverse
-# of the pure-JAX routes (with the unported "dense" route).
+# JAX fields the port leaves out: a Pallas lowering switch, and the stage
+# inverse of the pure-JAX block routes (the port's follow the Pallas kernel).
 LEFT_OUT = {"interpret", "inv_impl"}
 
 

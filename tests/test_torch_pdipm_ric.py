@@ -92,4 +92,4 @@ def test_cpu_ric_solve_dispatches_to_plain(port_qp, port_ric):
 
 def test_unknown_backend_raises(port_qp):
     with pytest.raises(ValueError, match="unknown PDIPM backend"):
-        tpdipm.solve(port_qp, port_opts(backend="dense"))
+        tpdipm.solve(port_qp, port_opts(backend="bcr"))

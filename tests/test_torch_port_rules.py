@@ -64,6 +64,9 @@ def test_port_file_scan_covers_the_new_modules():
             "biped_pympc_tpu_torch/bench/bench_common.py",
             "biped_pympc_tpu_torch/bench/ab_roofline.py",
             "biped_pympc_tpu_torch/bench/bench_synthetic.py", "chip_smoke.py"} <= names
+    assert {f"biped_pympc_tpu_torch/examples/{m}.py" for m in (
+        "srbd_plant", "closed_loop_sim", "tpu_rollout", "rl_env", "rl_env_tpu", "train_rl_mpc",
+        "train_rl_mpc_tpu", "cuda_graph")} <= names
     assert {"bench_common", "ab_roofline", "bench_synthetic"} <= BENCH_MODULES
 
 
@@ -245,13 +248,25 @@ def test_controller_without_device_needs_a_card(monkeypatch):
     assert ctrl.state.gait_phase.device.type == "cpu"
 
 
-@pytest.mark.parametrize("solver, item", [("dense", "Queue 1, item 15")])
-def test_unported_solvers_name_their_roadmap_item(solver, item):
+def test_dense_solver_runs():
+    """solver="dense" (a batched LU of the condensed reduced KKT) runs: it has
+    no kernel, so `pdipm_cuda.solve` runs its plain version and launches
+    nothing."""
     import biped_pympc_tpu_torch as tpkg
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
-                           num_envs=1, device="cpu")
+    ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver="dense", verbose=False),
+                              num_envs=2, device="cpu")
+    assert ctrl.core.opts.backend == "dense"
+    obs = torch.zeros(2, 43)
+    obs[:, 2], obs[:, 3] = 0.55, 1.0
+    obs[:, 13:18] = obs[:, 18:23] = torch.tensor([0.0, 0.0, 0.45, -0.9, 0.45])
+    before = dict(pdipm_cuda.launches)
+    ctrl.update_state(obs)
+    ctrl.run_mpc()
+    assert pdipm_cuda.launches == before
+    fz = -ctrl.ground_reaction_wrench[:, :, 2]
+    assert bool(torch.isfinite(ctrl.ground_reaction_wrench).all())
+    assert bool((fz.sum(1) > 0.8 * 13.856 * 9.81).all())
 
 
 @pytest.mark.parametrize("pack", [True, "apply"])
@@ -644,3 +659,30 @@ def test_tape_segments_give_the_bits_of_one_kernel_on_card():
     torch.cuda.synchronize()
     assert len(enc.kernel.libs) == 3 and bench_synthetic.launches["tape"] == before + 3
     assert torch.equal(cut, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pallas_ric_aug", "tridiag_aug"])
+def test_captured_rollout_equals_eager_on_card(solver):
+    """One MPC cycle captured as a CUDA graph and replayed
+    (`examples/tpu_rollout.Rollout`) gives the eager cycles' bits; the host
+    counts K1 / K5b only in the warm-up and the capture, and a second call
+    replays from the carry it is given."""
+    _card()
+    from biped_pympc_tpu_torch.examples import tpu_rollout
+
+    core = tpu_rollout.make_core(solver, device="cuda", verbose=False)
+    carry = tpu_rollout.init_carry(core, 64, 0.3, 0.55)
+    eager, cycles = tpu_rollout.make_rollout(core, 0.0301, graph=False)
+    _, want = eager(carry)
+    want = want.clone()
+    graph, _ = tpu_rollout.make_rollout(core, 0.0301)
+    before = dict(pdipm_cuda.launches)
+    _, got = graph(carry)
+    torch.cuda.synchronize()
+    route = pdipm_cuda.route(core.opts)
+    assert graph.loop.graph is not None and cycles == 3
+    assert pdipm_cuda.launches == {**before, route: before[route] + 2}
+    assert torch.equal(got, want)
+    _, again = graph(carry)
+    assert torch.equal(again, want)
