@@ -19,7 +19,7 @@ import torch
 
 from biped_pympc_tpu_torch.config import ControllerConf, MPCConf
 from biped_pympc_tpu_torch.examples.srbd_plant import SrbdPlant
-from biped_pympc_tpu_torch.examples.tpu_rollout import check_obs_ik
+from biped_pympc_tpu_torch.examples.tpu_rollout import obs_ik_fn
 from biped_pympc_tpu_torch.wrapper import MPCController
 
 
@@ -34,14 +34,16 @@ def simulate(num_envs: int = 4, seconds: float = 2.0, vx: float = 0.3,
     vertical forces "fz" (n, B, 2) (`closed_loop_sim.py:46`).
 
     `dtype` is the controller's, `plant_dtype` the plant's (float32, as the
-    JAX example steps its plant), `device` None the card. obs_ik "robot"
-    is the controller robot's own IK as the encoder stand-in; "newton" and
-    the T1 robot wait for T1 (ROADMAP Queue 1, item 11). `seed` is taken
+    JAX example steps its plant), `device` None the card. `robot_name` is
+    "HECTOR", "T1" or "T1-newton". obs_ik "robot" is the controller robot's
+    own IK as the encoder stand-in; "newton" is T1's exact Gauss-Newton IK
+    for the observation only (the controller keeps its own IK for the swing
+    targets), a T1 knob: for HECTOR it raises ValueError. `seed` is taken
     for the JAX signature; nothing here is random.
     """
-    check_obs_ik(obs_ik)
+    ik = obs_ik_fn(obs_ik, robot_name)
     cfg = ControllerConf(ssp_durations=5, dsp_durations=0, swing_height=0.08)
-    # HECTOR's 500 N force cap; T1 would get the same ~3.7x-mg authority.
+    # HECTOR's 500 N force cap; T1 gets the same ~3.7x-mg authority.
     f_max = 500.0 if robot_name == "HECTOR" else 1450.0
     mpc_cfg = MPCConf(solver=solver, robot=robot_name, f_max=f_max, verbose=verbose,
                       **(mpc_overrides or {}))
@@ -49,7 +51,7 @@ def simulate(num_envs: int = 4, seconds: float = 2.0, vx: float = 0.3,
     if height is None:
         height = 0.55 if robot_name == "HECTOR" else 0.62
     plant = SrbdPlant(ctrl.core.robot, num_envs, height, mpc_cfg.dt, plant_dtype,
-                      ctrl.core.device)
+                      ctrl.core.device, ik=ik)
     steps = int(seconds / mpc_cfg.dt)
     twist = np.zeros((num_envs, 3), np.float32)
     twist[:, 0] = vx

@@ -76,11 +76,13 @@ def nominal_feet(robot, num_envs: int, dtype, device) -> torch.Tensor:
 
 class SrbdPlant:
     """Batched SRBD rigid body + kinematic feet. `device` None is the card
-    (`control.controller.resolve_device`); `dtype` the plant's arithmetic."""
+    (`control.controller.resolve_device`); `dtype` the plant's arithmetic;
+    `ik` the observation's IK (`assemble_obs`; None the robot's own)."""
 
     def __init__(self, robot, num_envs: int, height: float, dt: float,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, ik=None):
         self.robot = robot
+        self.ik = ik
         self.num_envs = num_envs
         self.dt = dt
         self.height = height
@@ -99,7 +101,7 @@ class SrbdPlant:
 
     def observation(self) -> torch.Tensor:
         """(B, 13 + 6 dof) controller observation vector (`assemble_obs`)."""
-        obs, self._rot = assemble_obs(self.robot, self.x, self.foot_w)
+        obs, self._rot = assemble_obs(self.robot, self.x, self.foot_w, self.ik)
         return obs
 
     def step(self, grf_world: torch.Tensor, contact: torch.Tensor,

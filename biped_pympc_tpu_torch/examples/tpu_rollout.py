@@ -27,11 +27,9 @@ from biped_pympc_tpu_torch.control.controller import BipedControllerCore, Contro
 from biped_pympc_tpu_torch.examples.cuda_graph import LoopStep, copy_into, tree_map
 from biped_pympc_tpu_torch.examples.srbd_plant import (assemble_obs, gate_grf, nominal_feet,
                                                        pin_feet)
-from biped_pympc_tpu_torch.models import srbd
+from biped_pympc_tpu_torch.models import srbd, t1
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
 from biped_pympc_tpu_torch.utils.consts import const
-
-OBS_IK_LATER = "ROADMAP Queue 1, item 11: T1"
 
 
 def make_affine_rk4_step(robot, dt: float):
@@ -76,26 +74,33 @@ def make_affine_rk4_step(robot, dt: float):
     return step
 
 
-def check_obs_ik(obs_ik: str) -> None:
-    """"robot" runs; "newton" (T1's exact Gauss-Newton IK) waits for T1."""
+def obs_ik_fn(obs_ik: str, robot_name: str):
+    """The IK standing in for the joint encoders when the observation is
+    assembled: None (the controller robot's own IK) for "robot", T1's exact
+    Gauss-Newton IK (`models/t1.analytical_ik_newton`) for "newton", which
+    is a T1 knob: HECTOR's IK is exact, and asking for it there raises
+    ValueError (`closed_loop_sim.py:103-105`)."""
     if obs_ik == "newton":
-        raise NotImplementedError(f"obs_ik='newton' is a T1 knob; T1 is not ported to "
-                                  f"biped_pympc_tpu_torch yet ({OBS_IK_LATER})")
+        if not robot_name.startswith("T1"):
+            raise ValueError("obs_ik='newton' is a T1 knob (HECTOR IK is exact)")
+        return t1.analytical_ik_newton
     if obs_ik != "robot":
         raise ValueError(f"obs_ik must be 'robot' or 'newton', got {obs_ik!r}")
+    return None
 
 
-def make_cycle(core: BipedControllerCore, plant_step):
+def make_cycle(core: BipedControllerCore, plant_step, obs_ik=None):
     """cycle(state, x, foot_w) -> (x, foot_w): one MPC cycle of the
     closed loop, `closed_loop_sim.simulate`'s tick order: tick 0 ingests the
     observation and solves the MPC, whose world-frame GRFs hold for the
     cycle; every tick runs the low-level control, moves the feet and steps
-    the plant with `plant_step(x, u (B, 4, 3), foot_w, rot)`. `state` is
+    the plant with `plant_step(x, u (B, 4, 3), foot_w, rot)`. `obs_ik` is
+    the observation's IK (`obs_ik_fn`; None the robot's own). `state` is
     updated in place (its leaves replaced)."""
     robot = core.robot
 
     def tick(state, x, foot_w, grf=None):
-        obs, rot = assemble_obs(robot, x, foot_w)
+        obs, rot = assemble_obs(robot, x, foot_w, obs_ik)
         core.ingest_state(state, obs)
         if grf is None:
             grf = core.run_mpc(state).grf_world
@@ -164,11 +169,12 @@ def make_rollout(core: BipedControllerCore, seconds: float, obs_ik: str = "robot
     """(rollout, cycles) (`tpu_rollout.py:98`): `Rollout` over
     int(seconds / dt) // decimation cycles of `make_cycle` with the closed-form
     plant (`make_affine_rk4_step`). obs_ik "robot" is the controller robot's
-    own IK as the encoder stand-in; "newton" waits for T1."""
-    check_obs_ik(obs_ik)
+    own IK as the encoder stand-in, "newton" T1's exact IK for the
+    observation only (`obs_ik_fn`)."""
+    ik = obs_ik_fn(obs_ik, core.robot.name)
     dt = core.mpc_cfg.dt
     cycles = int(seconds / dt) // core.mpc_cfg.decimation
-    cycle = make_cycle(core, make_affine_rk4_step(core.robot, dt))
+    cycle = make_cycle(core, make_affine_rk4_step(core.robot, dt), ik)
     return Rollout(cycle, cycles, graph), cycles
 
 
@@ -191,7 +197,8 @@ def init_carry(core: BipedControllerCore, num_envs: int, vx: float, height: floa
 def make_core(solver: str = "tridiag_aug", robot_name: str = "HECTOR", dtype=torch.float32,
               device=None, verbose: bool = True) -> BipedControllerCore:
     """The examples' controller: walking gait, 5-step single support, 8 cm
-    swing height, HECTOR's 500 N force cap (`tpu_rollout.py:210-216`)."""
+    swing height, HECTOR's 500 N force cap and, for T1, the same ~3.7x-mg
+    authority, 1450 N (`tpu_rollout.py:210-216`)."""
     cfg = ControllerConf(ssp_durations=5, dsp_durations=0, swing_height=0.08)
     f_max = 500.0 if robot_name == "HECTOR" else 1450.0
     return BipedControllerCore(cfg, MPCConf(solver=solver, robot=robot_name, f_max=f_max,
@@ -204,8 +211,8 @@ def run(num_envs: int = 4, seconds: float = 2.0, vx: float = 0.3, solver: str = 
         device=None) -> np.ndarray:
     """The rollout of `num_envs` bipeds walking at vx; returns the trajectory
     (cycles, B, 12) as numpy (`tpu_rollout.py:207`). `device` None is the
-    card; T1 waits for its models (`models/robot.py`)."""
-    check_obs_ik(obs_ik)
+    card; `robot_name` "HECTOR", "T1" or "T1-newton" (at 0.62 m unless
+    `height` is given)."""
     core = make_core(solver, robot_name, device=device)
     if height is None:
         height = 0.55 if robot_name == "HECTOR" else 0.62

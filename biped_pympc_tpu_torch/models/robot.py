@@ -1,14 +1,15 @@
-"""Robot registry (twin of `biped_pympc_tpu/models/robot.py`). HECTOR only
-so far; T1 waits for its models (ROADMAP Queue 1, item 11)."""
+"""Robot registry (twin of `biped_pympc_tpu/models/robot.py`): a spec of
+static parameters and per-leg batched kinematics for HECTOR, the Booster T1
+and "T1-newton" (T1 with the Gauss-Newton-refined exact IK)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import numpy as np
 
-from biped_pympc_tpu_torch.models import hector
+from biped_pympc_tpu_torch.models import hector, t1
 
 
 @dataclass(frozen=True)
@@ -30,21 +31,26 @@ class RobotSpec:
     hip_horizontal_location: Callable  # (leg, dtype, device) -> (3,)
 
 
-HECTOR = RobotSpec(
-    name="HECTOR", num_dof=hector.NUM_DOF, mass=hector.MASS, i_body=hector.I_BODY,
-    mu=hector.MU, lt=hector.LT, lh=hector.LH, kp=hector.KP, kd=hector.KD,
-    torque_limit=hector.TORQUE_LIMIT, foot_position=hector.foot_position,
-    contact_jacobian=hector.contact_jacobian, analytical_ik=hector.analytical_ik,
-    hip_horizontal_location=hector.hip_horizontal_location,
-)
+def _spec(name: str, mod) -> RobotSpec:
+    return RobotSpec(
+        name=name, num_dof=mod.NUM_DOF, mass=mod.MASS, i_body=mod.I_BODY, mu=mod.MU,
+        lt=mod.LT, lh=mod.LH, kp=mod.KP, kd=mod.KD, torque_limit=mod.TORQUE_LIMIT,
+        foot_position=mod.foot_position, contact_jacobian=mod.contact_jacobian,
+        analytical_ik=mod.analytical_ik, hip_horizontal_location=mod.hip_horizontal_location)
+
+
+HECTOR = _spec("HECTOR", hector)
+T1 = _spec("T1", t1)
+# "T1-newton": T1 with the exact IK; the plain "T1" keeps the reference's
+# planar IK, with its decimeter-level FK(IK(p)) error at bent poses.
+T1_NEWTON = replace(T1, name="T1-newton", analytical_ik=t1.analytical_ik_newton)
+
+_REGISTRY = {"HECTOR": HECTOR, "T1": T1, "T1-newton": T1_NEWTON}
 
 
 def get_robot(name: str) -> RobotSpec:
     """Name -> spec."""
-    if name == "HECTOR":
-        return HECTOR
-    if name in ("T1", "T1-newton"):
-        raise NotImplementedError(
-            f"robot {name!r} is not ported to biped_pympc_tpu_torch yet "
-            "(ROADMAP Queue 1, item 11: T1)")
-    raise ValueError(f"Unknown robot {name!r}. Available: ['HECTOR']")
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"Unknown robot {name!r}. Available: {sorted(_REGISTRY)}") from None

@@ -47,7 +47,18 @@ backward per solve.
 
 With `foot_split=False` the "ric" / "ric_aug" blocks are inverted whole, 14
 and 30 wide (`factor_ric:896`, `factor_ric_aug:1007`), the dense cross-check
-of the split. `kkt_scale="jacobi"` inverts each stage block (never the
+of the split.
+
+- "ric_aug_core" (scaled Riccati core, `biped_pympc_tpu/ops/pdipm.py:836-985`):
+  "ric_aug"'s system with the inputs scaled, u = C u_hat, C = diag(1 /
+  sqrt(R + beta)), so the stage block is [[I, V^T], [V, -Wfull]], V = [G_u C;
+  E C] (18 x 12), and u is eliminated first: S = -(Wfull + V V^T), block
+  diagonal [8, 8, 1, 1], inverted with partial pivoting (by block with
+  `foot_split`, else whole), K_hat^-1 applied by the block formula. A
+  pure-JAX route with no Pallas kernel, so plain torch on both devices, as
+  "dense" (`PLAIN_BACKENDS`). The JAX package keeps it as a closed negative:
+  S is rank-deficient on a swinging foot, where its explicit inverse loses
+  the solution in f32. `kkt_scale="jacobi"` inverts each stage block (never the
 closed-form pairs and scalars) through D (D K D)^-1 D, D = |diag K|^-1/2
 (`jacobi_scaled`, `:333`).
 
@@ -74,8 +85,12 @@ from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.ops.linalg import GJ_FORMS, gauss_jordan_inverse, gauss_jordan_pair_inverse
 from biped_pympc_tpu_torch.ops.qp import NU, NX, N_INEQ_PER_STAGE, N_MX_PER_STAGE, StageQP
 
-BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2", "dense")
-AUG_BACKENDS = ("ric_aug", "tridiag_aug")  # z kept in the stage blocks; "df" runs here
+BACKENDS = ("ric_aug", "ric", "tridiag_aug", "tridiag", "ric2", "dense", "ric_aug_core")
+# z kept in the stage blocks; "df" runs here
+AUG_BACKENDS = ("ric_aug", "tridiag_aug", "ric_aug_core")
+# Routes with no CUDA kernel: JAX computes them outside any Pallas kernel, so
+# the plain version here runs them on both devices.
+PLAIN_BACKENDS = ("dense", "ric_aug_core")
 REFINE_RESIDUALS = ("f32", "df")
 KKT_SCALES = ("none", "jacobi")
 CORRECTOR_FORMS = ("delta", "combined", "sum_refine", "aff_ref")
@@ -104,8 +119,8 @@ class PdipmOptions:
     frac_to_boundary: float = 0.99  # step = this x the largest feasible one
     alpha_min: float = 1e-12  # floor of a step length
     sz_floor: float = 1e-8  # floor of s and z after a step
-    # "ric_aug" / "tridiag_aug" (augmented) | "ric" / "ric2" / "tridiag" /
-    # "dense" (condensed)
+    # "ric_aug" / "tridiag_aug" / "ric_aug_core" (augmented) | "ric" / "ric2" /
+    # "tridiag" / "dense" (condensed)
     backend: str = "tridiag"
     refine_steps: int = 0  # iterative-refinement passes per reduced solve
     # The first min(this, iterations) Newton steps of a solve (of a launch,
@@ -130,8 +145,8 @@ class PdipmOptions:
     aug_pivot: bool = True  # "ric_aug": pivot search in the stage inverses
     k_pivot: bool = False  # "ric" unsplit: pivot search in the 14-wide stage inverse
     # "ric" / "ric_aug": invert each foot's block apart (the stage blocks
-    # decouple exactly by foot) or, False, the whole 14- / 30-wide block.
-    # Ignored by the others.
+    # decouple exactly by foot) or, False, the whole 14- / 30-wide block;
+    # "ric_aug_core" likewise its 18-wide S. Ignored by the others.
     foot_split: bool = False
     # "jacobi": each stage inverse of the Riccati routes through its Jacobi
     # equilibration, K^-1 = D (D K D)^-1 D (exact; only rounding changes).
@@ -433,20 +448,43 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
     nb = r1.shape[0]
     Ad, Bd = qp.dyn.A, qp.dyn.B
     q_inv, s_coup, yinv = fac.q_inv, fac.s_coup, fac.yhat_inv
-
-    c = r1[:, :NX * T].reshape(nb, T, NX)
-    ru = r1[:, NX * T:].reshape(nb, T, NU)
-    g = r4[:, :NX * T].reshape(nb, T, NX)
-    rnu = r4[:, NX * T:].reshape(nb, T, N_MX_PER_STAGE)
+    c, ru, rnu, ry = _split_rhs(qp, r1, r4, q_inv)
     rz = r_z.reshape(nb, T, -1)
     nzs = rz.shape[2]
-    ry = g - q_inv[:, None] * c
-    ry[:, 1:] += _mv(Ad[:, None], q_inv[:, None] * c[:, :-1])
 
     r_un = torch.cat([ru, rz, rnu], dim=2)  # (B, T, n)
     kr = fac.kinv(r_un)
     r_y2 = ry + _mv(Bd[:, None], kr[:, :, :NU])
+    wy = _y_sweeps(r_y2, s_coup, yinv)
 
+    rhs_un = torch.cat([ru + wy @ Bd, r_un[:, :, NU:]], dim=2)
+    un = fac.kinv(rhs_un)
+
+    xs = _x_rows(c, wy, q_inv, Ad)
+    dx = torch.cat([xs.reshape(nb, -1), un[:, :, :NU].reshape(nb, -1)], dim=1)
+    dz = un[:, :, NU:NU + nzs].reshape(nb, -1)
+    dy = torch.cat([wy.reshape(nb, -1), un[:, :, NU + nzs:].reshape(nb, -1)], dim=1)
+    return dx, dz, dy
+
+
+def _split_rhs(qp: StageQP, r1, r4, q_inv):
+    """(c, ru, rnu, ry) per stage of the rhs, with the condensed y-row shift
+    ry = g - Q~^-1 c + Ad Q~^-1 c_{t-1} [t >= 1] (`_split_condensed_rhs`)."""
+    T = qp.horizon
+    nb = r1.shape[0]
+    c = r1[:, :NX * T].reshape(nb, T, NX)
+    ru = r1[:, NX * T:].reshape(nb, T, NU)
+    g = r4[:, :NX * T].reshape(nb, T, NX)
+    rnu = r4[:, NX * T:].reshape(nb, T, N_MX_PER_STAGE)
+    ry = g - q_inv[:, None] * c
+    ry[:, 1:] += _mv(qp.dyn.A[:, None], q_inv[:, None] * c[:, :-1])
+    return c, ru, rnu, ry
+
+
+def _y_sweeps(r_y2, s_coup, yinv):
+    """(B, T, 12) y of the dual Riccati chain: the forward sweep
+    g_t = r_t - S^T Yhat_{t-1}^-1 g_{t-1}, then y_t = Yhat_t^-1 (g_t - S y_{t+1})."""
+    T = r_y2.shape[1]
     s_t = s_coup.transpose(-1, -2)
     gg = [r_y2[:, 0]]
     for t in range(1, T):
@@ -457,16 +495,102 @@ def _solve_stages(qp: StageQP, fac: _Factors, r1, r_z, r4):
         rhs = gg[t] if y_next is None else gg[t] - _mv(s_coup, y_next)
         y_next = _mv(yinv[:, t], rhs)
         wy[t] = y_next
-    wy = torch.stack(wy, dim=1)  # (B, T, 12)
+    return torch.stack(wy, dim=1)
 
-    rhs_un = torch.cat([ru + wy @ Bd, r_un[:, :, NU:]], dim=2)
-    un = fac.kinv(rhs_un)
 
+def _x_rows(c, wy, q_inv, Ad):
+    """x_t = Q~^-1 (c_t - y_t + Ad^T y_{t+1} [t < T-1])."""
     xs = q_inv[:, None] * (c - wy)
     xs[:, :-1] += q_inv[:, None] * (wy[:, 1:] @ Ad)
-    dx = torch.cat([xs.reshape(nb, -1), un[:, :, :NU].reshape(nb, -1)], dim=1)
-    dz = un[:, :, NU:NU + nzs].reshape(nb, -1)
-    dy = torch.cat([wy.reshape(nb, -1), un[:, :, NU + nzs:].reshape(nb, -1)], dim=1)
+    return xs
+
+
+# "ric_aug_core"'s S is block diagonal: each foot's z rows, then the two nu
+# scalars (`_CORE_S_BLOCKS`, `pdipm.py:876`).
+_CORE_S_BLOCKS = (tuple(range(8)), tuple(range(8, 16)), (16,), (17,))
+N_VC = N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 18 coupled constraint rows
+
+
+@dataclass
+class _CoreFactors:
+    s_inv: torch.Tensor  # (B, T, 18, 18) S^-1
+    v: torch.Tensor  # (B, 18, 12) V = [G_u C; E C]
+    c_u: torch.Tensor  # (B, 12) diag(C)
+    bd_hat: torch.Tensor  # (B, 12, 12) Bd C
+    yhat_inv: torch.Tensor  # (B, T, 12, 12)
+    q_inv: torch.Tensor  # (B, 12)
+    s_coup: torch.Tensor  # (B, 12, 12)
+
+
+def _factor_core(qp: StageQP, w_diag: torch.Tensor, opts: PdipmOptions) -> _CoreFactors:
+    """`_factor_ric_aug_core` (`pdipm.py:884`), batched; w_diag (B, T, 16) =
+    Sigma^-1 + delta. Every inverse is the pivoted Gauss-Jordan elimination
+    (the JAX route's `inv_impl="gj"`), the 1x1 blocks reciprocals."""
+    T = qp.horizon
+    nb = w_diag.shape[0]
+    dtype, dev = w_diag.dtype, w_diag.device
+    Ad, Bd = qp.dyn.A, qp.dyn.B
+    q_inv = 1.0 / (qp.q_diag + opts.beta)
+
+    c_u = torch.rsqrt(qp.r_diag + opts.beta)  # (B, 12)
+    v = torch.zeros(nb, N_VC, NU, dtype=dtype, device=dev)
+    v[:, :N_INEQ_PER_STAGE] = qp.g_u * c_u[:, None, :]
+    v[:, N_INEQ_PER_STAGE, 6] = c_u[:, 6]
+    v[:, N_INEQ_PER_STAGE + 1, 9] = c_u[:, 9]
+
+    wfull = torch.cat([w_diag, w_diag.new_full((nb, T, N_MX_PER_STAGE), opts.delta)], dim=2)
+    s = -(v @ v.transpose(-1, -2))[:, None].expand(nb, T, N_VC, N_VC)
+    s = s - torch.diag_embed(wfull)
+    if opts.foot_split:
+        s_inv = torch.zeros_like(s)
+        for blk in _CORE_S_BLOCKS:
+            sl = slice(blk[0], blk[-1] + 1)
+            sub = s[:, :, sl, sl]
+            s_inv[:, :, sl, sl] = 1.0 / sub if len(blk) == 1 else gauss_jordan_inverse(sub)
+    else:
+        s_inv = gauss_jordan_inverse(s)
+
+    vs = s_inv @ v[:, None]  # (B, T, 18, 12) = S^-1 V
+    kuu_hat = torch.eye(NU, dtype=dtype, device=dev) + v.transpose(-1, -2)[:, None] @ vs
+    bd_hat = Bd * c_u[:, None, :]
+
+    eye = torch.eye(NX, dtype=dtype, device=dev)
+    y_blk = -opts.delta * eye - torch.diag_embed(q_inv)
+    adqad = Ad @ torch.diag_embed(q_inv) @ Ad.transpose(-1, -2)
+    s_coup = torch.diag_embed(q_inv) @ Ad.transpose(-1, -2)
+    bkb = bd_hat[:, None] @ kuu_hat @ bd_hat.transpose(-1, -2)[:, None]
+    yhat_inv = []
+    m_prev = torch.zeros(nb, NX, NX, dtype=dtype, device=dev)
+    for t in range(T):
+        yp = (y_blk - adqad if t >= 1 else y_blk) - bkb[:, t]
+        m_prev = gauss_jordan_inverse(yp - s_coup.transpose(-1, -2) @ m_prev @ s_coup)
+        yhat_inv.append(m_prev)
+    return _CoreFactors(s_inv, v, c_u, bd_hat, torch.stack(yhat_inv, dim=1), q_inv, s_coup)
+
+
+def _core_kinv_apply(fac: _CoreFactors, r_uh, r_zn):
+    """K_hat^-1 [r_uh; r_zn] -> (du_hat (B, T, 12), dzn (B, T, 18))."""
+    t = _mv(fac.s_inv, _mv(fac.v[:, None], r_uh) - r_zn)
+    return r_uh + _mv(fac.v.transpose(-1, -2)[:, None], t), -t
+
+
+def _solve_core(qp: StageQP, fac: _CoreFactors, r1, r_z, r4):
+    """`_solve_ric_aug_core` (`pdipm.py:938`), batched: (dx, dz, dy) as
+    `_solve_stages`."""
+    T = qp.horizon
+    nb = r1.shape[0]
+    c, ru, rnu, ry = _split_rhs(qp, r1, r4, fac.q_inv)
+    r_uh = ru * fac.c_u[:, None]
+    r_zn = torch.cat([r_z.reshape(nb, T, N_INEQ_PER_STAGE), rnu], dim=2)
+    du_hat0, _ = _core_kinv_apply(fac, r_uh, r_zn)
+    r_y2 = ry + du_hat0 @ fac.bd_hat.transpose(-1, -2)
+    wy = _y_sweeps(r_y2, fac.s_coup, fac.yhat_inv)
+    du_hat, dzn = _core_kinv_apply(fac, r_uh + wy @ fac.bd_hat, r_zn)
+    du = du_hat * fac.c_u[:, None]
+    xs = _x_rows(c, wy, fac.q_inv, qp.dyn.A)
+    dx = torch.cat([xs.reshape(nb, -1), du.reshape(nb, -1)], dim=1)
+    dz = dzn[:, :, :N_INEQ_PER_STAGE].reshape(nb, -1)
+    dy = torch.cat([wy.reshape(nb, -1), dzn[:, :, N_INEQ_PER_STAGE:].reshape(nb, -1)], dim=1)
     return dx, dz, dy
 
 
@@ -608,6 +732,9 @@ def _stage_solver(qp: StageQP, w: torch.Tensor, opts: PdipmOptions):
     if opts.backend == "dense":
         factors = _factor_dense(qp, w, opts)
         return lambda r1, r_z, r4: _solve_dense(qp, factors, r1, r4)
+    if opts.backend == "ric_aug_core":
+        core = _factor_core(qp, w, opts)
+        return lambda r1, r_z, r4: _solve_core(qp, core, r1, r_z, r4)
     if opts.backend in ("tridiag", "tridiag_aug"):
         tf = _factor_thomas(qp, w, opts, aug=opts.backend == "tridiag_aug")
         return lambda r1, r_z, r4: _solve_thomas(qp, tf, r1, r_z, r4)

@@ -384,11 +384,13 @@ def solve(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
           state: pdipm.PdipmState | None = None) -> PdipmResult:
     """Batched PDIPM on route `route(opts)`, from `state` (a batch-first
     PdipmState, the warm start) or the cold start: its CUDA kernel for CUDA
-    tensors, in `geometry`, the plain version for CPU tensors. The "dense"
-    route has no kernel: the plain version runs it on both devices (a batched
-    LU, `pdipm._factor_dense`)."""
+    tensors, in `geometry`, the plain version for CPU tensors. The routes of
+    `pdipm.PLAIN_BACKENDS` have no kernel, as in JAX, where they reach no
+    Pallas kernel: the plain version runs them on both devices, "dense" (a
+    batched LU, `pdipm._factor_dense`) and "ric_aug_core" (the scaled
+    Riccati core, `pdipm._factor_core`)."""
     dev = _device(qp, opts)
-    if dev.type == "cpu" or opts.backend == "dense":
+    if dev.type == "cpu" or opts.backend in pdipm.PLAIN_BACKENDS:
         return pdipm.solve(qp, opts, state)
     lib = _library(route(opts))
     with torch.cuda.device(dev):
@@ -432,8 +434,8 @@ def solve_adaptive(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
     last, while fewer than n_full chunks ran and max(||rx||, ||rs||, ||re||,
     mu) over the whole batch is above `tol`, then a remainder of
     `iterations % chunk` steps if it still is. See
-    `pdipm.solve_adaptive_batch`, which CPU tensors run, and the "dense"
-    route on both devices.
+    `pdipm.solve_adaptive_batch`, which CPU tensors run, and the routes of
+    `pdipm.PLAIN_BACKENDS` on both devices.
 
     On the card the n_full launches (and the remainder's) are all issued.
     Before each, a device reduction writes go = max(res) > tol, with res = +inf
@@ -443,7 +445,7 @@ def solve_adaptive(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
     the device; `chunks_ran` reads how many launches ran.
     """
     dev = _device(qp, opts)
-    if dev.type == "cpu" or opts.backend == "dense":
+    if dev.type == "cpu" or opts.backend in pdipm.PLAIN_BACKENDS:
         return pdipm.solve_adaptive_batch(qp, opts, tol)
     chunk, n_full, rem = pdipm.chunks(opts)
     lib = _library(route(opts))

@@ -74,9 +74,19 @@ criteria, K1 once a replayed cycle by the profiler, ms a cycle graph and
 eager, the device's idle share), the RL device env's captured step against
 its eager one and an ARS update, `simulate` on K5b against the rollout's
 first cycle, and `solver="dense"` (plain torch) against the CPU at f64;
-one eager tick with the solve runs under the sync debug mode. It
-exits non-zero without a result when no CUDA device is visible. The last line
-is a JSON object naming the device.
+one eager tick with the solve runs under the sync debug mode. The Booster
+T1 (`t1_phases`; `--t1-extras` runs it and the next phases alone after the
+build): `MPCController` with `recommended_conf("T1")` on K1 at b4096 against
+the CPU f64 controller, and the closed loop of "T1-newton" and of "T1" with
+the exact observation IK, one cycle captured and replayed for 2.5 s (its
+first cycles bit for bit the eager ones, JAX's T1 walk criteria on every
+env, the device events and K1 a replayed cycle). Then (`extras_phases`)
+`ric_aug_core` (plain torch on the card) against the CPU at f64, a one-rank
+NCCL mesh (`parallel/mesh.py`: the sharded step, its metrics and one
+sharded training iteration bit for bit the unsharded ones) and the planar
+drone's region of attraction and sweeps. It exits non-zero without a
+result when no CUDA device is visible. The last line is a JSON object
+naming the device.
 """
 
 from __future__ import annotations
@@ -338,9 +348,9 @@ def walking_draws(batch, seed, T=10):
     return x0, x_ref, contact, feet, rng.uniform(0.4, 1.0, batch)
 
 
-def make_qp_batch(batch, seed, dtype, device, T=10):
+def make_qp_batch(batch, seed, dtype, device, T=10, stance=False):
     """Randomized HECTOR walking QPs (`walking_draws`, horizon T) through the
-    port's `build_qp`."""
+    port's `build_qp`; `stance` puts both feet in contact at every stage."""
     import torch
     from biped_pympc_tpu_torch.models import hector
     from biped_pympc_tpu_torch.models.srbd import SrbdLin
@@ -348,6 +358,8 @@ def make_qp_batch(batch, seed, dtype, device, T=10):
     from biped_pympc_tpu_torch.utils.maths import rot_x, rot_y, rot_z
 
     x0, x_ref, contact, feet, mu = walking_draws(batch, seed, T)
+    if stance:
+        contact = np.ones_like(contact)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     rot = rot_z(t(x0[:, 2])) @ rot_y(t(x0[:, 1])) @ rot_x(t(x0[:, 0]))
     lin = SrbdLin(
@@ -1069,6 +1081,325 @@ WALK = {"roll_pitch": 0.1, "height_dev": 0.05, "vx_late_dev": 0.12, "distance": 
 SIM_VS_ROLLOUT_ATOL = 1e-5
 
 
+# The Booster T1 (`t1_phases`): MPCController with recommended_conf("T1") on
+# K1 for T1_TICKS ticks, and the closed loop of the examples (their 5-step
+# single support and 8 cm swing, 1450 N force cap, 0.62 m) for
+# T1_ROLLOUT_SECONDS (250 cycles), "T1-newton" and "T1" with the exact
+# observation IK, T1_TIMED_CYCLES of it timed. Their criteria are JAX's
+# T1 closed-loop tests' (tests/test_closed_loop.py:47-78, :110-130), on
+# every env: roll / pitch, |z - 0.62|, the last vx above T1_VX_LAST and
+# still rising (within T1_WALK["rise"] of the middle's largest), distance.
+T1_TICKS = 100
+T1_HEIGHT = 0.62
+T1_ROLLOUT_SECONDS = 2.505
+T1_TIMED_CYCLES = 10
+T1_WALK = {"roll_pitch": 0.1, "height_dev": 0.07, "distance": 0.1, "rise": 0.02}
+T1_VX_LAST = {"T1-newton": 0.15, "T1 obs_ik=newton": 0.1}
+# The 20-step rule does not converge on T1's first QP (the CPU f64 solve ends
+# at mu ~4.5e-3 with ||rx|| ~32, and moves by ~52 N between 20 and 40 steps),
+# so two roundings part there by tens of N; K1's first T1 wrench is held
+# against the CPU f64 controller at this many steps, where it converges.
+T1_CONVERGED_STEPS = 40
+# `ric_aug_core` (plain torch on the card) against the CPU on CORE_ENVS envs.
+CORE_ENVS = 256
+# The planar drone on the card: the region of attraction at the example's
+# full size, and both sweeps at its --quick size.
+DRONE_ROA_ENVS, DRONE_ROA_SECONDS = 30000, 10.0
+
+
+def t1_criteria(traj) -> dict:
+    """The T1 walk criteria over every env of a (cycles, B, 12) trajectory."""
+    n = traj.shape[0]
+    vx = traj[:, :, 9]
+    return {"roll_pitch": float(traj[:, :, :2].abs().max()),
+            "height_dev": float((traj[:, :, 5] - T1_HEIGHT).abs().max()),
+            "vx_last_min": float(vx[-1].min()),
+            "vx_rise": float(vx[-1].min() - vx[n // 2].max()),
+            "distance": float((traj[-1, :, 3] - traj[0, :, 3]).min())}
+
+
+def t1_phases(label: str, dev) -> dict:
+    """The Booster T1 on the card: `[T1]` the controller on K1 against the
+    CPU f64 one, the hybrid and condensed paths' first wrench printed;
+    `[T1 rollout]` the captured closed loop of "T1-newton" and of "T1" with
+    the exact observation IK against its eager cycles and JAX's T1 criteria;
+    `[T1 rollout QPs]` the walk's own QPs. Returns K1's launches on the
+    controller path and the numbers the later lines use."""
+    import torch
+    from biped_pympc_tpu_torch import MPCConf, MPCController, recommended_conf
+    from biped_pympc_tpu_torch.examples import srbd_plant, tpu_rollout
+    from biped_pympc_tpu_torch.examples.cuda_graph import tree_map
+    from biped_pympc_tpu_torch.models import robot as robots
+    from biped_pympc_tpu_torch.models import t1
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+
+    out = {}
+    robot = robots.get_robot("T1")
+    cconf, kw = recommended_conf("T1")
+    x0 = torch.zeros(B, 12, device=dev)
+    x0[:, 5] = T1_HEIGHT
+    obs, _ = srbd_plant.assemble_obs(robot, x0, srbd_plant.nominal_feet(robot, B, torch.float32,
+                                                                        dev))
+    twist = torch.zeros(B, 3, device=dev)
+    twist[:, 0] = 0.3
+    height = torch.full((B,), T1_HEIGHT, device=dev)
+    limit = torch.tensor(t1.TORQUE_LIMIT, device=dev)
+    mg = t1.MASS * 9.81
+
+    def first_vs_cpu(solver, wrench, steps=20):
+        """max |d| of the first-solve wrench on 8 envs against the CPU f64
+        controller's, and the CPU solve's largest final mu."""
+        conf = MPCConf(**{**kw, "solver": solver, "verbose": False, "newton_iterations": steps})
+        ref = MPCController(cconf, conf, num_envs=8, gait_id=2, dtype=torch.float64, device="cpu")
+        ref.set_command(twist[:8].cpu(), height[:8].cpu())
+        ref.update_state(obs[:8].cpu())
+        ref.run_mpc()
+        return (float((wrench[:8].cpu().double() - ref.ground_reaction_wrench).abs().max()),
+                float(ref.solver_residuals[:, 3].max()))
+
+    conf = MPCConf(**{**kw, "solver": "pallas_ric_aug", "verbose": False})
+    ctrl = MPCController(cconf, conf, num_envs=B, gait_id=2, device=dev)
+    ctrl.set_command(twist, height)
+    pdipm_cuda.reset_counts()
+    n_mpc, first, tau_ok = walk(ctrl, obs, T1_TICKS, limit)
+    torch.cuda.synchronize()
+    launches, warp = dict(pdipm_cuda.launches), dict(pdipm_cuda.warp_launches)
+    fz_sum = -first[:, :, 2].sum(1)
+    dw20, mu20 = first_vs_cpu("pallas_ric_aug", first)
+    others = {}
+    for solver, steps in (("pallas_hybrid", 20), ("pallas_ric", 20),
+                          ("pallas_ric_aug", T1_CONVERGED_STEPS)):
+        octrl = MPCController(cconf, MPCConf(**{**kw, "solver": solver, "verbose": False,
+                                                "newton_iterations": steps}),
+                              num_envs=B, gait_id=2, device=dev)
+        octrl.set_command(twist, height)
+        octrl.update_state(obs)
+        pdipm_cuda.reset_counts()
+        octrl.run_mpc()
+        others[solver, steps] = first_vs_cpu(solver, octrl.ground_reaction_wrench, steps)
+    torch.cuda.synchronize()
+    check(pdipm_cuda.launches == route_counts(ric_aug=1), "T1's 40-step solve did not run K1")
+    dw, mu = others["pallas_ric_aug", T1_CONVERGED_STEPS]
+
+    def tick():
+        ctrl.update_state(obs)
+        ctrl.run_lowlevel()
+        ctrl.get_action()
+
+    mpc_ms, tick_ms = cuda_ms(ctrl.run_mpc, 10), cuda_ms(tick, 20)
+    print(f"[T1] MPCController recommended_conf('T1') b{B} f32 pallas_ric_aug, {T1_TICKS} ticks: "
+          f"run_mpc {n_mpc}, kernel launches {launches} (in a warp group {warp}); tau finite and "
+          f"within T1's limits: {tau_ok}; first solve sum of fz "
+          f"[{float(fz_sum.min()):.2f}, {float(fz_sum.max()):.2f}] N (mg {mg:.2f}); first-solve "
+          f"wrench vs CPU plain f64 on 8 envs, 20 steps: K1 {dw20:.3e} N, pallas_hybrid "
+          f"{others['pallas_hybrid', 20][0]:.3e} N, pallas_ric {others['pallas_ric', 20][0]:.3e} "
+          f"N (printed: the CPU's final mu {mu20:.3e}, the rule has not converged); K1 at "
+          f"{T1_CONVERGED_STEPS} steps {dw:.3e} N (bound {F32_U0_ATOL}; the CPU's final mu "
+          f"{mu:.3e}); ms (CUDA events around the host's calls, as [times]) run_mpc "
+          f"{mpc_ms:.3f}, one tick (update_state + run_lowlevel + get_action) {tick_ms:.3f}")
+    check(launches == route_counts(ric_aug=n_mpc), "the T1 path did not launch K1 once a run_mpc")
+    check(warp["ric_aug"] == n_mpc, "the T1 path's K1 did not run in its warp group")
+    check(tau_ok, "T1 joint torques not finite or beyond T1's limits")
+    check(bool(((fz_sum > 0.5 * mg) & (fz_sum < 2.0 * mg)).all()),
+          "T1's first solve does not carry its weight")
+    check(mu <= MU_CONVERGED, f"T1's first QP did not converge in {T1_CONVERGED_STEPS} steps")
+    check(dw <= F32_U0_ATOL, "T1's first wrench differs from the CPU reference")
+    out.update(k1_launches=n_mpc, mpc_ms=mpc_ms, tick_ms=tick_ms)
+
+    for robot_name, obs_ik in (("T1-newton", "robot"), ("T1", "newton")):
+        tag = robot_name if obs_ik == "robot" else f"{robot_name} obs_ik={obs_ik}"
+        core = tpu_rollout.make_core("pallas_ric_aug", robot_name, device=dev, verbose=False)
+        carry0 = tree_map(torch.clone, tpu_rollout.init_carry(core, B, 0.3, T1_HEIGHT))
+        eager, _ = tpu_rollout.make_rollout(core, EAGER_CYCLES * 0.01 + 1e-4, obs_ik, graph=False)
+        pdipm_cuda.reset_counts()
+        (_, traj_e), eager_ms = timed_once(lambda: eager(carry0))
+        traj_e, eager_ms = traj_e.clone(), eager_ms / EAGER_CYCLES
+        check(pdipm_cuda.launches == route_counts(ric_aug=EAGER_CYCLES),
+              f"{tag}: the eager rollout did not launch K1 once a cycle")
+        rollout, cycles = tpu_rollout.make_rollout(core, T1_ROLLOUT_SECONDS, obs_ik)
+        pdipm_cuda.reset_counts()
+        t0 = time.perf_counter()
+        _, traj = rollout(carry0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        g_launches = dict(pdipm_cuda.launches)
+        same = [bool(torch.equal(traj[i], traj_e[i])) for i in range(EAGER_CYCLES)]
+        crit = t1_criteria(traj)
+        finite = bool(torch.isfinite(traj).all())
+        walked = tree_map(torch.clone, rollout.loop.carry)
+        rollout.cycles = T1_TIMED_CYCLES
+        graph_ms = cuda_ms(lambda: rollout(carry0), 1) / T1_TIMED_CYCLES
+        rollout.loop.carry.index.zero_()
+        trace = device_trace(rollout.loop, 3)
+        steps_s = B * 10 / (graph_ms * 1e-3)
+        tr = ("profiler: no device events (not measured)" if trace is None else
+              f"{trace['events']:.1f} device events a replayed cycle (HECTOR's: the [rollout] "
+              f"line), K1 {trace['k1']:.2f} a cycle, device idle {trace['idle']:.2%}")
+        print(f"[T1 rollout] {label}: {tag} b{B} f32 pallas_ric_aug, {cycles} cycles as replays "
+              f"of one captured cycle: first {EAGER_CYCLES} cycles bitwise the eager ones: "
+              f"{same}; finite {finite}; criteria over every env {crit} (bounds {T1_WALK}, the "
+              f"last vx > {T1_VX_LAST[tag]}); K1 launches captured {g_launches['ric_aug']} "
+              f"(warm-up + capture); ms a cycle graph {graph_ms:.3f} / eager {eager_ms:.3f} "
+              f"({eager_ms / graph_ms:.1f}x), env-steps/s graph {steps_s:.0f}; first call "
+              f"(capture + {cycles} cycles) {first_s:.2f} s; {tr}")
+        check(all(same), f"{tag}: the captured cycles differ from the eager ones")
+        check(finite, f"{tag}: the rollout is not finite")
+        check(g_launches == route_counts(ric_aug=2), f"{tag}: K1 not in the warm-up and capture")
+        check(crit["roll_pitch"] < T1_WALK["roll_pitch"], f"{tag}: fell over (roll / pitch)")
+        check(crit["height_dev"] < T1_WALK["height_dev"], f"{tag}: height not held")
+        check(crit["vx_last_min"] > T1_VX_LAST[tag], f"{tag}: vx not ramping")
+        check(crit["vx_rise"] > -T1_WALK["rise"], f"{tag}: vx stopped rising")
+        check(crit["distance"] > T1_WALK["distance"], f"{tag}: did not walk forward")
+        if trace is not None:
+            check(trace["k1"] == 1.0, f"{tag}: K1 ran {trace['k1']} times a replayed cycle")
+        out[tag] = {"ms": graph_ms, "eager_ms": eager_ms, "steps_s": steps_s, "trace": trace}
+
+        # The walk's own QPs after its last cycle, solved by K1 (ROADMAP
+        # Queue 3 item 1): T1's final mu beside HECTOR's [rollout QPs] line.
+        st = walked.state
+        ik = tpu_rollout.obs_ik_fn(obs_ik, robot_name)
+        core.ingest_state(st, srbd_plant.assemble_obs(core.robot, walked.x, walked.foot_w, ik)[0])
+        _, _, wqp = core.assemble_mpc(st)
+        res = pdipm_cuda.solve(wqp, core.opts)
+        mu = res.residuals[:, 3]
+        print(f"[T1 rollout QPs] {label}: {tag}, the b{B} QPs of the walk's last state, K1: mu "
+              f"<= {MU_CONVERGED:g} on {int((mu <= MU_CONVERGED).sum())} of {B} envs, mu "
+              f"{quantiles(mu.double().cpu().numpy())}; finite {bool(torch.isfinite(res.x).all())}")
+        check(bool(torch.isfinite(res.x).all()), f"{tag}: the walk's QPs are not finite in K1")
+    return out
+
+
+def extras_phases(label: str, dev, qp32, qp64) -> dict:
+    """`[ric_aug_core]` the scaled Riccati core (plain torch on the card)
+    against the CPU; `[mesh]` a one-rank NCCL group: the sharded control step,
+    the metrics and one sharded ARS iteration against the unsharded ones;
+    `[drone]` the planar drone's region of attraction and sweeps. Returns the
+    K1 launches of the mesh's controller steps and the times."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from biped_pympc_tpu_torch import ControllerConf, MPCConf
+    from biped_pympc_tpu_torch.control.controller import BipedControllerCore
+    from biped_pympc_tpu_torch.examples import planar_drone, train_rl_mpc_tpu
+    from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
+    from biped_pympc_tpu_torch.ops import qp as qps
+    from biped_pympc_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    # ric_aug_core: no kernel, the plain version on the card, at f64 against
+    # the same on the CPU. Its explicit S^-1 loses the solution on a
+    # swinging foot (S rank-deficient): on this script's walking batch (a
+    # swinging foot in every env) two roundings of it part as the stable
+    # ric_aug route parts from it, printed; held on the same draws with both
+    # feet in stance, as the CPU tests hold it against JAX.
+    core_opts = pdipm.PdipmOptions(backend="ric_aug_core", refine_steps=1)
+    idx = torch.arange(CORE_ENVS, device=dev)
+    batches = {"stance": make_qp_batch(CORE_ENVS, 0, torch.float64, dev, stance=True),
+               "walking": qps.take(qp64, idx)}
+    rel = lambda a, b: torch.stack([((getattr(a, n).cpu() - getattr(b, n).cpu()).abs()
+                                     / getattr(b, n).cpu().abs().clamp_min(1.0)).amax(1)
+                                    for n in "xszy"]).amax(0).numpy()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    gaps, c_launches = {}, 0
+    try:
+        for name, q in batches.items():
+            pdipm_cuda.reset_counts()
+            card = pdipm_cuda.solve(q, core_opts)
+            torch.cuda.synchronize()
+            c_launches += sum(pdipm_cuda.launches.values())
+            cpu = pdipm.solve(qp_map(q, lambda v: v.cpu()), core_opts)
+            aug = pdipm.solve(q, dataclasses.replace(core_opts, backend="ric_aug",
+                                                     foot_split=True))
+            gaps[name] = (rel(card, cpu), rel(aug, card),
+                          (cpu.residuals[:, 3] <= MU_CONVERGED).numpy())
+    finally:
+        torch.set_num_threads(threads)
+    _, core_ms = timed_once(lambda: pdipm_cuda.solve(qp32, core_opts))
+    st_gap, st_wit, st_cv = gaps["stance"]
+    print(f"[ric_aug_core] {label}: b{CORE_ENVS} f64 {core_opts.iterations} steps, plain torch "
+          f"on the card vs the CPU, max |dx,ds,dz,dy| relative to max(1, |v|) per env: both "
+          f"feet in stance, converged envs ({int(st_cv.sum())}) {quantiles(st_gap[st_cv])} "
+          f"(bound {CONDENSED_F64_RTOL:g}), all {quantiles(st_gap)}, the ric_aug route vs it "
+          f"{quantiles(st_wit)}; the walking batch "
+          f"{quantiles(gaps['walking'][0])}, the ric_aug route vs it "
+          f"{quantiles(gaps['walking'][1])} (printed: S^-1 on the swinging foot); kernel "
+          f"launches {c_launches}; b{B} f32 one solve of the walking batch {core_ms:.1f} ms")
+    check(int(st_cv.sum()) >= CORE_ENVS // 10, "ric_aug_core: too few converged envs")
+    check(float(st_gap[st_cv].max()) <= CONDENSED_F64_RTOL,
+          "ric_aug_core on the card differs from the CPU")
+    check(c_launches == 0, "ric_aug_core launched a kernel")
+    out["core_ms"] = core_ms
+
+    # The mesh: one rank, NCCL, initialized from a file in a temporary
+    # directory; the step, the metrics and a training iteration against the
+    # same unsharded.
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh()
+            core = BipedControllerCore(ControllerConf(), MPCConf(solver="pallas_ric_aug",
+                                                                 verbose=False),
+                                       gait_id=2, device=dev)
+            inputs = (torch.tensor(hector_obs(B), device=dev),
+                      torch.tensor([[0.3, 0.0, 0.0]], device=dev).expand(B, 3).contiguous(),
+                      torch.full((B,), 0.55, device=dev))
+            pdipm_cuda.reset_counts()
+            tau_u, out_u = core.control_step(core.init_state(B), *inputs)
+            same = {}
+            for with_metrics in (False, True):
+                state = pmesh.shard_state(core.init_state(B), mesh)
+                ret = pmesh.controller_step(core, mesh, with_metrics)(
+                    state, *pmesh.shard_state(inputs, mesh))
+                same[f"tau {with_metrics}"] = bool(torch.equal(ret[0], tau_u))
+                same[f"wrench {with_metrics}"] = bool(torch.equal(ret[1].wrench, out_u.wrench))
+                if with_metrics:
+                    same["mean cost"] = bool(torch.equal(ret[2], out_u.cost.mean()))
+            torch.cuda.synchronize()
+            m_launches = pdipm_cuda.launches["ric_aug"]
+            summary = pmesh.metrics_summary(out_u.cost, mesh)
+            for key, want in (("mean", out_u.cost.mean()), ("max", out_u.cost.amax()),
+                              ("p50", torch.quantile(out_u.cost, 0.5))):
+                same[f"summary {key}"] = bool(torch.equal(summary[key], want))
+            kw = dict(iters=1, n_dirs=2, envs_per=4, steps=2, seed=0, solver="pallas_ric_aug",
+                      verbose=False)
+            w_mesh = train_rl_mpc_tpu.train(mesh=mesh, **kw)[0]
+            w_ref = train_rl_mpc_tpu.train(device=dev, **kw)[0]
+            same["train w"] = bool(np.array_equal(w_mesh, w_ref))
+            print(f"[mesh] {label}: one NCCL rank on {mesh.device} (more ranks wait for a "
+                  f"machine with more cards): controller_step b{B} pallas_ric_aug with and "
+                  f"without metrics, metrics_summary (mean, max, quantile 0.5) and one "
+                  f"train(mesh=..., iters=1) iteration bitwise the unsharded ones: {same}; K1 "
+                  f"launches over the three steps {m_launches}")
+            check(all(same.values()), "the sharded runs differ from the unsharded ones")
+            check(m_launches == 3, "the mesh's steps did not launch K1 once each")
+            out["mesh_launches"] = m_launches
+        finally:
+            dist.destroy_process_group()
+
+    # The planar drone, f32: the region of attraction at the example's size
+    # (one shared gain), success share against F_lim; the sweeps and the
+    # region at the --quick size.
+    t0 = time.perf_counter()
+    roa = planar_drone.region_of_attraction(DRONE_ROA_ENVS, DRONE_ROA_SECONDS, device=dev)
+    roa_s = time.perf_counter() - t0
+    quick_roa = planar_drone.region_of_attraction(n_envs=256, t_end=2.0, device=dev)
+    sweeps = planar_drone.lqr_sweeps(n_per_init=4, t_end=2.0, device=dev)
+    fracs = list(roa.values())
+    n_steps = DRONE_ROA_ENVS * int(DRONE_ROA_SECONDS / planar_drone.DT) * len(roa)
+    print(f"[drone] {label}: region_of_attraction {DRONE_ROA_ENVS} envs x "
+          f"{DRONE_ROA_SECONDS} s x {len(roa)} F_lim, success share {roa} in {roa_s:.2f} s "
+          f"({n_steps / roa_s:.3e} env-steps/s, the DARE gain on the host included); --quick "
+          f"size: region {quick_roa}, sweeps {sweeps}")
+    check(all(b >= a for a, b in zip(fracs, fracs[1:])) and fracs[-1] > fracs[0],
+          "the drone's success share does not rise with thrust")
+    check(all(np.isfinite(s["final_err_median"]) for s in sweeps.values()),
+          "the drone's sweeps are not finite")
+    out["drone_steps_s"] = n_steps / roa_s
+    return out
+
+
 def device_trace(fn, reps: int) -> dict:
     """Run fn `reps` times under torch.profiler (CUPTI) and read the device's
     side: {"events": device events (kernels, copies, fills) per rep, "k1":
@@ -1315,7 +1646,8 @@ def quick(mode: str) -> int:
     agreement with BEFORE_WARP_DIGESTS, run `geometry_phase` with its exploration,
     and hold K1 and K2 in the picked geometry against their plain versions
     at f64 on the converged envs. `--closed-loop`: build, then run
-    `closed_loop_phases` alone."""
+    `closed_loop_phases` alone. `--t1-extras`: build, then run
+    `extras_phases` and `t1_phases` alone."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
@@ -1328,6 +1660,14 @@ def quick(mode: str) -> int:
     qp32, qp64 = (make_qp_batch(B, 0, dt, dev) for dt in (torch.float32, torch.float64))
     if mode == "--closed-loop":
         closed_loop_phases(label, dev, qp32, qp64)
+        return 0
+    if mode == "--t1-extras":
+        t0 = time.perf_counter()
+        extras_phases(label, dev, qp32, qp64)
+        t1 = time.perf_counter()
+        t1_phases(label, dev)
+        print(f"[elapsed] ric_aug_core, mesh, drone {t1 - t0:.1f}, T1 "
+              f"{time.perf_counter() - t1:.1f} s")
         return 0
     dig = route_digests(qp32, qp64, opts)
     print(json.dumps({"digests": dig}))
@@ -1362,9 +1702,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"], ["--closed-loop"]):
-        print(f"chip_smoke: takes no argument, --digests, --geometry or --closed-loop; got "
-              f"{sys.argv[1:]}", file=sys.stderr)
+    if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"], ["--closed-loop"],
+                                             ["--t1-extras"]):
+        print(f"chip_smoke: takes no argument, --digests, --geometry, --closed-loop or "
+              f"--t1-extras; got {sys.argv[1:]}", file=sys.stderr)
         return 2
     if len(sys.argv) > 1:
         return quick(sys.argv[1])
@@ -2299,15 +2640,24 @@ def main() -> int:
     loop = closed_loop_phases(label, dev, qp32, qp64)
     mark("closed loop")
 
-    # 7. Times on the card (CUDA events, after warm-up).
+    # 6e. The Booster T1 on K1: the controller and the captured closed loop.
+    t1_out = t1_phases(label, dev)
+    mark("T1")
+
+    # 6f. ric_aug_core, the env batch over ranks, the planar drone.
+    extras = extras_phases(label, dev, qp32, qp64)
+    mark("ric_aug_core, mesh, drone")
+
+    # 7. Times on the card (CUDA events, after warm-up; the plain versions in
+    # one call each, without a warm-up call of their own).
     k32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
     k64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, opts), 10)
-    p32 = cuda_ms(lambda: pdipm.solve(qp32, opts), 1)
-    p64 = cuda_ms(lambda: pdipm.solve(qp64, opts), 1)
+    p32 = timed_once(lambda: pdipm.solve(qp32, opts))[1]
+    p64 = timed_once(lambda: pdipm.solve(qp64, opts))[1]
     r32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, ric), 20)
     r64 = cuda_ms(lambda: pdipm_cuda.solve(qp64, ric), 10)
-    rp32 = cuda_ms(lambda: pdipm.solve(qp32, ric), 1)
-    rp64 = cuda_ms(lambda: pdipm.solve(qp64, ric), 1)
+    rp32 = timed_once(lambda: pdipm.solve(qp32, ric))[1]
+    rp64 = timed_once(lambda: pdipm.solve(qp64, ric))[1]
     hyb32 = cuda_ms(lambda: pdipm_cuda.solve_hybrid(qp32, ric), 20)
     budget = max(64, B // 32)
     worst = torch.sort(ric_kern32.residuals.amax(1).nan_to_num(float("inf")), descending=True,
@@ -2320,9 +2670,9 @@ def main() -> int:
     ad0_ric = cuda_ms(lambda: pdipm_cuda.solve_adaptive(ric_qp32, ric, 0.0), 20)
     r32_sub = cuda_ms(lambda: pdipm_cuda.solve(ric_qp32, ric), 20)
     adw = cuda_ms(lambda: pdipm_cuda.solve_adaptive(qp32, opts, WALK_TOL), 20)
-    ad0_plain = cuda_ms(lambda: pdipm.solve_adaptive_batch(qp32, opts, 0.0), 1)
+    ad0_plain = timed_once(lambda: pdipm.solve_adaptive_batch(qp32, opts, 0.0))[1]
     df_ms = cuda_ms(lambda: pdipm_cuda.solve(qp32, df_opts), 20)
-    df_plain_ms = cuda_ms(lambda: pdipm.solve(qp32, df_opts), 1)
+    df_plain_ms = timed_once(lambda: pdipm.solve(qp32, df_opts))[1]
     k32_again = cuda_ms(lambda: pdipm_cuda.solve(qp32, opts), 20)
     amp_ms = cuda_ms(actrl.run_mpc, 10)
 
@@ -2343,8 +2693,8 @@ def main() -> int:
         k5_ms[tag] = {"opts": opts_,
                       "k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, opts_), 10),
                       "k64": cuda_ms(lambda: pdipm_cuda.solve(qp64, opts_), 5),
-                      "p32": cuda_ms(lambda: pdipm.solve(qp32, opts_), 1),
-                      "p64": cuda_ms(lambda: pdipm.solve(qp64, opts_), 1),
+                      "p32": timed_once(lambda: pdipm.solve(qp32, opts_))[1],
+                      "p64": timed_once(lambda: pdipm.solve(qp64, opts_))[1],
                       "mpc": cuda_ms(path_ctrl[path].run_mpc, 5)}
     jac_opts = dataclasses.replace(opts, kkt_scale="jacobi")
     jac32 = cuda_ms(lambda: pdipm_cuda.solve(qp32, jac_opts), 20)
@@ -2361,7 +2711,7 @@ def main() -> int:
         new_ms[tag] = {"opts": o, "k32": cuda_ms(lambda: pdipm_cuda.solve(qp32, o), 10),
                        "bound": bound(qp32, o)}
     for tag in ("K5e-c pair", "K5e-a pair", *k5g):
-        new_ms[tag]["p32"] = cuda_ms(lambda: pdipm.solve(qp32, new_ms[tag]["opts"]), 1)
+        new_ms[tag]["p32"] = timed_once(lambda: pdipm.solve(qp32, new_ms[tag]["opts"]))[1]
     pack_paths = ("pallas_ric_aug solver_foot_pack=True", "pallas_hybrid solver_foot_pack=True",
                   "pallas_ric solver_foot_pack='apply'")
     pack_mpc = {name: cuda_ms(path_ctrl[name].run_mpc, 5) for name in pack_paths}
@@ -2571,8 +2921,9 @@ def main() -> int:
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None}
 
     kernels = [
-        entry("pdipm_ric_aug", "pdipm_ric_aug.cu", "308", launches["ric_aug"], worst64, k32, p32,
-              "ric_aug"),
+        entry("pdipm_ric_aug", "pdipm_ric_aug.cu", "308",
+              launches["ric_aug"] + t1_out["k1_launches"] + extras["mesh_launches"], worst64,
+              k32, p32, "ric_aug"),
         entry("pdipm_ric", "pdipm_ric.cu", "308 (backend=ric, foot_split)", h_launches["ric"],
               ric_worst64, r32, rp32, "ric"),
         entry("pdipm_warm_entry", "pdipm_common.cuh",

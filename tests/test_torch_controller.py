@@ -38,22 +38,45 @@ def _obs(batch, rng=None):
     return obs
 
 
+def _t1_obs(batch, rng):
+    """T1 standing at 0.62 m, the feet under the hips (their exact IK),
+    perturbed per env as `_obs`."""
+    from biped_pympc_tpu_torch.models import t1
+
+    obs = np.zeros((batch, 49))
+    obs[:, 2] = 0.62
+    obs[:, 3] = 1.0
+    for leg in (0, 1):
+        foot = t1.hip_horizontal_location(leg, torch.float64).expand(batch, 3).clone()
+        foot[:, 2] = -0.62
+        obs[:, 13 + 6 * leg:19 + 6 * leg] = t1.analytical_ik_newton(foot, leg).numpy()
+    obs[:, 0:3] += rng.uniform(-0.01, 0.01, (batch, 3))
+    obs[:, 4:7] = rng.uniform(-0.01, 0.01, (batch, 3))
+    obs[:, 7:13] = rng.uniform(-0.05, 0.05, (batch, 6))
+    obs[:, 13:25] += rng.uniform(-0.02, 0.02, (batch, 12))
+    return obs
+
+
 @functools.lru_cache(maxsize=None)
-def _drive_both(contact_frame):
+def _drive_both(contact_frame, robot):
+    """30 ticks of both controllers on the same inputs, each robot with its
+    `recommended_conf` (HECTOR's is the default ControllerConf)."""
     rng = np.random.default_rng(0)
-    obs = _obs(B, rng)
+    obs = _obs(B, rng) if robot == "HECTOR" else _t1_obs(B, rng)
     twist = np.zeros((B, 3))
     twist[:, 0] = rng.uniform(0.0, 0.4, B)
     twist[:, 2] = rng.uniform(-0.2, 0.2, B)
-    height = np.full(B, 0.55)
+    height = np.full(B, obs[0, 2].round(2))
     mu = rng.uniform(0.6, 1.0, B)
+    cconf, kw = jpkg.recommended_conf(robot)
     jc = jpkg.MPCController(
-        jpkg.ControllerConf(),
-        jpkg.MPCConf(solver="pallas_ric_aug", contact_frame=contact_frame, verbose=False),
+        cconf, jpkg.MPCConf(**{**kw, "solver": "pallas_ric_aug", "contact_frame": contact_frame,
+                               "verbose": False}),
         num_envs=B, gait_id=2, dtype=jnp.float64)
+    cconf, kw = tpkg.recommended_conf(robot)
     tc = tpkg.MPCController(
-        tpkg.ControllerConf(),
-        tpkg.MPCConf(solver="pallas_ric_aug", contact_frame=contact_frame, verbose=False),
+        cconf, tpkg.MPCConf(**{**kw, "solver": "pallas_ric_aug", "contact_frame": contact_frame,
+                               "verbose": False}),
         num_envs=B, gait_id=2, dtype=torch.float64, device="cpu")
     for c in (jc, tc):
         c.set_command(twist, height)
@@ -71,26 +94,42 @@ def _drive_both(contact_frame):
     return jc, tc, trace
 
 
-@pytest.mark.parametrize("contact_frame", ["world", "yaw"])
-def test_port_controller_matches_jax(contact_frame):
-    jc, tc, trace = _drive_both(contact_frame)
+def _assert_traces_match(jc, tc, trace):
     for step, ((jt, jw, jp, js), (tt, tw, tp, ts)) in enumerate(trace):
         np.testing.assert_allclose(tt, jt, rtol=0, atol=1e-6, err_msg=f"tau, tick {step}")
         np.testing.assert_allclose(tw, jw, rtol=0, atol=1e-6, err_msg=f"wrench, tick {step}")
         assert np.array_equal(tp, jp), step
         assert np.array_equal(ts, js), step
-    # the walk is not trivial: the right foot swings and the left carries load
-    assert (np.abs(trace[0][1][1][:, 1, 2]) < 1.0).all()
-    assert (trace[0][1][1][:, 0, 2] < -50.0).all()
     np.testing.assert_allclose(np.asarray(tc.solver_residuals), np.asarray(jc.solver_residuals),
                                rtol=1e-6, atol=1e-12)
     np.testing.assert_allclose(np.asarray(tc.swing_foot_trajectory),
                                np.asarray(jc.swing_foot_trajectory), rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("contact_frame", ["world", "yaw"])
+def test_port_controller_matches_jax(contact_frame):
+    jc, tc, trace = _drive_both(contact_frame, "HECTOR")
+    _assert_traces_match(jc, tc, trace)
+    # the walk is not trivial: the right foot swings and the left carries load
+    assert (np.abs(trace[0][1][1][:, 1, 2]) < 1.0).all()
+    assert (trace[0][1][1][:, 0, 2] < -50.0).all()
+
+
+@pytest.mark.parametrize("robot", ["HECTOR", "T1", "T1-newton"])
+def test_port_controller_matches_jax_robot(robot):
+    """Each robot with its `recommended_conf` (contact frame "yaw"), at the
+    bounds of `test_port_controller_matches_jax`. T1 carries 40 kg: every
+    tick some foot carries more than its weight's share of a 0.5 g load."""
+    jc, tc, trace = _drive_both("yaw", robot)
+    _assert_traces_match(jc, tc, trace)
+    assert tc.get_action().shape == (B, 2 * tc.core.num_dof)
+    fz = np.stack([t[1][1][:, :, 2] for t in trace])  # (ticks, B, 2)
+    assert (fz.min(axis=2) < -0.5 * tc.core.robot.mass * GRAVITY / 2).all()
+
+
 def test_port_resumes_from_jax_state():
     """A JAX controller state carried over as numpy gives the same next tick."""
-    jc = copy.copy(_drive_both("world")[0])  # ticks below replace the copy's state only
+    jc = copy.copy(_drive_both("world", "HECTOR")[0])  # ticks below replace the copy's state only
     tc = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(verbose=False), num_envs=B,
                             gait_id=2, dtype=torch.float64, device="cpu")
     tc.state = controller_state_from_numpy(jax.tree.map(np.asarray, jc.state), torch.float64)
@@ -175,12 +214,6 @@ def test_thomas_solver_names_build(solver, route):
     ctrl = tpkg.MPCController(tpkg.ControllerConf(), tpkg.MPCConf(solver=solver, verbose=False),
                               num_envs=1, device="cpu")
     assert ctrl.core.opts.backend == route
-
-
-def test_unported_robot_names_raise():
-    cconf, kw = tpkg.recommended_conf("T1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkg.MPCController(cconf, tpkg.MPCConf(verbose=False, **kw), num_envs=1, device="cpu")
 
 
 def test_control_step_equals_the_separate_calls():

@@ -51,10 +51,12 @@ def test_hector_fk_jacobian_ik_match_jax(leg):
 
 
 def test_get_robot_names():
-    assert trobot.get_robot("HECTOR").num_dof == 5
-    for name in ("T1", "T1-newton"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trobot.get_robot(name)
+    """The registry holds JAX's robots, each with JAX's parameters."""
+    for name in ("HECTOR", "T1", "T1-newton"):
+        t, j = trobot.get_robot(name), jrobot.get_robot(name)
+        assert (t.name, t.num_dof, t.mass, t.mu, t.lt, t.lh, t.kp, t.kd, t.torque_limit) == \
+            (j.name, j.num_dof, j.mass, j.mu, j.lt, j.lh, j.kp, j.kd, j.torque_limit)
+        np.testing.assert_array_equal(t.i_body, j.i_body)
     with pytest.raises(ValueError):
         trobot.get_robot("Cassie")
 

@@ -66,7 +66,10 @@ def test_port_file_scan_covers_the_new_modules():
             "biped_pympc_tpu_torch/bench/bench_synthetic.py", "chip_smoke.py"} <= names
     assert {f"biped_pympc_tpu_torch/examples/{m}.py" for m in (
         "srbd_plant", "closed_loop_sim", "tpu_rollout", "rl_env", "rl_env_tpu", "train_rl_mpc",
-        "train_rl_mpc_tpu", "cuda_graph")} <= names
+        "train_rl_mpc_tpu", "cuda_graph", "planar_drone")} <= names
+    assert {f"biped_pympc_tpu_torch/{m}.py" for m in (
+        "models/chain", "models/urdf", "models/t1", "parallel/mesh", "utils/profiling",
+        "utils/viz")} <= names
     assert {"bench_common", "ab_roofline", "bench_synthetic"} <= BENCH_MODULES
 
 

@@ -117,8 +117,3 @@ def test_one_ars_iteration_updates_w_from_the_seed(trainer):
     cos = float((w * d).sum() / (np.linalg.norm(w) * np.linalg.norm(d)))
     assert np.linalg.norm(w) > 0 and abs(abs(cos) - 1.0) < 1e-12
     np.testing.assert_array_equal(run(), w)
-
-
-def test_device_trainer_mesh_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 14"):
-        train_rl_mpc_tpu.train(iters=1, mesh=object(), device="cpu")

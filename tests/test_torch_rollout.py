@@ -272,11 +272,3 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
         call(device="cpu")
-
-
-@pytest.mark.parametrize("kw", [dict(obs_ik="newton"), dict(robot_name="T1")])
-def test_t1_paths_name_their_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 11"):
-        closed_loop_sim.simulate(1, 0.001, verbose=False, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 11"):
-        tpu_rollout.run(1, 0.01, device="cpu", **kw)
