@@ -13,8 +13,9 @@ unsplit, and `"pallas_hybrid"` and `"pallas_ric"` with `solver_foot_pack`)
 at `--batch` envs (HECTOR, walking gait, f32, the standing
 observation) and times one `run_mpc` of each: device ms from CUDA events,
 the mean of 10 calls after a warm-up call, the median of 3. With `--tick`
-a turn also times the first path's eager 1 kHz tick (`update_state` +
-`run_lowlevel` + `get_action`, the mean of 50) and counts the device's
+a turn also times the first path's 1 kHz tick (`update_state` +
+`run_lowlevel` + `get_action`, the mean of 50; replayed CUDA graphs in a
+checkout whose `MPCController` captures its calls) and counts the device's
 events a tick and a `run_mpc` (kernels, copies and fills, from a
 torch.profiler trace of 10 ticks and 3 solves; null where the trace holds no
 device event). The turns run DIR, this, this, DIR (`--rounds` times), so
@@ -131,7 +132,7 @@ def main(argv) -> int:
     ap.add_argument("--paths", default="default,hybrid",
                     help=f"comma-separated keys of {sorted(PATHS)}")
     ap.add_argument("--tick", action="store_true",
-                    help="also time the first path's eager tick and count device events")
+                    help="also time the first path's tick and count device events")
     args = ap.parse_args(argv)
     paths = args.paths.split(",")
     unknown = set(paths) - set(PATHS)

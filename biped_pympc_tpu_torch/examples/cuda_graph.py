@@ -1,89 +1,8 @@
-"""One step of a loop over a carry, run eagerly or replayed as a CUDA graph.
+"""One step of a loop over a carry, run eagerly or replayed as a CUDA graph:
+`LoopStep` and `copy_into` live in `biped_pympc_tpu_torch/utils/cuda_graph.py`
+(the wrapper captures its calls with them too) and are re-exported here for
+the examples."""
 
-The port's step functions (`BipedControllerCore.ingest_state`, `run_mpc`,
-`run_lowlevel`) replace the leaves of the state they are given with new
-tensors. A captured CUDA graph, though, reads and writes fixed addresses. So
-`LoopStep` owns a carry (a tree of dataclasses and tuples of tensors), runs
-the step on a working copy of its structure that shares its tensors, and
-ends by copying every replaced leaf back into the carry's own tensors: the
-next step, eager or replayed, reads the last one's output where it left it.
+from biped_pympc_tpu_torch.utils.cuda_graph import LoopStep, copy_into, leaves, tree_map
 
-On CUDA the step is captured once, after a warm-up on a side stream (which
-builds and loads the kernel libraries and fills the constant caches, so
-that nothing in the capture copies from the host or waits for the device),
-and each call replays it. A failed capture raises; it never falls back to
-the eager step.
-"""
-
-from __future__ import annotations
-
-import torch
-
-from biped_pympc_tpu_torch.utils.tree import leaves, tree_map  # noqa: F401 (re-exported)
-
-
-def copy_into(dst, src) -> None:
-    """Copy every leaf of `src` into the same leaf of `dst` (same structure,
-    shapes and dtypes); leaves that are the same tensor are skipped. A
-    replaced leaf of `src` must not share memory with a leaf of `dst`, or an
-    earlier copy could overwrite what a later one reads: that raises."""
-    dl, sl = list(leaves(dst)), list(leaves(src))
-    if [p for p, _ in dl] != [p for p, _ in sl]:
-        raise ValueError(f"carry structure changed: {[p for p, _ in dl]} -> "
-                         f"{[p for p, _ in sl]}")
-    ptrs = {t.untyped_storage().data_ptr() for _, t in dl}
-    pairs = []
-    for (path, d), (_, s) in zip(dl, sl):
-        if s is d:
-            continue
-        if s.shape != d.shape or s.dtype != d.dtype:
-            raise ValueError(f"carry leaf {path}: {tuple(d.shape)} {d.dtype} -> "
-                             f"{tuple(s.shape)} {s.dtype}")
-        if s.untyped_storage().data_ptr() in ptrs:
-            raise ValueError(f"carry leaf {path} was replaced by another leaf's memory")
-        pairs.append((d, s))
-    for d, s in pairs:
-        d.copy_(s)
-
-
-class LoopStep:
-    """`step(work)` on a working copy of `carry` (the same tensors; the step
-    replaces leaves of the copy), then the replaced leaves copied back into
-    `carry`. `graph` None captures the step as a CUDA graph when the carry
-    lies on the card and runs it eagerly on the CPU; False always runs it
-    eagerly. Tensors the step reads besides the carry (buffers it writes into
-    in place, policies) must keep their addresses between calls."""
-
-    def __init__(self, step, carry, graph: bool | None = None):
-        self.step = step
-        self.carry = carry
-        device = next(t for _, t in leaves(carry)).device
-        self.graph = None
-        if graph is None:
-            graph = device.type == "cuda"
-        if graph:
-            self._capture(device)
-
-    def _run(self) -> None:
-        work = tree_map(lambda t: t, self.carry)
-        self.step(work)
-        copy_into(self.carry, work)
-
-    def _capture(self, device) -> None:
-        """Warm up on a side stream, put the carry back as it was, capture."""
-        saved = tree_map(torch.clone, self.carry)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(device).wait_stream(side)
-        copy_into(self.carry, saved)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._run()
-
-    def __call__(self) -> None:
-        if self.graph is None:
-            self._run()
-        else:
-            self.graph.replay()
+__all__ = ["LoopStep", "copy_into", "leaves", "tree_map"]

@@ -92,16 +92,21 @@ LEAN_ROUTES = ("ric_aug", "ric", "tridiag_aug", "ric_aug_dense", "tridiag", "ric
                "ric2", "ric_dense", "ric_pack")
 WORK_ROUTES = ("tridiag_aug", "ric_aug_dense", "tridiag", "ric2", "ric_dense")
 
-# Kernel launches issued in this process: solves per route (`route`), and
-# launches of the refinement-residual entry; chip_smoke.py reads them to show
-# that each path went through the kernels.
+# Kernel launches issued from the host in this process: solves per route
+# (`route`), and launches of the refinement-residual entry. A CUDA graph's
+# capture issues its launches into the graph, once; its replays issue none.
 launches = {backend: 0 for backend in SOURCES}
 # Of those, the launches in a warp group (the rest of each route's count ran
 # in the block group).
 warp_launches = {backend: 0 for backend in LEAN_ROUTES}
 residual_launches = {"ric_aug": 0}
-# Launches of the adaptive solve whose gate was open, per (route, device):
-# one int32 each on the device, added to by the kernel itself (`chunks_ran`).
+# Solves that ran on the device, per (route, warp group or not, device): one
+# int32 each, added to by the kernel itself (block 0, `gate_open` in
+# csrc/pdipm_common.cuh), eager or replayed in a CUDA graph, so a replay
+# counts as an eager launch does (`runs`; chip_smoke.py reads them to show
+# that each path went through the kernels). The adaptive solve's launches
+# count in `_ran`, the rest in `_runs`.
+_runs: dict = {}
 _ran: dict = {}
 
 
@@ -315,8 +320,9 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     route's `geometry`; `BLOCK` runs a warp-group route in the block group,
     as chip_smoke.py does to compare): warm (x0, s0, z0, y0) or None for the
     cold start; outs (x, s, z, y, res), which may be the warm tensors
-    themselves; go / ran the gate flag and chunk counter (int32 device
-    tensors) or None; `force_workspace` (WORK_ROUTES in their warp group)
+    themselves; go the gate flag (an int32 device tensor) or None; ran the
+    counter the kernel adds one to (None: the route's in `_runs`);
+    `force_workspace` (WORK_ROUTES in their warp group)
     True or False puts the stored inverses in the workspace or in shared
     memory whatever the library's choice (`workspace`), None leaves it."""
     if opts.iterations < 0 or opts.refine_steps < 0:
@@ -342,6 +348,8 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     # reuse by the caching allocator after the kernel.
     work = [workspace(lib, key, T, qp.f.dtype, qp.f.shape[0], qp.f.device, force_workspace)
             ] if geom.lean and key in WORK_ROUTES else []
+    if ran is None:
+        ran = _counter(_runs, key, geom, qp.f.device)
     err = fn(*[t.data_ptr() for t in ins], *[ptr(t) for t in (warm or [None] * 4)],
              *[t.data_ptr() for t in outs], ptr(go), ptr(ran), qp.f.shape[0], T,
              ctypes.addressof(options), stream, *[ptr(t) for t in work])
@@ -352,6 +360,21 @@ def _launch(lib, qp: StageQP, ins, opts: PdipmOptions, stream, warm, outs, go=No
     launches[key] += 1
     if geom.lean:
         warp_launches[key] += 1
+
+
+def _counter(table: dict, key: str, geom: Geometry, device) -> torch.Tensor:
+    """The int32 counter of `table` that a launch of route `key` in `geom`
+    on `device` adds to, made (zeroed) at the first such launch. That
+    launch may not be inside a CUDA graph's capture, which would zero it at
+    every replay: a captured step warms up first (`utils/cuda_graph.py`)."""
+    index = (key, geom.lean, device)
+    count = table.get(index)
+    if count is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the first launch of route {key!r} is inside a CUDA graph "
+                               f"capture: run it once eagerly first")
+        count = table[index] = torch.zeros(1, dtype=torch.int32, device=device)
+    return count
 
 
 def run_kernel(lib: ctypes.CDLL, qp: StageQP, opts: PdipmOptions, stream,
@@ -455,31 +478,49 @@ def solve_adaptive(qp: StageQP, opts: PdipmOptions = PdipmOptions(),
         st = pdipm.init_state(qp)
         state = [t.contiguous() for t in (st.x, st.s, st.z, st.y)]
         res = torch.full((qp.f.shape[0], 4), float("inf"), dtype=qp.f.dtype, device=qp.f.device)
-        key = (route(opts), dev)
-        if key not in _ran:
-            _ran[key] = torch.zeros(1, dtype=torch.int32, device=qp.f.device)
+        ran = _counter(_ran, route(opts), geometry(route(opts)), dev)
         for iters in [chunk] * n_full + [rem] * (rem > 0):
             go = (res.amax() > tol).to(torch.int32)
             _launch(lib, qp, ins, dataclasses.replace(opts, iterations=iters), stream, state,
-                    state + [res], go=go, ran=_ran[key])
+                    state + [res], go=go, ran=ran)
     return PdipmResult(*state, res)
+
+
+def _sum(tables, warp: bool | None) -> dict:
+    out = {backend: 0 for backend in SOURCES}
+    for table in tables:
+        for (backend, lean, _), count in table.items():
+            if warp is None or lean == warp:
+                out[backend] += int(count.item())
+    return out
+
+
+def runs(warp: bool | None = None) -> dict:
+    """{route: solves that ran on the device} in this process, summed over
+    devices, as the kernels counted them: eager launches and launches
+    replayed in a CUDA graph, and of the adaptive solve's the ones whose
+    gate was open. `warp` True / False: those in the route's warp group /
+    the block group. Reads the device counters, so it waits for the
+    device."""
+    return _sum((_runs, _ran), warp)
 
 
 def chunks_ran() -> dict:
     """{route: launches of `solve_adaptive` that ran} in this process, summed
     over devices. Reads the device counters, so it waits for the device."""
-    out = {backend: 0 for backend in SOURCES}
-    for (backend, _), count in _ran.items():
-        out[backend] += int(count.item())
-    return out
+    return _sum((_ran,), None)
 
 
 def reset_counts() -> None:
-    """Set the host launch counts and the device chunk counters to 0."""
+    """Set the host launch counts and the device counters to 0. The device
+    counters are zeroed in place: a captured graph adds to the ones it was
+    captured with."""
     for counts in (launches, warp_launches, residual_launches):
         for key in counts:
             counts[key] = 0
-    _ran.clear()
+    for table in (_runs, _ran):
+        for count in table.values():
+            count.zero_()
 
 
 @dataclass

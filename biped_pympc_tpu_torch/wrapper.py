@@ -16,7 +16,32 @@ device given and no card it raises.
     tau = ctrl.get_action()
 
 Inputs may be tensors on any device or numpy arrays; they are moved to the
-controller's device and dtype.
+controller's device and dtype and copied into the controller's own input
+buffers (broadcast to their shapes), so changing them after a call changes
+nothing.
+
+Each call the JAX wrapper forwards to a jitted function (`set_command`,
+`update_state`, `run_mpc`, `run_lowlevel`, `get_action`, `reset`) is, on the
+card, one CUDA graph: captured at the call's first use, after a warm-up on a
+side stream, and replayed at every later call (`utils/cuda_graph.LoopStep`;
+the counterpart of JAX's compile at the first call). A graph reads and
+writes fixed addresses, so:
+
+- the state's tensors keep their addresses: a call copies the leaves the
+  core's method replaced back into them, and the DRL setters and
+  `load_state` write into them;
+- every tensor the wrapper hands out (`get_action()`, the properties) is the
+  caller's own copy, which no later call changes;
+- `set_srbd_residual` between None and a tensor changes the state's
+  structure: every graph is dropped and captured again at its next call,
+  as JAX recompiles once; assigning `ctrl.state` does the same.
+
+On the CPU the same plumbing runs eagerly (input buffers, a working copy of
+the state, the replaced leaves copied back), without the replay. A failed
+capture raises; nothing falls back to the eager call. The one mode whose
+`run_mpc` is not captured, `solver="dense"`, is named by a static rule,
+`eager_run_mpc`, with its reason. The eager calls are the core's methods:
+`ctrl.core.run_mpc(state)` and so on.
 """
 
 from __future__ import annotations
@@ -33,6 +58,26 @@ from biped_pympc_tpu_torch.control import gait, swing
 from biped_pympc_tpu_torch.control.controller import BipedControllerCore, ControllerState
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
 from biped_pympc_tpu_torch.utils.consts import const
+from biped_pympc_tpu_torch.utils.cuda_graph import LoopStep, tree_map
+
+
+def eager_run_mpc(core: BipedControllerCore) -> str | None:
+    """Why `run_mpc` of this controller runs eagerly on the card, or None
+    when it is captured, by a static rule on the configuration.
+    `solver="dense"` is plain torch: `torch.linalg.lu_factor_ex` of its
+    (nz + ne)-wide KKT runs MAGMA's batched LU on the card, torch's choice
+    for matrices wider than 16, which a CUDA graph capture refuses (the
+    capture is invalidated; `tests/test_torch_port_rules.py::
+    test_dense_lu_cannot_be_captured_on_card` holds this at the main path's
+    size); with `adaptive_tol > 0` its plain
+    adaptive loop (`pdipm.solve_adaptive_batch`) also decides on the host
+    after each chunk whether to go on."""
+    if core.opts.backend != "dense":
+        return None
+    return ("solver='dense' is plain torch: torch.linalg.lu_factor_ex runs MAGMA's batched LU "
+            "on the card, which a CUDA graph capture refuses"
+            + ("; its adaptive loop decides on the host after each chunk"
+               if core.mpc_cfg.adaptive_tol > 0.0 else ""))
 
 
 class MPCController:
@@ -43,11 +88,43 @@ class MPCController:
         self.num_envs = num_envs
         self.core = BipedControllerCore(cfg, mpc_cfg, gait_id=gait_id, dtype=dtype,
                                         device=device)
-        self.state: ControllerState = self.core.init_state(num_envs)
+        self.state = self.core.init_state(num_envs)
+        # The calls' inputs: a call copies its arguments in, its graph reads them.
+        buf = lambda *s: torch.zeros(num_envs, *s, dtype=dtype, device=self.core.device)
+        self._twist, self._height = buf(3), buf()
+        self._obs = buf(13 + 6 * self.core.num_dof)
+        self._mask = torch.zeros(num_envs, dtype=torch.bool, device=self.core.device)
         self._last_mpc = None
+
+    @property
+    def state(self) -> ControllerState:
+        """The controller's state; its tensors are written in place by every
+        call (read them, or clone them to keep them)."""
+        return self._state
+
+    @state.setter
+    def state(self, state: ControllerState) -> None:
+        """Take `state` (a checkpoint converted from elsewhere) as the
+        controller's: every leaf copied into memory of its own on the
+        controller's device, and every graph captured again at its next
+        call."""
+        self._state = tree_map(lambda t: t.to(self.core.device, copy=True), state)
+        self._calls: dict[str, LoopStep] = {}
 
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.core.dtype, device=self.core.device)
+
+    def _call(self, name: str, step, graph: bool | None = None):
+        """`step(state)` as the call `name`: on the card captured at its first
+        call and replayed at every later one (`graph` False: eager), on the
+        CPU eager; the state's replaced leaves copied back. Returns what the
+        step returned (captured: the graph's output, valid until its next
+        replay)."""
+        loop = self._calls.get(name)
+        if loop is None:
+            loop = self._calls[name] = LoopStep(step, self._state, graph)
+        loop()
+        return loop.out
 
     def _timed(self, label, fn):
         if not self.core.mpc_cfg.print_solve_time:
@@ -60,58 +137,82 @@ class MPCController:
         print(f"{label} took:  {1e3 * (time.perf_counter() - t0):.3f} ms")
         return out
 
+    @property
+    def graphs(self) -> dict:
+        """{call: LoopStep} of the calls made since the last structure change;
+        a LoopStep's `graph` is None where the call ran eagerly."""
+        return dict(self._calls)
+
     # operations (`mpc_wrapper.py:17-43`)
 
+    # The steps a call captures reference the core and the input buffers, not
+    # the controller: a controller that is dropped is freed at once (its
+    # graphs with it), not by a later garbage collection.
+
     def set_command(self, twist, height) -> None:
-        self.core.set_command(self.state, self._t(twist), self._t(height))
+        core, twist_in, height_in = self.core, self._twist, self._height
+        twist_in.copy_(self._t(twist))
+        height_in.copy_(self._t(height))
+        self._call("set_command", lambda st: core.set_command(st, twist_in, height_in))
 
     def update_state(self, state_vec) -> None:
-        self.core.ingest_state(self.state, self._t(state_vec))
+        core, obs = self.core, self._obs
+        obs.copy_(self._t(state_vec))
+        self._call("update_state", lambda st: core.ingest_state(st, obs))
 
     def run_mpc(self) -> None:
-        self._last_mpc = self._timed("MPC solve time", lambda: self.core.run_mpc(self.state))
+        """The batched solve. `_last_mpc` is its output: on the card the
+        graph's own, valid until the next `run_mpc`, as in JAX."""
+        graph = False if eager_run_mpc(self.core) else None
+        self._last_mpc = self._timed("MPC solve time",
+                                     lambda: self._call("run_mpc", self.core.run_mpc, graph))
 
     def run_lowlevel(self) -> None:
-        self._timed("low level control", lambda: self.core.run_lowlevel(self.state))
+        self._timed("low level control", lambda: self._call("run_lowlevel", self.core.run_lowlevel))
 
     def get_action(self) -> torch.Tensor:
-        return self.core.joint_torque(self.state)
+        return self._call("get_action", self.core.joint_torque).clone()
 
     def reset(self, env_ids) -> None:
-        """env_ids: integer indices or a (B,) bool mask."""
+        """env_ids: integer indices or a (B,) bool mask. Integer ids are
+        written into the mask buffer here, outside the graph, because their
+        number varies."""
         ids = torch.as_tensor(env_ids, device=self.core.device)
         if ids.dtype == torch.bool:
-            mask = ids
+            self._mask.copy_(ids)
         else:
-            mask = torch.zeros(self.num_envs, dtype=torch.bool, device=self.core.device)
-            mask[ids.long()] = True
-        self.core.reset(self.state, mask)
+            self._mask.fill_(False)
+            self._mask.index_fill_(0, ids.long().reshape(-1), True)
+        core, mask = self.core, self._mask
+        self._call("reset", lambda st: core.reset(st, mask))
 
-    # DRL interface (`mpc_wrapper.py:48-64`)
+    # DRL interface (`mpc_wrapper.py:48-64`): each writes into the state's
+    # own tensors, which the captured graphs read.
 
-    def _per_env(self, val, like: torch.Tensor) -> torch.Tensor:
-        return self._t(val).expand_as(like).clone()
+    def _set_per_env(self, leaf: torch.Tensor, val) -> None:
+        leaf.copy_(self._t(val).expand_as(leaf))
 
     def update_mpc_sampling_time(self, dt_mpc) -> None:
-        self.state.dt_mpc = self._per_env(dt_mpc, self.state.dt_mpc)
+        self._set_per_env(self._state.dt_mpc, dt_mpc)
 
     def set_swing_parameters(self, foot_height, cp1, cp2) -> None:
-        self.state.foot_height = self._per_env(foot_height, self.state.foot_height)
-        self.state.cp1 = self._per_env(cp1, self.state.cp1)
-        self.state.cp2 = self._per_env(cp2, self.state.cp2)
+        st = self._state
+        for leaf, val in ((st.foot_height, foot_height), (st.cp1, cp1), (st.cp2, cp2)):
+            self._set_per_env(leaf, val)
 
     def set_srbd_accel(self, residual_lin_accel, residual_ang_accel) -> None:
-        self.state.residual_lin_accel = self._per_env(residual_lin_accel,
-                                                      self.state.residual_lin_accel)
-        self.state.residual_ang_accel = self._per_env(residual_ang_accel,
-                                                      self.state.residual_ang_accel)
+        self._set_per_env(self._state.residual_lin_accel, residual_lin_accel)
+        self._set_per_env(self._state.residual_ang_accel, residual_ang_accel)
 
     def set_srbd_residual(self, A_residual, B_residual) -> None:
         """Per-env learned dynamics residuals (B, 12, 12) added to the SRBD
         linearization's continuous-time A / B blocks before discretization
         (`biped_pympc_tpu/wrapper.py:112-145`). None for both clears them;
         exactly one None is zero-filled in the controller dtype. A shape
-        other than (num_envs, 12, 12) raises ValueError."""
+        other than (num_envs, 12, 12) raises ValueError. Between None and a
+        tensor the state's structure changes, and every graph is captured
+        again at its next call (JAX recompiles once); a tensor over a tensor
+        is copied in."""
         if (A_residual is None) != (B_residual is None):
             zeros = torch.zeros(self.num_envs, 12, 12, dtype=self.core.dtype,
                                 device=self.core.device)
@@ -123,15 +224,21 @@ class MPCController:
             if tuple(A_residual.shape) != want or tuple(B_residual.shape) != want:
                 raise ValueError(f"set_srbd_residual expects shapes {want}, got "
                                  f"{tuple(A_residual.shape)} and {tuple(B_residual.shape)}")
-        self.state.residual_A = A_residual
-        self.state.residual_B = B_residual
+        st = self._state
+        if (A_residual is None) != (st.residual_A is None):
+            st.residual_A = None if A_residual is None else A_residual.clone()
+            st.residual_B = None if B_residual is None else B_residual.clone()
+            self._calls = {}
+        elif A_residual is not None:
+            st.residual_A.copy_(A_residual)
+            st.residual_B.copy_(B_residual)
 
     def set_contact_parameters(self, mu=None, f_max=None, lt=None, lh=None) -> None:
         """Per-env friction coefficient, vertical-force cap [N] and toe / heel
         lever arms [m]: (B,) values or scalars; None leaves one unchanged."""
         for name, val in (("mu", mu), ("f_max", f_max), ("lt", lt), ("lh", lh)):
             if val is not None:
-                setattr(self.state, name, self._per_env(val, getattr(self.state, name)))
+                self._set_per_env(getattr(self._state, name), val)
 
     # checkpoint / resume (`biped_pympc_tpu/wrapper.py:329-370`)
 
@@ -139,17 +246,18 @@ class MPCController:
         """Write every `ControllerState` tensor to an .npz file, keyed by its
         field path ("est.root_position"), with the list of paths, as JSON,
         under "__structure__"."""
-        leaves = dict(_state_leaves(self.state))
+        leaves = dict(_state_leaves(self._state))
         np.savez(path, __structure__=np.frombuffer(json.dumps(list(leaves)).encode(), np.uint8),
                  **{k: v.detach().cpu().numpy() for k, v in leaves.items()})
 
     def load_state(self, path: str) -> None:
-        """Restore a state written by `save_state` (same config and batch).
-        The saved structure must match the current state's: the optional
-        residual_A / residual_B (`set_srbd_residual`) change it, so call
-        `set_srbd_residual` first to match. A structure or shape mismatch
-        raises ValueError and leaves the state as it was."""
-        leaves = dict(_state_leaves(self.state))
+        """Restore a state written by `save_state` (same config and batch)
+        into the state's own tensors. The saved structure must match the
+        current state's: the optional residual_A / residual_B
+        (`set_srbd_residual`) change it, so call `set_srbd_residual` first to
+        match. A structure or shape mismatch raises ValueError and leaves the
+        state as it was."""
+        leaves = dict(_state_leaves(self._state))
         with np.load(path) as data:
             saved = json.loads(bytes(data["__structure__"]).decode())
             if saved != list(leaves):
@@ -165,25 +273,21 @@ class MPCController:
                 if tuple(arr.shape) != tuple(old.shape):
                     raise ValueError(f"checkpoint leaf {key} shape {tuple(arr.shape)} != "
                                      f"{tuple(old.shape)} (batch size / config mismatch)")
-                new[key] = torch.as_tensor(arr, dtype=old.dtype, device=old.device)
+                new[key] = torch.as_tensor(arr, dtype=old.dtype)
         for key, value in new.items():
-            *parents, name = key.split(".")
-            obj = self.state
-            for p in parents:
-                obj = getattr(obj, p)
-            setattr(obj, name, value)
+            leaves[key].copy_(value)
 
     def to_numpy(self, x) -> np.ndarray:
         if torch.is_tensor(x):
             return x.detach().cpu().numpy()
         return np.asarray(x)
 
-    # properties (`mpc_wrapper.py:72-205`)
+    # properties (`mpc_wrapper.py:72-205`): each a tensor of the caller's own
 
     @property
     def ground_reaction_wrench(self) -> torch.Tensor:
         """(B, 2, 6) body-frame feed-forward foot wrench."""
-        return self.state.leg_cmd.wrench_ff
+        return self.state.leg_cmd.wrench_ff.clone()
 
     @property
     def grf_world(self) -> torch.Tensor:
@@ -191,7 +295,7 @@ class MPCController:
         `run_mpc`; zeros before the first."""
         if self._last_mpc is None:
             return torch.zeros(self.num_envs, 12, dtype=self.core.dtype, device=self.core.device)
-        return self._last_mpc.grf_world
+        return self._last_mpc.grf_world.clone()
 
     @property
     def hybrid_stats(self) -> dict:
@@ -212,7 +316,7 @@ class MPCController:
         if self._last_mpc is None:
             return torch.full((self.num_envs, 4), float("inf"), dtype=self.core.dtype,
                               device=self.core.device)
-        return self._last_mpc.residuals
+        return self._last_mpc.residuals.clone()
 
     @property
     def centroidal_accel(self) -> torch.Tensor:
@@ -249,42 +353,42 @@ class MPCController:
     @property
     def foot_placement(self) -> torch.Tensor:
         """(B, 2, 3) planned world-frame footholds."""
-        return self.state.swing_state.foot_placement_w
+        return self.state.swing_state.foot_placement_w.clone()
 
     @property
     def foot_placement_b(self) -> torch.Tensor:
-        return self.state.swing_state.foot_placement_b
+        return self.state.swing_state.foot_placement_b.clone()
 
     @property
     def ref_foot_pos_b(self) -> torch.Tensor:
-        return self.state.leg_cmd.p_des
+        return self.state.leg_cmd.p_des.clone()
 
     @property
     def ref_foot_vel_b(self) -> torch.Tensor:
-        return self.state.leg_cmd.v_des
+        return self.state.leg_cmd.v_des.clone()
 
     @property
     def foot_pos_b(self) -> torch.Tensor:
-        return self.state.leg_data.p
+        return self.state.leg_data.p.clone()
 
     @property
     def foot_vel_b(self) -> torch.Tensor:
-        return self.state.leg_data.v
+        return self.state.leg_data.v.clone()
 
     @property
     def mpc_cost(self) -> torch.Tensor:
-        return self.state.mpc_cost
+        return self.state.mpc_cost.clone()
 
     @property
     def position_trajectory(self) -> torch.Tensor:
         """(B, T, 3) x_ref[:, :, :3] (the reference's literal slice, which is
         the euler block)."""
-        return self.state.x_ref[:, :, :3]
+        return self.state.x_ref[:, :, :3].clone()
 
     @property
     def velocity_trajectory(self) -> torch.Tensor:
         """(B, T, 3) linear-velocity rows of x_ref."""
-        return self.state.x_ref[:, :, 9:12]
+        return self.state.x_ref[:, :, 9:12].clone()
 
     @property
     def swing_foot_trajectory(self) -> torch.Tensor:

@@ -54,7 +54,10 @@ ticks, with the adaptive solve for 100 ticks, with `solver="pallas_aug"`
 unsplit (K5d-a), `"pallas_ric_aug"` with Jacobi scaling (K1), and with the
 foot packing: `"pallas_ric_aug"` and `"pallas_hybrid"` with
 `solver_foot_pack=True` and `"pallas_ric"` with `"apply"` (K5e). It checks
-that every solve went through the kernels and that the outputs are sane, and
+that every solve went through the kernels, as the kernels count their own
+launches on the device (`pdipm_cuda.runs`: a launch replayed in a CUDA
+graph counts, and so does a capture's warm-up; the profiler's trace of the
+default and hybrid walks agrees), and that the outputs are sane, and
 times the kernels, the plain versions, the hybrid and adaptive solves,
 `run_mpc` and one 1 kHz tick, each kernel beside its bound. It checks in
 the SASS that the roofline kernels' loops are multiply-adds and passes
@@ -66,6 +69,17 @@ bench paths that
 launch them, `ab_roofline.main` (the ceilings and six PDIPM routes at
 b4096) and `bench_synthetic.main` (the tape sweep). Each phase prints
 one line of findings; any failure raises and the script exits non-zero.
+`MPCController` captures each call as a CUDA graph at its first use and
+replays it after; every phase above drives it so. The wrapper's own phase
+(`wrapper_phase`, `[wrapper graph]`; `--wrapper` runs it alone after the
+build) holds two 100 Hz periods through the captured controller bit for bit
+against `ctrl.core`'s eager methods on a cloned state (default, hybrid,
+adaptive and the T1), checks that a replayed `run_mpc` runs K1 once as the
+kernel counts it and as the profiler sees it, and issues nothing from the
+host, and that a result the caller holds does not change,
+and prints the device events, idle share and ms of a tick, `run_mpc` and a
+period captured and eager in turns, the graphs' pool bytes, the T1-newton
+tick and the `dense` mode, whose `run_mpc` stays eager by a static rule.
 The closed loop (`biped_pympc_tpu_torch/examples/`, `closed_loop_phases`;
 `--closed-loop` runs it alone after the build): 4096 HECTOR bipeds walking
 with K1, one MPC cycle captured as a CUDA graph and replayed for 120 cycles
@@ -469,6 +483,16 @@ def route_counts(**counts) -> dict:
     return {route: counts.get(route, 0) for route in pdipm_cuda.SOURCES}
 
 
+# A captured step (`MPCController`'s run_mpc at its first call, a rollout's
+# cycle) runs once in its warm-up before its capture (`utils/cuda_graph.py`),
+# and the kernels count that run (`pdipm_cuda.runs`): a walk from a new
+# controller runs each kernel of its solve once more than it calls run_mpc.
+# The host issues each launch twice, in the warm-up and into the capture,
+# and a replay issues none (`pdipm_cuda.launches`).
+WARM_UP = 1
+ISSUED_CAPTURED = 2
+
+
 def hector_obs(batch):
     obs = np.zeros((batch, 43), np.float32)
     obs[:, 2] = 0.55
@@ -622,6 +646,16 @@ def walk(ctrl, obs, ticks, limit, on_solve=None):
         tau = ctrl.get_action()
         tau_ok = tau_ok and bool((torch.isfinite(tau).all() & (tau.abs() <= limit + 1e-5).all()).item())
     return n_mpc, first_wrench, tau_ok
+
+
+def traced_walk(ctrl, obs, ticks, limit, on_solve=None):
+    """`walk` under torch.profiler (`device_trace`): its returns and the
+    trace, whose "k1" counts the PDIPM kernels the device ran in the walk.
+    Fails where the trace holds no device event."""
+    out = []
+    trace = device_trace(lambda: out.append(walk(ctrl, obs, ticks, limit, on_solve)), 1)
+    check(trace is not None, "the profiler saw no device event in a walk")
+    return (*out[0], trace)
 
 
 def sass_report(roofline_lib: str) -> str:
@@ -1162,8 +1196,7 @@ def t1_phases(label: str, dev) -> dict:
     ctrl.set_command(twist, height)
     pdipm_cuda.reset_counts()
     n_mpc, first, tau_ok = walk(ctrl, obs, T1_TICKS, limit)
-    torch.cuda.synchronize()
-    launches, warp = dict(pdipm_cuda.launches), dict(pdipm_cuda.warp_launches)
+    launches, warp = pdipm_cuda.runs(), pdipm_cuda.runs(warp=True)
     fz_sum = -first[:, :, 2].sum(1)
     dw20, mu20 = first_vs_cpu("pallas_ric_aug", first)
     others = {}
@@ -1178,7 +1211,8 @@ def t1_phases(label: str, dev) -> dict:
         octrl.run_mpc()
         others[solver, steps] = first_vs_cpu(solver, octrl.ground_reaction_wrench, steps)
     torch.cuda.synchronize()
-    check(pdipm_cuda.launches == route_counts(ric_aug=1), "T1's 40-step solve did not run K1")
+    check(pdipm_cuda.runs() == route_counts(ric_aug=1 + WARM_UP),
+          "T1's 40-step solve did not run K1 in its warm-up and its replay")
     dw, mu = others["pallas_ric_aug", T1_CONVERGED_STEPS]
 
     def tick():
@@ -1188,23 +1222,24 @@ def t1_phases(label: str, dev) -> dict:
 
     mpc_ms, tick_ms = cuda_ms(ctrl.run_mpc, 10), cuda_ms(tick, 20)
     print(f"[T1] MPCController recommended_conf('T1') b{B} f32 pallas_ric_aug, {T1_TICKS} ticks: "
-          f"run_mpc {n_mpc}, kernel launches {launches} (in a warp group {warp}); tau finite and "
+          f"run_mpc {n_mpc}, kernel launches that ran {launches} (in a warp group {warp}); tau finite and "
           f"within T1's limits: {tau_ok}; first solve sum of fz "
           f"[{float(fz_sum.min()):.2f}, {float(fz_sum.max()):.2f}] N (mg {mg:.2f}); first-solve "
           f"wrench vs CPU plain f64 on 8 envs, 20 steps: K1 {dw20:.3e} N, pallas_hybrid "
           f"{others['pallas_hybrid', 20][0]:.3e} N, pallas_ric {others['pallas_ric', 20][0]:.3e} "
           f"N (printed: the CPU's final mu {mu20:.3e}, the rule has not converged); K1 at "
           f"{T1_CONVERGED_STEPS} steps {dw:.3e} N (bound {F32_U0_ATOL}; the CPU's final mu "
-          f"{mu:.3e}); ms (CUDA events around the host's calls, as [times]) run_mpc "
-          f"{mpc_ms:.3f}, one tick (update_state + run_lowlevel + get_action) {tick_ms:.3f}")
-    check(launches == route_counts(ric_aug=n_mpc), "the T1 path did not launch K1 once a run_mpc")
-    check(warp["ric_aug"] == n_mpc, "the T1 path's K1 did not run in its warp group")
+          f"{mu:.3e}); ms (CUDA events around the host's calls, as [times]; the wrapper's "
+          f"replayed graphs) run_mpc {mpc_ms:.3f}, one tick (update_state + run_lowlevel + get_action) {tick_ms:.3f}")
+    check(launches == route_counts(ric_aug=n_mpc + WARM_UP),
+          "the T1 path did not run K1 once a run_mpc and once in its warm-up")
+    check(warp["ric_aug"] == n_mpc + WARM_UP, "the T1 path's K1 did not run in its warp group")
     check(tau_ok, "T1 joint torques not finite or beyond T1's limits")
     check(bool(((fz_sum > 0.5 * mg) & (fz_sum < 2.0 * mg)).all()),
           "T1's first solve does not carry its weight")
     check(mu <= MU_CONVERGED, f"T1's first QP did not converge in {T1_CONVERGED_STEPS} steps")
     check(dw <= F32_U0_ATOL, "T1's first wrench differs from the CPU reference")
-    out.update(k1_launches=n_mpc, mpc_ms=mpc_ms, tick_ms=tick_ms)
+    out.update(k1_launches=launches["ric_aug"], mpc_ms=mpc_ms, tick_ms=tick_ms)
 
     for robot_name, obs_ik in (("T1-newton", "robot"), ("T1", "newton")):
         tag = robot_name if obs_ik == "robot" else f"{robot_name} obs_ik={obs_ik}"
@@ -1222,7 +1257,7 @@ def t1_phases(label: str, dev) -> dict:
         _, traj = rollout(carry0)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        g_launches = dict(pdipm_cuda.launches)
+        g_launches, g_runs = dict(pdipm_cuda.launches), pdipm_cuda.runs()
         same = [bool(torch.equal(traj[i], traj_e[i])) for i in range(EAGER_CYCLES)]
         crit = t1_criteria(traj)
         finite = bool(torch.isfinite(traj).all())
@@ -1238,13 +1273,16 @@ def t1_phases(label: str, dev) -> dict:
         print(f"[T1 rollout] {label}: {tag} b{B} f32 pallas_ric_aug, {cycles} cycles as replays "
               f"of one captured cycle: first {EAGER_CYCLES} cycles bitwise the eager ones: "
               f"{same}; finite {finite}; criteria over every env {crit} (bounds {T1_WALK}, the "
-              f"last vx > {T1_VX_LAST[tag]}); K1 launches captured {g_launches['ric_aug']} "
-              f"(warm-up + capture); ms a cycle graph {graph_ms:.3f} / eager {eager_ms:.3f} "
+              f"last vx > {T1_VX_LAST[tag]}); K1 captured: issued {g_launches['ric_aug']} "
+              f"(warm-up + capture), ran {g_runs['ric_aug']} (warm-up + once a replay); ms a cycle graph {graph_ms:.3f} / eager {eager_ms:.3f} "
               f"({eager_ms / graph_ms:.1f}x), env-steps/s graph {steps_s:.0f}; first call "
               f"(capture + {cycles} cycles) {first_s:.2f} s; {tr}")
         check(all(same), f"{tag}: the captured cycles differ from the eager ones")
         check(finite, f"{tag}: the rollout is not finite")
-        check(g_launches == route_counts(ric_aug=2), f"{tag}: K1 not in the warm-up and capture")
+        check(g_launches == route_counts(ric_aug=ISSUED_CAPTURED),
+              f"{tag}: K1 not issued in the warm-up and the capture alone: {g_launches}")
+        check(g_runs == route_counts(ric_aug=cycles + WARM_UP),
+              f"{tag}: K1 did not run in the warm-up and once a replayed cycle: {g_runs}")
         check(crit["roll_pitch"] < T1_WALK["roll_pitch"], f"{tag}: fell over (roll / pitch)")
         check(crit["height_dev"] < T1_WALK["height_dev"], f"{tag}: height not held")
         check(crit["vx_last_min"] > T1_VX_LAST[tag], f"{tag}: vx not ramping")
@@ -1473,16 +1511,19 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
     eager_ms = cuda_ms(lambda: eager(carry0), 2) / EAGER_CYCLES
 
     # Rollout, captured: the first call warms up on a side stream, captures
-    # one cycle and replays it; counts read K1's warm-up and capture only.
+    # one cycle and replays it: the host issues K1 in the warm-up and the
+    # capture, the kernel runs in the warm-up and once a replayed cycle.
     rollout, cycles = tpu_rollout.make_rollout(core, ROLLOUT_SECONDS)
     pdipm_cuda.reset_counts()
     t0 = time.perf_counter()
     _, traj = rollout(carry0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    g_launches = dict(pdipm_cuda.launches)
-    check(g_launches == route_counts(ric_aug=2),
-          f"the captured rollout did not launch K1 in its warm-up and capture: {g_launches}")
+    g_launches, g_runs = dict(pdipm_cuda.launches), pdipm_cuda.runs()
+    check(g_launches == route_counts(ric_aug=ISSUED_CAPTURED),
+          f"the captured rollout did not issue K1 in its warm-up and capture alone: {g_launches}")
+    check(g_runs == route_counts(ric_aug=cycles + WARM_UP),
+          f"the captured rollout did not run K1 in its warm-up and once a cycle: {g_runs}")
     same = [bool(torch.equal(traj[i], traj_e[i])) for i in range(EAGER_CYCLES)]
     crit = walk_criteria(traj)
     finite = bool(torch.isfinite(traj).all())
@@ -1498,7 +1539,9 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
           f"as replays of one captured cycle: first {EAGER_CYCLES} cycles bitwise the eager "
           f"ones: {same}; finite {finite}; walk criteria over every env {crit} (bounds {WALK}); "
           f"K1 launches issued eager {e_launches['ric_aug']} for {EAGER_CYCLES} cycles, captured "
-          f"{g_launches['ric_aug']} (warm-up + capture); one eager cycle under no_host_sync: ok; "
+          f"{g_launches['ric_aug']} (warm-up + capture), ran {g_runs['ric_aug']} for {cycles} "
+          f"cycles (warm-up + once a replay); one eager cycle under "
+          f"no_host_sync: ok; "
           f"ms a cycle graph {graph_ms:.3f} / eager {eager_ms:.3f} "
           f"({eager_ms / graph_ms:.1f}x); env-steps/s graph {steps_s:.0f}, eager "
           f"{B * decim / (eager_ms * 1e-3):.0f}; first call (capture + {cycles} cycles) "
@@ -1579,7 +1622,7 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
     sim = closed_loop_sim.simulate(num_envs=B, seconds=CLOSED_LOOP_SECONDS, every=1,
                                    verbose=False, device=dev)
     sim_s = time.perf_counter() - t0
-    s_launches = dict(pdipm_cuda.launches)
+    s_launches = pdipm_cuda.runs()
     n_ticks = int(CLOSED_LOOP_SECONDS / core.mpc_cfg.dt)
     k5b = tpu_rollout.make_core("tridiag_aug", device=dev, verbose=False)
     ro5, _ = tpu_rollout.make_rollout(k5b, 0.0101, graph=False)
@@ -1590,13 +1633,14 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
                 float(np.abs(sim["vx"][decim - 1] - x1[:, 9]).max()))
     sim_finite = all(np.isfinite(v).all() for v in sim.values())
     print(f"[closed loop] {label}: simulate b{B} {CLOSED_LOOP_SECONDS} s ({n_ticks} ticks) "
-          f"solver tridiag_aug: launches {s_launches} in {sim_s:.2f} s "
+          f"solver tridiag_aug through MPCController: kernel launches that ran {s_launches} in "
+          f"{sim_s:.2f} s "
           f"({sim_s / n_ticks * 1e3:.2f} ms a tick on the host's clock); finite {sim_finite}; "
           f"x after {decim} ticks vs the eager rollout's first cycle max |d| {d_sim:.3e} "
           f"(bound {SIM_VS_ROLLOUT_ATOL:g}); final "
           f"z {float(sim['pos'][-1][:, 2].min()):.4f}..{float(sim['pos'][-1][:, 2].max()):.4f}")
-    check(s_launches == route_counts(tridiag_aug=n_ticks // decim),
-          f"simulate did not launch K5b once a solve: {s_launches}")
+    check(s_launches == route_counts(tridiag_aug=n_ticks // decim + WARM_UP),
+          f"simulate did not run K5b once a solve and in its warm-up: {s_launches}")
     check(sim_finite, "simulate is not finite")
     check(d_sim <= SIM_VS_ROLLOUT_ATOL, "simulate's first cycle differs from the rollout's")
 
@@ -1639,6 +1683,271 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
     return out
 
 
+# The wrapper's captured calls (`wrapper_phase`): WRAPPER_PERIODS 100 Hz
+# periods of `decimation` ticks each (a reset of two envs between them) through
+# `MPCController` and through the core's eager methods on a cloned state; the
+# tick timed WRAPPER_REPS times a turn, run_mpc and the period fewer.
+WRAPPER_PERIODS = 2
+WRAPPER_REPS = 20
+# The dense mode's run_mpc, eager by the wrapper's static rule, at this batch.
+DENSE_WRAPPER_ENVS = 256
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (NaN payloads included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return bool(torch.equal(a.view(ints), b.view(ints)))
+    return bool(torch.equal(a, b))
+
+
+def in_turns(graph_fn, eager_fn, reps: int) -> tuple:
+    """ms of graph_fn and eager_fn (CUDA events around the host's calls,
+    `cuda_ms`) in the turns graph, eager, eager, graph: ((g1, g2), (e1, e2))."""
+    g1, e1 = cuda_ms(graph_fn, reps), cuda_ms(eager_fn, reps)
+    e2, g2 = cuda_ms(eager_fn, reps), cuda_ms(graph_fn, reps)
+    return (g1, g2), (e1, e2)
+
+
+def wrapper_phase(label: str, dev) -> dict:
+    """`[wrapper graph]`: `MPCController`'s calls, each captured as a CUDA
+    graph at its first use and replayed, against `ctrl.core`'s eager methods
+    on a cloned state: the torques of every tick and every state leaf at the
+    end bit for bit, for the default, hybrid and adaptive solvers on HECTOR
+    and `recommended_conf("T1")`, with the kernels' own launch counts
+    (`pdipm_cuda.runs`) in each comparison; every call a replayed graph; one
+    replayed run_mpc running K1 once as the kernel counts it and as the
+    profiler sees it, and issuing nothing from the host; the device
+    events and idle share of a captured and an eager tick and run_mpc; the
+    ms of a tick, run_mpc and one 100 Hz period captured and eager in turns;
+    the graphs' pool bytes; the T1-newton tick; the results a caller holds
+    unchanged by a later period; and `solver="dense"`, whose run_mpc stays
+    eager by the wrapper's static rule (`wrapper.eager_run_mpc`). Returns the
+    numbers the later lines use."""
+    import torch
+    from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController, recommended_conf
+    from biped_pympc_tpu_torch.examples import srbd_plant
+    from biped_pympc_tpu_torch.models import robot as robots
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+    from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
+    from biped_pympc_tpu_torch.wrapper import eager_run_mpc
+
+    def controller(robot_name="HECTOR", nb=B, **kw):
+        if robot_name == "HECTOR":
+            cconf, base = ControllerConf(), {}
+        else:
+            cconf, base = recommended_conf(robot_name)
+            base = {**base, "solver": "pallas_ric_aug"}
+        return MPCController(cconf, MPCConf(**{**base, "verbose": False, **kw}), num_envs=nb,
+                             gait_id=2, device=dev)
+
+    def inputs(robot_name, nb):
+        """(obs, twist, height): standing, commanded to walk at 0.3 m/s."""
+        twist = torch.zeros(nb, 3, device=dev)
+        twist[:, 0] = 0.3
+        if robot_name == "HECTOR":
+            return torch.tensor(hector_obs(nb), device=dev), twist, torch.full((nb,), 0.55,
+                                                                               device=dev)
+        robot = robots.get_robot(robot_name)
+        x0 = torch.zeros(nb, 12, device=dev)
+        x0[:, 5] = T1_HEIGHT
+        obs, _ = srbd_plant.assemble_obs(robot, x0, srbd_plant.nominal_feet(
+            robot, nb, torch.float32, dev))
+        return obs, twist, torch.full((nb,), T1_HEIGHT, device=dev)
+
+    def compare(ctrl, obs, twist, height):
+        """WRAPPER_PERIODS periods through `ctrl` and through its core on a
+        clone of its state: (every tick's tau bitwise, the leaves that
+        differ at the end)."""
+        core = ctrl.core
+        est = tree_map(torch.clone, ctrl.state)
+        ctrl.set_command(twist, height)
+        core.set_command(est, twist, height)
+        decim = core.mpc_cfg.decimation
+        ids = [1, 2]
+        mask = torch.zeros(ctrl.num_envs, dtype=torch.bool, device=dev)
+        mask[ids] = True
+        same = []
+        for step in range(WRAPPER_PERIODS * decim):
+            if step == decim:
+                ctrl.reset(ids)
+                core.reset(est, mask)
+            ctrl.update_state(obs)
+            core.ingest_state(est, obs)
+            if step % decim == 0:
+                ctrl.run_mpc()
+                core.run_mpc(est)
+            ctrl.run_lowlevel()
+            core.run_lowlevel(est)
+            same.append(same_bits(ctrl.get_action(), core.joint_torque(est)))
+        theirs = dict(leaves(est))
+        return all(same), [p for p, t in leaves(ctrl.state) if not same_bits(t, theirs[p])]
+
+    out, bits = {}, {}
+    ctrls = {}
+    # The kernels' runs in a comparison, as they count them (`pdipm_cuda.runs`),
+    # per solver: the eager core's solves, the warm-up before the capture and
+    # the replays; the adaptive solve's chunks that ran, 1 to 4 a solve.
+    solves = 2 * WRAPPER_PERIODS + WARM_UP
+    per_solve = {"default": {"ric_aug": 1}, "hybrid": {"ric_aug": 1, "ric": 1},
+                 "adaptive": {}, "T1": {"ric_aug": 1}}
+    for tag, robot_name, kw in (("default", "HECTOR", {}),
+                                ("hybrid", "HECTOR", {"solver": "pallas_hybrid"}),
+                                ("adaptive", "HECTOR", {"adaptive_tol": WALK_TOL}),
+                                ("T1", "T1", {})):
+        ctrl = controller(robot_name, **kw)
+        obs, twist, height = inputs(robot_name, B)
+        pdipm_cuda.reset_counts()
+        tau_same, differ = compare(ctrl, obs, twist, height)
+        ran = pdipm_cuda.runs()
+        replayed = sorted(name for name, loop in ctrl.graphs.items() if loop.graph is not None)
+        bits[tag] = {"tau": tau_same, "leaves differing": differ, "replayed": len(replayed),
+                     "PDIPM kernels ran": sum(ran.values())}
+        if tag == "adaptive":
+            check(solves <= ran["ric_aug"] <= 4 * solves
+                  and ran == route_counts(ric_aug=ran["ric_aug"]), f"adaptive: K1 ran {ran}")
+        else:
+            check(ran == route_counts(**{r: n * solves for r, n in per_solve[tag].items()}),
+                  f"{tag}: the kernels ran {ran}, not {per_solve[tag]} in each of {solves} solves")
+        check(tau_same and not differ,
+              f"{tag}: the captured wrapper differs from the eager core: tau {tau_same}, "
+              f"leaves {differ[:5]}")
+        check(replayed == sorted(["set_command", "update_state", "run_mpc", "run_lowlevel",
+                                  "get_action", "reset"]),
+              f"{tag}: not every call is a replayed graph: {replayed}")
+        ctrls[tag] = (ctrl, obs, twist, height)
+    torch.cuda.synchronize()
+
+    # One replayed run_mpc: K1 runs once as the kernel counts it and as the
+    # profiler sees it, and the host issues nothing.
+    ctrl, obs, twist, height = ctrls["default"]
+    core = ctrl.core
+    pdipm_cuda.reset_counts()
+    mpc_trace = device_trace(ctrl.run_mpc, 1)
+    counted, issued = pdipm_cuda.runs(), dict(pdipm_cuda.launches)
+    check(mpc_trace is not None, "the profiler saw no device event in a replayed run_mpc")
+    check(counted == route_counts(ric_aug=1), f"one replayed run_mpc ran {counted}")
+    check(issued == route_counts(), f"one replayed run_mpc issued {issued} from the host")
+    check(mpc_trace["k1"] == counted["ric_aug"],
+          f"the profiler saw K1 {mpc_trace['k1']} times in one replayed run_mpc")
+
+    # Results the caller holds: unchanged by a later period.
+    held = [ctrl.get_action(), ctrl.ground_reaction_wrench, ctrl.grf_world,
+            ctrl.solver_residuals, ctrl.mpc_cost]
+    copies = [t.clone() for t in held]
+    est = tree_map(torch.clone, ctrl.state)
+    decim = core.mpc_cfg.decimation
+
+    def tick_graph():
+        ctrl.update_state(obs)
+        ctrl.run_lowlevel()
+        ctrl.get_action()
+
+    def tick_eager():
+        core.ingest_state(est, obs)
+        core.run_lowlevel(est)
+        core.joint_torque(est)
+
+    def period_graph():
+        ctrl.set_command(twist, height)
+        for step in range(decim):
+            ctrl.update_state(obs)
+            if step == 0:
+                ctrl.run_mpc()
+            ctrl.run_lowlevel()
+            ctrl.get_action()
+
+    def period_eager():
+        core.set_command(est, twist, height)
+        for step in range(decim):
+            core.ingest_state(est, obs)
+            if step == 0:
+                core.run_mpc(est)
+            core.run_lowlevel(est)
+            core.joint_torque(est)
+
+    period_graph()
+    held_same = all(same_bits(a, b) for a, b in zip(held, copies))
+    check(held_same, "a result the caller holds changed after a later period")
+    with no_host_sync():
+        period_graph()
+    tick_ms = in_turns(tick_graph, tick_eager, WRAPPER_REPS)
+    mpc_ms = in_turns(ctrl.run_mpc, lambda: core.run_mpc(est), WRAPPER_REPS // 2)
+    period_ms = in_turns(period_graph, period_eager, WRAPPER_REPS // 4)
+    traces = {"tick graph": device_trace(tick_graph, 10), "tick eager": device_trace(tick_eager, 10),
+              "run_mpc eager": device_trace(lambda: core.run_mpc(est), 3),
+              "run_mpc graph": mpc_trace}
+    pools = {tag: {name: loop.pool_bytes for name, loop in c.graphs.items()}
+             for tag, (c, *_) in ctrls.items()}
+    for per_call in pools.values():
+        per_call["total"] = sum(per_call.values())
+    check(all(n > 0 for per_call in pools.values() for n in per_call.values()),
+          f"a captured graph holds no pool: {pools}")
+
+    # T1-newton: its observation IK keeps ~5,000 kernels a tick.
+    newton = controller("T1-newton")
+    n_obs, n_twist, n_height = inputs("T1-newton", B)
+    newton.set_command(n_twist, n_height)
+    newton.update_state(n_obs)
+    newton.run_mpc()
+    n_est = tree_map(torch.clone, newton.state)
+
+    def n_tick_graph():
+        newton.update_state(n_obs)
+        newton.run_lowlevel()
+        newton.get_action()
+
+    def n_tick_eager():
+        newton.core.ingest_state(n_est, n_obs)
+        newton.core.run_lowlevel(n_est)
+        newton.core.joint_torque(n_est)
+
+    n_tick_ms = in_turns(n_tick_graph, n_tick_eager, 5)
+    n_traces = {"graph": device_trace(n_tick_graph, 2), "eager": device_trace(n_tick_eager, 2)}
+
+    # The one mode whose run_mpc stays eager, driven through the wrapper.
+    dense = controller(nb=DENSE_WRAPPER_ENVS, solver="dense")
+    dense_reason = eager_run_mpc(dense.core)
+    d_tau, d_differ = compare(dense, *inputs("HECTOR", DENSE_WRAPPER_ENVS))
+    d_graphs = {name: loop.graph is not None for name, loop in dense.graphs.items()}
+    check(dense_reason is not None, "dense: the static rule does not name it")
+    check(not d_graphs["run_mpc"] and sum(d_graphs.values()) == len(d_graphs) - 1,
+          f"dense: run_mpc eager, every other call captured: {d_graphs}")
+    check(bool(torch.isfinite(dense.get_action()).all()), "dense: the wrapper's tau not finite")
+
+    def tr(t):
+        return ("not measured" if t is None else
+                f"{t['events']:.1f} device events, idle {t['idle']:.2%}")
+
+    mean = lambda pair: sum(pair) / 2
+    print(f"[wrapper graph] {label}: MPCController b{B} f32, each call captured at its first use "
+          f"and replayed vs ctrl.core's eager methods on a cloned state over {WRAPPER_PERIODS} "
+          f"periods with a reset: bitwise {bits}; one replayed run_mpc: K1 ran "
+          f"{counted['ric_aug']} (as the kernel counts it), profiler K1 {mpc_trace['k1']:g}, "
+          f"issued from the host {sum(issued.values())}; held "
+          f"results unchanged by a later period: {held_same}; one period under no_host_sync: ok; "
+          f"ms captured / eager (turns g e e g): tick (update_state + run_lowlevel + get_action) "
+          f"{tick_ms[0][0]:.3f} {tick_ms[1][0]:.3f} {tick_ms[1][1]:.3f} {tick_ms[0][1]:.3f}, "
+          f"run_mpc {mpc_ms[0][0]:.3f} {mpc_ms[1][0]:.3f} {mpc_ms[1][1]:.3f} {mpc_ms[0][1]:.3f}, "
+          f"100 Hz period (set_command, run_mpc, {decim} ticks) {period_ms[0][0]:.3f} "
+          f"{period_ms[1][0]:.3f} {period_ms[1][1]:.3f} {period_ms[0][1]:.3f}; "
+          + "; ".join(f"{k} {tr(v)}" for k, v in traces.items())
+          + f"; pool bytes {pools}; T1-newton tick captured / eager (turns) "
+          f"{n_tick_ms[0][0]:.3f} {n_tick_ms[1][0]:.3f} {n_tick_ms[1][1]:.3f} "
+          f"{n_tick_ms[0][1]:.3f} ms, graph {tr(n_traces['graph'])}, eager "
+          f"{tr(n_traces['eager'])}; run_mpc eager by rule: dense ({dense_reason}); dense "
+          f"b{DENSE_WRAPPER_ENVS} through the wrapper vs the eager core: tau bitwise {d_tau}, "
+          f"leaves differing {d_differ} (printed), captured {d_graphs}")
+    out.update(tick_ms=mean(tick_ms[0]), tick_eager_ms=mean(tick_ms[1]), mpc_ms=mean(mpc_ms[0]),
+               mpc_eager_ms=mean(mpc_ms[1]), period_ms=mean(period_ms[0]),
+               period_eager_ms=mean(period_ms[1]), traces=traces, pools=pools)
+    return out
+
+
 def quick(mode: str) -> int:
     """`--digests`: build the PDIPM kernels and print `route_digests` of
     this script's batch as one JSON line (it runs in a checkout of an
@@ -1647,7 +1956,8 @@ def quick(mode: str) -> int:
     and hold K1 and K2 in the picked geometry against their plain versions
     at f64 on the converged envs. `--closed-loop`: build, then run
     `closed_loop_phases` alone. `--t1-extras`: build, then run
-    `extras_phases` and `t1_phases` alone."""
+    `extras_phases` and `t1_phases` alone. `--wrapper`: build, then run
+    `wrapper_phase` alone."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
@@ -1660,6 +1970,11 @@ def quick(mode: str) -> int:
     qp32, qp64 = (make_qp_batch(B, 0, dt, dev) for dt in (torch.float32, torch.float64))
     if mode == "--closed-loop":
         closed_loop_phases(label, dev, qp32, qp64)
+        return 0
+    if mode == "--wrapper":
+        t0 = time.perf_counter()
+        wrapper_phase(label, dev)
+        print(f"[elapsed] wrapper graph {time.perf_counter() - t0:.1f} s")
         return 0
     if mode == "--t1-extras":
         t0 = time.perf_counter()
@@ -1703,9 +2018,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     if sys.argv[1:] and sys.argv[1:] not in (["--digests"], ["--geometry"], ["--closed-loop"],
-                                             ["--t1-extras"]):
-        print(f"chip_smoke: takes no argument, --digests, --geometry, --closed-loop or "
-              f"--t1-extras; got {sys.argv[1:]}", file=sys.stderr)
+                                             ["--t1-extras"], ["--wrapper"]):
+        print(f"chip_smoke: takes no argument, --digests, --geometry, --closed-loop, "
+              f"--t1-extras or --wrapper; got {sys.argv[1:]}", file=sys.stderr)
         return 2
     if len(sys.argv) > 1:
         return quick(sys.argv[1])
@@ -1715,6 +2030,7 @@ def main() -> int:
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
+    from biped_pympc_tpu_torch.utils.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     dev = torch.device("cuda:0")
@@ -2445,31 +2761,46 @@ def main() -> int:
     ctrl.set_command(twist, height)
     phase0 = ctrl.state.gait_phase.clone()
     pdipm_cuda.reset_counts()
-    n_mpc, first_wrench, tau_ok = walk(ctrl, obs, TICKS, limit)
-    torch.cuda.synchronize()
-    launches = dict(pdipm_cuda.launches)
-    warp_launches = dict(pdipm_cuda.warp_launches)
+    n_mpc, first_wrench, tau_ok, m_trace = traced_walk(ctrl, obs, TICKS, limit)
+    launches = pdipm_cuda.runs()
+    warp_launches = pdipm_cuda.runs(warp=True)
+    issued = dict(pdipm_cuda.launches)
     fz = -first_wrench[:, :, 2]
     phase_adv = float((ctrl.state.gait_phase - phase0).min())
-    print(f"[main path] MPCController b{B} HECTOR gait 2, {TICKS} ticks: run_mpc {n_mpc}, "
-          f"kernel launches {launches} (in a warp group {warp_launches}); tau finite and within "
+    print(f"[main path] MPCController b{B} HECTOR gait 2, {TICKS} ticks, its calls replayed "
+          f"graphs: run_mpc {n_mpc}, kernel launches that ran (as the kernels count them) "
+          f"{launches} (in a warp group {warp_launches}), issued from the host {issued}, PDIPM "
+          f"kernels in the profiler's trace of the walk {m_trace['k1']:g}; tau finite and within "
           f"limits: {tau_ok}; first solve "
           f"fz left [{float(fz[:, 0].min()):.2f}, {float(fz[:, 0].max()):.2f}] N, right swing "
           f"max |fz| {float(fz[:, 1].abs().max()):.3e} N; gait phase advanced by {phase_adv:.4f}")
-    check(launches == route_counts(ric_aug=n_mpc),
-          "the main path did not launch K1 once per run_mpc")
-    check(warp_launches["ric_aug"] == n_mpc, "the main path's K1 did not run in its warp group")
+    check(launches == route_counts(ric_aug=n_mpc + WARM_UP),
+          "the main path did not run K1 once per run_mpc and once in its capture's warm-up")
+    check(warp_launches["ric_aug"] == n_mpc + WARM_UP,
+          "the main path's K1 did not run in its warp group")
+    check(issued == route_counts(ric_aug=ISSUED_CAPTURED),
+          f"the main path's K1 was not issued in the warm-up and the capture alone: {issued}")
+    check(m_trace["k1"] == launches["ric_aug"],
+          f"the profiler saw {m_trace['k1']:g} PDIPM kernels in the main path's walk, the "
+          f"kernel counted {launches['ric_aug']}")
     check(tau_ok, "joint torques not finite or beyond the torque limits")
     check(bool((fz[:, 1].abs() < 1.0).all()), "swinging right foot carries force")
     check(bool((first_wrench[:, 0, 2] < -50.0).all()), "stance left foot not loaded")
     check(phase_adv > 0.05, "gait phase did not advance")
-    # One eager tick with the solve, default mode: nothing in it waits for
-    # the device (no constant is copied from the host per call).
+    # One eager tick with the solve, default mode, through the core on a
+    # clone of the state: nothing in it waits for the device (no constant is
+    # copied from the host per call), so each call can be captured; and one
+    # tick of the wrapper's replays.
+    est = tree_map(torch.clone, ctrl.state)
     with no_host_sync():
+        ctrl.core.ingest_state(est, obs)
+        ctrl.core.run_mpc(est)
+        ctrl.core.run_lowlevel(est)
         ctrl.update_state(obs)
         ctrl.run_mpc()
         ctrl.run_lowlevel()
-    print("[main path] one update_state + run_mpc + run_lowlevel under no_host_sync: ok")
+    print("[main path] one eager update_state + run_mpc + run_lowlevel (ctrl.core) and one "
+          "replayed under no_host_sync: ok")
 
     # Same first solve on 8 envs through the plain version on the CPU, f64.
     ref = MPCController(ControllerConf(), MPCConf(verbose=False), num_envs=8, gait_id=2,
@@ -2488,24 +2819,27 @@ def main() -> int:
     hctrl.set_command(twist, height)
     stats = []
     pdipm_cuda.reset_counts()
-    h_mpc, h_first, h_tau_ok = walk(hctrl, obs, HYBRID_TICKS, limit,
-                                    on_solve=lambda: stats.append(hctrl.hybrid_stats))
-    torch.cuda.synchronize()
-    h_launches = dict(pdipm_cuda.launches)
-    h_warp = dict(pdipm_cuda.warp_launches)
+    h_mpc, h_first, h_tau_ok, h_trace = traced_walk(
+        hctrl, obs, HYBRID_TICKS, limit, on_solve=lambda: stats.append(hctrl.hybrid_stats))
+    h_launches = pdipm_cuda.runs()
+    h_warp = pdipm_cuda.runs(warp=True)
     h_fz = -h_first[:, :, 2]
     print(f"[hybrid path] MPCController solver=pallas_hybrid b{B}, {HYBRID_TICKS} ticks: "
-          f"run_mpc {h_mpc}, kernel launches {h_launches} (in a warp group {h_warp}); "
+          f"run_mpc {h_mpc}, kernel launches that ran {h_launches} (in a warp group {h_warp}), "
+          f"PDIPM kernels in the profiler's trace of the walk {h_trace['k1']:g}; "
           f"hybrid_stats first "
           f"{stats[0]}, max dropped_nonfinite {max(st['dropped_nonfinite'] for st in stats)}, "
           f"resolved per solve {[st['resolved'] for st in stats]}; tau finite and within "
           f"limits: {h_tau_ok}; first solve fz left [{float(h_fz[:, 0].min()):.2f}, "
           f"{float(h_fz[:, 0].max()):.2f}] N, right swing max |fz| "
           f"{float(h_fz[:, 1].abs().max()):.3e} N")
-    check(h_launches == route_counts(ric_aug=h_mpc, ric=h_mpc),
-          "the hybrid path did not launch K2 and K1 once each per run_mpc")
-    check(h_warp == {**{r: 0 for r in h_warp}, "ric_aug": h_mpc, "ric": h_mpc},
+    check(h_launches == route_counts(ric_aug=h_mpc + WARM_UP, ric=h_mpc + WARM_UP),
+          "the hybrid path did not run K2 and K1 once each per run_mpc and in its warm-up")
+    check(h_warp == h_launches,
           f"the hybrid path's K1 and K2 did not run in their warp groups: {h_warp}")
+    check(h_trace["k1"] == sum(h_launches.values()),
+          f"the profiler saw {h_trace['k1']:g} PDIPM kernels in the hybrid walk, the kernels "
+          f"counted {sum(h_launches.values())}")
     check(all(st["dropped_nonfinite"] == 0 for st in stats), "hybrid dropped non-finite envs")
     check(h_tau_ok, "hybrid joint torques not finite or beyond the torque limits")
     check(bool((h_fz[:, 1].abs() < 1.0).all()), "hybrid: swinging right foot carries force")
@@ -2528,22 +2862,31 @@ def main() -> int:
     per_solve = []
     pdipm_cuda.reset_counts()
     a_mpc, a_first, a_tau_ok = walk(actrl, obs, ADAPTIVE_TICKS, limit, on_solve=lambda: per_solve.append(
-        (pdipm_cuda.launches["ric_aug"], pdipm_cuda.chunks_ran()["ric_aug"])))
-    torch.cuda.synchronize()
-    a_launches = dict(pdipm_cuda.launches)
-    ran_per_solve = np.diff([0] + [r for _, r in per_solve]).tolist()
-    issued_per_solve = np.diff([0] + [n for n, _ in per_solve]).tolist()
+        pdipm_cuda.chunks_ran()["ric_aug"]))
+    a_launches = pdipm_cuda.runs()
+    a_issued = dict(pdipm_cuda.launches)
+    ran_per_solve = np.diff([0] + per_solve).tolist()
+    # A replayed run_mpc launches every chunk; a chunk whose gate is shut
+    # returns at once, uncounted, but the profiler sees its launch.
+    a_trace = device_trace(actrl.run_mpc, 1)
+    check(a_trace is not None, "the profiler saw no device event in an adaptive run_mpc")
     a_fz = -a_first[:, :, 2]
     print(f"[adaptive path] MPCController adaptive_tol={WALK_TOL:g} b{B}, {ADAPTIVE_TICKS} ticks: "
-          f"run_mpc {a_mpc}, kernel launches {a_launches} (all warm), chunks ran per "
-          f"solve {ran_per_solve} of {issued_per_solve} issued; tau finite and within limits: "
+          f"run_mpc {a_mpc}, kernel launches that ran {a_launches} (all warm), chunks ran per "
+          f"solve {ran_per_solve} (the first with its capture's warm-up), issued from the host "
+          f"{a_issued}; K1 in the profiler's trace of one more replayed run_mpc "
+          f"{a_trace['k1']:g}; tau finite and within limits: "
           f"{a_tau_ok}; first solve fz left [{float(a_fz[:, 0].min()):.2f}, "
           f"{float(a_fz[:, 0].max()):.2f}] N, right swing max |fz| "
           f"{float(a_fz[:, 1].abs().max()):.3e} N; vs default first solve max |d| "
           f"{float((a_first - first_wrench).abs().max()):.3e} N")
-    check(a_launches == route_counts(ric_aug=4 * a_mpc),
-          "the adaptive path did not issue 4 warm K1 launches per run_mpc")
-    check(all(1 <= r <= 4 for r in ran_per_solve), "adaptive chunks ran out of range")
+    check(a_issued == route_counts(ric_aug=4 * ISSUED_CAPTURED),
+          "the adaptive path's warm-up and capture did not each issue 4 warm K1 launches")
+    check(a_trace["k1"] == 4, "a replayed adaptive run_mpc did not launch its 4 chunks")
+    check(a_launches == route_counts(ric_aug=sum(ran_per_solve)),
+          f"the adaptive path's K1 ran outside its chunks: {a_launches}")
+    check(2 <= ran_per_solve[0] <= 8 and all(1 <= r <= 4 for r in ran_per_solve[1:]),
+          "adaptive chunks ran out of range")
     check(a_tau_ok, "adaptive joint torques not finite or beyond the torque limits")
     check(bool((a_fz[:, 1].abs() < 1.0).all()), "adaptive: swinging right foot carries force")
     check(bool((a_first[:, 0, 2] < -50.0).all()), "adaptive: stance left foot not loaded")
@@ -2603,9 +2946,8 @@ def main() -> int:
         tctrl.set_command(twist, height)
         pdipm_cuda.reset_counts()
         t_mpc, t_first, t_tau_ok = walk(tctrl, obs, ticks, limit)
-        torch.cuda.synchronize()
-        t_launches = dict(pdipm_cuda.launches)
-        t_warp = {r: n for r, n in pdipm_cuda.warp_launches.items() if r in per_mpc}
+        t_launches = pdipm_cuda.runs()
+        t_warp = {r: n for r, n in pdipm_cuda.runs(warp=True).items() if r in per_mpc}
         t_fz = -t_first[:, :, 2]
         tref = MPCController(ControllerConf(), conf, num_envs=8, gait_id=2, dtype=torch.float64,
                              device="cpu")
@@ -2614,15 +2956,15 @@ def main() -> int:
         tref.run_mpc()
         t_dw = float((t_first[:8].cpu().double() - tref.ground_reaction_wrench).abs().max())
         print(f"[{name} path] MPCController b{B}, {ticks} ticks: "
-              f"run_mpc {t_mpc}, kernel launches {t_launches} (in a warp group {t_warp}); tau "
+              f"run_mpc {t_mpc}, kernel launches that ran {t_launches} (in a warp group {t_warp}); tau "
               f"finite and within limits: "
               f"{t_tau_ok}; first solve fz left [{float(t_fz[:, 0].min()):.2f}, "
               f"{float(t_fz[:, 0].max()):.2f}] N, right swing max |fz| "
               f"{float(t_fz[:, 1].abs().max()):.3e} N; vs CPU plain f64 on 8 envs max |d| "
               f"{t_dw:.3e} N{f' (bound {F32_U0_ATOL})' if bounded else ' (printed)'}; vs default "
               f"first solve max |d| {float((t_first - first_wrench).abs().max()):.3e} N")
-        check(t_launches == route_counts(**{r: n * t_mpc for r, n in per_mpc.items()}),
-              f"the {name} path did not launch its kernels {per_mpc} per run_mpc")
+        check(t_launches == route_counts(**{r: n * (t_mpc + WARM_UP) for r, n in per_mpc.items()}),
+              f"the {name} path did not run its kernels {per_mpc} per run_mpc and in its warm-up")
         check(all(t_warp[r] == t_launches[r] for r in t_warp) and set(t_warp) == set(per_mpc),
               f"the {name} path's {sorted(per_mpc)} did not run in their warp groups: {t_warp}")
         check(t_tau_ok, f"{name}: joint torques not finite or beyond the torque limits")
@@ -2635,6 +2977,10 @@ def main() -> int:
         path_ctrl[name], path_launches[name] = tctrl, t_launches
 
     mark("main paths")
+
+    # 6c'. The wrapper's calls as captured graphs against the eager core.
+    wrap = wrapper_phase(label, dev)
+    mark("wrapper graph")
 
     # 6d. The closed loop: the captured rollout, the RL env, simulate, dense.
     loop = closed_loop_phases(label, dev, qp32, qp64)
@@ -2724,15 +3070,16 @@ def main() -> int:
           f"plain f32 {rp32:.3f} ms, plain f64 {rp64:.3f} ms")
     print(f"[times] {label}: b{B} f32 solve_hybrid {hyb32:.3f} ms (K1 alone on its "
           f"{budget}-env re-solve batch {k1_sub:.3f} ms)")
-    print(f"[times] {label}: MPCController b{B} f32: run_mpc {mpc_ms:.3f} ms, hybrid run_mpc "
-          f"{hmpc_ms:.3f} ms, 1 kHz tick (update_state + run_lowlevel + get_action) "
+    print(f"[times] {label}: MPCController b{B} f32, its calls replayed graphs: run_mpc "
+          f"{mpc_ms:.3f} ms, hybrid run_mpc {hmpc_ms:.3f} ms, 1 kHz tick (update_state + run_lowlevel + get_action) "
           f"{tick_ms:.3f} ms; device events (profiler) a tick "
           f"{'not measured' if tick_trace is None else tick_trace['events']}, device idle "
           f"{'not measured' if tick_trace is None else format(tick_trace['idle'], '.2%')}, a "
           f"run_mpc {'not measured' if mpc_trace is None else mpc_trace['events']} (K1 "
           f"{'not measured' if mpc_trace is None else mpc_trace['k1']}), device idle "
-          f"{'not measured' if mpc_trace is None else format(mpc_trace['idle'], '.2%')}; the "
-          f"closed loop's captured cycle {loop['rollout_ms']:.3f} ms (eager "
+          f"{'not measured' if mpc_trace is None else format(mpc_trace['idle'], '.2%')}; eager "
+          f"(ctrl.core, [wrapper graph]) run_mpc {wrap['mpc_eager_ms']:.3f} ms, tick "
+          f"{wrap['tick_eager_ms']:.3f} ms; the closed loop's captured cycle {loop['rollout_ms']:.3f} ms (eager "
           f"{loop['rollout_eager_ms']:.3f} ms), RL step {loop['rl_ms']:.3f} ms")
     print(f"[times] {label}: b{B} f32 solve_adaptive tol 0 (4 launches): K1 {ad0:.3f} ms vs "
           f"fixed {k32:.3f} ms, K2 on its {ric_qp32.f.shape[0]} finite envs {ad0_ric:.3f} ms vs "

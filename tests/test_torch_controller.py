@@ -89,7 +89,7 @@ def _drive_both(contact_frame, robot):
                 c.run_mpc()
             c.run_lowlevel()
         trace.append([(np.asarray(c.get_action()), np.asarray(c.ground_reaction_wrench),
-                       np.asarray(c.state.gait_phase), np.asarray(c.contact_state))
+                       np.array(c.state.gait_phase), np.asarray(c.contact_state))
                       for c in (jc, tc)])
     return jc, tc, trace
 

@@ -40,6 +40,14 @@ def libs(tmp_path_factory):
         for r in pdipm_cuda.LEAN_ROUTES}
 
 
+@pytest.fixture(autouse=True)
+def _own_counts(monkeypatch):
+    """The host builds' launches count in copies, not in the process's
+    counts that other tests of the same worker read."""
+    for name in ("launches", "warp_launches", "residual_launches", "_runs", "_ran"):
+        monkeypatch.setattr(pdipm_cuda, name, dict(getattr(pdipm_cuda, name)))
+
+
 def _qp(batch, horizon=2):
     return bench_common.make_qp_batch(batch, horizon=horizon, dtype=torch.float64, device="cpu")
 
@@ -158,6 +166,34 @@ def test_warm_chunks_equal_one_launch_in_the_warp_group(libs, route):
                               geom=geom)
     for name in ("x", "s", "z", "y", "residuals"):
         assert torch.equal(getattr(r, name), getattr(one, name)), name
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES)
+@pytest.mark.parametrize("route", pdipm_cuda.LEAN_ROUTES)
+def test_kernel_counts_the_launches_that_ran(libs, route, geom):
+    """Each route adds one per launch, from its own device code, to its
+    counter in its group (`pdipm_cuda.runs`; a launch replayed in a CUDA
+    graph moves it as an eager one does); a gated launch adds to the
+    counter it is given only when its gate is open, and leaves its outputs
+    as they were when it is shut."""
+    qp = _qp(2)
+    opts = _opts(route)
+    g = _geom(route, geom)
+    pdipm_cuda.reset_counts()
+    for _ in range(2):
+        pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=g)
+    lean = geom == "warp"
+    assert pdipm_cuda.runs(warp=lean)[route] == 2 and pdipm_cuda.runs(warp=not lean)[route] == 0
+    assert pdipm_cuda.launches[route] == 2
+    ran = torch.zeros(1, dtype=torch.int32)
+    outs = [torch.full((2, n), 7.0, dtype=torch.float64)
+            for n in (qp.nz, qp.n_ineq, qp.n_ineq, qp.n_eq, 4)]
+    for go in (0, 1):
+        pdipm_cuda._launch(libs[route], qp, pdipm_cuda._inputs(qp), opts, None, None, outs,
+                           go=torch.tensor([go], dtype=torch.int32), ran=ran, geom=g)
+        assert all(bool((t == 7.0).all()) == (go == 0) for t in outs)
+    assert ran.tolist() == [1] and pdipm_cuda.runs()[route] == 2
+    assert pdipm_cuda.launches[route] == 4
 
 
 def _assert_df_refused(libs, route, dtype):

@@ -69,7 +69,7 @@ def test_port_file_scan_covers_the_new_modules():
         "train_rl_mpc_tpu", "cuda_graph", "planar_drone")} <= names
     assert {f"biped_pympc_tpu_torch/{m}.py" for m in (
         "models/chain", "models/urdf", "models/t1", "parallel/mesh", "utils/profiling",
-        "utils/viz")} <= names
+        "utils/viz", "utils/cuda_graph")} <= names
     assert {"bench_common", "ab_roofline", "bench_synthetic"} <= BENCH_MODULES
 
 
@@ -669,8 +669,9 @@ def test_tape_segments_give_the_bits_of_one_kernel_on_card():
 def test_captured_rollout_equals_eager_on_card(solver):
     """One MPC cycle captured as a CUDA graph and replayed
     (`examples/tpu_rollout.Rollout`) gives the eager cycles' bits; the host
-    counts K1 / K5b only in the warm-up and the capture, and a second call
-    replays from the carry it is given."""
+    counts K1 / K5b only in the warm-up and the capture, the kernel counts
+    itself in the warm-up and once a replayed cycle (`pdipm_cuda.runs`), and
+    a second call replays from the carry it is given."""
     _card()
     from biped_pympc_tpu_torch.examples import tpu_rollout
 
@@ -680,12 +681,107 @@ def test_captured_rollout_equals_eager_on_card(solver):
     _, want = eager(carry)
     want = want.clone()
     graph, _ = tpu_rollout.make_rollout(core, 0.0301)
-    before = dict(pdipm_cuda.launches)
+    before, ran = dict(pdipm_cuda.launches), pdipm_cuda.runs()
     _, got = graph(carry)
     torch.cuda.synchronize()
     route = pdipm_cuda.route(core.opts)
     assert graph.loop.graph is not None and cycles == 3
     assert pdipm_cuda.launches == {**before, route: before[route] + 2}
+    assert pdipm_cuda.runs() == {**ran, route: ran[route] + 1 + cycles}
     assert torch.equal(got, want)
     _, again = graph(carry)
     assert torch.equal(again, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pallas_ric_aug", "pallas_hybrid"])
+def test_captured_wrapper_equals_eager_core_on_card(solver):
+    """`MPCController`'s calls, each a CUDA graph captured at its first use
+    and replayed, give the bits of the core's eager methods on a clone of the
+    state over two periods with a reset; every call is a replayed graph; and
+    a replayed run_mpc runs K1 once (K1 and K2 in the hybrid), as the
+    kernels count themselves, and issues nothing from the host."""
+    _card()
+    from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController
+    from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
+
+    nb = 64
+    ctrl = MPCController(ControllerConf(), MPCConf(solver=solver, verbose=False), num_envs=nb,
+                         gait_id=2, device="cuda")
+    core = ctrl.core
+    obs = torch.zeros(nb, 43, device="cuda")
+    obs[:, 2], obs[:, 3] = 0.55, 1.0
+    obs[:, 13:18] = obs[:, 18:23] = torch.tensor([0.0, 0.0, 0.45, -0.9, 0.45], device="cuda")
+    twist = torch.tensor([0.3, 0.0, 0.0], device="cuda").expand(nb, 3)
+    height = torch.full((nb,), 0.55, device="cuda")
+    est = tree_map(torch.clone, ctrl.state)
+    ctrl.set_command(twist, height)
+    core.set_command(est, twist, height)
+    mask = torch.zeros(nb, dtype=torch.bool, device="cuda")
+    mask[[1, 2]] = True
+    for step in range(20):
+        if step == 10:
+            ctrl.reset([1, 2])
+            core.reset(est, mask)
+        ctrl.update_state(obs)
+        core.ingest_state(est, obs)
+        if step % 10 == 0:
+            ctrl.run_mpc()
+            core.run_mpc(est)
+        ctrl.run_lowlevel()
+        core.run_lowlevel(est)
+        assert torch.equal(ctrl.get_action(), core.joint_torque(est)), step
+    theirs = dict(leaves(est))
+    for path, t in leaves(ctrl.state):
+        assert torch.equal(t, theirs[path]), path
+    assert all(loop.graph is not None for loop in ctrl.graphs.values()) and len(ctrl.graphs) == 6
+    before, ran = dict(pdipm_cuda.launches), pdipm_cuda.runs()
+    ctrl.run_mpc()
+    after = {k: n - ran[k] for k, n in pdipm_cuda.runs().items() if n != ran[k]}
+    assert after == ({"ric_aug": 1} if solver == "pallas_ric_aug" else {"ric_aug": 1, "ric": 1})
+    assert pdipm_cuda.launches == before
+
+
+# The batched LU of solver="dense" at its size on the main path: b4096, the
+# (nz + ne)-wide KKT of horizon 10 (24 * 10 + 14 * 10 = 380), f32.
+LU_BATCH, LU_WIDTH = 4096, 380
+
+
+@pytest.mark.cuda
+def test_dense_lu_cannot_be_captured_on_card():
+    """The reason `wrapper.eager_run_mpc` keeps `solver="dense"`'s run_mpc
+    eager: `torch.linalg.lu_factor_ex` under torch's default linear-algebra
+    backend (MAGMA's batched LU at this width) cannot be captured in a CUDA
+    graph. The capture runs in a process of its own, since a refused capture
+    can leave the process's CUDA context unusable; a torch whose LU can be
+    captured fails this test, and the rule should then go."""
+    _card()
+    import subprocess
+    import sys
+
+    code = f"""
+import torch
+dev = torch.device("cuda")
+m = torch.randn({LU_BATCH}, {LU_WIDTH}, {LU_WIDTH}, device=dev)
+m += {LU_WIDTH} * torch.eye({LU_WIDTH}, device=dev)
+side = torch.cuda.Stream()
+side.wait_stream(torch.cuda.current_stream())
+with torch.cuda.stream(side):
+    torch.linalg.lu_factor_ex(m, check_errors=False)
+torch.cuda.current_stream().wait_stream(side)
+torch.cuda.synchronize()
+graph = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(graph):
+        torch.linalg.lu_factor_ex(m, check_errors=False)
+    graph.replay()
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("refused")
+else:
+    print("captured")
+"""
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    lines = run.stdout.split()
+    assert lines and lines[-1] == "refused", (run.returncode, run.stdout, run.stderr[-2000:])

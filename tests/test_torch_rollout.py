@@ -235,6 +235,10 @@ def _kernel_path(monkeypatch):
                                                         res.residuals)))
 
     monkeypatch.setattr(pdipm_cuda, "solve", solve)
+    # The stand-in's launches count in copies, not in the process's counts
+    # that other tests of the same worker read.
+    monkeypatch.setattr(pdipm_cuda, "launches", dict(pdipm_cuda.launches))
+    monkeypatch.setattr(pdipm_cuda, "warp_launches", dict(pdipm_cuda.warp_launches))
 
 
 @pytest.mark.parametrize("solver", ["pallas_ric_aug", "tridiag_aug"])
