@@ -9,10 +9,14 @@ fields, so no second copy of the state is built per tick):
     run_mpc      : state -> MpcOutput             (every `decimation` ticks)
     run_lowlevel : state                          (1 kHz)
     joint_torque : state -> (B, 2 * dof)
+    control_step : (state, obs, twist, height) -> (tau, MpcOutput), the
+                   whole tick with the solve; on the card one CUDA graph
 """
 
 from __future__ import annotations
 
+import copy
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -22,6 +26,8 @@ from biped_pympc_tpu_torch.control import estimator, gait, legs, mpc, swing
 from biped_pympc_tpu_torch.models.robot import RobotSpec, get_robot
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
+from biped_pympc_tpu_torch.utils import cuda_graph
+from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
 
 # Route of each solver name (`biped_pympc_tpu/control/controller.py:121`);
 # "pallas_hybrid" runs the condensed route first and re-solves with "ric_aug".
@@ -33,9 +39,9 @@ def solver_options(c: MPCConf) -> PdipmOptions:
     """The PDIPM options of an MPCConf, mapped as the JAX controller maps them
     (`biped_pympc_tpu/control/controller.py:121-147`): the foot split only
     on "ric" / "ric_aug", the KKT scaling as it is, and the foot packing
-    (ROADMAP Queue 2, item 3 (K5e)) only for a "pallas_*" name with the split
-    on and a "ric" / "ric_aug" route, keeping its value (True or "apply");
-    every other field at its default."""
+    (K5e: PERF.md section 6, its K5e rows) only for a "pallas_*" name with
+    the split on and a "ric" / "ric_aug" route, keeping its value (True or
+    "apply"); every other field at its default."""
     if c.solver not in SOLVERS:
         raise ValueError(f"unknown MPCConf.solver {c.solver!r}; expected one of {SOLVERS}")
     backend = _BACKEND.get(c.solver, c.solver)
@@ -93,6 +99,75 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def eager_run_mpc(core: "BipedControllerCore") -> str | None:
+    """Why `run_mpc` of this controller runs eagerly on the card, or None
+    when it is captured, by a static rule on the configuration:
+    `solver="dense"` with `adaptive_tol > 0`, whose plain adaptive loop
+    (`pdipm.solve_adaptive_batch`) decides on the host after each chunk
+    whether to go on. With `adaptive_tol == 0` `dense` is captured: its
+    batched LU and solve run under cuSOLVER (`pdipm._factor_dense`), which
+    a capture takes, not under torch's default for matrices wider than 16,
+    MAGMA, which a capture refuses (`tests/test_torch_port_rules.py::
+    test_dense_lu_cannot_be_captured_on_card`)."""
+    if core.opts.backend != "dense" or core.mpc_cfg.adaptive_tol <= 0.0:
+        return None
+    return ("solver='dense' with adaptive_tol > 0: its plain adaptive loop decides on the host "
+            "after each chunk whether to go on")
+
+
+def _signature(state: ControllerState, *inputs) -> tuple:
+    """Structure, shapes, dtypes and devices of a state and the inputs: what
+    a captured graph was captured for."""
+    return (tuple((p, t.shape, t.dtype, t.device) for p, t in leaves(state))
+            + tuple((t.shape, t.dtype, t.device) for t in inputs))
+
+
+def _set_leaf(state, path: str, value: torch.Tensor) -> None:
+    *parents, name = path[1:].split(".")
+    for field in parents:
+        state = getattr(state, field)
+    setattr(state, name, value)
+
+
+class _CapturedStep:
+    """`control_step` of one signature as a CUDA graph (`LoopStep`): the graph
+    owns its carry, a copy of the state it was first called with, and its
+    input buffers (obs, twist, height). A call copies the caller's state and
+    inputs in, replays, and gives the caller's state a copy of every leaf
+    the step replaces, as the eager step replaces them; the caller's own
+    tensors are never written. Returns tau (a copy) and the graph's own
+    MpcOutput (a new object over the graph's tensors, which the next replay
+    overwrites)."""
+
+    def __init__(self, core, state, obs, twist, height):
+        self.signature = _signature(state, obs, twist, height)
+        self.inputs = tuple(t.clone() for t in (obs, twist, height))
+        carry = tree_map(torch.clone, state)
+        inputs, replaced = self.inputs, []
+        # The step holds the core weakly: the core holds its graphs, and a
+        # cycle through them would wait for a garbage collection to free it.
+        body = weakref.WeakMethod(core._control_step)
+
+        def step(work):
+            out = body()(work, *inputs)
+            replaced[:] = [p for (p, w), (_, c) in zip(leaves(work), leaves(carry)) if w is not c]
+            return out
+
+        self.replaced = replaced
+        self.loop = cuda_graph.LoopStep(step, carry, graph=True)
+
+    def __call__(self, state, obs, twist, height):
+        cuda_graph.copy_into(self.loop.carry, state)
+        for buf, x in zip(self.inputs, (obs, twist, height)):
+            buf.copy_(x)
+        self.loop()
+        carry = dict(leaves(self.loop.carry))
+        for path in self.replaced:
+            _set_leaf(state, path, carry[path].clone())
+        tau, out = self.loop.out
+        return tau.clone(), copy.copy(out)
+
+
 class BipedControllerCore:
     """Static configuration and the batched step functions. `device` None
     selects the card (`resolve_device`)."""
@@ -114,6 +189,9 @@ class BipedControllerCore:
         self._r_weights = t(mpc_cfg.R)
         self._hips = torch.stack([self.robot.hip_horizontal_location(leg, dtype, self.device)
                                   for leg in (0, 1)])
+        # control_step is captured on the card (and eager on the CPU).
+        self._capture = self.device.type == "cuda"
+        self._graphs: dict[tuple, _CapturedStep] = {}
 
     def init_state(self, batch: int) -> ControllerState:
         dt, dev = self.dtype, self.device
@@ -239,7 +317,44 @@ class BipedControllerCore:
         return legs.joint_torque(self.robot, state.leg_data, state.leg_cmd)
 
     def control_step(self, state: ControllerState, obs, twist, height):
-        """One full tick including the MPC solve; returns (tau, MpcOutput)."""
+        """One full tick including the MPC solve (set_command, ingest_state,
+        run_mpc, run_lowlevel, joint_torque); returns (tau, MpcOutput) and
+        replaces the state's leaves as those calls do.
+
+        On the card it is the counterpart of the JAX core's jitted
+        `control_step`: one CUDA graph for each batch size and dtype,
+        captured at its first call (`utils/cuda_graph.LoopStep`, after a
+        warm-up on a side stream) and replayed at every later one. The
+        graph owns a copy of the state and of the inputs: a call copies the
+        caller's state and inputs in, replays, and gives the caller's state
+        a new tensor for every leaf the step replaces, so the state after
+        the call holds the eager call's bits and no tensor the caller held
+        changes. tau is the caller's own; the MpcOutput's tensors are the
+        graph's, valid until the next call of the same batch and dtype (as
+        the wrapper's `run_mpc` output). A state of another structure (the
+        learned residuals on or off) or of other shapes drops the graph and
+        captures a new one. A failed capture raises.
+
+        On the CPU and inside a capture (`cuda_graph.capturing()`: the call
+        is recorded into the graph being built) it runs eagerly, as it does
+        on the card where `eager_run_mpc` names a reason."""
+        if not self._capture or cuda_graph.capturing() or eager_run_mpc(self):
+            return self._control_step(state, obs, twist, height)
+        key = (obs.shape[0], obs.dtype)
+        step = self._graphs.get(key)
+        if step is None or step.signature != _signature(state, obs, twist, height):
+            self._graphs.pop(key, None)
+            step = self._graphs[key] = _CapturedStep(self, state, obs, twist, height)
+        return step(state, obs, twist, height)
+
+    @property
+    def graphs(self) -> dict:
+        """{(batch, dtype): captured control_step} of this core; `.loop` is
+        its LoopStep (`pool_bytes`)."""
+        return dict(self._graphs)
+
+    def _control_step(self, state: ControllerState, obs, twist, height):
+        """The tick run eagerly: what the graph captures, and its reference."""
         self.set_command(state, twist, height)
         self.ingest_state(state, obs)
         out = self.run_mpc(state)

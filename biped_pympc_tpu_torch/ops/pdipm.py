@@ -75,6 +75,7 @@ recursion is sequential (the y-chain, the Thomas factor and the sweeps).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
 from typing import Callable
 
@@ -695,12 +696,32 @@ def _solve_thomas(qp: StageQP, fac: _ThomasFactors, r1, r_z, r4):
     return dx, dz, dy
 
 
+@contextlib.contextmanager
+def _cusolver(t: torch.Tensor):
+    """On the card, torch's LU and LU solve under cuSOLVER (at the dense
+    route's width and batch, cuBLAS's batched getrf and getrs), which a CUDA
+    graph capture takes, instead of torch's default for matrices wider than
+    16, MAGMA's batched LU, which a capture refuses; eager and captured
+    calls then run the same library and give the same bits. The preferred
+    library is restored on the way out, so no other call sees the switch.
+    On the CPU (LAPACK) nothing changes."""
+    if t.device.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+
+
 def _factor_dense(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
     """LU of the condensed reduced KKT [[H + beta + G^T W^-1 G, A^T], [A,
     -delta I]], (nz + ne) wide, variables [x (12 T), u (12 T), y (ne)]
-    (`biped_pympc_tpu/ops/pdipm.py:252`). Like JAX's `lu_factor` it checks
-    nothing: a singular matrix gives non-finite values, and no check waits
-    for the device."""
+    (`biped_pympc_tpu/ops/pdipm.py:252`), under cuSOLVER on the card
+    (`_cusolver`). Like JAX's `lu_factor` it checks nothing: a singular
+    matrix gives non-finite values, and no check waits for the device."""
     T, nz, ne = qp.horizon, qp.nz, qp.n_eq
     hd = qps.h_diag(qp) + opts.beta
     m = torch.diag_embed(torch.cat([hd, hd.new_full((hd.shape[0], ne), -opts.delta)], dim=1))
@@ -714,14 +735,17 @@ def _factor_dense(qp: StageQP, w_inv: torch.Tensor, opts: PdipmOptions):
     a = qps.dense_a(qp)
     m[:, nz:, :nz] = a
     m[:, :nz, nz:] = a.transpose(-1, -2)
-    lu, piv, _ = torch.linalg.lu_factor_ex(m, check_errors=False)
+    with _cusolver(m):
+        lu, piv, _ = torch.linalg.lu_factor_ex(m, check_errors=False)
     return lu, piv
 
 
 def _solve_dense(qp: StageQP, factors, r1_hat, r4):
-    """(dx, no z, dy) of the condensed reduced system (`pdipm.py:277`)."""
+    """(dx, no z, dy) of the condensed reduced system (`pdipm.py:277`),
+    under cuSOLVER on the card."""
     lu, piv = factors
-    sol = torch.linalg.lu_solve(lu, piv, torch.cat([r1_hat, r4], dim=1)[..., None])[..., 0]
+    with _cusolver(lu):
+        sol = torch.linalg.lu_solve(lu, piv, torch.cat([r1_hat, r4], dim=1)[..., None])[..., 0]
     return sol[:, :qp.nz], r1_hat.new_zeros(r1_hat.shape[0], 0), sol[:, qp.nz:]
 
 

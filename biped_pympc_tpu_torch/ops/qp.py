@@ -154,7 +154,7 @@ def a_matvec(qp: StageQP, zvec: torch.Tensor) -> torch.Tensor:
     nb = zvec.shape[0]
     prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     dyn_rows = x - prev @ qp.dyn.A.transpose(-1, -2) - u @ qp.dyn.B.transpose(-1, -2)
-    mx_rows = u[:, :, list(_MX_COLS)]
+    mx_rows = torch.stack([u[:, :, _MX_COLS[0]], u[:, :, _MX_COLS[1]]], dim=-1)
     return torch.cat([dyn_rows.reshape(nb, -1), mx_rows.reshape(nb, -1)], dim=1)
 
 

@@ -5,9 +5,10 @@ The JAX package shards the env batch over a device mesh. Here the mesh is a
 process group: each rank is one process that owns a contiguous shard of the
 envs, and their state, on its own device (the card `cuda:<local rank>`, or
 the CPU when asked). Every env's MPC solve is independent, so the sharded
-step has no collective on its hot path. Only metrics cross ranks: with
-metrics, the mean cost is all-reduced and the hybrid's counters summed, and
-`metrics_summary` gathers a (B,) metric.
+step has no collective on its hot path: on the card each rank's step is one
+replay of its core's captured `control_step`. Only metrics cross ranks: with
+metrics, the mean cost and the hybrid's counters are summed in one
+all-reduce after the replay, and `metrics_summary` gathers a (B,) metric.
 
 On the card, start one process per card with torchrun, which sets RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
@@ -89,11 +90,15 @@ def controller_step(core, mesh: Mesh, with_metrics: bool = False):
     mesh's device: step(state, obs, twist, height) runs `core.control_step`
     on this rank's shard (the state's, obs's, twist's and height's leading
     axis are the shard's envs) and returns (tau, MpcOutput), with no
-    collective. The hybrid's counters are per shard, so they are dropped
-    there (`mesh.py:87-102`). With `with_metrics` it also returns the global
-    mean cost (the mean of the shards' means, all-reduced) or, in the
+    collective. On the card that is one replay of the core's captured graph
+    for the shard's batch (the JAX step jits it under `shard_map`); with
+    gloo on the CPU it runs eagerly. The hybrid's counters are per shard, so
+    they are dropped there (`mesh.py:87-102`). With `with_metrics` it also
+    returns the global mean cost (the mean of the shards' means) or, in the
     hybrid mode, (mean cost, counters summed over ranks), the counters moved
-    out of the MpcOutput."""
+    out of the MpcOutput: both in one all-reduce after the replay, outside
+    the graph, the counters carried in the cost's dtype (exact below 2^24
+    envs)."""
     if core.device != mesh.device:
         raise ValueError(f"the controller runs on {core.device}, the mesh's shard on "
                          f"{mesh.device}")
@@ -103,14 +108,13 @@ def controller_step(core, mesh: Mesh, with_metrics: bool = False):
         counts, out.hybrid_counts = out.hybrid_counts, None
         if not with_metrics:
             return tau, out
-        mean_cost = out.cost.mean()
-        dist.all_reduce(mean_cost, group=mesh.group)
-        mean_cost = mean_cost / mesh.world
+        cost = out.cost.mean()[None]
+        packed = cost if counts is None else torch.cat([cost, counts.to(cost.dtype)])
+        dist.all_reduce(packed, group=mesh.group)
+        mean_cost = packed[0] / mesh.world
         if counts is None:
             return tau, out, mean_cost
-        counts = counts.clone()
-        dist.all_reduce(counts, group=mesh.group)
-        return tau, out, (mean_cost, counts)
+        return tau, out, (mean_cost, packed[1:].to(counts.dtype))
 
     return step
 

@@ -19,6 +19,12 @@ launch (`pdipm_cuda.launches`): the warm-up's launches and the capture's,
 which records them into the graph, count so; a replay issues none. The
 PDIPM kernels also count themselves on the device (`pdipm_cuda.runs`), and
 those counts read every launch that ran: the warm-up's and each replay's.
+
+A step that is itself captured at its own first call
+(`BipedControllerCore.control_step`) runs inline when `capturing()`: inside
+a LoopStep's warm-up or capture, or any CUDA graph capture, it is recorded
+into the graph being built, as a jitted function called inside another jit
+is traced into it.
 """
 
 from __future__ import annotations
@@ -29,7 +35,18 @@ import torch
 
 from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
 
-__all__ = ["LoopStep", "copy_into", "leaves", "tree_map"]
+__all__ = ["LoopStep", "capturing", "copy_into", "leaves", "tree_map"]
+
+# LoopSteps warming up or capturing their step (`capturing`).
+_building = 0
+
+
+def capturing() -> bool:
+    """Whether a LoopStep is warming up or capturing its step, or a CUDA
+    graph is being captured on the current stream: a call then runs inline,
+    into the graph being built."""
+    return _building > 0 or (torch.cuda.is_available()
+                             and torch.cuda.is_current_stream_capturing())
 
 
 def copy_into(dst, src) -> None:
@@ -88,6 +105,14 @@ class LoopStep:
 
     def _capture(self, device) -> None:
         """Warm up on a side stream, put the carry back as it was, capture."""
+        global _building
+        _building += 1
+        try:
+            self._warm_up_and_capture(device)
+        finally:
+            _building -= 1
+
+    def _warm_up_and_capture(self, device) -> None:
         saved = tree_map(torch.clone, self.carry)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))

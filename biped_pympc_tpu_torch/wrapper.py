@@ -39,9 +39,10 @@ writes fixed addresses, so:
 On the CPU the same plumbing runs eagerly (input buffers, a working copy of
 the state, the replaced leaves copied back), without the replay. A failed
 capture raises; nothing falls back to the eager call. The one mode whose
-`run_mpc` is not captured, `solver="dense"`, is named by a static rule,
-`eager_run_mpc`, with its reason. The eager calls are the core's methods:
-`ctrl.core.run_mpc(state)` and so on.
+`run_mpc` is not captured, `solver="dense"` with `adaptive_tol > 0`, is
+named by a static rule, `eager_run_mpc` (`control/controller.py`), with its
+reason. The eager calls are the core's methods: `ctrl.core.run_mpc(state)`
+and so on.
 """
 
 from __future__ import annotations
@@ -55,29 +56,11 @@ import torch
 
 from biped_pympc_tpu_torch.config import ControllerConf, MPCConf
 from biped_pympc_tpu_torch.control import gait, swing
-from biped_pympc_tpu_torch.control.controller import BipedControllerCore, ControllerState
+from biped_pympc_tpu_torch.control.controller import (BipedControllerCore, ControllerState,
+                                                      eager_run_mpc)
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
 from biped_pympc_tpu_torch.utils.consts import const
 from biped_pympc_tpu_torch.utils.cuda_graph import LoopStep, tree_map
-
-
-def eager_run_mpc(core: BipedControllerCore) -> str | None:
-    """Why `run_mpc` of this controller runs eagerly on the card, or None
-    when it is captured, by a static rule on the configuration.
-    `solver="dense"` is plain torch: `torch.linalg.lu_factor_ex` of its
-    (nz + ne)-wide KKT runs MAGMA's batched LU on the card, torch's choice
-    for matrices wider than 16, which a CUDA graph capture refuses (the
-    capture is invalidated; `tests/test_torch_port_rules.py::
-    test_dense_lu_cannot_be_captured_on_card` holds this at the main path's
-    size); with `adaptive_tol > 0` its plain
-    adaptive loop (`pdipm.solve_adaptive_batch`) also decides on the host
-    after each chunk whether to go on."""
-    if core.opts.backend != "dense":
-        return None
-    return ("solver='dense' is plain torch: torch.linalg.lu_factor_ex runs MAGMA's batched LU "
-            "on the card, which a CUDA graph capture refuses"
-            + ("; its adaptive loop decides on the host after each chunk"
-               if core.mpc_cfg.adaptive_tol > 0.0 else ""))
 
 
 class MPCController:

@@ -79,7 +79,14 @@ kernel counts it and as the profiler sees it, and issues nothing from the
 host, and that a result the caller holds does not change,
 and prints the device events, idle share and ms of a tick, `run_mpc` and a
 period captured and eager in turns, the graphs' pool bytes, the T1-newton
-tick and the `dense` mode, whose `run_mpc` stays eager by a static rule.
+tick and the `dense` mode, whose `run_mpc` is captured with its LU under
+cuSOLVER. `BipedControllerCore.control_step`, the whole tick with the solve,
+is one CUDA graph captured at its first call (`control_step_phase`,
+`[control_step graph]`, also in `--wrapper`): ten calls, each on a new state
+cloned from a rolling eager run, bit for bit the eager step for HECTOR on
+K1, the hybrid and the T1, K1 once a replay as the kernel counts it and as
+the profiler sees it, the ms captured and eager in turns, the device events,
+idle share and pool bytes.
 The closed loop (`biped_pympc_tpu_torch/examples/`, `closed_loop_phases`;
 `--closed-loop` runs it alone after the build): 4096 HECTOR bipeds walking
 with K1, one MPC cycle captured as a CUDA graph and replayed for 120 cycles
@@ -87,7 +94,9 @@ with K1, one MPC cycle captured as a CUDA graph and replayed for 120 cycles
 criteria, K1 once a replayed cycle by the profiler, ms a cycle graph and
 eager, the device's idle share), the RL device env's captured step against
 its eager one and an ARS update, `simulate` on K5b against the rollout's
-first cycle, and `solver="dense"` (plain torch) against the CPU at f64;
+first cycle, and `solver="dense"` (plain torch, its LU under cuSOLVER)
+against the CPU at f64, with its LU timed under torch's default and under
+cuSOLVER in turns;
 one eager tick with the solve runs under the sync debug mode. The Booster
 T1 (`t1_phases`; `--t1-extras` runs it and the next phases alone after the
 build): `MPCController` with `recommended_conf("T1")` on K1 at b4096 against
@@ -96,8 +105,9 @@ the exact observation IK, one cycle captured and replayed for 2.5 s (its
 first cycles bit for bit the eager ones, JAX's T1 walk criteria on every
 env, the device events and K1 a replayed cycle). Then (`extras_phases`)
 `ric_aug_core` (plain torch on the card) against the CPU at f64, a one-rank
-NCCL mesh (`parallel/mesh.py`: the sharded step, its metrics and one
-sharded training iteration bit for bit the unsharded ones) and the planar
+NCCL mesh (`parallel/mesh.py`: the sharded step, each a replay of the core's
+captured control_step, its metrics and one sharded training iteration bit
+for bit the unsharded ones) and the planar
 drone's region of attraction and sweeps. It exits non-zero without a
 result when no CUDA device is visible. The last line is a JSON object
 naming the device.
@@ -1072,6 +1082,21 @@ def bench_twins(label: str, k8_libs: dict) -> list:
           f"{sum(k8['turns'][K8_OPS[-1], torch.float32, K8_BATCH][1:3]) / 2:.4f} ms) vs plain "
           f"{k8['plain_ms']:.3f} ms")
 
+    # K7's own ceiling, the shared-memory pipe it measures: 3 loads and 1
+    # store of 4 B an entry and pass, at 128 B a cycle an SM, on as many SMs
+    # as its STREAM_TILE-entry blocks fill.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pipe = 128 * sms * sm_clock_mhz() * 1e6
+    k7_bytes = 16 * n7 * ar.STREAM_ITERS
+    pipe_ms = k7_bytes / pipe * 1e3
+    blocks = -(-n7 // 1024)
+    pipe_blocks_ms = pipe_ms * sms / min(blocks, sms)
+    print(f"[K7 pipe] {label}: {n7} entries x {ar.STREAM_ITERS} passes x 16 B = "
+          f"{k7_bytes / 1e9:.1f} GB through shared memory; the pipe 128 B a cycle an SM x {sms} "
+          f"SMs at the largest SM clock = {pipe / 1e12:.1f} TB/s; bound {pipe_ms:.3f} ms, "
+          f"{pipe_blocks_ms:.3f} ms on the {min(blocks, sms)} SMs its {blocks} blocks fill; K7 "
+          f"{k7_ms:.3f} ms reaches {pipe_blocks_ms / k7_ms:.1%} of it")
+
     def entry(name, source, replaces, launches_, err, ms, plain_ms, bound_):
         return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/{source}",
                 "replaces": replaces, "launches": launches_, "max_abs_err": err, "ms": ms,
@@ -1309,8 +1334,9 @@ def t1_phases(label: str, dev) -> dict:
 
 def extras_phases(label: str, dev, qp32, qp64) -> dict:
     """`[ric_aug_core]` the scaled Riccati core (plain torch on the card)
-    against the CPU; `[mesh]` a one-rank NCCL group: the sharded control step,
-    the metrics and one sharded ARS iteration against the unsharded ones;
+    against the CPU; `[mesh]` a one-rank NCCL group: the sharded control step
+    (a replay of the core's captured control_step), the metrics and one
+    sharded ARS iteration against the unsharded ones;
     `[drone]` the planar drone's region of attraction and sweeps. Returns the
     K1 launches of the mesh's controller steps and the times."""
     import tempfile
@@ -1323,6 +1349,7 @@ def extras_phases(label: str, dev, qp32, qp64) -> dict:
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
     from biped_pympc_tpu_torch.ops import qp as qps
     from biped_pympc_tpu_torch.parallel import mesh as pmesh
+    from biped_pympc_tpu_torch.utils.tree import leaves
 
     out = {}
     # ric_aug_core: no kernel, the plain version on the card, at f64 against
@@ -1384,18 +1411,26 @@ def extras_phases(label: str, dev, qp32, qp64) -> dict:
                       torch.tensor([[0.3, 0.0, 0.0]], device=dev).expand(B, 3).contiguous(),
                       torch.full((B,), 0.55, device=dev))
             pdipm_cuda.reset_counts()
-            tau_u, out_u = core.control_step(core.init_state(B), *inputs)
+            full = core.init_state(B)
+            tau_u, out_u = core._control_step(full, *inputs)
             same = {}
             for with_metrics in (False, True):
                 state = pmesh.shard_state(core.init_state(B), mesh)
                 ret = pmesh.controller_step(core, mesh, with_metrics)(
                     state, *pmesh.shard_state(inputs, mesh))
-                same[f"tau {with_metrics}"] = bool(torch.equal(ret[0], tau_u))
-                same[f"wrench {with_metrics}"] = bool(torch.equal(ret[1].wrench, out_u.wrench))
+                same[f"tau {with_metrics}"] = same_bits(ret[0], tau_u)
+                same[f"wrench {with_metrics}"] = same_bits(ret[1].wrench, out_u.wrench)
+                same[f"state {with_metrics}"] = all(
+                    same_bits(t, u) for (_, t), (_, u) in zip(leaves(state), leaves(full)))
                 if with_metrics:
-                    same["mean cost"] = bool(torch.equal(ret[2], out_u.cost.mean()))
+                    same["mean cost"] = same_bits(ret[2], out_u.cost.mean())
             torch.cuda.synchronize()
-            m_launches = pdipm_cuda.launches["ric_aug"]
+            # K1 as it counts itself on the device: the eager step, the
+            # graph's warm-up and its two replays; the host issued the eager
+            # step's, the warm-up's and the capture's.
+            m_launches = pdipm_cuda.runs()["ric_aug"]
+            m_issued = pdipm_cuda.launches["ric_aug"]
+            graphs = list(core.graphs)
             summary = pmesh.metrics_summary(out_u.cost, mesh)
             for key, want in (("mean", out_u.cost.mean()), ("max", out_u.cost.amax()),
                               ("p50", torch.quantile(out_u.cost, 0.5))):
@@ -1407,11 +1442,16 @@ def extras_phases(label: str, dev, qp32, qp64) -> dict:
             same["train w"] = bool(np.array_equal(w_mesh, w_ref))
             print(f"[mesh] {label}: one NCCL rank on {mesh.device} (more ranks wait for a "
                   f"machine with more cards): controller_step b{B} pallas_ric_aug with and "
-                  f"without metrics, metrics_summary (mean, max, quantile 0.5) and one "
-                  f"train(mesh=..., iters=1) iteration bitwise the unsharded ones: {same}; K1 "
-                  f"launches over the three steps {m_launches}")
+                  f"without metrics, each a replay of the core's captured control_step "
+                  f"(graphs {graphs}; the metrics one all-reduce after it), metrics_summary "
+                  f"(mean, max, quantile 0.5) and one train(mesh=..., iters=1) iteration "
+                  f"bitwise the unsharded ones (the eager step): {same}; K1 ran {m_launches} "
+                  f"(the kernel's count: the eager step, the warm-up, two replays), issued "
+                  f"{m_issued}")
             check(all(same.values()), "the sharded runs differ from the unsharded ones")
-            check(m_launches == 3, "the mesh's steps did not launch K1 once each")
+            check(graphs == [(B, torch.float32)], f"the mesh's steps made graphs {graphs}")
+            check(m_launches == 4 and m_issued == 3,
+                  "the mesh's steps did not run K1 once each as one graph's replays")
             out["mesh_launches"] = m_launches
         finally:
             dist.destroy_process_group()
@@ -1671,15 +1711,30 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
               for n in "xszy")
     _, dense_ms = timed_once(lambda: pdipm_cuda.solve(qp32, dense))
     nz, ne = qp32.nz, qp32.n_eq
+    # The LU alone, torch's default library (MAGMA's batched LU at this
+    # width) and cuSOLVER (`pdipm._cusolver`, the dense route's) in turns, on
+    # a diagonally dominant random batch of the route's width.
+    g = torch.Generator(device=dev).manual_seed(0)
+    m = torch.randn(B, nz + ne, nz + ne, device=dev, generator=g)
+    m += (nz + ne) * torch.eye(nz + ne, device=dev)
+
+    def lu_under(cusolver):
+        with pdipm._cusolver(m) if cusolver else contextlib.nullcontext():
+            torch.linalg.lu_factor_ex(m, check_errors=False)
+
+    lu_turns = [timed_once(lambda: lu_under(c))[1] for c in (False, True, True, False)]
     print(f"[dense] {label}: b{DENSE_ENVS} f64 on the card vs the CPU, converged envs "
           f"{int(cv.sum())}: max |dx,ds,dz,dy| {rel:.3e} relative to max(1, |v|) (bound "
           f"{CONDENSED_F64_RTOL:g}); the plain ric route vs dense on the card {wit:.3e} "
-          f"(printed); kernel launches {d_launches}; b{B} f32 one solve {dense_ms:.1f} ms "
-          f"(batched LU of {nz + ne}-wide matrices, {B * (nz + ne) ** 2 * 4 / 1e9:.2f} GB)")
+          f"(printed); kernel launches {d_launches}; b{B} f32 one solve {dense_ms:.1f} ms, its "
+          f"LU and solves under cuSOLVER (batched LU of {nz + ne}-wide matrices, "
+          f"{B * (nz + ne) ** 2 * 4 / 1e9:.2f} GB); the LU alone in turns, torch's default "
+          f"(MAGMA) / cuSOLVER / cuSOLVER / default: "
+          + " ".join(f"{t:.1f}" for t in lu_turns) + " ms")
     check(int(cv.sum()) >= DENSE_ENVS // 10, "dense: too few converged envs")
     check(rel <= CONDENSED_F64_RTOL, "dense on the card differs from the CPU")
     check(d_launches == 0, "the dense route launched a kernel")
-    out.update(dense_ms=dense_ms)
+    out.update(dense_ms=dense_ms, lu_turns=lu_turns)
     return out
 
 
@@ -1689,7 +1744,7 @@ def closed_loop_phases(label: str, dev, qp32, qp64) -> dict:
 # tick timed WRAPPER_REPS times a turn, run_mpc and the period fewer.
 WRAPPER_PERIODS = 2
 WRAPPER_REPS = 20
-# The dense mode's run_mpc, eager by the wrapper's static rule, at this batch.
+# The dense mode's run_mpc, captured with its LU under cuSOLVER, at this batch.
 DENSE_WRAPPER_ENVS = 256
 
 
@@ -1713,6 +1768,38 @@ def in_turns(graph_fn, eager_fn, reps: int) -> tuple:
     return (g1, g2), (e1, e2)
 
 
+def controller_confs(robot_name="HECTOR", **kw) -> tuple:
+    """(ControllerConf, MPCConf) of the wrapper and control_step phases:
+    HECTOR's defaults, the T1's `recommended_conf` on K1; `kw` over them."""
+    from biped_pympc_tpu_torch import ControllerConf, MPCConf, recommended_conf
+
+    if robot_name == "HECTOR":
+        cconf, base = ControllerConf(), {}
+    else:
+        cconf, base = recommended_conf(robot_name)
+        base = {**base, "solver": "pallas_ric_aug"}
+    return cconf, MPCConf(**{**base, "verbose": False, **kw})
+
+
+def controller_inputs(robot_name, nb, dev) -> tuple:
+    """(obs, twist, height): standing, commanded to walk at 0.3 m/s."""
+    import torch
+    from biped_pympc_tpu_torch.examples import srbd_plant
+    from biped_pympc_tpu_torch.models import robot as robots
+
+    twist = torch.zeros(nb, 3, device=dev)
+    twist[:, 0] = 0.3
+    if robot_name == "HECTOR":
+        return torch.tensor(hector_obs(nb), device=dev), twist, torch.full((nb,), 0.55,
+                                                                           device=dev)
+    robot = robots.get_robot(robot_name)
+    x0 = torch.zeros(nb, 12, device=dev)
+    x0[:, 5] = T1_HEIGHT
+    obs, _ = srbd_plant.assemble_obs(robot, x0, srbd_plant.nominal_feet(
+        robot, nb, torch.float32, dev))
+    return obs, twist, torch.full((nb,), T1_HEIGHT, device=dev)
+
+
 def wrapper_phase(label: str, dev) -> dict:
     """`[wrapper graph]`: `MPCController`'s calls, each captured as a CUDA
     graph at its first use and replayed, against `ctrl.core`'s eager methods
@@ -1725,44 +1812,26 @@ def wrapper_phase(label: str, dev) -> dict:
     events and idle share of a captured and an eager tick and run_mpc; the
     ms of a tick, run_mpc and one 100 Hz period captured and eager in turns;
     the graphs' pool bytes; the T1-newton tick; the results a caller holds
-    unchanged by a later period; and `solver="dense"`, whose run_mpc stays
-    eager by the wrapper's static rule (`wrapper.eager_run_mpc`). Returns the
+    unchanged by a later period; and `solver="dense"` (adaptive_tol 0), whose
+    run_mpc is captured with its LU under cuSOLVER, bit for bit the eager
+    core and its first wrench against the CPU f64 controller. Returns the
     numbers the later lines use."""
     import torch
-    from biped_pympc_tpu_torch import ControllerConf, MPCConf, MPCController, recommended_conf
-    from biped_pympc_tpu_torch.examples import srbd_plant
-    from biped_pympc_tpu_torch.models import robot as robots
+    from biped_pympc_tpu_torch import MPCController
+    from biped_pympc_tpu_torch.control.controller import eager_run_mpc
     from biped_pympc_tpu_torch.ops import pdipm_cuda
     from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
-    from biped_pympc_tpu_torch.wrapper import eager_run_mpc
 
-    def controller(robot_name="HECTOR", nb=B, **kw):
-        if robot_name == "HECTOR":
-            cconf, base = ControllerConf(), {}
-        else:
-            cconf, base = recommended_conf(robot_name)
-            base = {**base, "solver": "pallas_ric_aug"}
-        return MPCController(cconf, MPCConf(**{**base, "verbose": False, **kw}), num_envs=nb,
-                             gait_id=2, device=dev)
+    def controller(robot_name="HECTOR", nb=B, dtype=torch.float32, device=dev, **kw):
+        cconf, conf = controller_confs(robot_name, **kw)
+        return MPCController(cconf, conf, num_envs=nb, gait_id=2, dtype=dtype, device=device)
 
-    def inputs(robot_name, nb):
-        """(obs, twist, height): standing, commanded to walk at 0.3 m/s."""
-        twist = torch.zeros(nb, 3, device=dev)
-        twist[:, 0] = 0.3
-        if robot_name == "HECTOR":
-            return torch.tensor(hector_obs(nb), device=dev), twist, torch.full((nb,), 0.55,
-                                                                               device=dev)
-        robot = robots.get_robot(robot_name)
-        x0 = torch.zeros(nb, 12, device=dev)
-        x0[:, 5] = T1_HEIGHT
-        obs, _ = srbd_plant.assemble_obs(robot, x0, srbd_plant.nominal_feet(
-            robot, nb, torch.float32, dev))
-        return obs, twist, torch.full((nb,), T1_HEIGHT, device=dev)
+    inputs = lambda robot_name, nb: controller_inputs(robot_name, nb, dev)
 
-    def compare(ctrl, obs, twist, height):
+    def compare(ctrl, obs, twist, height, first=None):
         """WRAPPER_PERIODS periods through `ctrl` and through its core on a
         clone of its state: (every tick's tau bitwise, the leaves that
-        differ at the end)."""
+        differ at the end); the first solve's wrench appended to `first`."""
         core = ctrl.core
         est = tree_map(torch.clone, ctrl.state)
         ctrl.set_command(twist, height)
@@ -1781,6 +1850,8 @@ def wrapper_phase(label: str, dev) -> dict:
             if step % decim == 0:
                 ctrl.run_mpc()
                 core.run_mpc(est)
+                if first is not None and step == 0:
+                    first.append(ctrl.ground_reaction_wrench)
             ctrl.run_lowlevel()
             core.run_lowlevel(est)
             same.append(same_bits(ctrl.get_action(), core.joint_torque(est)))
@@ -1909,15 +1980,34 @@ def wrapper_phase(label: str, dev) -> dict:
     n_tick_ms = in_turns(n_tick_graph, n_tick_eager, 5)
     n_traces = {"graph": device_trace(n_tick_graph, 2), "eager": device_trace(n_tick_eager, 2)}
 
-    # The one mode whose run_mpc stays eager, driven through the wrapper.
+    # solver="dense" (adaptive_tol 0): its run_mpc captured too, the LU under
+    # cuSOLVER; bit for bit the eager core, the preferred library as it was
+    # after, the first wrench against the CPU f64 dense controller on 8 envs.
+    library = torch.backends.cuda.preferred_linalg_library()
     dense = controller(nb=DENSE_WRAPPER_ENVS, solver="dense")
-    dense_reason = eager_run_mpc(dense.core)
-    d_tau, d_differ = compare(dense, *inputs("HECTOR", DENSE_WRAPPER_ENVS))
+    d_obs, d_twist, d_height = inputs("HECTOR", DENSE_WRAPPER_ENVS)
+    d_first = []
+    d_tau, d_differ = compare(dense, d_obs, d_twist, d_height, d_first)
     d_graphs = {name: loop.graph is not None for name, loop in dense.graphs.items()}
-    check(dense_reason is not None, "dense: the static rule does not name it")
-    check(not d_graphs["run_mpc"] and sum(d_graphs.values()) == len(d_graphs) - 1,
-          f"dense: run_mpc eager, every other call captured: {d_graphs}")
-    check(bool(torch.isfinite(dense.get_action()).all()), "dense: the wrapper's tau not finite")
+    dref = controller(nb=8, dtype=torch.float64, device="cpu", solver="dense")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU's batched LU on one thread (see `[dense]`)
+    try:
+        dref.set_command(d_twist[:8].cpu(), d_height[:8].cpu())
+        dref.update_state(d_obs[:8].cpu())
+        dref.run_mpc()
+    finally:
+        torch.set_num_threads(threads)
+    d_dw = float((d_first[0][:8].cpu().double() - dref.ground_reaction_wrench).abs().max())
+    check(eager_run_mpc(dense.core) is None, "dense: the static rule keeps its run_mpc eager")
+    check(all(d_graphs.values()) and len(d_graphs) == 6,
+          f"dense: not every call is a replayed graph: {d_graphs}")
+    check(d_tau and not d_differ,
+          f"dense: the captured wrapper differs from the eager core: tau {d_tau}, leaves "
+          f"{d_differ[:5]}")
+    check(torch.backends.cuda.preferred_linalg_library() == library,
+          "dense: the preferred linear-algebra library was not restored")
+    check(d_dw <= F32_U0_ATOL, "dense: the first wrench differs from the CPU f64 controller")
 
     def tr(t):
         return ("not measured" if t is None else
@@ -1939,13 +2029,112 @@ def wrapper_phase(label: str, dev) -> dict:
           + f"; pool bytes {pools}; T1-newton tick captured / eager (turns) "
           f"{n_tick_ms[0][0]:.3f} {n_tick_ms[1][0]:.3f} {n_tick_ms[1][1]:.3f} "
           f"{n_tick_ms[0][1]:.3f} ms, graph {tr(n_traces['graph'])}, eager "
-          f"{tr(n_traces['eager'])}; run_mpc eager by rule: dense ({dense_reason}); dense "
+          f"{tr(n_traces['eager'])}; dense (adaptive_tol 0, LU under cuSOLVER) "
           f"b{DENSE_WRAPPER_ENVS} through the wrapper vs the eager core: tau bitwise {d_tau}, "
-          f"leaves differing {d_differ} (printed), captured {d_graphs}")
+          f"leaves differing {d_differ}, captured {d_graphs}, preferred library after "
+          f"{torch.backends.cuda.preferred_linalg_library()}; first wrench vs the CPU f64 "
+          f"dense controller on 8 envs max |d| {d_dw:.3e} N (bound {F32_U0_ATOL})")
     out.update(tick_ms=mean(tick_ms[0]), tick_eager_ms=mean(tick_ms[1]), mpc_ms=mean(mpc_ms[0]),
                mpc_eager_ms=mean(mpc_ms[1]), period_ms=mean(period_ms[0]),
                period_eager_ms=mean(period_ms[1]), traces=traces, pools=pools)
     return out
+
+
+# The captured control_step (`control_step_phase`): CONTROL_CALLS calls, each
+# on a new state cloned from a rolling eager run, against the eager step; the
+# call timed CONTROL_REPS times a turn, captured and eager.
+CONTROL_CALLS = 10
+CONTROL_REPS = 5
+
+
+def control_step_phase(label: str, dev) -> dict:
+    """`[control_step graph]`: `BipedControllerCore.control_step`, one CUDA
+    graph captured at its first call and replayed (the counterpart of the JAX
+    core's jitted step), against the eager step (`core._control_step`), for HECTOR
+    on K1 (`pallas_ric_aug`), the hybrid (K2 + K1) and the T1 on K1, b4096
+    f32: CONTROL_CALLS calls, each on a new state cloned from a rolling eager
+    run (which takes a step of its own between them) with its own obs, give
+    the eager step's tau, wrench and every state leaf bit for bit; the
+    kernels ran once in each eager step, the warm-up and each replay, as
+    they count themselves; one more call runs K1 (K1 and K2) once and issues
+    nothing from the host, as the kernels count it and as the profiler sees
+    it; the ms of a call captured and eager in turns, the device events and
+    idle share of each, and the graph's pool bytes. Returns {tag: numbers}
+    and the K1 / K2 runs of the phase."""
+    import torch
+    from biped_pympc_tpu_torch.control.controller import BipedControllerCore
+    from biped_pympc_tpu_torch.ops import pdipm_cuda
+    from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
+
+    out, runs = {}, {"ric_aug": 0, "ric": 0}
+    per_call = {"default": {"ric_aug": 1}, "hybrid": {"ric_aug": 1, "ric": 1},
+                "T1": {"ric_aug": 1}}
+    for tag, robot_name, kw in (("default", "HECTOR", {}),
+                                ("hybrid", "HECTOR", {"solver": "pallas_hybrid"}),
+                                ("T1", "T1", {})):
+        cconf, conf = controller_confs(robot_name, **kw)
+        core = BipedControllerCore(cconf, conf, gait_id=2, device=dev)
+        obs, twist, height = controller_inputs(robot_name, B, dev)
+        eager = core.init_state(B)
+        pdipm_cuda.reset_counts()
+        bits = []
+        for i in range(CONTROL_CALLS):
+            obs_i = obs.clone()
+            obs_i[:, 7] += 0.01 * i  # the body's forward velocity
+            core._control_step(eager, obs_i, twist, height)
+            mine = tree_map(torch.clone, eager)
+            tau, mo = core.control_step(mine, obs_i, twist, height)
+            tau_e, mo_e = core._control_step(eager, obs_i, twist, height)
+            theirs = dict(leaves(eager))
+            bits.append(same_bits(tau, tau_e) and same_bits(mo.wrench, mo_e.wrench)
+                        and all(same_bits(t, theirs[p]) for p, t in leaves(mine)))
+        torch.cuda.synchronize()
+        ran = pdipm_cuda.runs()
+        solves = 2 * CONTROL_CALLS + WARM_UP + CONTROL_CALLS
+        check(all(bits), f"{tag}: the captured control_step differs from the eager one: {bits}")
+        check(ran == route_counts(**{r: n * solves for r, n in per_call[tag].items()}),
+              f"{tag}: the kernels ran {ran}, not {per_call[tag]} in each of {solves} solves")
+        check(list(core.graphs) == [(B, torch.float32)], f"{tag}: graphs {list(core.graphs)}")
+
+        # One more call: a replay runs the kernels once and issues nothing.
+        mine = tree_map(torch.clone, eager)
+        call = lambda: core.control_step(mine, obs, twist, height)
+        step_eager = lambda: core._control_step(eager, obs, twist, height)
+        pdipm_cuda.reset_counts()
+        trace = device_trace(call, 1)
+        counted, issued = pdipm_cuda.runs(), dict(pdipm_cuda.launches)
+        check(trace is not None, f"{tag}: the profiler saw no device event in a replay")
+        check(counted == route_counts(**per_call[tag]), f"{tag}: one replay ran {counted}")
+        check(issued == route_counts(), f"{tag}: one replay issued {issued} from the host")
+        check(trace["k1"] == sum(counted.values()),
+              f"{tag}: the profiler saw {trace['k1']:g} PDIPM kernels in one replay")
+        ms = in_turns(call, step_eager, CONTROL_REPS)
+        eager_trace = device_trace(step_eager, 1)
+        pool = core.graphs[(B, torch.float32)].loop.pool_bytes
+        check(pool > 0, f"{tag}: the graph holds no pool")
+        # Every K1 / K2 launch of the phase as the kernels count themselves:
+        # the calls above, and the replay, the turns and the eager trace.
+        total = pdipm_cuda.runs()
+        for r in runs:
+            runs[r] += ran[r] + total[r]
+        out[tag] = {"bits": all(bits), "k1": counted, "ms": ms, "trace": trace,
+                    "eager_trace": eager_trace, "pool": pool}
+
+    def tr(t):
+        return ("not measured" if t is None else
+                f"{t['events']:.1f} device events, idle {t['idle']:.2%}")
+
+    print(f"[control_step graph] {label}: BipedControllerCore.control_step b{B} f32 (set_command, "
+          f"ingest_state, run_mpc, run_lowlevel, joint_torque), one CUDA graph captured at its "
+          f"first call and replayed, vs the eager step over {CONTROL_CALLS} calls, each on a new "
+          f"state cloned from a rolling eager run: "
+          + "; ".join(
+              f"{tag}: bitwise {o['bits']}, one replay ran {o['k1']} (the kernels' count), issued "
+              f"0, profiler PDIPM kernels {o['trace']['k1']:g}; ms captured / eager (turns g e e "
+              f"g) {o['ms'][0][0]:.3f} {o['ms'][1][0]:.3f} {o['ms'][1][1]:.3f} "
+              f"{o['ms'][0][1]:.3f}; captured {tr(o['trace'])}, eager {tr(o['eager_trace'])}; "
+              f"pool bytes {o['pool']}" for tag, o in out.items()))
+    return {"phases": out, "runs": runs}
 
 
 def quick(mode: str) -> int:
@@ -1957,7 +2146,7 @@ def quick(mode: str) -> int:
     at f64 on the converged envs. `--closed-loop`: build, then run
     `closed_loop_phases` alone. `--t1-extras`: build, then run
     `extras_phases` and `t1_phases` alone. `--wrapper`: build, then run
-    `wrapper_phase` alone."""
+    `wrapper_phase` and `control_step_phase` alone."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm, pdipm_cuda
@@ -1974,7 +2163,10 @@ def quick(mode: str) -> int:
     if mode == "--wrapper":
         t0 = time.perf_counter()
         wrapper_phase(label, dev)
-        print(f"[elapsed] wrapper graph {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        control_step_phase(label, dev)
+        print(f"[elapsed] wrapper graph {t1 - t0:.1f}, control_step graph "
+              f"{time.perf_counter() - t1:.1f} s")
         return 0
     if mode == "--t1-extras":
         t0 = time.perf_counter()
@@ -2982,6 +3174,10 @@ def main() -> int:
     wrap = wrapper_phase(label, dev)
     mark("wrapper graph")
 
+    # 6c''. The core's control_step as one captured graph against the eager step.
+    csteps = control_step_phase(label, dev)
+    mark("control_step graph")
+
     # 6d. The closed loop: the captured rollout, the RL env, simulate, dense.
     loop = closed_loop_phases(label, dev, qp32, qp64)
     mark("closed loop")
@@ -3259,7 +3455,8 @@ def main() -> int:
     mark("bench twins")
     print("[elapsed] seconds of each phase: "
           + ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:]))
-          + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
+          + f"; total {marks[-1][1] - marks[0][1]:.1f} s; cut to make room for the control_step "
+          f"graph phase: nothing")
 
     def entry(name, source, replaces, launches_, err, ms, plain_ms, key):
         return {"name": name, "route": "cuda", "source": f"biped_pympc_tpu_torch/csrc/{source}",
@@ -3269,10 +3466,10 @@ def main() -> int:
 
     kernels = [
         entry("pdipm_ric_aug", "pdipm_ric_aug.cu", "308",
-              launches["ric_aug"] + t1_out["k1_launches"] + extras["mesh_launches"], worst64,
-              k32, p32, "ric_aug"),
-        entry("pdipm_ric", "pdipm_ric.cu", "308 (backend=ric, foot_split)", h_launches["ric"],
-              ric_worst64, r32, rp32, "ric"),
+              launches["ric_aug"] + t1_out["k1_launches"] + extras["mesh_launches"]
+              + csteps["runs"]["ric_aug"], worst64, k32, p32, "ric_aug"),
+        entry("pdipm_ric", "pdipm_ric.cu", "308 (backend=ric, foot_split)",
+              h_launches["ric"] + csteps["runs"]["ric"], ric_worst64, r32, rp32, "ric"),
         entry("pdipm_warm_entry", "pdipm_common.cuh",
               "316 (warm=True, via solve_adaptive:1855)", a_launches["ric_aug"], k3_err, ad0,
               ad0_plain, "warm"),

@@ -1,7 +1,8 @@
 """The port's `MPCController` with the foot packing (`solver_foot_pack`,
-ROADMAP Queue 2, item 3 (K5e)) vs the JAX package's, float64, the JAX Pallas
-kernels run by the interpreter on the CPU: `solver="pallas_ric_aug"` with
-the packing True and "apply", the first solve of the walk. The condensed
+K5e: PERF.md section 6, its K5e rows) vs the JAX package's, float64, the
+JAX Pallas kernels run by the interpreter on the CPU:
+`solver="pallas_ric_aug"` with the packing True and "apply", the first
+solve of the walk. The condensed
 and hybrid paths are in `test_torch_controller_foot_pack_ric.py` and
 `test_torch_controller_foot_pack_hybrid.py` (the interpreted Pallas traces
 take most of each file's time)."""

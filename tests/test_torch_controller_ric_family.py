@@ -97,8 +97,8 @@ def test_options_map_as_the_jax_controller(kw, backend, split, scale):
 @pytest.mark.parametrize("solver, pack", [("pallas_ric_aug", True), ("pallas_ric", "apply"),
                                           ("pallas_hybrid", True)])
 def test_foot_pack_raises_where_jax_packs(solver, pack):
-    """Where the JAX controller packs the feet (ROADMAP Queue 2, item 3
-    (K5e)), the port maps every option as it does, the packing's value
+    """Where the JAX controller packs the feet (K5e: PERF.md section 6, its
+    K5e rows), the port maps every option as it does, the packing's value
     included, onto the packed route, and runs it (its plain version here;
     the wrench against JAX's is in test_torch_controller_foot_pack*.py)."""
     conf = dict(solver=solver, solver_foot_pack=pack, verbose=False)

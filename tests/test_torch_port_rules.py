@@ -274,9 +274,9 @@ def test_dense_solver_runs():
 
 @pytest.mark.parametrize("pack", [True, "apply"])
 def test_foot_pack_names_its_roadmap_item(pack):
-    """The foot packing (ROADMAP Queue 2, item 3 (K5e)) is ported: where the
-    JAX controller packs, the port maps the value as it is onto the packed
-    route and runs it (here its plain version on the CPU)."""
+    """The foot packing (K5e: PERF.md section 6, its K5e rows) is ported:
+    where the JAX controller packs, the port maps the value as it is onto
+    the packed route and runs it (here its plain version on the CPU)."""
     import biped_pympc_tpu_torch as tpkg
 
     conf = tpkg.MPCConf(solver="pallas_ric_aug", solver_foot_pack=pack, verbose=False)
@@ -749,12 +749,12 @@ LU_BATCH, LU_WIDTH = 4096, 380
 
 @pytest.mark.cuda
 def test_dense_lu_cannot_be_captured_on_card():
-    """The reason `wrapper.eager_run_mpc` keeps `solver="dense"`'s run_mpc
-    eager: `torch.linalg.lu_factor_ex` under torch's default linear-algebra
+    """The reason `pdipm._factor_dense` selects cuSOLVER on the card:
+    `torch.linalg.lu_factor_ex` under torch's default linear-algebra
     backend (MAGMA's batched LU at this width) cannot be captured in a CUDA
     graph. The capture runs in a process of its own, since a refused capture
     can leave the process's CUDA context unusable; a torch whose LU can be
-    captured fails this test, and the rule should then go."""
+    captured fails this test, and the selection should then go."""
     _card()
     import subprocess
     import sys
@@ -785,3 +785,81 @@ else:
                          timeout=300)
     lines = run.stdout.split()
     assert lines and lines[-1] == "refused", (run.returncode, run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.cuda
+def test_dense_lu_under_cusolver_is_captured_on_card():
+    """`pdipm._cusolver` around the dense route's LU and solve at the main
+    path's size: the capture takes them, a replay gives the eager call's
+    bits, and the preferred library is torch's default again after each
+    call, eager and captured."""
+    _card()
+    dev = torch.device("cuda")
+    default = torch.backends.cuda.preferred_linalg_library()
+    g = torch.Generator(device=dev).manual_seed(0)
+    m = torch.randn(LU_BATCH, LU_WIDTH, LU_WIDTH, device=dev, generator=g)
+    m += LU_WIDTH * torch.eye(LU_WIDTH, device=dev)
+    rhs = torch.randn(LU_BATCH, LU_WIDTH, 1, device=dev, generator=g)
+
+    def factor_solve():
+        with pdipm._cusolver(m):
+            lu, piv, _ = torch.linalg.lu_factor_ex(m, check_errors=False)
+        with pdipm._cusolver(lu):
+            return lu, torch.linalg.lu_solve(lu, piv, rhs)
+
+    want = [t.clone() for t in factor_solve()]
+    assert torch.backends.cuda.preferred_linalg_library() == default
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        factor_solve()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = factor_solve()
+    assert torch.backends.cuda.preferred_linalg_library() == default
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pallas_ric_aug", "pallas_hybrid", "dense"])
+def test_captured_control_step_equals_eager_on_card(solver):
+    """`BipedControllerCore.control_step`, one CUDA graph captured at its
+    first call and replayed, against the eager step over four calls, each on
+    a new state cloned from a rolling eager run: the state, tau and the
+    wrench bit for bit; a replay runs K1 once (K1 and K2 in the hybrid), as
+    the kernels count themselves, and issues nothing from the host."""
+    _card()
+    from biped_pympc_tpu_torch import ControllerConf, MPCConf
+    from biped_pympc_tpu_torch.control.controller import BipedControllerCore
+    from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
+
+    nb = 64
+    core = BipedControllerCore(ControllerConf(), MPCConf(solver=solver, verbose=False),
+                               gait_id=2, device="cuda")
+    obs = torch.zeros(nb, 43, device="cuda")
+    obs[:, 2], obs[:, 3] = 0.55, 1.0
+    obs[:, 13:18] = obs[:, 18:23] = torch.tensor([0.0, 0.0, 0.45, -0.9, 0.45], device="cuda")
+    twist = torch.tensor([0.3, 0.0, 0.0], device="cuda").expand(nb, 3)
+    height = torch.full((nb,), 0.55, device="cuda")
+    eager = core.init_state(nb)
+    for i in range(4):
+        core._control_step(eager, obs, twist, height)
+        mine = tree_map(torch.clone, eager)
+        before, ran = dict(pdipm_cuda.launches), pdipm_cuda.runs()
+        tau, out = core.control_step(mine, obs + 0.001 * i, twist, height)
+        torch.cuda.synchronize()
+        after = {k: n - ran[k] for k, n in pdipm_cuda.runs().items() if n != ran[k]}
+        if i > 0:
+            assert pdipm_cuda.launches == before
+            assert after == {"pallas_ric_aug": {"ric_aug": 1}, "dense": {},
+                             "pallas_hybrid": {"ric_aug": 1, "ric": 1}}[solver]
+        tau_e, out_e = core._control_step(eager, obs + 0.001 * i, twist, height)
+        assert torch.equal(tau, tau_e) and torch.equal(out.wrench, out_e.wrench), i
+        theirs = dict(leaves(eager))
+        for path, t in leaves(mine):
+            assert torch.equal(t, theirs[path]), (i, path)
+    assert list(core.graphs) == [(nb, torch.float32)]
