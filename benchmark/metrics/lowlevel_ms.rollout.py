@@ -1,0 +1,24 @@
+"""Device ms a closed-loop cycle from a `lowlevel` mark to the next mark:
+`run_lowlevel` (swing control, leg command, gait advance), every tick. The
+program marks where each phase starts with an empty kernel
+`trace_mark_<phase>` (`utils/tracing.mark`, captured into the cycle's
+graph); an operation belongs to the phase of the last mark before it, and
+the marks themselves are not counted. None where the program marks no such
+phase."""
+
+import re
+
+MARK = re.compile(r"trace_mark_([a-z]+)")
+PHASES = ("lowlevel",)
+
+
+def read(trace):
+    phase, total, seen = None, 0.0, False
+    for name, s, e in sorted(trace.device, key=lambda t: t[1]):
+        m = MARK.search(name)
+        if m:
+            phase = m.group(1)
+            seen = seen or phase in PHASES
+        elif phase in PHASES:
+            total += e - s
+    return total * 1e-3 / trace.units if seen and trace.units else None

@@ -27,6 +27,7 @@ from biped_pympc_tpu_torch.models.robot import RobotSpec, get_robot
 from biped_pympc_tpu_torch.ops import pdipm_cuda
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions
 from biped_pympc_tpu_torch.utils import cuda_graph
+from biped_pympc_tpu_torch.utils.tracing import mark
 from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
 
 # Route of each solver name (`biped_pympc_tpu/control/controller.py:121`);
@@ -234,6 +235,7 @@ class BipedControllerCore:
 
     def ingest_state(self, state: ControllerState, obs: torch.Tensor) -> None:
         """obs: (B, 13 + 6 dof) = [pos, quat wxyz, v_b, w_b, q, qd, tau]."""
+        mark("ingest", obs)
         dof2 = 2 * self.num_dof
         contact_phase = gait.contact_sub_phase(state.gait_phase, state.gait_params)
         swing_phase = gait.swing_sub_phase(state.gait_phase, state.gait_params)
@@ -262,7 +264,9 @@ class BipedControllerCore:
         kernels on the card, the plain version on the CPU), postprocess; the
         wrench becomes the legs' feed-forward term. With `adaptive_tol > 0`
         the solve is the chunked adaptive one, except in the hybrid mode
-        (`biped_pympc_tpu/control/controller.py:313-336`)."""
+        (`biped_pympc_tpu/control/controller.py:313-336`). Its phase mark,
+        `assembly`, covers the assembly, the solve and the postprocess."""
+        mark("assembly", state.gait_phase)
         c = self.mpc_cfg
         new_mem, x_ref, qp = self.assemble_mpc(state)
         counts = None
@@ -287,6 +291,7 @@ class BipedControllerCore:
 
     def run_lowlevel(self, state: ControllerState) -> None:
         """Swing control, leg command and gait phase advance."""
+        mark("lowlevel", state.gait_phase)
         contact_phase = gait.contact_sub_phase(state.gait_phase, state.gait_params)
         swing_phase = gait.swing_sub_phase(state.gait_phase, state.gait_params)
         swing_dur = gait.swing_duration_sec(state.gait_params, state.dt_mpc)

@@ -30,6 +30,7 @@ from biped_pympc_tpu_torch.examples.srbd_plant import (assemble_obs, gate_grf, n
 from biped_pympc_tpu_torch.models import srbd, t1
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
 from biped_pympc_tpu_torch.utils.consts import const
+from biped_pympc_tpu_torch.utils.tracing import mark
 
 
 def make_affine_rk4_step(robot, dt: float):
@@ -96,15 +97,19 @@ def make_cycle(core: BipedControllerCore, plant_step, obs_ik=None):
     cycle; every tick runs the low-level control, moves the feet and steps
     the plant with `plant_step(x, u (B, 4, 3), foot_w, rot)`. `obs_ik` is
     the observation's IK (`obs_ik_fn`; None the robot's own). `state` is
-    updated in place (its leaves replaced)."""
+    updated in place (its leaves replaced). Each tick marks the phases
+    `obs` and `plant` on the card (`utils/tracing.mark`); the core marks
+    `ingest`, `assembly` and `lowlevel`."""
     robot = core.robot
 
     def tick(state, x, foot_w, grf=None):
+        mark("obs", x)
         obs, rot = assemble_obs(robot, x, foot_w, obs_ik)
         core.ingest_state(state, obs)
         if grf is None:
             grf = core.run_mpc(state).grf_world
         core.run_lowlevel(state)
+        mark("plant", x)
         contact = (state.contact_phase != -1).to(x.dtype)
         foot_w = pin_feet(x, foot_w, rot, contact, state.leg_cmd.p_des)
         u = gate_grf(grf, contact).reshape(-1, 4, 3)
@@ -145,6 +150,7 @@ class Rollout:
 
     def _step(self, c: RolloutCarry) -> None:
         c.x, c.foot_w = self.cycle(c.state, c.x, c.foot_w)
+        mark("carry", c.x)
         c.traj.index_copy_(0, c.index, c.x[None])
         c.index.add_(1)
 

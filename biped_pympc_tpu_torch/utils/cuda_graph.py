@@ -25,6 +25,11 @@ A step that is itself captured at its own first call
 a LoopStep's warm-up or capture, or any CUDA graph capture, it is recorded
 into the graph being built, as a jitted function called inside another jit
 is traced into it.
+
+Spans (`utils/tracing.span`, while a profiler records): `graph.capture`
+around the warm-up and the capture, `graph.replay` around a replay and
+`graph.eager` around an eager run. A call that is captured again (a new
+LoopStep for it) shows a second `graph.capture`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import gc
 
 import torch
 
+from biped_pympc_tpu_torch.utils.tracing import span
 from biped_pympc_tpu_torch.utils.tree import leaves, tree_map
 
 __all__ = ["LoopStep", "capturing", "copy_into", "leaves", "tree_map"]
@@ -108,7 +114,8 @@ class LoopStep:
         global _building
         _building += 1
         try:
-            self._warm_up_and_capture(device)
+            with span("graph.capture"):
+                self._warm_up_and_capture(device)
         finally:
             _building -= 1
 
@@ -146,6 +153,8 @@ class LoopStep:
 
     def __call__(self) -> None:
         if self.graph is None:
-            self._run()
+            with span("graph.eager"):
+                self._run()
         else:
-            self.graph.replay()
+            with span("graph.replay"):
+                self.graph.replay()

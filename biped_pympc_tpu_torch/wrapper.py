@@ -43,13 +43,19 @@ capture raises; nothing falls back to the eager call. The one mode whose
 named by a static rule, `eager_run_mpc` (`control/controller.py`), with its
 reason. The eager calls are the core's methods: `ctrl.core.run_mpc(state)`
 and so on.
+
+While a profiler records (`utils/profiling.trace()`), each public call is a
+span `wrapper.<call>` (`utils/tracing.span`), with the children
+`wrapper.copy_in` (its inputs copied into the buffers), the graph's own
+span (`graph.capture`, `graph.replay` or `graph.eager`) and
+`wrapper.copy_out` (`get_action`'s copy). `MPCConf.print_solve_time` times
+`run_mpc`'s and `run_lowlevel`'s spans and prints them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import time
 
 import numpy as np
 import torch
@@ -61,6 +67,7 @@ from biped_pympc_tpu_torch.control.controller import (BipedControllerCore, Contr
 from biped_pympc_tpu_torch.ops.linalg import inverse_3x3
 from biped_pympc_tpu_torch.utils.consts import const
 from biped_pympc_tpu_torch.utils.cuda_graph import LoopStep, tree_map
+from biped_pympc_tpu_torch.utils.tracing import span, timed
 
 
 class MPCController:
@@ -109,16 +116,12 @@ class MPCController:
         loop()
         return loop.out
 
-    def _timed(self, label, fn):
-        if not self.core.mpc_cfg.print_solve_time:
-            return fn()
-        sync = (torch.cuda.synchronize if self.core.device.type == "cuda" else lambda: None)
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        print(f"{label} took:  {1e3 * (time.perf_counter() - t0):.3f} ms")
-        return out
+    def _span(self, name: str, label: str):
+        """`span(name)`; with `print_solve_time` also timed, and printed
+        under `label`."""
+        if self.core.mpc_cfg.print_solve_time:
+            return timed(name, label, self.core.device)
+        return span(name)
 
     @property
     def graphs(self) -> dict:
@@ -134,40 +137,50 @@ class MPCController:
 
     def set_command(self, twist, height) -> None:
         core, twist_in, height_in = self.core, self._twist, self._height
-        twist_in.copy_(self._t(twist))
-        height_in.copy_(self._t(height))
-        self._call("set_command", lambda st: core.set_command(st, twist_in, height_in))
+        with span("wrapper.set_command"):
+            with span("wrapper.copy_in"):
+                twist_in.copy_(self._t(twist))
+                height_in.copy_(self._t(height))
+            self._call("set_command", lambda st: core.set_command(st, twist_in, height_in))
 
     def update_state(self, state_vec) -> None:
         core, obs = self.core, self._obs
-        obs.copy_(self._t(state_vec))
-        self._call("update_state", lambda st: core.ingest_state(st, obs))
+        with span("wrapper.update_state"):
+            with span("wrapper.copy_in"):
+                obs.copy_(self._t(state_vec))
+            self._call("update_state", lambda st: core.ingest_state(st, obs))
 
     def run_mpc(self) -> None:
         """The batched solve. `_last_mpc` is its output: on the card the
         graph's own, valid until the next `run_mpc`, as in JAX."""
         graph = False if eager_run_mpc(self.core) else None
-        self._last_mpc = self._timed("MPC solve time",
-                                     lambda: self._call("run_mpc", self.core.run_mpc, graph))
+        with self._span("wrapper.run_mpc", "MPC solve time"):
+            self._last_mpc = self._call("run_mpc", self.core.run_mpc, graph)
 
     def run_lowlevel(self) -> None:
-        self._timed("low level control", lambda: self._call("run_lowlevel", self.core.run_lowlevel))
+        with self._span("wrapper.run_lowlevel", "low level control"):
+            self._call("run_lowlevel", self.core.run_lowlevel)
 
     def get_action(self) -> torch.Tensor:
-        return self._call("get_action", self.core.joint_torque).clone()
+        with span("wrapper.get_action"):
+            tau = self._call("get_action", self.core.joint_torque)
+            with span("wrapper.copy_out"):
+                return tau.clone()
 
     def reset(self, env_ids) -> None:
         """env_ids: integer indices or a (B,) bool mask. Integer ids are
         written into the mask buffer here, outside the graph, because their
         number varies."""
-        ids = torch.as_tensor(env_ids, device=self.core.device)
-        if ids.dtype == torch.bool:
-            self._mask.copy_(ids)
-        else:
-            self._mask.fill_(False)
-            self._mask.index_fill_(0, ids.long().reshape(-1), True)
-        core, mask = self.core, self._mask
-        self._call("reset", lambda st: core.reset(st, mask))
+        with span("wrapper.reset"):
+            with span("wrapper.copy_in"):
+                ids = torch.as_tensor(env_ids, device=self.core.device)
+                if ids.dtype == torch.bool:
+                    self._mask.copy_(ids)
+                else:
+                    self._mask.fill_(False)
+                    self._mask.index_fill_(0, ids.long().reshape(-1), True)
+            core, mask = self.core, self._mask
+            self._call("reset", lambda st: core.reset(st, mask))
 
     # DRL interface (`mpc_wrapper.py:48-64`): each writes into the state's
     # own tensors, which the captured graphs read.

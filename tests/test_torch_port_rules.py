@@ -23,6 +23,7 @@ from biped_pympc_tpu_torch.bench import ab_roofline, bench_synthetic, tape_codeg
 from biped_pympc_tpu_torch.ops import cuda_build, pdipm, pdipm_cuda
 from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.models.srbd import SrbdLin
+from biped_pympc_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -69,7 +70,7 @@ def test_port_file_scan_covers_the_new_modules():
         "train_rl_mpc_tpu", "cuda_graph", "planar_drone")} <= names
     assert {f"biped_pympc_tpu_torch/{m}.py" for m in (
         "models/chain", "models/urdf", "models/t1", "parallel/mesh", "utils/profiling",
-        "utils/viz", "utils/cuda_graph")} <= names
+        "utils/viz", "utils/cuda_graph", "utils/tracing")} <= names
     assert {"bench_common", "ab_roofline", "bench_synthetic"} <= BENCH_MODULES
 
 
@@ -214,7 +215,8 @@ def test_kernel_sources_include_only_their_own_headers():
         for inc in re.findall(r'^#include\s+(\S+)', path.read_text(), flags=re.M):
             assert inc.startswith("<") or (csrc / inc.strip('"')).is_file(), (path.name, inc)
     assert {pathlib.Path(p).name for p in (*pdipm_cuda.SOURCES.values(), *pdipm_cuda.HEADERS,
-                                           ab_roofline.SOURCE, bench_synthetic.INTERP_SOURCE)} \
+                                           ab_roofline.SOURCE, bench_synthetic.INTERP_SOURCE,
+                                           tracing.SOURCE)} \
         == {p.name for p in csrc.iterdir()}
 
 

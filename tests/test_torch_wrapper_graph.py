@@ -9,7 +9,6 @@ for the device, and a captured step's launches count as they ran
 (`utils/cuda_graph.LoopStep`, driven here through stand-ins for the CUDA
 graph calls)."""
 
-import contextlib
 import dataclasses
 import gc
 import weakref
@@ -29,6 +28,7 @@ from biped_pympc_tpu_torch.utils import cuda_graph
 from biped_pympc_tpu_torch.utils.tree import leaves
 from biped_pympc_tpu_torch.wrapper import eager_run_mpc
 
+from graph_fakes import _FakeGraph, _fake_cuda, _kernel
 from test_torch_controller import _obs, _t1_obs
 
 torch.set_num_threads(1)
@@ -388,51 +388,6 @@ def test_eager_run_mpc_is_a_static_rule(solver, adaptive_tol):
 
 
 # --- launch counts of a captured step -------------------------------------
-
-
-class _FakeGraph:
-    """Stands in for torch.cuda.CUDAGraph: its capture runs the step's Python
-    and records the step's device work (`_kernel`) without running it, as a
-    real capture does; its replay runs what the capture recorded."""
-
-    capturing = None
-
-    def __init__(self):
-        self.work = []
-
-    def replay(self):
-        for fn in self.work:
-            fn()
-
-
-@contextlib.contextmanager
-def _fake_capture(graph, **kw):
-    _FakeGraph.capturing = graph
-    try:
-        yield
-    finally:
-        _FakeGraph.capturing = None
-
-
-def _kernel(fn):
-    """Device work of a stand-in step: run now, or recorded by the capture."""
-    if _FakeGraph.capturing is None:
-        fn()
-    else:
-        _FakeGraph.capturing.work.append(fn)
-
-
-@contextlib.contextmanager
-def _fake_cuda(monkeypatch):
-    """torch.cuda's stream and graph calls replaced so that
-    `LoopStep._capture` runs on CPU tensors."""
-    stream = type("S", (), {"wait_stream": lambda self, other: None})
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
-    yield
 
 
 @dataclasses.dataclass
