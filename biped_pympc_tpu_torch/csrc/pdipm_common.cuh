@@ -801,79 +801,6 @@ __device__ void gj_pair(const G& g, S* pairs, int T, bool pivot, S* colk, S* pro
   gj_inverse_inplace<N, S, 2 * N>(g, pairs, 2 * T, pivot, true, colk, prow, piv);
 }
 
-// The elimination of gj_inverse_inplace in a warp group (K1's lean layout,
-// pdipm_split.cuh), for `count` 12 x 12 blocks at `mats` (stride 144): the
-// same pivot rule and arithmetic entry for entry, spread over the group by
-// blocks, entries and rows, and no row moved in memory. Step k finds each
-// block's pivot row p (one lane per block); forms its scaled pivot row (old
-// row p) and saves old row k (one lane per entry); then updates every row
-// (one lane per row), row p from old row k, each row's column-k entry read
-// before the row is written. A last pass undoes the swaps as column swaps.
-// prow and rowk hold count * 12 values, piv count * 12 ints.
-template <typename S, typename G>
-__device__ void gj_inverse_rows(const G& g, S* mats, int count, bool pivot, bool recip, S* prow,
-                                S* rowk, int* piv) {
-  constexpr int N = NX_;
-  const int tid = g.rank(), nt = g.size();
-  for (int k = 0; k < N; ++k) {
-    if (pivot) {
-      for (int mi = tid; mi < count; mi += nt) {
-        const S* a = mats + mi * N * N + k;
-        int p = k;
-        S best = a[k * N] < S(0) ? -a[k * N] : a[k * N];
-#pragma unroll
-        for (int i = 1; i < N; ++i) {  // rows k + 1 .. 11, every load issued up front
-          S v = a[i * N];
-          v = v < S(0) ? -v : v;
-          if (i > k && (v > best || (v != v && best == best))) { best = v; p = i; }
-        }
-        piv[mi * N + k] = p;
-      }
-      g.sync();
-    }
-    for (int it = tid; it < count * N; it += nt) {
-      const int mi = it / N, j = it % N;
-      const S* a = mats + mi * N * N;
-      const int p = pivot ? piv[mi * N + k] : k;
-      const S pv = a[p * N + k];
-      const S ipv = S(1) / pv;
-      const S apj = a[p * N + j];
-      prow[it] = j == k ? ipv : (recip ? ipv * apj : apj / pv);
-      rowk[it] = a[k * N + j];
-    }
-    g.sync();
-    for (int it = tid; it < count * N; it += nt) {
-      const int mi = it / N, i = it % N;
-      S* ai = mats + mi * N * N + i * N;
-      const S* pr = prow + mi * N;
-      if (i == k) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) ai[j] = pr[j];
-      } else {
-        const S* src = pivot && i == piv[mi * N + k] ? rowk + mi * N : ai;
-        const S ck = src[k];
-#pragma unroll
-        for (int j = 0; j < N; ++j) ai[j] = j == k ? -ck * pr[k] : src[j] - ck * pr[j];
-      }
-    }
-    g.sync();
-  }
-  if (!pivot) return;
-  for (int it = tid; it < count * N; it += nt) {
-    S* row = mats + it * N;
-    const int* pv = piv + (it / N) * N;
-    for (int k = N - 1; k >= 0; --k) {
-      const int p = pv[k];
-      if (p != k) {
-        const S tmp = row[k];
-        row[k] = row[p];
-        row[p] = tmp;
-      }
-    }
-  }
-  g.sync();
-}
-
 // Jacobi equilibration (`kkt_scale="jacobi"`, `pdipm_pallas.py:333`):
 // K^-1 = D (D K D)^-1 D with D = 1 / sqrt(max(|diag K|, 1e-30)), an IEEE
 // square root and division. jacobi_factor writes D of `count` N x N blocks
@@ -1247,7 +1174,8 @@ __device__ __forceinline__ void gj_warp_columns(int (&q)[R], bool pivot, const i
 }
 
 // Two N x N blocks (N <= 16) eliminated together in one warp, in registers
-// (K5e-a's stage pairs, K5c's and K5d-c's stage blocks two at a time): lane
+// (the two foot blocks of a stage in K1's and K5e-a's warp groups,
+// `gj_pair_warp`; K5c's and K5d-c's stage blocks two at a time): lane
 // 16 h + i holds row i of block h in `a` (lanes i >= N idle: they hold a
 // copy of row N - 1, search no pivot and store nothing), and no row moves.
 // Step k finds each block's pivot by a shuffle argmax over its 16 lanes

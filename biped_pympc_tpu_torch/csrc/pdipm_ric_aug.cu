@@ -26,8 +26,11 @@
 // against the block layout's 54,928 B) lets 6 envs share an SM, against 4
 // blocks; the y-chain's inverses and the sweeps run in one warp with a
 // stage's 12 x 12 block in registers, a lane per row, the pivot row or the
-// vector passed by __shfl_sync, so a chain step costs no barrier; the foot
-// blocks are eliminated one row per lane, no row moved in memory; the
+// vector passed by __shfl_sync, so a chain step costs no barrier; the two
+// foot blocks of a stage are eliminated together in one warp, a lane per
+// row in registers, each block's pivot found by a shuffle argmax and its
+// pivot row passed by shuffles (`gj_pair_warp`, K5e-a's elimination), the
+// warps taking alternate stages, so the 12 pivot steps cost no barrier; the
 // phases' independent items spread over the group's 64 lanes, synchronized
 // by named barrier 1; the reductions are shuffle trees. The block group
 // (`RicAug`) is the configuration before, kept bit for bit. mu, the residual

@@ -342,21 +342,26 @@ struct RicSplit {
 // ---------------------------------------------------------------------------
 static constexpr int NF_ = 12;  // width of a foot block [F (3), M_y (1), z_f (8)]
 
-// K5e-a's elimination of its T stage pairs [K_L | K_R] (12 rows of 24
-// values at `pairs`) in its warp group, one warp a stage pair: lane 16 h + i
-// (i < 12) loads row i of half h, so both halves run in one elimination in
-// registers (`gj_pair_regs`: a shuffle argmax per pivot, the pivot row passed
-// by shuffles, no shared memory or barrier in the chain), and stores its row
-// at its position with the columns unpermuted. gj_inverse_inplace's
-// arithmetic entry for entry: the pivot row times the pivot's reciprocal
-// when `recip`, else divided by the pivot, its pivot entry 1 / pivot.
-template <typename S, typename G>
-__device__ void gj_pair_warp(const G& g, S* pairs, int T, bool pivot, bool recip) {
-  constexpr int N = NF_, LD = 2 * NF_;
+// The foot blocks' elimination in the warp group of K1 (PACK false) and of
+// K5e-a (PACK true), one warp a stage: warp w takes stages t = w, w + 2, ...
+// < T, and lane 16 h + i (i < 12) loads row i of foot h's block at stage t,
+// so both blocks of a stage run in one elimination in registers
+// (`gj_pair_regs`: each block its own shuffle argmax per pivot, the pivot
+// row passed by shuffles, no shared memory or barrier in the chain), and
+// stores its row at its position with the columns unpermuted. The layout
+// fixes where a block's rows lie: K5e-a's pair [K_L | K_R] is 12 rows of 24
+// values (half h at column 12 h), K1's blocks are 12 x 12 one after another,
+// block h T + t. gj_inverse_inplace's arithmetic entry for entry: the pivot
+// row times the pivot's reciprocal when `recip`, else divided by the pivot,
+// its pivot entry 1 / pivot.
+template <bool PACK, typename S, typename G>
+__device__ void gj_pair_warp(const G& g, S* ka, int T, bool pivot, bool recip) {
+  constexpr int N = NF_, LD = PACK ? 2 * NF_ : NF_;
   const int warp = g.rank() >> 5, lane = g.rank() & 31, h = lane >> 4, i = lane & 15;
+  const int hoff = PACK ? N : T * N * N;  // from foot 0's block to foot 1's
   const bool live = i < N;
   for (int t = warp; t < T; t += G::THREADS / 32) {
-    S* half = pairs + t * N * LD + h * N;
+    S* half = ka + t * N * LD + h * hoff;
     S a[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) a[j] = half[(live ? i : N - 1) * LD + j];
@@ -390,10 +395,9 @@ struct RicAugSplit {
     // packed route's yc (`RicSplit`), 2x2 / 1x1 coefficients
     int qinv, sc, adqad, yc, cf;
     // factors: 2T foot-block inverses (packed, T pairs of 12 x 24), T y-chain
-    // inverses, Y'_t (yp: m itself in the block layouts), P_t, elimination
-    // scratch (rowk: the lean layout's only; colk: the block layouts') and
-    // Jacobi's D (dj)
-    int ka, m, yp, p, colk, prow, rowk, q1, dj;
+    // inverses, Y'_t (yp: m itself in the block layouts), P_t, the block
+    // layouts' elimination scratch (colk, prow) and Jacobi's D (dj)
+    int ka, m, yp, p, colk, prow, q1, dj;
     // reduced-solve rhs / directions
     int r1, rz, r4, r2, e1, ez, e4, ex, ezz, ey;
     int dxa, dsa, dza, dya, dxc, dsc, dzc, dyc;
@@ -418,10 +422,11 @@ struct RicAugSplit {
   // Ad Q~^-1 Ad^T, the packed route's yc, both formed anew each factor, and
   // the chain's q1) and only after it (the rhs, refinement, directions and
   // sweep buffers); the packed route's P_t is its 8 columns a row (T x 96).
-  // The foot blocks' elimination scratch (prow, rowk, Jacobi's D and the
-  // pivot table) lies in m, which the factor rewrites after it. The inverses
-  // stay whole: the unrefined solves of the corrector forms carry the
-  // rounding of whichever triangle a half would keep (PERF.md, Findings).
+  // The foot blocks are eliminated in registers (`gj_pair_warp`): Jacobi's D
+  // lies in m, which the factor rewrites after it, and the pivot table is
+  // empty. The inverses stay whole: the unrefined solves of the corrector
+  // forms carry the rounding of whichever triangle a half would keep
+  // (PERF.md, Findings).
   static __host__ __device__ Layout make_layout(int T, int size_of_s) {
     Layout L;
     L.T = T;
@@ -448,23 +453,20 @@ struct RicAugSplit {
       L.r2 = L.dsc;
       L.run = take(o, T * NKA_); L.kr = take(o, T * NU_); L.g = take(o, T * NX_);
       L.wy = take(o, T * NX_); L.v12 = take(o, 0);
-      int fm = L.m;  // 72 T of m's 144 T, then the pivot table
-      L.prow = take(fm, 2 * T * NF_); L.rowk = take(fm, 2 * T * NF_); L.dj = take(fm, 2 * T * NF_);
-      L.colk = L.prow;
-      const int piv_at = fm;
+      L.dj = L.m;  // 24 T of m's 144 T
+      L.colk = L.prow = L.m;  // unused
       int fb = u;  // the y-chain's factor, with Ad Q~^-1 Ad^T (and yc) formed anew
       L.p = take(fb, PACK ? T * NX_ * 8 : T * 144); L.yp = take(fb, T * 144);
       L.q1 = take(fb, 144); L.adqad = take(fb, 144);
       if constexpr (PACK) L.yc = take(fb, 144);
       o = o > fb ? o : fb;
       L.total = o;
-      L.piv = piv_at * size_of_s;
-      L.bytes = (size_t)o * size_of_s;
+      L.piv = o * size_of_s;
+      L.bytes = (size_t)L.piv;
     } else {
       L.ka = take(o, 2 * T * 144); L.m = take(o, T * 144); L.p = take(o, T * 144);
       L.yp = L.m;
       L.colk = take(o, 2 * T * NF_); L.prow = take(o, 2 * T * NF_); L.q1 = take(o, 144);
-      L.rowk = L.colk;  // unused
       L.r1 = take(o, L.nz); L.rz = take(o, L.ni); L.r4 = take(o, L.ne); L.r2 = take(o, L.ni);
       L.e1 = take(o, L.nz); L.ez = take(o, L.ni); L.e4 = take(o, L.ne);
       L.ex = take(o, L.nz); L.ezz = take(o, L.ni); L.ey = take(o, L.ne);
@@ -540,7 +542,7 @@ struct RicAugSplit {
     if constexpr (LEAN) {
       // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block
       // foot*T + t (packed: half foot of pair t), one row per item; then
-      // their elimination by rows.
+      // their elimination, one warp a stage.
       for (int it = tid; it < 2 * T * NF_; it += nt) {
         const int blk = it / NF_, r = it % NF_;
         const int foot = blk >= T ? 1 : 0, t = blk - foot * T;
@@ -569,22 +571,20 @@ struct RicAugSplit {
         }
       }
       g.sync();
-      if constexpr (PACK) {
-        // The pair's halves (True: the pivot row scaled by its reciprocal,
-        // as the paired elimination does) or each half as the unpacked route
-        // eliminates its block ("apply"), in place in the pair; no Jacobi
-        // scaling (`:800-812`).
-        const bool recip = ff.foot_pack == FOOT_PACK_PAIR || (!ff.aug_pivot && ff.gj_inplace);
-        gj_pair_warp(g, ka, T, ff.aug_pivot, recip);
-      } else {
-        if (ff.jacobi) {
-          jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);
-          jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
-        }
-        gj_inverse_rows(g, ka, 2 * T, ff.aug_pivot, !ff.aug_pivot && ff.gj_inplace, sm + L.prow,
-                        sm + L.rowk, piv);
-        if (ff.jacobi) jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
+      // Packed: the pair's halves (True: the pivot row scaled by its
+      // reciprocal, as the paired elimination does) or each half as the
+      // unpacked route eliminates its block ("apply"), in place in the pair,
+      // with no Jacobi scaling (`:800-812`). Unpacked: equilibrated around the
+      // inverse when `jacobi`.
+      const bool jacobi = !PACK && ff.jacobi;
+      const bool recip =
+          (PACK && ff.foot_pack == FOOT_PACK_PAIR) || (!ff.aug_pivot && ff.gj_inplace);
+      if (jacobi) {
+        jacobi_factor<NF_>(g, ka, 2 * T, sm + L.dj);
+        jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
       }
+      gj_pair_warp<PACK>(g, ka, T, ff.aug_pivot, recip);
+      if (jacobi) jacobi_apply<NF_>(g, ka, 2 * T, sm + L.dj);
     } else {
       // Foot blocks [[diag(r + beta), G_f^T], [G_f, -diag(W_f)]], block foot*T + t.
       for (int it = tid; it < 2 * T * 144; it += nt) {

@@ -714,10 +714,8 @@ def geometry_phase(label: str, qp32, qp64, opts, explore: bool = False) -> dict:
     at the hybrid's re-solve batch, each required faster in every turn; and the
     WORK_ROUTES' warp groups with the stored inverses in shared memory and in
     the workspace in turns, the one `pdipm_cuda` launches required no slower. With
-    `explore`, also a sweep of batch sizes (K1, K2). Also K5e-a's pairs
-    eliminated one warp a pair (as it launches) and by rows, as K1 spreads
-    its elimination, in turns, required to give the same bits. Returns
-    {"geo", "occ", "turns", "breakdown", "workspace", "pair"}."""
+    `explore`, also a sweep of batch sizes (K1, K2). Returns
+    {"geo", "occ", "turns", "breakdown", "workspace"}."""
     import torch
     from biped_pympc_tpu_torch.bench import pdipm_geometry as pg
     from biped_pympc_tpu_torch.ops import pdipm_cuda

@@ -271,15 +271,52 @@ def test_k5e_a_pair_warp_matches_the_plain_version(libs, pack, pivot):
     (one pair: the second warp idle) and 3 (the first warp two pairs),
     within 1e-10 of the plain version (NaN where it has NaN: the natural
     order fails on the stress QPs by design)."""
-    opts = _opts("ric_aug_pack", foot_pack=pack, aug_pivot=pivot, iterations=4)
+    _assert_pair_warp_matches_the_plain_version(
+        libs, "ric_aug_pack", _opts("ric_aug_pack", foot_pack=pack, aug_pivot=pivot, iterations=4))
+
+
+def _assert_pair_warp_matches_the_plain_version(libs, route, opts):
+    """`route`'s warp group within 1e-10 of the plain version at T = 1 and
+    3, NaN where it has NaN."""
     for horizon in (1, 3):
         qp = _qp(2, horizon)
-        got = pdipm_cuda.run_kernel(libs["ric_aug_pack"], qp, opts, None,
-                                    geom=_geom("ric_aug_pack", "warp"))
+        got = pdipm_cuda.run_kernel(libs[route], qp, opts, None, geom=_geom(route, "warp"))
         want = pdipm.solve(qp, opts)
         for name in ("x", "s", "z", "y", "residuals"):
             torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0,
                                        atol=ATOL, equal_nan=True, msg=f"{name} T={horizon}")
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("pivot", [True, False], ids=["pivot", "no_pivot"])
+def test_k1_pair_warp_matches_the_plain_version(libs, pivot, jacobi):
+    """K1's warp group eliminates the two foot blocks of each stage in one
+    warp (`gj_pair_warp` over its unpacked blocks), between Jacobi's passes
+    when `kkt_scale="jacobi"`: pivoted or not, 4 steps, f64, T = 1 (the
+    second warp idle) and 3 (the first warp two stages), within 1e-10 of the
+    plain version (NaN where it has NaN: the natural order fails on the
+    stress QPs by design)."""
+    _assert_pair_warp_matches_the_plain_version(
+        libs, "ric_aug", _opts("ric_aug", aug_pivot=pivot,
+                               kkt_scale="jacobi" if jacobi else "none", iterations=4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_k1_warp_group_gives_its_block_groups_iterates(libs, dtype):
+    """K1's warp group eliminates each foot block with its block group's
+    arithmetic entry for entry (`gj_pair_regs` against
+    `gj_inverse_inplace`), so after 2 steps at T = 3 its iterates are the
+    block group's bit for bit, pivoted and not, under both Gauss-Jordan forms
+    and with Jacobi's scaling; only the residual norms, which the warp group
+    sums in its own order, may part."""
+    qp = bench_common.make_qp_batch(2, horizon=3, dtype=dtype, device="cpu")
+    for kw in ({}, dict(aug_pivot=False), dict(gj_form="tableau"), dict(kkt_scale="jacobi")):
+        opts = _opts("ric_aug", **kw)
+        warp, block = (pdipm_cuda.run_kernel(libs["ric_aug"], qp, opts, None,
+                                             geom=_geom("ric_aug", g)) for g in GEOMETRIES)
+        for name in ("x", "s", "z", "y"):
+            torch.testing.assert_close(getattr(warp, name), getattr(block, name), rtol=0,
+                                       atol=0, equal_nan=True, msg=f"{name} {kw}")
 
 
 @pytest.mark.parametrize("horizon", [1, 2, 3])
