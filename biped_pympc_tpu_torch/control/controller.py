@@ -269,20 +269,21 @@ class BipedControllerCore:
         mark("assembly", state.gait_phase)
         c = self.mpc_cfg
         new_mem, x_ref, qp = self.assemble_mpc(state)
-        counts = None
+        counts = merged = None
         if c.solver == "pallas_hybrid":
             sol, stats = pdipm_cuda.solve_hybrid(qp, self.opts, budget=c.hybrid_budget,
                                                  flag_tol=c.hybrid_flag_tol, flag=c.hybrid_flag,
                                                  with_stats=True)
             counts = torch.stack([stats.flagged, stats.nonfinite, stats.resolved,
                                   stats.dropped_nonfinite])
+            merged = stats.merged
         elif c.adaptive_tol > 0.0:
             sol = pdipm_cuda.solve_adaptive(qp, self.opts, tol=c.adaptive_tol)
         else:
             sol = pdipm_cuda.solve(qp, self.opts)
         out = mpc.postprocess_solution(qp, sol, state.est.rotation_body, x_ref,
                                        c.horizon_length, contact_frame=c.contact_frame)
-        out.hybrid_counts = counts
+        out.hybrid_counts, out.hybrid_merged = counts, merged
         state.leg_cmd.wrench_ff = out.wrench
         state.mpc_mem = new_mem
         state.x_ref = out.x_ref

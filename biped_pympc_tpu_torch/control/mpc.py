@@ -65,6 +65,9 @@ class MpcOutput:
     # solver="pallas_hybrid" only: (4,) int32 [flagged, nonfinite, resolved,
     # dropped_nonfinite] of the batch's solve (`pdipm_cuda.HybridStats`).
     hybrid_counts: Optional[torch.Tensor] = None
+    # solver="pallas_hybrid" only: (B,) bool, the envs that took the
+    # re-solve's answer (`pdipm_cuda.HybridStats.merged`).
+    hybrid_merged: Optional[torch.Tensor] = None
 
 
 def reference_trajectory(mem: MpcMemory, est: EstimatorData, des: DesiredState,

@@ -10,7 +10,8 @@
 // it costs one launch of a one-thread block.
 //
 // The order of the kernels is the order of `tracing.PHASES`, whose index
-// `trace_mark` takes.
+// `trace_mark` takes; a new phase is appended, so every phase keeps its
+// index.
 
 #include <cuda_runtime.h>
 
@@ -22,12 +23,26 @@ __global__ void trace_mark_assembly() {}
 __global__ void trace_mark_lowlevel() {}
 __global__ void trace_mark_plant() {}
 __global__ void trace_mark_carry() {}
+__global__ void trace_mark_hybrid_condensed() {}
+__global__ void trace_mark_hybrid_rank() {}
+__global__ void trace_mark_hybrid_resolve() {}
+__global__ void trace_mark_hybrid_merge() {}
+__global__ void trace_mark_hybrid_done() {}
 
 // Launch the mark of phase `phase` (an index into `tracing.PHASES`) on
 // `stream`. Returns a cudaError_t; an unknown phase launches nothing.
 int trace_mark(int phase, void* stream) {
-  static void (*const marks[])() = {trace_mark_obs,      trace_mark_ingest, trace_mark_assembly,
-                                    trace_mark_lowlevel, trace_mark_plant,  trace_mark_carry};
+  static void (*const marks[])() = {trace_mark_obs,
+                                    trace_mark_ingest,
+                                    trace_mark_assembly,
+                                    trace_mark_lowlevel,
+                                    trace_mark_plant,
+                                    trace_mark_carry,
+                                    trace_mark_hybrid_condensed,
+                                    trace_mark_hybrid_rank,
+                                    trace_mark_hybrid_resolve,
+                                    trace_mark_hybrid_merge,
+                                    trace_mark_hybrid_done};
   if (phase < 0 || phase >= static_cast<int>(sizeof(marks) / sizeof(marks[0])))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(marks[phase]), dim3(1),

@@ -49,6 +49,7 @@ from biped_pympc_tpu_torch.ops import qp as qps
 from biped_pympc_tpu_torch.ops.cuda_build import find_nvcc
 from biped_pympc_tpu_torch.ops.pdipm import PdipmOptions, PdipmResult
 from biped_pympc_tpu_torch.ops.qp import StageQP
+from biped_pympc_tpu_torch.utils.tracing import mark
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -526,14 +527,15 @@ def reset_counts() -> None:
 @dataclass
 class HybridStats:
     """Per-solve hybrid counters, int32 scalar tensors on the solve's device
-    (`pdipm_pallas.HybridStats`). `dropped_nonfinite > 0` means the
-    finiteness guarantee lapsed on that solve: more non-finite envs than the
-    re-solve budget."""
+    (`pdipm_pallas.HybridStats`), and the mask of the envs merged.
+    `dropped_nonfinite > 0` means the finiteness guarantee lapsed on that
+    solve: more non-finite envs than the re-solve budget."""
 
     flagged: torch.Tensor  # envs over flag_tol or non-finite (whole batch)
     nonfinite: torch.Tensor  # envs with a non-finite criterion or solution
     resolved: torch.Tensor  # envs re-solved and merged (<= budget)
     dropped_nonfinite: torch.Tensor  # non-finite envs not rescued
+    merged: torch.Tensor  # (B,) bool: the envs that took the re-solve's answer
 
 
 def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int = 0,
@@ -555,6 +557,11 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int =
     is clamped to B. The size of the re-solve is fixed by B and the budget,
     so nothing here waits for the device.
 
+    On the card each phase starts with its mark (`utils/tracing.mark`):
+    `hybrid_condensed` before the condensed pass, `hybrid_rank` before the
+    criterion, `hybrid_resolve` before the re-solve, `hybrid_merge` before
+    the merge and the counters, `hybrid_done` where the caller takes over.
+
     Returns the merged PdipmResult, or (PdipmResult, HybridStats) when
     with_stats.
     """
@@ -563,7 +570,9 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int =
     nb = qp.f.shape[0]
     if budget <= 0:
         budget = max(64, nb // 32)
+    mark("hybrid_condensed", qp.f)
     res = solve(qp, opts)
+    mark("hybrid_rank", qp.f)
     crit = (pdipm.kkt_error(qp, res) if flag == "kkt" else res.residuals).amax(dim=1)
     finite = lambda v: torch.isfinite(v).all(dim=1)
     sol_ok = finite(res.x) & finite(res.s) & finite(res.z) & finite(res.y)
@@ -575,7 +584,10 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int =
     vals, idx = vals[:k], idx[:k]
     if aug_opts is None:
         aug_opts = dataclasses.replace(opts, backend="ric_aug", aug_pivot=True)
-    res_aug = solve(qps.take(qp, idx), aug_opts)
+    taken = qps.take(qp, idx)
+    mark("hybrid_resolve", qp.f)
+    res_aug = solve(taken, aug_opts)
+    mark("hybrid_merge", qp.f)
     need = (vals > flag_tol) | torch.isinf(vals)  # (k,)
 
     def merge(a, b):
@@ -585,14 +597,18 @@ def solve_hybrid(qp: StageQP, opts: PdipmOptions = PdipmOptions(), budget: int =
     merged = PdipmResult(*(merge(getattr(res, f.name), getattr(res_aug, f.name))
                            for f in dataclasses.fields(PdipmResult)))
     if not with_stats:
+        mark("hybrid_done", qp.f)
         return merged
     inf_crit = torch.isinf(crit)
     nonfinite = inf_crit.sum(dtype=torch.int32)
-    return merged, HybridStats(
+    stats = HybridStats(
         flagged=((crit > flag_tol) | inf_crit).sum(dtype=torch.int32),
         nonfinite=nonfinite,
         resolved=need.sum(dtype=torch.int32),
         # Non-finite envs rank +inf and so take budget slots first; the
         # excess over the budget is returned unmerged.
         dropped_nonfinite=nonfinite - torch.isinf(vals).sum(dtype=torch.int32),
+        merged=torch.zeros_like(inf_crit).index_copy(0, idx, need),
     )
+    mark("hybrid_done", qp.f)
+    return merged, stats

@@ -31,7 +31,14 @@ events to it.
     `run_mpc`: assembly, the solve, postprocess), `lowlevel`
     (`run_lowlevel`), `plant` (the feet pinned, the wrench gated, the plant
     stepped) and `carry` (`tpu_rollout.Rollout`'s trajectory copy and the
-    carry copied back).
+    carry copied back); inside the hybrid speed mode's solve
+    (`ops/pdipm_cuda.solve_hybrid`, solver="pallas_hybrid" only; within
+    `assembly`), `hybrid_condensed` (the condensed route on every env),
+    `hybrid_rank` (the criterion, the finiteness test, the sort and the
+    gather of the worst envs' QPs), `hybrid_resolve` (the augmented
+    route's re-solve of those envs), `hybrid_merge` (the merge and the
+    counters) and `hybrid_done` (the postprocess that follows the solve).
+    New phases are appended, so every phase keeps its index.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from torch.autograd import profiler as _profiler
 
 from biped_pympc_tpu_torch.ops import cuda_build
 
-PHASES = ("obs", "ingest", "assembly", "lowlevel", "plant", "carry")
+PHASES = ("obs", "ingest", "assembly", "lowlevel", "plant", "carry", "hybrid_condensed",
+          "hybrid_rank", "hybrid_resolve", "hybrid_merge", "hybrid_done")
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
                       "trace_mark.cu")
 

@@ -294,15 +294,34 @@ class MPCController:
         return self._last_mpc.grf_world.clone()
 
     @property
+    def hybrid_counts(self) -> torch.Tensor | None:
+        """(4,) int32 [flagged, nonfinite, resolved, dropped_nonfinite] of the
+        last `run_mpc` on the controller's device, copied there without
+        waiting for the device (solver="pallas_hybrid" only; None for other
+        solvers and before the first solve)."""
+        if self._last_mpc is None or self._last_mpc.hybrid_counts is None:
+            return None
+        return self._last_mpc.hybrid_counts.clone()
+
+    @property
+    def hybrid_merged(self) -> torch.Tensor | None:
+        """(B,) bool: the envs whose answer in the last `run_mpc` is the
+        re-solve's, on the controller's device, copied there without waiting
+        for the device (solver="pallas_hybrid" only; None otherwise)."""
+        if self._last_mpc is None or self._last_mpc.hybrid_merged is None:
+            return None
+        return self._last_mpc.hybrid_merged.clone()
+
+    @property
     def hybrid_stats(self) -> dict:
         """{'flagged', 'nonfinite', 'resolved', 'dropped_nonfinite'} ints of the
-        last `run_mpc` (solver="pallas_hybrid" only; {} for other solvers and
-        before the first solve). `dropped_nonfinite > 0` means the hybrid's
-        finiteness guarantee lapsed on that solve. Reading it waits for the
-        device."""
-        if self._last_mpc is None or self._last_mpc.hybrid_counts is None:
+        last `run_mpc` (`hybrid_counts`; {} for other solvers and before the
+        first solve). `dropped_nonfinite > 0` means the hybrid's finiteness
+        guarantee lapsed on that solve. Reading it waits for the device."""
+        counts = self.hybrid_counts
+        if counts is None:
             return {}
-        c = self._last_mpc.hybrid_counts.tolist()
+        c = counts.tolist()
         return {"flagged": c[0], "nonfinite": c[1], "resolved": c[2], "dropped_nonfinite": c[3]}
 
     @property
